@@ -1,0 +1,118 @@
+"""Build and bind the hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, which is
+loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
+root of the checkout, named by a hash of its source and flags, so an edit
+to the source rebuilds and an unchanged source is loaded as it is.
+
+Nothing here runs at import time: the CPU tests import every module of
+the package on machines with no ``nvcc`` and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C entry point -> argument types (every pointer and the stream as
+# c_void_p: a bare Python int would be passed as a 32-bit int)
+_SIGNATURES = {
+    "seg_agg_flat": [_P, _L, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P],
+    "seg_agg_block_table": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I,
+                            _P, _P, _P, _P, _P],
+    "seg_agg_block_table_splitk": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I,
+                                   _I, _P, _P, _P, _P, _P],
+}
+
+
+class KernelLibrary:
+    """The compiled ``segment_aggregate.cu``: its ctypes handle, the
+    seconds its build took (0.0 when an earlier build was reused) and
+    the compiler's report (``-Xptxas -v``: registers, spills)."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
+                 build_log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+
+    def call(self, name: str, *args) -> None:
+        """Launch through C entry point ``name``; raise on a non-zero
+        ``cudaGetLastError()`` (a refused launch never runs, and a later
+        synchronise would not report it)."""
+        rc = getattr(self.lib, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                               f"cudaError {rc}")
+
+
+_LOCK = threading.Lock()
+_LIB: Optional[KernelLibrary] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of repro_torch are built from source at first use "
+        "and need the CUDA toolkit")
+
+
+def build(source: str = "segment_aggregate.cu") -> KernelLibrary:
+    """Compile (or reuse) the kernel library and bind its entry points."""
+    src = CSRC / source
+    tag = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}_{tag}.so"
+    t0 = time.time()
+    log = ""
+    seconds = 0.0
+    if not out.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
+        os.replace(tmp, out)
+        seconds = time.time() - t0
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return KernelLibrary(lib, out, seconds, log)
+
+
+def library() -> KernelLibrary:
+    """The process-wide kernel library, built on first call."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = build()
+        return _LIB

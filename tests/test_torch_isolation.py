@@ -1,0 +1,56 @@
+"""The port stands alone: ``repro_torch`` and every submodule import with
+JAX blocked, and no module of the port imports JAX or anything of the
+JAX package (``repro``)."""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import repro_torch
+
+PKG_DIR = Path(repro_torch.__file__).resolve().parent
+
+
+def _modules():
+    return ["repro_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG_DIR)],
+                                              prefix="repro_torch."))
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(PKG_DIR.parent)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(PKG_DIR.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG_DIR)))
+def test_no_jax_or_reference_package_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), \
+                f"{path.name}:{node.lineno} imports {name}"

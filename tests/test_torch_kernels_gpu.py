@@ -1,0 +1,112 @@
+"""The CUDA kernels (K1 flat, K2 block table, K3 split-K) against their
+plain torch versions on the card. Marked ``gpu``: they build the kernels
+with nvcc and skip where there is no CUDA device. Run them on a GPU
+machine with ``PYTHONPATH=src python -m pytest -m gpu tests/``.
+
+Tolerances: count, min and max exact (float atomics add whole ones below
+2^24; min/max do no arithmetic); sums within rtol 1e-5 and atol 1e-5 x
+max|v| x rows (atomics add in a run-dependent order)."""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+# the module, not the ``repro_torch.kernels.segment_aggregate`` entry point
+# that the package re-exports under the same name
+sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(out, ref, rows, scale):
+    assert set(out) == set(ref)
+    for k in out:
+        a, b = out[k].cpu().numpy(), ref[k].cpu().numpy()
+        if k == "sum":
+            np.testing.assert_allclose(a, b, rtol=1e-5,
+                                       atol=1e-5 * scale * rows, err_msg=k)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def _case(dev, p=64, cap=512, w=8, s=16, r=96, slots=6, seed=0):
+    g = np.random.default_rng(seed)
+    arena = torch.tensor(g.normal(size=(p, cap, w)), dtype=torch.float32,
+                         device=dev)
+    ids = torch.tensor(g.integers(0, s, (r, cap)), dtype=torch.int32,
+                       device=dev)
+    table = torch.tensor(g.integers(1, p, r), dtype=torch.int32, device=dev)
+    fills = g.integers(0, cap + 1, r)
+    valid = torch.tensor(np.arange(cap)[None] < fills[:, None], device=dev)
+    sl = torch.tensor(g.integers(0, slots, r), dtype=torch.int32, device=dev)
+    return arena, ids, table, valid, sl, s, slots
+
+
+@pytest.mark.parametrize("stats", [sa.ALL_STATS, ("sum", "count"),
+                                   ("min", "max")])
+def test_flat_kernel_matches_plain(dev, stats):
+    g = np.random.default_rng(1)
+    n, w, s = 5000, 3, 37
+    vals = torch.tensor(g.normal(size=(n, w)), dtype=torch.float32,
+                        device=dev)
+    vals[7, 1] = float("nan")
+    ids = torch.tensor(g.integers(0, s, n), dtype=torch.int32, device=dev)
+    valid = torch.tensor(g.random(n) > 0.2, device=dev)
+    before = sa.segment_aggregate_cuda.launches
+    out = sa.segment_aggregate_cuda(vals, ids, s, valid=valid, stats=stats)
+    torch.cuda.synchronize()
+    assert sa.segment_aggregate_cuda.launches == before + 1
+    ref = sa.segment_aggregate_plain(vals, ids, s, valid=valid, stats=stats)
+    if "sum" in stats:        # a NaN row poisons its own sums only
+        out["sum"] = torch.nan_to_num(out["sum"])
+        ref["sum"] = torch.nan_to_num(ref["sum"])
+    _close(out, ref, n, 4.0)
+
+
+@pytest.mark.parametrize("num_cols", [None, 1])
+def test_block_table_kernel_matches_plain(dev, num_cols):
+    arena, ids, table, valid, sl, s, ns = _case(dev)
+    out = sa.segment_aggregate_block_table_cuda(
+        arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns,
+        num_cols=num_cols)
+    ref = sa.segment_aggregate_block_table_plain(
+        arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns,
+        num_cols=num_cols)
+    torch.cuda.synchronize()
+    _close(out, ref, ids.numel(), 5.0)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+def test_splitk_kernel_matches_plain_and_pads_inert(dev, chunk):
+    arena, ids, table, valid, sl, s, ns = _case(dev, r=90)
+    arena[0] = 1e30                             # only padding reads slot 0
+    for merge in (True, False):
+        out = sa.segment_aggregate_block_table_splitk_cuda(
+            arena, ids, table, s, chunk, valid=valid, slot_ids=sl,
+            num_slots=ns, num_cols=1, merge=merge)
+        ref = sa.segment_aggregate_block_table_splitk_plain(
+            arena, ids, table, s, chunk, valid=valid, slot_ids=sl,
+            num_slots=ns, num_cols=1, merge=merge)
+        torch.cuda.synchronize()
+        _close(out, ref, ids.numel(), 5.0)
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    arena, ids, table, valid, sl, s, ns = _case(dev, p=8, cap=32, r=4)
+    with pytest.raises(ValueError):
+        sa.segment_aggregate_block_table_cuda(
+            arena.transpose(1, 2), ids, table, s, slot_ids=sl, num_slots=ns)
+    with pytest.raises(ValueError):
+        sa.segment_aggregate_block_table_cuda(
+            arena, ids.cpu(), table, s, slot_ids=sl, num_slots=ns)
+    with pytest.raises(ValueError):
+        sa.segment_aggregate_block_table_cuda(
+            arena, ids, table, s, slot_ids=sl, num_slots=ns, num_cols=99)
