@@ -5,24 +5,26 @@
 
 Phases (the first failed check exits non-zero, with no result line):
 
-0. The card's name and power limit, then the nvcc build of the kernels
-   (``src/repro_torch/kernels/csrc/segment_aggregate.cu`` for sm_90a).
-1. The main path: ``StreamEngine`` with the stock operator at the Table-1
-   deployment (10,000 events/s into 30 s tumbling windows, 1,664-byte
-   payloads, 128 keys, lognormal lateness from ``WorkloadGenerator``)
-   with a 3,072-slot device block pool (2.6 GB of window state on the
-   card) and a small host budget that spills to the log store. The
-   stream runs ``--windows`` windows of processing time, then closes out
-   (watermark past the end, polls, one batched sweep of every window) and
-   every window's result is held against a numpy oracle over all events.
+0. The card's name and power limit, then the nvcc builds of the kernels
+   (``src/repro_torch/kernels/csrc/{segment_aggregate,attention}.cu`` for
+   sm_90a, one nvcc per source, started together).
+1. Aion's late-event loop: ``StreamEngine`` with the stock operator at the
+   Table-1 deployment (10,000 events/s into 30 s tumbling windows,
+   1,664-byte payloads, 128 keys, lognormal lateness from
+   ``WorkloadGenerator``) with a 3,072-slot device block pool (2.6 GB of
+   window state on the card) and a small host budget that spills to the
+   log store. The stream runs ``--windows`` windows of processing time,
+   then closes out (watermark past the end, polls, one batched sweep of
+   every window) and every window's result is held against a numpy
+   oracle over all events.
 2. The same deployment with ``splitk_chunk_rows=64`` and a 1,024-slot
    pool below the live state, over ``--splitk-windows`` windows: the
    split-K fold and the stacked fallback under pool pressure. Three
    quarters of the way, a manifest ``checkpoint_state`` is restored into
    a new engine over the same log store (``restore_state``), which
    finishes the stream.
-3. Kernel checks on the main path's own launches. While phases 1 and 2
-   run, a recorder around the fold entry points of ``repro_torch.kernels``
+3. Kernel checks on the loop's own launches. While phases 1 and 2 run, a
+   recorder around the fold entry points of ``repro_torch.kernels``
    keeps the inputs of each kernel's largest call (most rows): the value
    column the fold reads, the ids, valid flags, table and window slots.
    Each kernel (K1 flat / stacked fallback, K2 block table, K3 split-K)
@@ -33,14 +35,39 @@ Phases (the first failed check exits non-zero, with no result line):
    PyTorch ``index_add_`` of the same sums (a yardstick only) and its
    bound. Besides: K3 on rows that its wrapper must pad, its raw
    partials, and a NaN case for min/max in K1.
+4. LM serving at starcoder2-7b's attention width (32 layers, 36 heads, 4
+   KV heads of 128, bf16, from ``repro_torch.configs``): a
+   ``TieredKVCache`` of 14,336 pages of 16 tokens (15.0 GB of KV on the
+   card) under ``ContinuousBatcher(max_batch=16, pages_per_seq=520)``. 48
+   requests with prompts of 2,048-8,192 tokens: each prompt's layer-0
+   q/k/v go through ``ops.flash_attention`` (K5), its 32-layer K/V are
+   submitted, then every request decodes 32 tokens through
+   ``ContinuousBatcher.step`` (K4), the clock advancing by 0.05 per
+   step. The pool holds fewer pages than the live sessions, so pages go
+   to the host and back. Every 8th K4 launch is held against the plain
+   version at launch time, and two or more sessions whose pages came
+   back are held against attention over their K/V kept aside untiered;
+   that check must reject the same attention with a restaged page
+   holding another page's K/V (a planted control).
+5. Kernel replays: K4 on its largest launch of phase 4 (and, as a
+   control that must be rejected, with one page of one row dropped), K5
+   on the longest prefill and on a sliding-window case at hymba-1.5b's
+   width (25 heads, 5 KV heads of 64, window 1,024, 4,096 tokens), each
+   held against the fp32 plain version on the same bf16 inputs and timed
+   beside its plain version, one ``scaled_dot_product_attention`` call
+   (a yardstick only; for K4 on K/V gathered into contiguous padded
+   tensors, the gather untimed) and its bound.
 
-The kernels' launch counters are set to 0 just before phases 1 and 2 and
-read just after. A kernel's ``launches`` is its count in the run whose
-launch it replays (K1 and K2 the main run where they launched there, K3
-the split-K run); ``launches_by_run`` gives both counts. The last line of
-the output is ``{"ok": true, "device": {...}}``; the line before it holds
-the kernels' numbers as one JSON object, and the line before that the
-card's name and power limit as ``nvidia-smi`` gives them.
+Every attention output is held within one bf16 ulp of the plain
+version's (``attn_close``), the prefill's log-sum-exp within LSE_TOL. The
+kernels' launch counters are set to 0 just before each of phases 1,
+2 and 4 and read just after. A segment kernel's ``launches`` is its count
+in the run whose launch it replays (K1 and K2 the main run where they
+launched there, K3 the split-K run; ``launches_by_run`` gives both
+counts); K4's and K5's are their counts in phase 4. The last line of the
+output is ``{"ok": true, "device": {...}}``; the line before it holds the
+kernels' numbers as one JSON object, and the line before that the card's
+name and power limit as ``nvidia-smi`` gives them.
 """
 from __future__ import annotations
 
@@ -58,9 +85,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor fp32
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor fp32 and
+# the bf16 dense tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # sum tolerance: rtol, and atol per unit of max|v| x events in the segment
 SUM_RTOL = 1e-5
 SUM_ATOL = 1e-5
@@ -68,6 +97,43 @@ SEED = 0
 
 JAX_FILE = "src/repro/kernels/segment_aggregate.py"
 SOURCE = "src/repro_torch/kernels/csrc/segment_aggregate.cu"
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+# the serving phases' widths come from these configs
+SERVE_ARCH = "starcoder2-7b"
+WINDOW_ARCH = "hymba-1.5b"
+# the prompt lengths of phase 4: under seed 0 the JAX victim policy sends
+# pages of one session only to the host and back; under seed 1, of three
+# sessions, two of which are launched with such a page resident, which the
+# check against untiered attention needs
+PROMPT_SEED = 1
+# attention outputs (bf16) within one bf16 ulp of the plain version's:
+# the kernel and the plain version both compute in fp32 and round once, so
+# they differ by one ulp at most (by half of one against an fp32 result).
+# Magnitudes below ATTN_ULP_FLOOR count as that floor (one ulp there is
+# 2**-17), so the fp32 rounding of an output that cancels to near 0 stays
+# inside; a page of wrong or missing K/V moves outputs by about 1e-3.
+ATTN_ULP_FLOOR = 2.0 ** -10
+# the prefill's log-sum-exp (fp32, about 9 for 8,192 keys), absolute: a
+# dropped tile of 64 keys moves it by about 8e-3
+LSE_TOL = 1e-3
+# phase 4's deployment: pages of 16 tokens, 48 prompts of
+# 2,048-8,192 tokens, 32 tokens decoded each, the clock advancing by 0.05
+# per step, every 8th K4 launch held against the plain version at launch,
+# and 2 to 4 restaged sessions against their K/V kept aside untiered
+SERVE_RUN = dict(num_device_pages=14_336, max_batch=16, pages_per_seq=520,
+                 requests=48, prompt=(2048, 8192))
+PAGE_SIZE = 16
+MAX_NEW = 32
+STEP_DT = 0.05
+CHECK_EVERY = 8
+UNTIERED = (2, 4)
+# its CPU rehearsal (``run_serve(..., small=True)``): narrow heads, few
+# layers and short prompts on a pool still below the live pages, so that
+# pages go to the host and back and restaged sessions are checked
+SMALL_RUN = dict(heads=2, kv_heads=1, head_dim=32, layers=2,
+                 num_device_pages=120, max_batch=4,
+                 pages_per_seq=28, requests=12,
+                 prompt=(100, 400))
 
 
 class SmokeFailure(RuntimeError):
@@ -581,6 +647,427 @@ def _print_run(tag: str, rec: dict) -> None:
     log(f"  {tag} observability: " + json.dumps(summary, default=str))
 
 
+# --------------------------------------------------------------- phases 4-5
+#: the attention kernels: name, the TPU kernel they replace, and the
+#: module of ``repro_torch.kernels`` whose ``*_cuda`` wrapper counts them
+ATTN_KERNELS = {
+    "K4": ("decode_attention_paged (K4, paged decode attention)",
+           "src/repro/kernels/decode_attention.py:69", "decode_attention",
+           "decode_attention_paged_cuda"),
+    "K5": ("flash_attention_fwd (K5, prefill flash attention)",
+           "src/repro/kernels/flash_attention.py:75", "flash_attention",
+           "flash_attention_cuda"),
+}
+
+
+def attn_wrapper(key: str):
+    _, _, mod, fn = ATTN_KERNELS[key]
+    return getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fn)
+
+
+def minus_one_pages(table, lens, page: int) -> int:
+    """(row, page) entries of a launched table that are -1 inside the
+    row's sequence: pages the kernel skips."""
+    import torch
+    need = (lens.long() + page - 1) // page
+    cols = torch.arange(table.shape[1], device=table.device)[None, :]
+    return int(((table < 0) & (cols < need[:, None])).sum())
+
+
+def resident_positions(table, lens, page: int) -> int:
+    """Positions a launch reads: inside its sequence, on a resident
+    page."""
+    import torch
+    pos = torch.arange(table.shape[1] * page, device=table.device)
+    res = torch.repeat_interleave(table >= 0, page, dim=1)
+    return int(((pos[None, :] < lens.long()[:, None]) & res).sum())
+
+
+def attn_close(out, ref) -> float:
+    """``out`` within one bf16 ulp of ``ref`` elementwise (the ulp of the
+    larger magnitude, at least ATTN_ULP_FLOOR's), NaN at the same places.
+    Returns the largest absolute difference."""
+    import torch
+    a, b = out.float(), ref.float()
+    check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    check(torch.equal(torch.isnan(a), torch.isnan(b)),
+          "NaN positions differ")
+    fin = ~torch.isnan(b)
+    a, b = a[fin], b[fin]
+    diff = (a - b).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=ATTN_ULP_FLOOR)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    worst = float((diff / ulp).max()) if diff.numel() else 0.0
+    check(worst <= 1.0, f"max error {err} ({worst:.2f} bf16 ulps) beyond "
+                        "one bf16 ulp")
+    return err
+
+
+def lse_close(lse, ref) -> float:
+    """The fp32 log-sum-exp within LSE_TOL of the plain version's, -inf
+    at the same places."""
+    import torch
+    check(lse.shape == ref.shape and torch.equal(torch.isinf(lse),
+                                                 torch.isinf(ref)),
+          "lse: shape or -inf positions differ")
+    fin = torch.isfinite(ref)
+    err = float((lse[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    check(err <= LSE_TOL, f"lse: max error {err} beyond {LSE_TOL}")
+    return err
+
+
+def must_fail(what: str, fn) -> None:
+    """A planted fault: the check that ``fn`` runs must reject it."""
+    try:
+        fn()
+    except SmokeFailure as e:
+        log(f"  control rejected, as it must be: {what} ({e})")
+        return
+    raise SmokeFailure(f"control: {what} passed the check")
+
+
+def run_serve(device, cfg, *, small: bool = False) -> dict:
+    """Drive the port's serving path at ``cfg``'s attention width (all its
+    layers, bf16): SERVE_RUN's prompts, of lengths drawn uniformly from
+    its ``prompt`` range (``default_rng(PROMPT_SEED)``; the tensors come
+    from a ``torch.Generator`` seeded with SEED + 4), go through
+    ``ops.flash_attention`` (K5, layer 0) and ``ContinuousBatcher.submit``
+    (all layers); then each decodes MAX_NEW tokens through
+    ``ContinuousBatcher.step`` (K4) on a ``TieredKVCache`` below the live
+    pages, the clock advancing by STEP_DT per step. Every CHECK_EVERY-th
+    K4 launch is held against the plain version on the same inputs at
+    launch time. For UNTIERED sessions with a page that went to the host
+    and came back, one step's output is held against attention over their
+    layer-0 K/V kept aside untiered, with the pages that the launched
+    table left at -1 masked as K4 masks them (the victim policy evicts
+    pages of the batch being launched); the same attention with one
+    restaged page's K/V swapped for another page's must fail that check
+    (a control). ``small`` runs SMALL_RUN instead, the CPU rehearsal.
+    Returns the run's record, with the largest K4 launch and the longest
+    prefill for phase 5."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cleanup import PredictiveCleanup
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_paged_plain
+    from repro_torch.serve import ContinuousBatcher, Request, TieredKVCache
+
+    secs = {"submit": 0.0, "prefill": 0.0, "steps": 0.0, "staging": 0.0,
+            "destaging": 0.0, "checks": 0.0}
+    moved = {"destaged": set(), "restaged": set(), "pages": set()}
+
+    class Cache(TieredKVCache):
+        """Times the page moves (a destage inside a stage counts once,
+        under destaging) and notes the sessions whose pages moved."""
+
+        def _destage_page(self, session_id, logical_idx):
+            t0 = time.perf_counter()
+            super()._destage_page(session_id, logical_idx)
+            secs["destaging"] += time.perf_counter() - t0
+            moved["destaged"].add(session_id)
+
+        def _stage_page(self, session_id, logical_idx, now):
+            cold = self.sessions[session_id].pages[logical_idx] < 0
+            t0 = time.perf_counter()
+            d0 = secs["destaging"]
+            ok = super()._stage_page(session_id, logical_idx, now)
+            secs["staging"] += (time.perf_counter() - t0
+                                - (secs["destaging"] - d0))
+            if ok and cold:
+                moved["restaged"].add(session_id)
+                moved["pages"].add((session_id, logical_idx))
+            return ok
+
+    run = dict(SMALL_RUN) if small else dict(
+        SERVE_RUN, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, layers=cfg.num_layers)
+    heads, kv_heads, head_dim, layers, requests, max_new, page_size = (
+        run["heads"], run["kv_heads"], run["head_dim"], run["layers"],
+        run["requests"], MAX_NEW, PAGE_SIZE)
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    bf16 = torch.bfloat16
+    cache = Cache(num_device_pages=run["num_device_pages"],
+                  page_size=page_size,
+                  num_kv_heads=kv_heads, head_dim=head_dim,
+                  num_layers=layers, dtype=bf16, device=device,
+                  cleanup=PredictiveCleanup(min_history=10**9,
+                                            initial_bound=1e9))
+    pool_bytes = 2 * cache.k_pool.numel() * cache.k_pool.element_size()
+    sched = ContinuousBatcher(cache, max_batch=run["max_batch"],
+                              pages_per_seq=run["pages_per_seq"])
+    lo, hi = run["prompt"]
+    lens = np.random.default_rng(PROMPT_SEED).integers(lo, hi + 1, requests)
+    kept = {}          # session -> [layer-0 K chunks], [V chunks]
+    longest = None
+    for rid, plen in enumerate(lens.tolist()):
+        q = torch.randn((1, plen, heads, head_dim), generator=g,
+                        device=device, dtype=bf16)
+        kp = torch.randn((layers, plen, kv_heads, head_dim), generator=g,
+                         device=device, dtype=bf16)
+        vp = torch.randn((layers, plen, kv_heads, head_dim), generator=g,
+                         device=device, dtype=bf16)
+        t0 = time.perf_counter()
+        out = ops.flash_attention(q, kp[0][None], vp[0][None], causal=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        secs["prefill"] += time.perf_counter() - t0
+        check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+              f"prefill {rid}: output not finite / wrong shape")
+        if longest is None or plen > longest["q"].shape[1]:
+            longest = {"q": q, "k": kp[0][None].clone(),
+                       "v": vp[0][None].clone()}
+        kept[rid] = ([kp[0].clone()], [vp[0].clone()])
+        t0 = time.perf_counter()
+        sched.submit(Request(request_id=rid, session_id=rid,
+                             prompt_len=plen, max_new_tokens=max_new,
+                             arrived_at=0.0), kp, vp, now=0.0)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        secs["submit"] += time.perf_counter() - t0
+        del q, kp, vp, out
+    check(cache.stats["alloc_fail"] == 0, "a page allocation failed")
+    # page moves while the prompts filled the pool, before any step
+    submit_moves = {"stats": dict(cache.stats),
+                    "destaging_s": secs["destaging"]}
+
+    rec = {"launches": 0, "checked": 0, "minus_one": 0, "max_err": 0.0,
+           "untiered": {}, "largest": None, "nan_rows": 0, "controls": 0}
+    sids_now = []
+
+    def q_fn(sids):
+        sids_now[:] = sids
+        return torch.randn((len(sids), heads, head_dim), generator=g,
+                           device=device, dtype=bf16)
+
+    def kv_fn(sids):
+        k = torch.randn((len(sids), layers, kv_heads, head_dim),
+                        generator=g, device=device, dtype=bf16)
+        v = torch.randn((len(sids), layers, kv_heads, head_dim),
+                        generator=g, device=device, dtype=bf16)
+        for i, sid in enumerate(sids):
+            kept[sid][0].append(k[i, 0][None])
+            kept[sid][1].append(v[i, 0][None])
+        return k, v
+
+    real = ops.decode_attention_paged
+
+    def recorded(q, kp, vp, table, seq_lens, **kw):
+        out = real(q, kp, vp, table, seq_lens, **kw)
+        t0 = time.perf_counter()
+        n = rec["launches"]
+        rec["launches"] += 1
+        rec["minus_one"] += minus_one_pages(table, seq_lens, page_size)
+        has_page = (table >= 0).any(1)
+        rec["nan_rows"] += int((~has_page).sum())
+        check(bool(torch.isfinite(out[has_page]).all()),
+              f"K4 launch {n}: a row with resident pages is not finite")
+        positions = resident_positions(table, seq_lens, page_size)
+        if rec["largest"] is None or positions > rec["largest"]["positions"]:
+            rec["largest"] = {"q": q.clone(), "table": table.clone(),
+                              "lens": seq_lens.clone(),
+                              "positions": positions}
+        if n % CHECK_EVERY == 0:
+            rec["max_err"] = max(rec["max_err"], attn_close(
+                out, decode_attention_paged_plain(q, kp, vp, table,
+                                                  seq_lens)))
+            rec["checked"] += 1
+        need = (seq_lens.long() + page_size - 1) // page_size
+        for i, sid in enumerate(sids_now):
+            if sid not in moved["restaged"] or sid in rec["untiered"] \
+                    or len(rec["untiered"]) >= UNTIERED[1]:
+                continue
+            row = table[i, :int(need[i])].tolist()
+            back = [li for li, pg in enumerate(row)
+                    if pg >= 0 and (sid, li) in moved["pages"]]
+            if not back:
+                continue             # no restaged page resident here
+            n_tok = int(seq_lens[i])
+            k0 = torch.cat(kept[sid][0])[:n_tok]
+            v0 = torch.cat(kept[sid][1])[:n_tok]
+            npg = -(-n_tok // page_size)
+            pad = npg * page_size - n_tok
+            kpg = torch.nn.functional.pad(k0, (0, 0, 0, 0, 0, pad)) \
+                .reshape(npg, page_size, kv_heads, head_dim)
+            vpg = torch.nn.functional.pad(v0, (0, 0, 0, 0, 0, pad)) \
+                .reshape(npg, page_size, kv_heads, head_dim)
+            own = torch.tensor([li if pg >= 0 else -1
+                                for li, pg in enumerate(row)],
+                               dtype=torch.int32, device=device)[None]
+            ref = decode_attention_paged_plain(q[i:i + 1], kpg, vpg, own,
+                                               seq_lens[i:i + 1])
+            rec["untiered"][sid] = attn_close(out[i:i + 1], ref)
+            # control: the restaged page holding another page's K/V
+            li, other = back[0], (back[0] + 1) % npg
+            kpg[li], vpg[li] = kpg[other].clone(), vpg[other].clone()
+            must_fail(f"session {sid}'s restaged page {li} holding page "
+                      f"{other}'s K/V", lambda: attn_close(
+                          out[i:i + 1], decode_attention_paged_plain(
+                              q[i:i + 1], kpg, vpg, own, seq_lens[i:i + 1])))
+            rec["controls"] += 1
+        secs["checks"] += time.perf_counter() - t0
+        return out
+
+    ops.decode_attention_paged = recorded
+    now, steps = 1.0, 0
+    t0 = time.perf_counter()
+    try:
+        # each batch of max_batch requests takes MAX_NEW steps; twice that
+        # bounds a run whose batches do not fill
+        limit = 2 * MAX_NEW * -(-requests // run["max_batch"])
+        while len(sched.completed) < requests and steps < limit:
+            sched.step(q_fn, kv_fn, now=now)
+            now += STEP_DT
+            steps += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        ops.decode_attention_paged = real
+    secs["steps"] = time.perf_counter() - t0
+    tokens = sum(r.generated for r in sched.completed)
+    check(len(sched.completed) == requests
+          and all(r.generated == max_new for r in sched.completed),
+          f"{len(sched.completed)}/{requests} requests completed")
+    check(cache.stats["staged"] > 0 and cache.stats["destaged"] > 0,
+          f"no page moved between the tiers: {cache.stats}")
+    check(len(rec["untiered"]) >= UNTIERED[0],
+          f"only {len(rec['untiered'])} restaged sessions were held "
+          "against their untiered K/V")
+    decode_s = secs["steps"] - secs["checks"]
+    return {
+        "requests": requests, "steps": steps, "tokens": tokens,
+        "prompt_tokens": int(lens.sum()), "tokens_per_s": tokens / decode_s,
+        "decode_s": decode_s, "seconds": secs, "stats": dict(cache.stats),
+        "pool_bytes": pool_bytes, "k4_launches_checked": rec["checked"],
+        "k4_max_err": rec["max_err"], "minus_one_pages_read":
+        rec["minus_one"], "rows_without_pages": rec["nan_rows"],
+        "untiered_max_err": rec["untiered"],
+        "controls_rejected": rec["controls"],
+        "submit_moves": submit_moves,
+        "sessions_moved": {k: len(moved[k])
+                           for k in ("destaged", "restaged")},
+        "largest_k4": rec["largest"], "longest_prefill": longest,
+        "cache": cache}
+
+
+def _sdpa_ms(q, k, v, iters: int, **kw) -> float:
+    """One ``scaled_dot_product_attention`` call on [B, H, S, D] inputs
+    (a yardstick only: the port never calls it)."""
+    import torch.nn.functional as F
+    return _sync_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **kw), iters)
+
+
+def k4_record(cache, launch: dict, iters: int) -> dict:
+    """Phase 5 for K4: replay the largest launch of phase 4 on the pool,
+    hold it against the fp32 plain version on the same bf16 inputs, time
+    it beside the plain version (on the bf16 inputs), SDPA over K/V
+    gathered into contiguous padded tensors (gather excluded) and its
+    bound."""
+    import torch
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    q, table, lens = launch["q"], launch["table"], launch["lens"]
+    kp, vp = cache.k_pool[0], cache.v_pool[0]
+    b, h, d = q.shape
+    _, page, hkv, _ = kp.shape
+    out = dec.decode_attention_paged_cuda(q, kp, vp, table, lens)
+    ref = dec.decode_attention_paged_plain(q.float(), kp.float(), vp.float(),
+                                           table, lens)
+    err = attn_close(out, ref)
+    # control: the kernel with one resident page of one row dropped
+    row = int(torch.argmax(lens))
+    need = -(-int(lens[row]) // kp.shape[1])
+    resident = torch.nonzero(table[row, :need] >= 0).flatten().tolist()
+    col = resident[len(resident) // 2]
+    dropped = table.clone()
+    dropped[row, col] = -1
+    must_fail(f"row {row} without its page {col}", lambda: attn_close(
+        dec.decode_attention_paged_cuda(q, kp, vp, dropped, lens), ref))
+    del ref, dropped
+    # SDPA's inputs: the table's pages gathered contiguously, masked like K4
+    pps = table.shape[1]
+    safe = table.long().clamp(min=0)
+    kg = kp[safe].reshape(b, pps * page, hkv, d).transpose(1, 2).contiguous()
+    vg = vp[safe].reshape(b, pps * page, hkv, d).transpose(1, 2).contiguous()
+    pos = torch.arange(pps * page, device=q.device)
+    mask = ((pos[None, :] < lens.long()[:, None])
+            & torch.repeat_interleave(table >= 0, page, dim=1))[:, None, None]
+    positions = launch["positions"]
+    nbytes = (2 * positions * hkv * d * 2 + 2 * q.numel() * 2
+              + table.numel() * 4 + lens.numel() * 4)
+    ops_ = 4 * positions * h * d
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_OPS_PER_S * 1e3
+    r = dict(max_abs_err=err,
+             ms=_sync_time_ms(lambda: dec.decode_attention_paged_cuda(
+                 q, kp, vp, table, lens), iters),
+             plain_ms=_sync_time_ms(lambda: dec.decode_attention_paged_plain(
+                 q, kp, vp, table, lens), max(iters // 5, 1)),
+             bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o
+             else "operations",
+             library_ms=_sdpa_ms(q[:, :, None], kg, vg, iters,
+                                 attn_mask=mask),
+             shape=(f"q [{b}, {h}, {d}], pool [{kp.shape[0]}, {page}, {hkv}, "
+                    f"{d}] bf16, table [{b}, {pps}], {positions} resident "
+                    f"positions (sum of seq_lens {int(lens.sum())}), "
+                    f"{minus_one_pages(table, lens, page)} -1 pages inside "
+                    f"seq_len"))
+    del kg, vg, mask
+    return r
+
+
+def _attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep: the work this input needs."""
+    total = 0
+    for qi in range(sq):
+        hi = min(sk, qi + 1) if causal else sk
+        lo = max(0, qi - window + 1) if window > 0 else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def k5_record(q, k, v, causal: bool, window: int, iters: int) -> dict:
+    """Phase 5 for K5 on one input: the kernel (o and lse) against the
+    fp32 plain version on the same bf16 inputs, timed beside the plain
+    version (on the bf16 inputs), SDPA and its bound."""
+    import torch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    ro, rlse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window,
+                                        return_lse=True)
+    err, lse_err = attn_close(o, ro), lse_close(lse, rlse)
+    del ro, rlse
+    pairs = _attended_pairs(sq, sk, causal, window) * b * h
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * sq
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 4 * pairs * d / BF16_OPS_PER_S * 1e3
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window > 0:
+        pos = torch.arange(sq, device=q.device)
+        band = (pos[:, None] - pos[None, :] < window) \
+            & (pos[:, None] >= pos[None, :])
+        lib = _sdpa_ms(qt, kt, vt, iters, attn_mask=band)
+    else:
+        lib = _sdpa_ms(qt, kt, vt, iters, is_causal=causal)
+    r = dict(max_abs_err=err, lse_err=lse_err,
+             ms=_sync_time_ms(lambda: fa.flash_attention_cuda(
+                 q, k, v, causal=causal, window=window), iters),
+             plain_ms=_sync_time_ms(lambda: fa.flash_attention_plain(
+                 q, k, v, causal=causal, window=window), max(iters // 5, 1)),
+             bound_ms=max(t_b, t_o),
+             bound_by="bytes" if t_b >= t_o else "operations",
+             library_ms=lib,
+             shape=(f"q [{b}, {sq}, {h}, {d}], k/v [{b}, {sk}, {hkv}, {d}] "
+                    f"bf16, causal={causal}, window={window}, "
+                    f"{pairs} attended pairs"))
+    del qt, kt, vt
+    return r
+
+
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -611,12 +1098,14 @@ def main(argv=None) -> int:
     log(f"phase 0: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind} x{count}")
     t0 = time.perf_counter()
-    lib = _build.library()
+    libs = _build.build_all()
     log(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+        "(one nvcc per source, in parallel)")
+    for source, lib in libs.items():
+        log(f"  {source}: nvcc {lib.build_seconds:.2f} s -> {lib.path.name}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas: {line.strip()}")
 
     report = {"gpu": card, "kind": kind}
     spill_root = ROOT / "build" / "smoke"
@@ -701,6 +1190,89 @@ def main(argv=None) -> int:
         del rec
         torch.cuda.empty_cache()
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 4: serving at the attention width of SERVE_ARCH
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    attn = {k: attn_wrapper(k) for k in ATTN_KERNELS}
+    for fn in (*wrappers.values(), *attn.values()):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serve = run_serve(dev, cfg)
+    torch.cuda.synchronize()
+    serve["launches"] = {k: fn.launches for k, fn in
+                         {**wrappers, **attn}.items()}
+    serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    serve["wall_s"] = time.perf_counter() - t0
+    cache = serve.pop("cache")
+    largest, longest = serve.pop("largest_k4"), serve.pop("longest_prefill")
+    log(f"phase 4: {SERVE_ARCH} serving ({cfg.num_layers} layers, "
+        f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, bf16) in {serve['wall_s']:.1f} s: "
+        f"{serve['requests']} requests, {serve['prompt_tokens']} prompt "
+        f"tokens, {serve['tokens']} tokens decoded in {serve['steps']} steps"
+        f", {serve['tokens_per_s']:.1f} tokens/s over "
+        f"{serve['decode_s']:.2f} s of steps")
+    log("  serve seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in serve["seconds"].items()}))
+    log(f"  serve stats: {json.dumps(serve['stats'])} (while submitting: "
+        f"{json.dumps(serve['submit_moves'])}), sessions moved "
+        f"{json.dumps(serve['sessions_moved'])}, -1 pages read inside "
+        f"seq_len {serve['minus_one_pages_read']}, rows with no resident "
+        f"page {serve['rows_without_pages']}")
+    log(f"  serve checks (within one bf16 ulp): "
+        f"{serve['k4_launches_checked']} K4 launches against the plain "
+        f"version (max err {serve['k4_max_err']:.3g}), untiered sessions "
+        f"{json.dumps(serve['untiered_max_err'])}, wrong restaged pages "
+        f"rejected {serve['controls_rejected']}; "
+        f"launches {serve['launches']}; KV pool "
+        f"{serve['pool_bytes'] / 1e9:.2f} GB, max_memory_allocated "
+        f"{serve['max_memory_allocated'] / 1e9:.2f} GB")
+    check(serve["max_memory_allocated"] >= serve["pool_bytes"],
+          "serve: the KV pool is not on the card")
+    for k in ATTN_KERNELS:
+        check(serve["launches"][k] > 0, f"serve: {k} never launched")
+    runs["serve"] = serve
+
+    # phase 5: K4 and K5 replays
+    t0 = time.perf_counter()
+    wcfg = get_config(WINDOW_ARCH)
+    wq = torch.randn((1, 4096, wcfg.num_heads, wcfg.resolved_head_dim),
+                     generator=g, device=dev, dtype=torch.bfloat16)
+    wk, wv = (torch.randn((1, 4096, wcfg.num_kv_heads,
+                           wcfg.resolved_head_dim), generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    replays = {
+        "K4": k4_record(cache, largest, iters=20),
+        "K5": k5_record(longest["q"], longest["k"], longest["v"], True, 0,
+                        iters=5),
+        "K5 window": k5_record(wq, wk, wv, True, wcfg.attn_window, iters=10),
+    }
+    del cache, largest, longest, wq, wk, wv
+    for key, r in replays.items():
+        lse = f", lse {r['lse_err']:.3g} (within {LSE_TOL})" \
+            if "lse_err" in r else ""
+        log(f"phase 5: {key}: max_abs_err {r['max_abs_err']:.3g} (within "
+            f"one bf16 ulp){lse} | kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['shape']}")
+    for key, (name, replaces, _, _) in ATTN_KERNELS.items():
+        r = replays[key]
+        err = max(r["max_abs_err"], replays["K5 window"]["max_abs_err"]) \
+            if key == "K5" else r["max_abs_err"]
+        shapes.append(r["shape"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": replaces, "launches": serve["launches"][key],
+            "path": "serve", "max_abs_err": err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    report["k5_window"] = replays["K5 window"]
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s; max_memory_allocated "
+        f"since phase 4 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     if args.out is not None:
         report["kernels"] = [dict(x, shape=s)

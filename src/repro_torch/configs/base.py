@@ -1,15 +1,220 @@
-"""Engine configuration for the port: ``AionConfig``, the knobs of the
-paper's technique (section 3), as a frozen dataclass, and ``to_json``.
-
-The LM-side schema of the JAX package (model, shape and mesh configs)
-belongs to a later slice of the port.
+"""Configuration schema for the port, copied from the JAX package's
+``configs/base.py`` (plain frozen dataclasses, nothing of JAX in them):
+the LM side (``ModelConfig``, ``MoEConfig``, ``SSMConfig``,
+``ShapeConfig``, ``MeshConfig``, the family tags, the shape cells and the
+meshes) and the engine side (``AionConfig``, the knobs of the paper's
+technique, section 3), with ``to_json``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Model family tags (drive which blocks the assembly uses)
+# ---------------------------------------------------------------------------
+FAMILY_DENSE = "dense"      # decoder-only dense transformer (GQA)
+FAMILY_MOE = "moe"          # decoder-only with MoE FFN
+FAMILY_SSM = "ssm"          # attention-free state-space (mamba2 / SSD)
+FAMILY_HYBRID = "hybrid"    # parallel attention + SSM heads (hymba)
+FAMILY_ENCDEC = "encdec"    # encoder-decoder (seamless)
+FAMILY_VLM = "vlm"          # vision frontend (stub) + dense decoder backbone
+FAMILY_AUDIO = "audio"      # audio frontend (stub) + enc-dec backbone
+
+ALL_FAMILIES = (
+    FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID,
+    FAMILY_ENCDEC, FAMILY_VLM, FAMILY_AUDIO,
+)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN parameters."""
+    num_experts: int = 0
+    top_k: int = 0
+    # capacity factor for dense-dispatch (tokens routed per expert =
+    # capacity_factor * tokens * top_k / num_experts, rounded up to 128)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_experts > 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 / SSD parameters (state-space duality, arXiv:2405.21060)."""
+    state_size: int = 0          # N: SSM state dimension (per group)
+    head_dim: int = 64           # P: SSD head dim
+    expand: int = 2              # d_inner = expand * d_model
+    chunk_size: int = 256        # SSD chunk length (Q in the paper)
+    conv_width: int = 4          # short causal conv width
+    n_groups: int = 1            # B/C groups shared across heads (MVA analog)
+
+    @property
+    def enabled(self) -> bool:
+        return self.state_size > 0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A single architecture. Dims follow the assignment table verbatim."""
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int               # query heads (0 for attention-free)
+    num_kv_heads: int            # GQA kv heads (0 for attention-free)
+    d_ff: int                    # FFN hidden (per-expert hidden for MoE)
+    vocab_size: int
+    head_dim: int = 0            # 0 -> d_model // num_heads
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    # enc-dec: encoder layer count (decoder uses num_layers)
+    encoder_layers: int = 0
+    # frontends (vlm/audio): number of stub embedding positions prepended
+    frontend_tokens: int = 0
+    # hymba: sliding-window size for the attention heads (sub-quadratic)
+    attn_window: int = 0         # 0 -> full causal attention
+    mlp_variant: str = "swiglu"  # 'swiglu' (3 mats) | 'gelu' (2 mats)
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    use_bias: bool = False
+    # dtype policy
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # remat policy for scan-over-layers: 'none' | 'full' | 'dots'
+    remat: str = "full"
+    source: str = ""             # provenance tag from the assignment table
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads:
+            return self.d_model // self.num_heads
+        return 0
+
+    @property
+    def has_attention(self) -> bool:
+        return self.num_heads > 0
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if a 500k-token decode step is feasible (SSM state or
+        sliding-window attention keeps per-step state o(seq))."""
+        if self.family == FAMILY_SSM:
+            return True
+        if self.family == FAMILY_HYBRID and self.attn_window > 0:
+            return True
+        return False
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for roofline MODEL_FLOPS)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.resolved_head_dim
+        total = V * d                                    # embedding
+        if not self.tie_embeddings:
+            total += V * d                               # unembedding
+        per_layer = 0
+        if self.has_attention:
+            q = d * (self.num_heads * hd)
+            kv = 2 * d * (self.num_kv_heads * hd)
+            o = (self.num_heads * hd) * d
+            per_layer += q + kv + o
+        if self.ssm.enabled:
+            d_inner = self.ssm.expand * self.d_model
+            nheads = max(d_inner // self.ssm.head_dim, 1)
+            g = self.ssm.n_groups
+            # in_proj: z, x, B, C (per group), dt (per head)
+            per_layer += d * (2 * d_inner + 2 * self.ssm.state_size * g + nheads)
+            per_layer += d_inner * d                     # out_proj
+            per_layer += self.ssm.conv_width * (d_inner + 2 * self.ssm.state_size * g)
+            per_layer += 2 * nheads                      # A_log, D
+        n_mlp_mats = 3 if self.mlp_variant == "swiglu" else 2
+        if self.moe.enabled:
+            per_layer += d * self.moe.num_experts        # router
+            per_layer += self.moe.num_experts * n_mlp_mats * d * self.d_ff
+        elif self.d_ff > 0:
+            per_layer += n_mlp_mats * d * self.d_ff      # SwiGLU: gate, up, down
+        per_layer += 2 * d                               # 2 RMSNorm scales
+        total += L * per_layer
+        if self.encoder_layers:
+            # encoder: self-attn + FFN, decoder adds cross-attn
+            enc_layer = 0
+            if self.has_attention:
+                q = d * (self.num_heads * hd)
+                kv = 2 * d * (self.num_kv_heads * hd)
+                o = (self.num_heads * hd) * d
+                enc_layer += q + kv + o
+            enc_layer += 3 * d * self.d_ff + 2 * d
+            total += self.encoder_layers * enc_layer
+            # decoder cross-attention (added per decoder layer)
+            if self.has_attention:
+                total += L * (d * (self.num_heads * hd)
+                              + 2 * d * (self.num_kv_heads * hd)
+                              + (self.num_heads * hd) * d + d)
+        total += d                                       # final norm
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of num_experts FFNs)."""
+        if not self.moe.enabled:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        n_mlp_mats = 3 if self.mlp_variant == "swiglu" else 2
+        inactive_ffn = (self.moe.num_experts - self.moe.top_k) * n_mlp_mats * d * self.d_ff
+        return self.param_count() - L * inactive_ffn
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell. ``kind`` selects which step gets lowered."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # 'train' | 'prefill' | 'decode'
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh. ``shape`` and ``axes`` zip together."""
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD_MESH = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 
 
 @dataclass(frozen=True)

@@ -1,4 +1,6 @@
-"""Carry window state from the JAX package's engine into the port's.
+"""Carry state from the JAX package into the port: an engine's window
+state (``engine_state_from_jax``) and a serving cache's KV pages
+(``tiered_kv_cache_from_jax``).
 
 A streaming engine carries window state where a model carries weights.
 ``engine_state_from_jax(snap)`` takes the dict that the JAX package's
@@ -16,9 +18,10 @@ histogram's shape.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 #: bins of the port's ``LatenessHistogram`` (and of the JAX package's)
 HIST_BINS = 256
@@ -92,3 +95,118 @@ def engine_state_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
                         "blocks": blocks})
     return {"watermark": float(snap["watermark"]), "hist_counts": counts,
             "hist_total": total, "windows": windows}
+
+
+# ------------------------------------------------------------- serving
+def _host_tensor(a: Any) -> torch.Tensor:
+    """A numpy array as a CPU tensor of its own type. bfloat16 (numpy's
+    ``ml_dtypes.bfloat16``, as ``np.asarray`` gives a JAX bf16 array) is
+    reinterpreted bit for bit through int16, never rounded through
+    float32."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def tiered_kv_cache_from_jax(state: Dict[str, Any], *,
+                             cleanup: Optional[Any] = None, device=None):
+    """A JAX ``repro.serve.TieredKVCache``'s state, as plain Python and
+    numpy, -> a ``repro_torch.serve.TieredKVCache`` that continues
+    identically (same pages, owners, free list, policy state and pool
+    bits).
+
+    ``state`` holds ``k_pool`` / ``v_pool`` (numpy ``[L, P, page, Hkv,
+    D]``, as ``np.asarray`` gives them), ``sessions`` (session id -> a
+    dict of the ``Session`` fields: ``length``, ``pages``, ``host_pages``
+    {logical page: (k, v) numpy ``[L, page, Hkv, D]``}, ``last_arrival``,
+    ``gap_ewma``, ``finished``), ``owner`` {device page: (session id,
+    logical page)}, ``free_pages`` (in order) and ``stats``; optionally
+    ``cleanup``, the ``PredictiveCleanup`` fields (``coverage``,
+    ``confidence``, ``initial_bound``, ``min_history``, ``bound``,
+    ``hist_counts``, ``hist_total``). A ``cleanup`` argument replaces the
+    state's.
+
+    Validated: pool shapes, every session page in range and owned by that
+    session's slot, every host page at a non-resident slot, and the free
+    list free of duplicates and disjoint from the owned pages."""
+    from repro_torch.core.cleanup import LatenessHistogram, \
+        PredictiveCleanup
+    from repro_torch.serve.kvcache import Session, TieredKVCache
+
+    k_pool = _host_tensor(state["k_pool"])
+    v_pool = _host_tensor(state["v_pool"])
+    if k_pool.dim() != 5 or v_pool.shape != k_pool.shape \
+            or v_pool.dtype != k_pool.dtype:
+        raise ValueError("k_pool / v_pool must be one [L, P, page, Hkv, D] "
+                         f"shape and type, got {tuple(k_pool.shape)} "
+                         f"{k_pool.dtype}, {tuple(v_pool.shape)} "
+                         f"{v_pool.dtype}")
+    layers, pages, page, hkv, d = k_pool.shape
+    host_shape = (layers, page, hkv, d)
+
+    owner = {int(pg): (int(o[0]), int(o[1]))
+             for pg, o in state["owner"].items()}
+    sessions = {}
+    for sid, sd in state["sessions"].items():
+        sid = int(sid)
+        s = Session(session_id=sid, length=int(sd["length"]),
+                    pages=[int(p) for p in sd["pages"]],
+                    last_arrival=float(sd["last_arrival"]),
+                    gap_ewma=float(sd["gap_ewma"]),
+                    finished=bool(sd["finished"]))
+        for li, pg in enumerate(s.pages):
+            if not -1 <= pg < pages:
+                raise ValueError(f"session {sid} page {li}: {pg} is not a "
+                                 f"device page of {pages}")
+            if pg >= 0 and owner.get(pg) != (sid, li):
+                raise ValueError(f"device page {pg} is session {sid}'s "
+                                 f"page {li} but owned by {owner.get(pg)}")
+        for li, (k, v) in sd["host_pages"].items():
+            li = int(li)
+            if not 0 <= li < len(s.pages) or s.pages[li] != -1:
+                raise ValueError(f"session {sid}: host page {li} at a "
+                                 "resident or missing slot")
+            kt, vt = _host_tensor(k), _host_tensor(v)
+            if tuple(kt.shape) != host_shape or kt.shape != vt.shape \
+                    or kt.dtype != k_pool.dtype or vt.dtype != k_pool.dtype:
+                raise ValueError(f"session {sid}: host page {li} must be "
+                                 f"{host_shape} {k_pool.dtype}")
+            s.host_pages[li] = (kt, vt)
+        sessions[sid] = s
+    for pg, (sid, li) in owner.items():
+        s = sessions.get(sid)
+        if s is None or li >= len(s.pages) or s.pages[li] != pg:
+            raise ValueError(f"owner entry {pg} -> ({sid}, {li}) names no "
+                             "such session page")
+    free = [int(p) for p in state["free_pages"]]
+    if len(set(free)) != len(free) or set(free) & set(owner) \
+            or any(not 0 <= p < pages for p in free):
+        raise ValueError("free_pages must be distinct device pages that no "
+                         "session owns")
+
+    if cleanup is None and state.get("cleanup") is not None:
+        cd = state["cleanup"]
+        hist = LatenessHistogram(
+            counts=np.asarray(cd["hist_counts"], np.float32).copy(),
+            total=int(cd["hist_total"]))
+        if hist.counts.shape != (hist.num_bins,):
+            raise ValueError(f"hist_counts must have shape "
+                             f"({hist.num_bins},)")
+        cleanup = PredictiveCleanup(
+            coverage=float(cd["coverage"]),
+            confidence=float(cd["confidence"]),
+            initial_bound=float(cd["initial_bound"]),
+            min_history=int(cd["min_history"]), hist=hist,
+            _bound=float(cd["bound"]))
+
+    cache = TieredKVCache(num_device_pages=pages, page_size=page,
+                          num_kv_heads=hkv, head_dim=d, num_layers=layers,
+                          dtype=k_pool.dtype, cleanup=cleanup, device=device)
+    cache.k_pool.copy_(k_pool)
+    cache.v_pool.copy_(v_pool)
+    cache.sessions = sessions
+    cache.owner = owner
+    cache.free_pages = free
+    cache.stats = {k: int(v) for k, v in state["stats"].items()}
+    return cache

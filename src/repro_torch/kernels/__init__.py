@@ -1,4 +1,6 @@
 from repro_torch.kernels.ops import (
+    decode_attention_paged,
+    flash_attention,
     segment_aggregate,
     segment_aggregate_batched,
     segment_aggregate_block_table,
@@ -6,6 +8,7 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = [
+    "decode_attention_paged", "flash_attention",
     "segment_aggregate", "segment_aggregate_batched",
     "segment_aggregate_block_table", "segment_aggregate_block_table_splitk",
 ]

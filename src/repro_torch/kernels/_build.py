@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, which is
-loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
-root of the checkout, named by a hash of its source and flags, so an edit
-to the source rebuilds and an unchanged source is loaded as it is.
+Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface,
+which is loaded with ``ctypes``. A library lands in ``build/kernels/`` at
+the root of the checkout, named by the source's stem and a hash of its
+text and flags, so an edit to a source rebuilds that library only and an
+unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
+source at once.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines with no ``nvcc`` and no card.
@@ -18,8 +20,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -30,21 +33,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-# C entry point -> argument types (every pointer and the stream as
-# c_void_p: a bare Python int would be passed as a 32-bit int)
-_SIGNATURES = {
-    "seg_agg_flat": [_P, _L, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P],
-    "seg_agg_block_table": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I,
-                            _P, _P, _P, _P, _P],
-    "seg_agg_block_table_splitk": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I,
-                                   _I, _P, _P, _P, _P, _P],
+# source -> {C entry point -> argument types} (every pointer and the
+# stream as c_void_p: a bare Python int would be passed as a 32-bit int)
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "segment_aggregate.cu": {
+        "seg_agg_flat": [_P, _L, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P],
+        "seg_agg_block_table": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I,
+                                _P, _P, _P, _P, _P],
+        "seg_agg_block_table_splitk": [_P, _I, _I, _I, _I, _P, _I, _P, _P,
+                                       _I, _I, _P, _P, _P, _P, _P],
+    },
+    "attention.cu": {
+        # q, k_pages, v_pages, table, lens, out, B, H, Hkv, D, P, page,
+        # pages_per_seq, dtype, stream
+        "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _P],
+        # q, k, v, o, lse (may be null), B, Sq, Sk, H, Hkv, D, causal,
+        # window, dtype, stream
+        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P],
+    },
 }
 
 
 class KernelLibrary:
-    """The compiled ``segment_aggregate.cu``: its ctypes handle, the
-    seconds its build took (0.0 when an earlier build was reused) and
-    the compiler's report (``-Xptxas -v``: registers, spills)."""
+    """One compiled source: its ctypes handle, the seconds its build took
+    (0.0 when an earlier build was reused) and the compiler's report
+    (``-Xptxas -v``: registers, spills)."""
 
     def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
                  build_log: str):
@@ -63,8 +78,8 @@ class KernelLibrary:
                                f"cudaError {rc}")
 
 
-_LOCK = threading.Lock()
-_LIB: Optional[KernelLibrary] = None
+_LOCKS = {source: threading.Lock() for source in SIGNATURES}
+_LIBS: Dict[str, KernelLibrary] = {}
 
 
 def _nvcc() -> str:
@@ -82,7 +97,11 @@ def _nvcc() -> str:
 
 
 def build(source: str = "segment_aggregate.cu") -> KernelLibrary:
-    """Compile (or reuse) the kernel library and bind its entry points."""
+    """Compile (or reuse) the library of ``source`` and bind its entry
+    points."""
+    if source not in SIGNATURES:
+        raise ValueError(f"unknown kernel source {source!r} (of "
+                         f"{sorted(SIGNATURES)})")
     src = CSRC / source
     tag = hashlib.sha256(src.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -93,7 +112,7 @@ def build(source: str = "segment_aggregate.cu") -> KernelLibrary:
     if not out.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         log = proc.stdout + proc.stderr
@@ -102,17 +121,27 @@ def build(source: str = "segment_aggregate.cu") -> KernelLibrary:
         os.replace(tmp, out)
         seconds = time.time() - t0
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return KernelLibrary(lib, out, seconds, log)
 
 
-def library() -> KernelLibrary:
-    """The process-wide kernel library, built on first call."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            _LIB = build()
-        return _LIB
+def library(source: str = "segment_aggregate.cu") -> KernelLibrary:
+    """The process-wide library of ``source``, built on first call."""
+    if source not in _LOCKS:
+        raise ValueError(f"unknown kernel source {source!r} (of "
+                         f"{sorted(SIGNATURES)})")
+    with _LOCKS[source]:
+        if source not in _LIBS:
+            _LIBS[source] = build(source)
+        return _LIBS[source]
+
+
+def build_all() -> Dict[str, KernelLibrary]:
+    """Every source's library, the missing ones compiled at once (one
+    ``nvcc`` per source, all started together)."""
+    with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as pool:
+        libs = dict(zip(SIGNATURES, pool.map(library, SIGNATURES)))
+    return libs

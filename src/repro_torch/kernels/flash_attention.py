@@ -1,0 +1,113 @@
+"""Flash attention, forward (K5): a hand-written CUDA kernel for Hopper
+and its plain PyTorch version. Attention for the prefill path.
+
+``flash_attention_cuda`` launches ``flash_attention_fwd``
+(``csrc/attention.cu``) for a CUDA tensor and takes the plain version only
+for a tensor on the CPU. Layouts are the JAX package's: q [B, Sq, H, D],
+k/v [B, Sk, Hkv, D] (GQA: H a multiple of Hkv), o [B, Sq, H, D] in q's
+dtype, and the optional log-sum-exp [B*H, Sq] float32 flattened in
+(b, hkv, g) order, the layout the backward reads. The causal mask counts
+q and k positions from 0 (so Sq != Sk works as in JAX); ``window > 0``
+keeps keys with ``q - k < window``.
+
+Both paths go through one ``torch.autograd.Function`` whose backward
+raises: the flash backward (K6) is not ported yet. The wrapper counts its
+launches in ``flash_attention_cuda.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+# one source holds K4 and K5, instantiated for the same types and head dims
+from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.ref import ref_flash_attention
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          return_lse: bool = False):
+    """K5's function in plain torch: the oracle's materialized softmax in
+    fp32 (one KV head's group at a time), with its log-sum-exp."""
+    return ref_flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=return_lse)
+
+
+def _check(q, k, v):
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k and v must share one type of "
+                         f"{sorted(map(str, DTYPES))}, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("q must be [B, Sq, H, D] and k, v one "
+                         f"[B, Sk, Hkv, D] shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    bk, sk, hkv, dk = k.shape
+    if bk != b or dk != d or d not in HEAD_DIMS:
+        raise ValueError(f"batch {b}/{bk} and head dim {d}/{dk} must match, "
+                         f"and the head dim be one of {HEAD_DIMS}")
+    if hkv == 0 or h % hkv or sk == 0:
+        raise ValueError(f"H={h} must be a multiple of Hkv={hkv}, and "
+                         f"Sk={sk} positive")
+    if b * h > 65535:
+        raise ValueError(f"B*H={b * h} exceeds the grid's 65,535 rows")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+
+
+def _launch(q, k, v, causal: bool, window: int, return_lse: bool):
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if sq == 0 or b == 0:
+        return o, lse
+    from repro_torch.kernels._build import library
+    library("attention.cu").call(
+        "flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, sk, h,
+        hkv, d, int(bool(causal)), int(window), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention_cuda.launches += 1
+    return o, lse
+
+
+class _FlashForward(torch.autograd.Function):
+    """The forward pass only: its backward (K6) is not ported yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, return_lse):
+        if q.is_cuda:
+            o, lse = _launch(q, k, v, causal, window, return_lse)
+        else:
+            out = flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, return_lse=return_lse)
+            o, lse = out if return_lse else (out, None)
+        if lse is not None:
+            ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        raise NotImplementedError(
+            "the flash-attention backward (K6, flash_attention_bwd_pallas) "
+            "is not ported to repro_torch yet")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         return_lse: bool = False):
+    """K5: attention forward. q [B, Sq, H, D], k/v [B, Sk, Hkv, D]
+    contiguous, float32 or bfloat16 -> o [B, Sq, H, D] in q's dtype (and
+    lse [B*H, Sq] float32 with ``return_lse``), on the current stream. A
+    CPU tensor takes ``flash_attention_plain``. A row with nothing to
+    attend to is NaN (its lse -inf)."""
+    o, lse = _FlashForward.apply(q, k, v, bool(causal), int(window),
+                                 bool(return_lse))
+    return (o, lse) if return_lse else o
+
+
+flash_attention_cuda.launches = 0

@@ -4,10 +4,12 @@
   'auto'  the CUDA kernel for a tensor on the card, its plain torch
           version for a tensor on the CPU (the wrapper decides by the
           tensor's device; on the card it launches the kernel or raises)
-  'ref'   the plain-torch oracle (``kernels/ref.py``)
+  'ref'   the plain-torch version of each kernel, the ``*_plain``
+          function of its module (which CPU tensors take as well)
 
-Inputs may be tensors or array-likes. Array-likes go to ``device``, which
-defaults to the card. The empty-batch guards return the fold identity
+Inputs may be tensors or array-likes. The folds run on the values'
+device, attention on the K/V's; array-likes go there, or to ``device``,
+which defaults to the card. The empty-batch guards return the fold identity
 without a launch. ``mesh`` (the JAX package's slot-sharded variants) is
 not ported and raises.
 """
@@ -18,12 +20,20 @@ from typing import Optional
 import torch
 
 from repro_torch._device import as_tensor, resolve_device
-from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.decode_attention import (
+    decode_attention_paged_cuda, decode_attention_paged_plain,
+)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda, flash_attention_plain,
+)
 from repro_torch.kernels.segment_aggregate import (
     ALL_STATS, empty_batch_identity as _empty_batch_identity,
     norm_stats as _norm_stats, segment_aggregate_batched_cuda,
-    segment_aggregate_block_table_cuda,
-    segment_aggregate_block_table_splitk_cuda, segment_aggregate_cuda,
+    segment_aggregate_batched_plain, segment_aggregate_block_table_cuda,
+    segment_aggregate_block_table_plain,
+    segment_aggregate_block_table_splitk_cuda,
+    segment_aggregate_block_table_splitk_plain, segment_aggregate_cuda,
+    segment_aggregate_plain,
 )
 
 BACKENDS = ("auto", "ref")
@@ -39,16 +49,17 @@ def _opt(x, dev, dtype):
     return None if x is None else as_tensor(x, dev, dtype)
 
 
+def _identity(ns: int, num_segments: int, w: int, dev, stats) -> dict:
+    out = _empty_batch_identity(ns, num_segments, w, dev)
+    return {k: v for k, v in out.items() if k in stats}
+
+
 def _check(backend: str, mesh) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (of {BACKENDS})")
     if mesh is not None:
         raise NotImplementedError(
             "the slot-sharded (mesh) folds are not ported to repro_torch")
-
-
-def _select(out: dict, stats) -> dict:
-    return {k: v for k, v in out.items() if k in stats}
 
 
 def segment_aggregate(values, segment_ids, num_segments: int, valid=None,
@@ -62,8 +73,8 @@ def segment_aggregate(values, segment_ids, num_segments: int, valid=None,
     segment_ids = as_tensor(segment_ids, dev, torch.int32)
     valid = _opt(valid, dev, torch.bool)
     if backend == "ref":
-        return _select(_ref.ref_segment_aggregate(
-            values, segment_ids, num_segments, valid), stats)
+        return segment_aggregate_plain(values, segment_ids, num_segments,
+                                       valid=valid, stats=stats)
     return segment_aggregate_cuda(values, segment_ids, num_segments,
                                   valid=valid, stats=stats)
 
@@ -87,15 +98,14 @@ def segment_aggregate_batched(values, segment_ids, num_segments: int,
     if ns is None:
         raise ValueError("num_slots is required when slot_ids is given")
     if b == 0 or ns == 0:
-        return _select(_empty_batch_identity(ns, num_segments,
-                                             values.shape[2], dev), stats)
+        return _identity(ns, num_segments, values.shape[2], dev, stats)
     segment_ids = as_tensor(segment_ids, dev, torch.int32)
     valid = _opt(valid, dev, torch.bool)
     slot_ids = _opt(slot_ids, dev, torch.int32)
     if backend == "ref":
-        return _select(_ref.ref_segment_aggregate_batched(
+        return segment_aggregate_batched_plain(
             values, segment_ids, num_segments, valid=valid,
-            slot_ids=slot_ids, num_slots=num_slots), stats)
+            slot_ids=slot_ids, num_slots=num_slots, stats=stats)
     return segment_aggregate_batched_cuda(
         values, segment_ids, num_segments, valid=valid, slot_ids=slot_ids,
         num_slots=num_slots, stats=stats)
@@ -133,13 +143,12 @@ def segment_aggregate_block_table(values_arena, segment_ids, table,
         raise ValueError("num_slots is required when slot_ids is given")
     if r == 0 or ns == 0:
         w_out = num_cols if num_cols is not None else values_arena.shape[2]
-        return _select(_empty_batch_identity(ns, num_segments, w_out, dev),
-                       stats)
+        return _identity(ns, num_segments, w_out, dev, stats)
     if backend == "ref":
-        return _select(_ref.ref_segment_aggregate_block_table(
+        return segment_aggregate_block_table_plain(
             values_arena, segment_ids, table, num_segments, valid=valid,
-            slot_ids=slot_ids, num_slots=num_slots, num_cols=num_cols),
-            stats)
+            slot_ids=slot_ids, num_slots=num_slots, stats=stats,
+            num_cols=num_cols)
     return segment_aggregate_block_table_cuda(
         values_arena, segment_ids, table, num_segments, valid=valid,
         slot_ids=slot_ids, num_slots=num_slots, stats=stats,
@@ -171,14 +180,74 @@ def segment_aggregate_block_table_splitk(values_arena, segment_ids, table,
         raise ValueError("num_slots is required when slot_ids is given")
     if r == 0 or ns == 0:
         w_out = num_cols if num_cols is not None else values_arena.shape[2]
-        return _select(_empty_batch_identity(ns, num_segments, w_out, dev),
-                       stats)
+        return _identity(ns, num_segments, w_out, dev, stats)
     if backend == "ref":
-        return _select(_ref.ref_segment_aggregate_block_table_splitk(
+        return segment_aggregate_block_table_splitk_plain(
             values_arena, segment_ids, table, num_segments, chunk_rows,
             valid=valid, slot_ids=slot_ids, num_slots=num_slots,
-            num_cols=num_cols), stats)
+            stats=stats, num_cols=num_cols)
     return segment_aggregate_block_table_splitk_cuda(
         values_arena, segment_ids, table, num_segments, chunk_rows,
         valid=valid, slot_ids=slot_ids, num_slots=num_slots, stats=stats,
         num_cols=num_cols)
+
+
+# ------------------------------------------------------------- attention
+def _kv_device(kv, device) -> torch.device:
+    """Where attention runs: on the K/V (the pool, for decode), which is
+    never moved; ``device`` places them when they are array-likes."""
+    if not isinstance(kv, torch.Tensor):
+        return resolve_device(device)
+    if device is not None:
+        want = torch.device(device)
+        if want.type != kv.device.type or (
+                want.index is not None and want.index != kv.device.index):
+            raise ValueError(f"device {want} asked for, the K/V are on "
+                             f"{kv.device}")
+    return kv.device
+
+
+def _on(x, dev: torch.device, name: str, dtype=None) -> torch.Tensor:
+    """``x`` on the K/V's device: an array-like is put there, and a tensor
+    on another device raises rather than drawing the K/V after it."""
+    if isinstance(x, torch.Tensor) and x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, the K/V on {dev}")
+    return as_tensor(x, dev, dtype)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    backend: str = "auto", block_q: int = 512,
+                    block_k: int = 512, device=None):
+    """Attention forward (K5): q [B, Sq, H, D], k/v [B, Sk, Hkv, D] ->
+    [B, Sq, H, D], on k's device (``device`` places array-likes; q or v on
+    another device raises). ``block_q`` and ``block_k`` are the JAX entry
+    point's Pallas tile sizes, accepted for signature parity and read by
+    neither path here: the CUDA kernel tiles by its own 64 query rows x 64
+    keys, and the plain version does not tile."""
+    _check(backend, None)
+    dev = _kv_device(k, device)
+    k = _on(k, dev, "k")
+    q, v = _on(q, dev, "q"), _on(v, dev, "v")
+    if backend == "ref":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def decode_attention_paged(q, k_pages, v_pages, block_table, seq_lens,
+                           backend: str = "auto", device=None):
+    """Paged decode attention (K4): q [B, H, D], k/v_pages
+    [P, page, Hkv, D], block_table [B, pages_per_seq] (-1 = not
+    resident), seq_lens [B] -> [B, H, D], on the pool's device (``device``
+    places array-likes; q, the table or the lengths on another device
+    raise: the pool is never copied)."""
+    _check(backend, None)
+    dev = _kv_device(k_pages, device)
+    k_pages = _on(k_pages, dev, "k_pages")
+    q, v_pages = _on(q, dev, "q"), _on(v_pages, dev, "v_pages")
+    block_table = _on(block_table, dev, "block_table", torch.int32)
+    seq_lens = _on(seq_lens, dev, "seq_lens", torch.int32)
+    if backend == "ref":
+        return decode_attention_paged_plain(q, k_pages, v_pages,
+                                            block_table, seq_lens)
+    return decode_attention_paged_cuda(q, k_pages, v_pages, block_table,
+                                       seq_lens)

@@ -1,133 +1,99 @@
-"""Plain-torch oracles for the segment-aggregate folds (the correctness
-contract the plain versions and the CUDA kernels are held against).
+"""Plain-torch oracles for the attention kernels (the correctness contract
+the plain versions and the CUDA kernels are held against), with fp32
+math, as ``repro/kernels/ref.py`` computes them.
 
-Written independently of ``segment_aggregate.py``: a straight scatter
-formulation with invalid rows parked on an extra segment. The attention
-and SSD oracles of the JAX package come with the kernels they check.
+The oracle of the segment-aggregate folds is the ``*_plain`` family of
+``kernels/segment_aggregate.py``: ``backend="ref"`` and every CPU tensor
+take it, and the CUDA kernels K1-K3 are held against it. The SSD oracle
+comes with its kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
 
 import torch
 
-from repro_torch.kernels.segment_aggregate import empty_batch_identity
+NEG_INF = float("-inf")
 
 
-def ref_segment_aggregate(values: torch.Tensor, segment_ids: torch.Tensor,
-                          num_segments: int,
-                          valid: Optional[torch.Tensor] = None) -> dict:
-    """values [N, W] f32; segment_ids [N] -> per-segment sum / count /
-    min / max. Invalid rows (valid == False) contribute nothing."""
-    n, w = values.shape
-    dev = values.device
-    if valid is None:
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
-    valid = valid.to(dev, torch.bool)
-    sid = torch.where(valid, segment_ids.to(dev, torch.int64),
-                      num_segments)                       # park invalid
-    idx = sid[:, None].expand(n, w)
-    inf = float("inf")
-    vsum = torch.zeros(num_segments + 1, w, device=dev).index_add_(
-        0, sid, torch.where(valid[:, None], values, 0.0))
-    cnt = torch.zeros(num_segments + 1, device=dev).index_add_(
-        0, sid, valid.to(torch.float32))
-    vmin = torch.full((num_segments + 1, w), inf, device=dev).scatter_reduce_(
-        0, idx, torch.where(valid[:, None], values, inf), "amin")
-    vmax = torch.full((num_segments + 1, w), -inf, device=dev).scatter_reduce_(
-        0, idx, torch.where(valid[:, None], values, -inf), "amax")
-    return {"sum": vsum[:num_segments], "count": cnt[:num_segments],
-            "min": vmin[:num_segments], "max": vmax[:num_segments]}
+def _mask(sq: int, sk: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+    """[Sq, Sk] attendable positions; q and k both count from 0."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= qpos - kpos < window
+    return mask
 
 
-def ref_segment_aggregate_batched(values: torch.Tensor,
-                                  segment_ids: torch.Tensor,
-                                  num_segments: int,
-                                  valid: Optional[torch.Tensor] = None,
-                                  slot_ids: Optional[torch.Tensor] = None,
-                                  num_slots: Optional[int] = None) -> dict:
-    """values [B, N, W]; segment_ids [B, N]; slot_ids [B] -> per-slot
-    sum/count/min/max [num_slots, num_segments, ...] via composite
-    (slot, key) ids."""
-    b, n, w = values.shape
-    dev = values.device
-    if valid is None:
-        valid = torch.ones((b, n), dtype=torch.bool, device=dev)
-    if slot_ids is None:
-        slot_ids = torch.arange(b, device=dev)
-        if num_slots is None:
-            num_slots = b
-    elif num_slots is None:
-        raise ValueError("num_slots is required when slot_ids is given")
-    if b == 0 or num_slots == 0:
-        return empty_batch_identity(num_slots, num_segments, w, dev)
-    composite = (slot_ids.to(dev, torch.int64)[:, None] * num_segments
-                 + segment_ids.to(dev, torch.int64))
-    out = ref_segment_aggregate(values.reshape(b * n, w),
-                                composite.reshape(b * n),
-                                num_slots * num_segments,
-                                valid=valid.reshape(b * n))
-    return {
-        "sum": out["sum"].reshape(num_slots, num_segments, w),
-        "count": out["count"].reshape(num_slots, num_segments),
-        "min": out["min"].reshape(num_slots, num_segments, w),
-        "max": out["max"].reshape(num_slots, num_segments, w),
-    }
+def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """q [B, Sq, H, D]; k, v [B, Sk, Hkv, D] -> [B, Sq, H, D] in q's dtype.
+    Plain materialized softmax attention (fp32 math), one KV head's group
+    at a time so that the [G, Sq, Sk] scores of one group are the largest
+    temporary. A row with nothing to attend to is NaN.
+
+    ``return_lse`` also returns the log-sum-exp of each row's scaled,
+    masked scores, [B*H, Sq] float32 in (b, hkv, g) order: the layout the
+    kernel writes for its backward."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = h // hkv
+    qf = q.to(torch.float32).reshape(b, sq, hkv, g, d)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    mask = _mask(sq, sk, causal, window, q.device)
+    o = torch.empty((b, sq, hkv, g, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    for j in range(hkv):
+        s = torch.einsum("bqgd,bkd->bgqk", qf[:, :, j], kf[:, :, j]) \
+            / math.sqrt(d)
+        s = s.masked_fill(~mask, NEG_INF)
+        lse[:, j] = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1)
+        o[:, :, j] = torch.einsum("bgqk,bkd->bqgd", p, vf[:, :, j])
+    out = o.reshape(b, sq, h, d).to(q.dtype)
+    if return_lse:
+        return out, lse.reshape(b * h, sq)
+    return out
 
 
-def ref_segment_aggregate_block_table(values_arena: torch.Tensor,
-                                      segment_ids: torch.Tensor,
-                                      table: torch.Tensor,
-                                      num_segments: int,
-                                      valid: Optional[torch.Tensor] = None,
-                                      slot_ids: Optional[torch.Tensor] = None,
-                                      num_slots: Optional[int] = None,
-                                      num_cols: Optional[int] = None
-                                      ) -> dict:
-    """Block-table oracle: an explicit gather along the pool axis
-    (``num_cols`` keeps the leading value columns), then the batched
-    oracle."""
-    vals = values_arena[table.to(values_arena.device, torch.int64)]
-    if num_cols is not None:
-        vals = vals[:, :, :num_cols]
-    return ref_segment_aggregate_batched(
-        vals, segment_ids, num_segments, valid=valid, slot_ids=slot_ids,
-        num_slots=num_slots)
+def ref_decode_attention_paged(q: torch.Tensor, kv_pages_k: torch.Tensor,
+                               kv_pages_v: torch.Tensor,
+                               block_table: torch.Tensor,
+                               seq_lens: torch.Tensor) -> torch.Tensor:
+    """Paged decode attention oracle.
 
+    q            [B, H, D]
+    kv_pages_*   [P, page, Hkv, D]   (global page pool)
+    block_table  [B, pages_per_seq] i32 (page ids; -1 = unused)
+    seq_lens     [B] i32 (valid tokens per sequence)
+    -> [B, H, D] in q's dtype
 
-def ref_segment_aggregate_block_table_splitk(
-        values_arena: torch.Tensor, segment_ids: torch.Tensor,
-        table: torch.Tensor, num_segments: int, chunk_rows: int,
-        valid: Optional[torch.Tensor] = None,
-        slot_ids: Optional[torch.Tensor] = None,
-        num_slots: Optional[int] = None,
-        num_cols: Optional[int] = None) -> dict:
-    """Split-K oracle: fold ``chunk_rows`` table rows at a time through
-    the block-table oracle from the fold identity, merging each chunk's
-    partial through the stat's own reduction. Zero rows merges to the
-    identity."""
-    if chunk_rows < 1:
-        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
-    r = table.shape[0]
-    dev = values_arena.device
-    w_out = num_cols if num_cols is not None else values_arena.shape[2]
-    if slot_ids is None:
-        slot_ids = torch.arange(r, device=dev)
-        if num_slots is None:
-            num_slots = r
-    elif num_slots is None:
-        raise ValueError("num_slots is required when slot_ids is given")
-    acc = empty_batch_identity(num_slots, num_segments, w_out, dev)
-    for off in range(0, r, chunk_rows):
-        sl = slice(off, min(off + chunk_rows, r))
-        part = ref_segment_aggregate_block_table(
-            values_arena, segment_ids[sl], table[sl], num_segments,
-            valid=None if valid is None else valid[sl],
-            slot_ids=slot_ids[sl], num_slots=num_slots, num_cols=num_cols)
-        acc = {
-            "sum": acc["sum"] + part["sum"],
-            "count": acc["count"] + part["count"],
-            "min": torch.minimum(acc["min"], part["min"]),
-            "max": torch.maximum(acc["max"], part["max"]),
-        }
-    return acc
+    A -1 page and every position >= seq_len are masked with -inf, so a row
+    with nothing to attend to (seq_len 0) is NaN.
+    """
+    b, h, d = q.shape
+    _, page_size, hkv, _ = kv_pages_k.shape
+    per_seq = block_table.shape[1]
+    g = h // hkv
+    dev = q.device
+    table = block_table.to(device=dev, dtype=torch.int64)
+    lens = seq_lens.to(device=dev, dtype=torch.int64)
+    safe = table.clamp(min=0)
+    k = kv_pages_k[safe].reshape(b, per_seq * page_size, hkv, d)
+    v = kv_pages_v[safe].reshape(b, per_seq * page_size, hkv, d)
+    pos = torch.arange(per_seq * page_size, device=dev)
+    valid = (pos[None, :] < lens[:, None]) \
+        & torch.repeat_interleave(table >= 0, page_size, dim=1)
+    qg = q.to(torch.float32).reshape(b, hkv, g, d)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.to(torch.float32)) \
+        / math.sqrt(d)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.to(torch.float32))
+    return o.reshape(b, h, d).to(q.dtype)

@@ -13,6 +13,18 @@ import repro_torch
 
 PKG_DIR = Path(repro_torch.__file__).resolve().parent
 
+#: modules each slice of the port added; the walk below must reach them
+SLICE_MODULES = [
+    "repro_torch.core.engine", "repro_torch.kernels.segment_aggregate",
+    "repro_torch.kernels.decode_attention",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ref",
+    "repro_torch.kernels.ops", "repro_torch.configs",
+    "repro_torch.configs.base", "repro_torch.configs.starcoder2_7b",
+    "repro_torch.configs.hymba_1_5b", "repro_torch.serve",
+    "repro_torch.serve.kvcache", "repro_torch.serve.scheduler",
+    "repro_torch.convert",
+]
+
 
 def _modules():
     return ["repro_torch"] + sorted(
@@ -54,3 +66,10 @@ def test_no_jax_or_reference_package_import(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+@pytest.mark.parametrize("name", SLICE_MODULES)
+def test_slice_modules_are_checked(name):
+    """Every module of the ported slices is among those the two checks
+    above import and parse."""
+    assert name in _modules()

@@ -27,10 +27,9 @@ from repro_torch.kernels import (
     segment_aggregate, segment_aggregate_batched,
     segment_aggregate_block_table, segment_aggregate_block_table_splitk,
 )
-from repro_torch.kernels import ref as TR
 from repro_torch.kernels.segment_aggregate import (
     ALL_STATS, merge_partials, next_pow2, norm_stats,
-    segment_aggregate_block_table_splitk_plain,
+    segment_aggregate_block_table_splitk_plain, segment_aggregate_plain,
 )
 
 
@@ -71,7 +70,7 @@ def test_segment_aggregate_sweep(n, w, s):
     ref = j_seg(jnp.asarray(vals), jnp.asarray(ids), s,
                 valid=jnp.asarray(valid), backend="ref")
     _assert_aggs(out, ref, n, np.abs(vals).max())
-    oracle = TR.ref_segment_aggregate(_t(vals), _t(ids), s, _t(valid))
+    oracle = segment_aggregate_plain(_t(vals), _t(ids), s, valid=_t(valid))
     _assert_aggs(oracle, ref, n, np.abs(vals).max())
 
 
