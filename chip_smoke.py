@@ -6,8 +6,9 @@
 Phases (the first failed check exits non-zero, with no result line):
 
 0. The card's name and power limit, then the nvcc builds of the kernels
-   (``src/repro_torch/kernels/csrc/{segment_aggregate,attention}.cu`` for
-   sm_90a, one nvcc per source, started together).
+   (``src/repro_torch/kernels/csrc/{segment_aggregate,attention,
+   flash_attention_bwd}.cu`` for sm_90a, one nvcc per source, started
+   together).
 1. Aion's late-event loop: ``StreamEngine`` with the stock operator at the
    Table-1 deployment (10,000 events/s into 30 s tumbling windows,
    1,664-byte payloads, 128 keys, lognormal lateness from
@@ -58,23 +59,53 @@ Phases (the first failed check exits non-zero, with no result line):
    (a yardstick only; for K4 on K/V gathered into contiguous padded
    tensors, the gather untimed) and its bound.
 
+6. LM training at starcoder2-7b's full width (``configs/starcoder2_7b.py``:
+   d_model 4,608, 36 heads, 4 KV heads of 128, d_ff 18,432 GELU, biases,
+   vocab 49,152; fp32 parameters, bf16 compute, ``remat="full"``) with 8 of
+   its 32 layers: 2.19 B parameters from a seeded generator. 6a: one loss
+   and backward on 1 x 1,024 tokens through K5/K6 and again through their
+   plain versions, the loss within LOSS_TOL and every parameter's gradient
+   within GRAD_RTOL of its norm; the same with K6's dq of the last layer's
+   first query tile zeroed must be rejected (a planted control). 6b: six
+   steps of ``make_train_step`` (AdamW) on ``token_batches`` of 2 x 4,096
+   tokens through ``PrefetchPipeline``: every loss finite, K5 launched
+   2 x 8 times a step (forward and remat recompute) and K6 8 times; K6's
+   first launch is kept for phase 8.
+7. The port's entry point, ``launch.train``, at its default config
+   (``reduced(starcoder2-7b)``, as the JAX command line always trains) to 4
+   steps with checkpoints, then asked for 8: it must resume from LATEST
+   with the saved parameters bit for bit, and ``RestartManager`` may
+   restart nothing (it restarts on any exception, which would hide a
+   kernel fault).
+8. K6 replays: its training launch of phase 6 and a sliding-window case at
+   hymba-1.5b's width (25 heads, 5 KV heads of 64, window 1,024, 4,096
+   tokens), dq, dk and dv each held within one bf16 ulp of the plain
+   version on the same bf16 inputs (``grad_ulp_close``), K6 with the last
+   key tile dropped rejected (a control), each timed beside its plain
+   version, the backward of one ``scaled_dot_product_attention`` (a
+   yardstick only), K5 on the same q/k/v and the bound.
+
 Every attention output is held within one bf16 ulp of the plain
 version's (``attn_close``), the prefill's log-sum-exp within LSE_TOL. The
-kernels' launch counters are set to 0 just before each of phases 1,
-2 and 4 and read just after. A segment kernel's ``launches`` is its count
-in the run whose launch it replays (K1 and K2 the main run where they
-launched there, K3 the split-K run; ``launches_by_run`` gives both
-counts); K4's and K5's are their counts in phase 4. The last line of the
-output is ``{"ok": true, "device": {...}}``; the line before it holds the
-kernels' numbers as one JSON object, and the line before that the card's
-name and power limit as ``nvidia-smi`` gives them.
+kernels' launch counters are set to 0 just before each of phases 1, 2,
+4, 6b and 7 and read just after. A segment kernel's ``launches`` is its
+count in the run whose launch it replays (K1 and K2 the main run where
+they launched there, K3 the split-K run; ``launches_by_run`` gives both
+counts); K4's and K5's are their counts in phase 4, K6's in phase 6b. The
+last line of the output is ``{"ok": true, "device": {...}}``; the line
+before it holds the kernels' numbers as one JSON object, and the line
+before that the card's name and power limit as ``nvidia-smi`` gives
+them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import gc
 import importlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1068,6 +1099,344 @@ def k5_record(q, k, v, causal: bool, window: int, iters: int) -> dict:
     return r
 
 
+# --------------------------------------------------------------- phases 6-8
+TRAIN_ARCH = "starcoder2-7b"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+#: K6: its name, and the TPU kernel it replaces
+K6 = ("flash_attention_bwd (K6, flash attention backward)",
+      "src/repro/kernels/flash_attention_bwd.py:112")
+#: phase 6: TRAIN_ARCH at full width with 8 of its layers, six steps of
+#: 2 x 4,096 tokens (6b) after a gradient check on 1 x 1,024 (6a)
+TRAIN_RUN = dict(layers=8, batch=2, seq=4096, steps=6, grad_seq=1024)
+#: its CPU rehearsal (``run_train(..., small=True)``, reduced widths)
+SMALL_TRAIN = dict(layers=2, batch=2, seq=128, steps=3, grad_seq=64)
+#: phase 7: the entry point at its default config, run to FIRST steps,
+#: then asked for SECOND (it must resume from the first run's last save)
+ENTRY_RUN = dict(first=4, second=8, save_every=2)
+#: 6a: the loss and every parameter's gradient through K5/K6 against the
+#: same through their plain versions (same weights, same batch): each
+#: gradient within GRAD_RTOL of its norm, the loss within LOSS_TOL. Both
+#: paths round each attention output and gradient to bf16 once, at most
+#: one ulp apart, and eight layers of bf16 matmuls carry that into the
+#: parameters' gradients: on an H100 the worst reading was 2.05% of the
+#: norm (layers.7.attn.k.b) and the loss moved by 1.6e-5, while the
+#: control (one query tile's dq zeroed) moves layers.7.attn.q.w by 50%.
+GRAD_RTOL = 0.05
+LOSS_TOL = 1e-4
+#: K6's outputs (bf16) within one bf16 ulp of the plain version's, with
+#: magnitudes below GRAD_ULP_FLOOR x the tensor's largest |value| counted
+#: as that floor (gradients of a mean loss are small, so the floor is
+#: relative where ATTN_ULP_FLOOR is absolute)
+GRAD_ULP_FLOOR = 2.0 ** -10
+
+
+def k6_wrapper():
+    return importlib.import_module(
+        "repro_torch.kernels.flash_attention_bwd").flash_attention_bwd_cuda
+
+
+def grad_ulp_close(out, ref) -> float:
+    """``out`` within one bf16 ulp of ``ref`` elementwise (the ulp of the
+    larger magnitude, at least GRAD_ULP_FLOOR x max|ref|'s), both finite.
+    Returns the largest absolute difference."""
+    import torch
+    a, b = out.float(), ref.float()
+    check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+          "a gradient is not finite")
+    diff = (a - b).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    floor = max(float(b.abs().max()), 1e-30) * GRAD_ULP_FLOOR
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    worst = float((diff / ulp).max()) if diff.numel() else 0.0
+    check(worst <= 1.0, f"max error {err} ({worst:.2f} bf16 ulps) beyond "
+                        "one bf16 ulp")
+    return err
+
+
+def grads_close(got, want) -> dict:
+    """(loss, grads) of the kernels' path against the plain versions':
+    the loss within LOSS_TOL, each gradient within GRAD_RTOL of its norm.
+    Returns the readings."""
+    import torch
+    (lk, gk), (lp, gp) = got, want
+    loss_err = abs(lk - lp)
+    check(math.isfinite(lk) and loss_err <= LOSS_TOL,
+          f"loss {lk} against {lp}: beyond {LOSS_TOL}")
+    worst, name = 0.0, None
+    for n, w in gp.items():
+        check(bool(torch.isfinite(gk[n]).all()), f"{n}: gradient not finite")
+        rel = float(torch.linalg.vector_norm((gk[n] - w).float())
+                    / torch.linalg.vector_norm(w.float()).clamp(min=1e-30))
+        if rel >= worst:
+            worst, name = rel, n
+    check(worst <= GRAD_RTOL, f"the gradient of {name} is off by "
+                              f"{worst:.3g} of its norm, beyond {GRAD_RTOL}")
+    return {"loss": lk, "loss_err": loss_err, "grad_rel_err": worst,
+            "worst_param": name}
+
+
+def build_train(device, cfg, *, small: bool = False):
+    """The model of phase 6: ``cfg`` with TRAIN_RUN's depth (SMALL_TRAIN's
+    for the CPU rehearsal), its parameters drawn from a seeded
+    generator."""
+    import torch
+    from repro_torch.models import build_model
+    run = SMALL_TRAIN if small else TRAIN_RUN
+    model = build_model(dataclasses.replace(cfg, num_layers=run["layers"]),
+                        device=device)
+    params = model.init(torch.Generator(device).manual_seed(SEED + 6))
+    return model, params, run
+
+
+def grad_check(model, params, run: dict) -> dict:
+    """6a: one loss and backward on 1 x grad_seq tokens through K5/K6, the
+    same with the attention's plain versions, held together by
+    ``grads_close``; then, as a control that must be rejected, the kernels'
+    path with K6's dq of its first launch's first query tile zeroed (the
+    last layer's, whose backward runs first)."""
+    import torch
+    from repro_torch.data.generators import token_batches
+    from repro_torch.kernels import ops
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dev = model.device
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(token_batches(
+        model.cfg.vocab_size, 1, run["grad_seq"], seed=SEED + 6)).items()}
+
+    def grads():
+        loss, _ = model.loss(params, batch)
+        g = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, g))
+
+    t0 = time.perf_counter()
+    kernel = grads()
+    real_vjp, real_bwd = ops.flash_attention_vjp, fa.flash_attention_bwd_cuda
+    ops.flash_attention_vjp = functools.partial(real_vjp, backend="ref")
+    try:
+        plain = grads()
+    finally:
+        ops.flash_attention_vjp = real_vjp
+    rec = grads_close(kernel, plain)
+    zeroed = []
+
+    def zero_first_tile(*args, **kw):
+        dq, dk, dv = real_bwd(*args, **kw)
+        if not zeroed:
+            dq[:, :64] = 0
+            zeroed.append(True)
+        return dq, dk, dv
+
+    fa.flash_attention_bwd_cuda = zero_first_tile
+    try:
+        bad = grads()
+    finally:
+        fa.flash_attention_bwd_cuda = real_bwd
+    must_fail("K6's dq of the last layer's first query tile zeroed",
+              lambda: grads_close(bad, plain))
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def train_run(model, params, run: dict) -> dict:
+    """6b: ``make_train_step`` for run["steps"] steps on ``token_batches``
+    through ``PrefetchPipeline``; the loss must be finite at every step.
+    Each step's forward (``model.loss``), backward (to the optimizer) and
+    optimizer (``adamw_update``) are timed on the device's clock (CUDA
+    events; the host's on the CPU). K6's first launch is kept for
+    phase 8."""
+    import torch
+    from repro_torch.data.generators import token_batches
+    from repro_torch.data.pipeline import PrefetchPipeline
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import train_step as ts_mod
+    from repro_torch.train.optimizer import adamw_init
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dev = model.device
+    cuda = dev.type == "cuda"
+
+    def stamp():
+        if not cuda:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def span(a, b) -> float:
+        return (b - a) if not cuda else a.elapsed_time(b) / 1e3
+
+    marks, kept = [], {}
+    real_loss, real_update, real_bwd = (model.loss, ts_mod.adamw_update,
+                                        fa.flash_attention_bwd_cuda)
+
+    def timed_loss(*a, **kw):
+        marks.append(stamp())
+        out = real_loss(*a, **kw)
+        marks.append(stamp())
+        return out
+
+    def timed_update(*a, **kw):
+        marks.append(stamp())
+        out = real_update(*a, **kw)
+        marks.append(stamp())
+        return out
+
+    def keep_first(q, k, v, o, do, lse, **kw):
+        if not kept:
+            kept.update(args=tuple(t.detach().clone()
+                                   for t in (q, k, v, o, do, lse)), kw=kw)
+        return real_bwd(q, k, v, o, do, lse, **kw)
+
+    state = ts_mod.TrainState(params=params, opt=adamw_init(params))
+    step_fn = make_train_step(model, OptConfig(
+        warmup_steps=1, total_steps=run["steps"]))
+    data = PrefetchPipeline(token_batches(model.cfg.vocab_size, run["batch"],
+                                          run["seq"], seed=SEED + 7),
+                            depth=2, device=dev)
+    model.loss, ts_mod.adamw_update = timed_loss, timed_update
+    fa.flash_attention_bwd_cuda = keep_first
+    losses, wall, parts = [], [], []
+    try:
+        for _ in range(run["steps"]):
+            marks.clear()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, next(data))
+            losses.append(float(metrics["loss"]))
+            if cuda:
+                torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            f0, f1, u0, u1 = marks
+            parts.append((span(f0, f1), span(f1, u0), span(u0, u1)))
+            check(math.isfinite(losses[-1]),
+                  f"step {len(losses)}: loss {losses[-1]} is not finite")
+    finally:
+        model.loss = real_loss
+        ts_mod.adamw_update = real_update
+        fa.flash_attention_bwd_cuda = real_bwd
+        data.close()
+    tokens = run["batch"] * run["seq"]
+    timed = wall[1:] or wall
+    return {"losses": losses, "step_s": wall,
+            "tokens_per_s": tokens * len(timed) / sum(timed),
+            "forward_s": [p[0] for p in parts],
+            "backward_s": [p[1] for p in parts],
+            "optimizer_s": [p[2] for p in parts],
+            "grad_norm": float(metrics["grad_norm"]), "largest_k6": kept}
+
+
+def run_entry(device, tmp_root: Path) -> dict:
+    """Phase 7: ``launch.train`` at its default config (reduced
+    TRAIN_ARCH, as the CLI always trains) to ENTRY_RUN["first"] steps with
+    checkpoints, then asked for ENTRY_RUN["second"]: it must resume from
+    LATEST with the first run's final parameters bit for bit, and neither
+    run may restart (``RestartManager`` restarts on any exception, which
+    would hide a kernel fault)."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as LT
+    cfg = reduced(get_config(TRAIN_ARCH))
+    ckpt = Path(tempfile.mkdtemp(prefix="ckpt_", dir=tmp_root))
+    kw = dict(ckpt_dir=ckpt, save_every=ENTRY_RUN["save_every"],
+              log_every=1, device=device)
+    first = LT.train(cfg, steps=ENTRY_RUN["first"], **kw)
+    saved = {n: p.detach().clone() for n, p in first["state"].params.items()}
+    seen = {}
+    real = LT.restore_checkpoint
+
+    def spy(path, like):
+        out = real(path, like)
+        seen.update({n: p.detach().clone() for n, p in out.params.items()})
+        return out
+
+    LT.restore_checkpoint = spy
+    try:
+        second = LT.train(cfg, steps=ENTRY_RUN["second"], **kw)
+    finally:
+        LT.restore_checkpoint = real
+    check(first["restarts"] == 0 and second["restarts"] == 0,
+          f"restarts {first['restarts']}, {second['restarts']}: a step "
+          "raised inside RestartManager")
+    check(second["resumed_from"] == ENTRY_RUN["first"],
+          f"resumed from {second['resumed_from']}")
+    check(set(seen) == set(saved) and all(
+        torch.equal(seen[n], saved[n]) for n in saved),
+        "the restored parameters are not the saved ones bit for bit")
+    losses = first["losses"] + second["losses"]
+    check(len(losses) == ENTRY_RUN["second"] and all(
+        math.isfinite(x) for x in losses), f"losses {losses}")
+    check(second["last_saved_step"] == ENTRY_RUN["second"],
+          f"last save at {second['last_saved_step']}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"config": cfg.name, "losses": losses,
+            "resumed_from": second["resumed_from"],
+            "restarts": first["restarts"] + second["restarts"],
+            "params": sum(p.numel() for p in saved.values())}
+
+
+def _sdpa_bwd_ms(q, k, v, do, iters: int, **kw) -> float:
+    """The backward of one ``scaled_dot_product_attention`` call on the
+    same inputs in [B, H, S, D] (a yardstick only: the port never calls
+    it)."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+    dot = do.transpose(1, 2).contiguous()
+    ms = _sync_time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters)
+    del out
+    return ms
+
+
+def k6_record(q, k, v, o, do, lse, causal: bool, window: int,
+              iters: int) -> dict:
+    """Phase 8 for one K6 input: dq, dk and dv against the plain version
+    (fp32 math on the same bf16 inputs, one KV head's group at a time),
+    each within one bf16 ulp (``grad_ulp_close``); as a control that must
+    be rejected, K6 with the last key tile dropped; timed beside the plain
+    version, the backward of SDPA, K5 on the same q/k/v, and the bound."""
+    import torch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fb = importlib.import_module("repro_torch.kernels.flash_attention_bwd")
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, window=window)
+    got = fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    want = fb.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    err = max(grad_ulp_close(a, w) for a, w in zip(got, want))
+    cut = sk - 64
+    must_fail(f"K6 with keys {cut}-{sk - 1} dropped", lambda: grad_ulp_close(
+        fb.flash_attention_bwd_cuda(q, k[:, :cut].contiguous(),
+                                    v[:, :cut].contiguous(), o, do, lse,
+                                    **kw)[0], want[0]))
+    del got, want
+    pairs = _attended_pairs(sq, sk, causal, window) * b * h
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 10 * pairs * d / BF16_OPS_PER_S * 1e3
+    if window > 0:
+        pos = torch.arange(sq, device=q.device)
+        band = (pos[:, None] - pos[None, :] < window) \
+            & (pos[:, None] >= pos[None, :])
+        lib = _sdpa_bwd_ms(q, k, v, do, iters, attn_mask=band)
+    else:
+        lib = _sdpa_bwd_ms(q, k, v, do, iters, is_causal=causal)
+    return dict(
+        max_abs_err=err,
+        ms=_sync_time_ms(lambda: fb.flash_attention_bwd_cuda(
+            q, k, v, o, do, lse, **kw), iters),
+        plain_ms=_sync_time_ms(lambda: fb.flash_attention_bwd_plain(
+            q, k, v, o, do, lse, **kw), 1),
+        k5_ms=_sync_time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, **kw), iters),
+        bound_ms=max(t_b, t_o),
+        bound_by="bytes" if t_b >= t_o else "operations", library_ms=lib,
+        shape=(f"q/o/do [{b}, {sq}, {h}, {d}], k/v [{b}, {sk}, {hkv}, {d}] "
+               f"bf16, causal={causal}, window={window}, {pairs} attended "
+               f"pairs"))
+
+
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1273,6 +1642,126 @@ def main(argv=None) -> int:
     report["k5_window"] = replays["K5 window"]
     log(f"phase 5: {time.perf_counter() - t0:.1f} s; max_memory_allocated "
         f"since phase 4 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # phase 6: training at TRAIN_ARCH's full width (phase 4's pool is
+    # freed: the last references went with phase 5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6 = k6_wrapper()
+    every = {**wrappers, **attn, "K6": k6}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, run = build_train(dev, get_config(TRAIN_ARCH))
+    tcfg = model.cfg
+    n_params = sum(p.numel() for p in params.values())
+    log(f"phase 6: {tcfg.name} at full width ({tcfg.d_model} wide, "
+        f"{tcfg.num_heads} heads, {tcfg.num_kv_heads} KV heads of "
+        f"{tcfg.resolved_head_dim}, d_ff {tcfg.d_ff}, vocab "
+        f"{tcfg.vocab_size}) with {tcfg.num_layers} of 32 layers: "
+        f"{n_params / 1e9:.3f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    grad = grad_check(model, params, run)
+    grad["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"phase 6a: gradient check on 1 x {run['grad_seq']} tokens, K5/K6 "
+        f"against their plain versions: loss {grad['loss']:.6f} (off by "
+        f"{grad['loss_err']:.3g}, limit {LOSS_TOL}), the worst gradient "
+        f"{grad['worst_param']} off by {grad['grad_rel_err']:.3g} of its "
+        f"norm (limit {GRAD_RTOL}), {grad['seconds']:.1f} s, "
+        f"max_memory_allocated {grad['max_memory_allocated'] / 1e9:.2f} GB")
+    for fn in every.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train = train_run(model, params, run)
+    torch.cuda.synchronize()
+    train["launches"] = {k: fn.launches for k, fn in every.items()}
+    train["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    train["wall_s"] = time.perf_counter() - t0
+    largest_k6 = train.pop("largest_k6")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {"K5": 2 * tcfg.num_layers, "K6": tcfg.num_layers}
+    log(f"phase 6b: {run['steps']} steps of {run['batch']} x {run['seq']} "
+        f"tokens in {train['wall_s']:.1f} s: losses "
+        f"{[round(x, 4) for x in train['losses']]}, "
+        f"{train['tokens_per_s']:.1f} tokens/s over steps 2-{run['steps']}"
+        f", launches {train['launches']}, max_memory_allocated "
+        f"{train['max_memory_allocated'] / 1e9:.2f} GB")
+    log("  step seconds (wall / forward / backward / optimizer): " + "; ".join(
+        f"{w:.3f} / {f:.3f} / {b:.3f} / {o:.3f}" for w, f, b, o in zip(
+            train["step_s"], train["forward_s"], train["backward_s"],
+            train["optimizer_s"])))
+    for k, n in train["launches"].items():
+        want = per_step.get(k, 0) * run["steps"]
+        check(n == want, f"train: {k} launched {n} times, the path implies "
+                         f"{want}")
+    check(bool(largest_k6), "train: no K6 launch was kept")
+    runs["train"] = train
+    runs["grad_check"] = grad
+
+    # phase 7: the entry point at its default config, resumed
+    for fn in every.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    entry_root = ROOT / "build" / "smoke"
+    entry_root.mkdir(parents=True, exist_ok=True)
+    try:
+        entry = run_entry(dev, entry_root)
+    finally:
+        shutil.rmtree(entry_root, ignore_errors=True)
+    torch.cuda.synchronize()
+    entry["launches"] = {k: fn.launches for k, fn in every.items()}
+    entry["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    entry["wall_s"] = time.perf_counter() - t0
+    log(f"phase 7: launch.train ({entry['config']}, {entry['params']} "
+        f"parameters) to step {ENTRY_RUN['first']}, then resumed from step "
+        f"{entry['resumed_from']} to {ENTRY_RUN['second']} with the saved "
+        f"parameters bit for bit, restarts {entry['restarts']}, in "
+        f"{entry['wall_s']:.1f} s; losses "
+        f"{[round(x, 4) for x in entry['losses']]}; launches "
+        f"{entry['launches']}; max_memory_allocated "
+        f"{entry['max_memory_allocated'] / 1e9:.3f} GB")
+    for k in ("K5", "K6"):
+        check(entry["launches"][k] > 0, f"entry point: {k} never launched")
+    runs["entry"] = entry
+
+    # phase 8: K6 replays: the training launch and hymba-1.5b's window
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    wq, wk, wv = (torch.randn(
+        (1, 4096, n, wcfg.resolved_head_dim), generator=g, device=dev,
+        dtype=torch.bfloat16) for n in (wcfg.num_heads, wcfg.num_kv_heads,
+                                        wcfg.num_kv_heads))
+    wo, wlse = attn["K5"](wq, wk, wv, causal=True, window=wcfg.attn_window,
+                          return_lse=True)
+    wdo = torch.randn(wq.shape, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    k6_replays = {
+        "K6": k6_record(*largest_k6["args"], iters=3, **largest_k6["kw"]),
+        "K6 window": k6_record(wq, wk, wv, wo, wdo, wlse, True,
+                               wcfg.attn_window, iters=5),
+    }
+    del largest_k6, wq, wk, wv, wo, wdo, wlse
+    for key, r in k6_replays.items():
+        log(f"phase 8: {key}: max_abs_err {r['max_abs_err']:.3g} (dq, dk, "
+            f"dv within one bf16 ulp) | kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA backward {r['library_ms']:.4f} "
+            f"ms, K5 on the same q/k/v {r['k5_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['shape']}")
+    r = k6_replays["K6"]
+    shapes.append(r["shape"])
+    kernels.append({
+        "name": K6[0], "route": "cuda", "source": BWD_SOURCE,
+        "replaces": K6[1], "launches": train["launches"]["K6"],
+        "path": "train", "max_abs_err": max(
+            x["max_abs_err"] for x in k6_replays.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    report["k6_replays"] = k6_replays
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     if args.out is not None:
         report["kernels"] = [dict(x, shape=s)

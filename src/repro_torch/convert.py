@@ -1,6 +1,8 @@
 """Carry state from the JAX package into the port: an engine's window
-state (``engine_state_from_jax``) and a serving cache's KV pages
-(``tiered_kv_cache_from_jax``).
+state (``engine_state_from_jax``), a serving cache's KV pages
+(``tiered_kv_cache_from_jax``), and a model's parameters and a train state
+(``model_params_from_jax``, ``train_state_from_jax``; the reverse,
+``model_params_to_jax``, gives the JAX tree that checkpoints store).
 
 A streaming engine carries window state where a model carries weights.
 ``engine_state_from_jax(snap)`` takes the dict that the JAX package's
@@ -210,3 +212,95 @@ def tiered_kv_cache_from_jax(state: Dict[str, Any], *,
     cache.free_pages = free
     cache.stats = {k: int(v) for k, v in state["stats"].items()}
     return cache
+
+
+# ------------------------------------------------------------- training
+def _jax_key(name: str) -> tuple:
+    """A port parameter name -> (its JAX tree path, its layer or None):
+    ``layers.3.attn.q.w`` is layer 3 of ``layers/attn/q/w``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "/".join(["layers", *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
+def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flat(val, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
+def model_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX model's parameter tree (nested dicts of numpy arrays, as
+    ``np.asarray`` gives them; ``layers`` stacked on a leading axis) -> the
+    port's parameters by name (``Model.init``'s keys), as CPU tensors: the
+    stacked axis is split into ``layers.<i>.``, each array copied."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, arr in _flat(params).items():
+        arr = np.asarray(arr)
+        parts = key.split("/")
+        if parts[0] == "layers":
+            rest = ".".join(parts[1:])
+            for i in range(arr.shape[0]):
+                out[f"layers.{i}.{rest}"] = _host_tensor(arr[i])
+        else:
+            out[".".join(parts)] = _host_tensor(arr)
+    return out
+
+
+def model_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The reverse: the port's parameters by name -> the JAX tree of numpy
+    arrays, each layer's leaf stacked on a leading ``layers`` axis."""
+    flat: Dict[str, Any] = {}
+    layered: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, t in params.items():
+        key, layer = _jax_key(name)
+        arr = t.detach().cpu().numpy()
+        if layer is None:
+            flat[key] = arr
+        else:
+            layered.setdefault(key, {})[layer] = arr
+    for key, by_layer in layered.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{key}: layers {sorted(by_layer)} are not "
+                             "0..L-1")
+        flat[key] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    tree: Dict[str, Any] = {}
+    for key, arr in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree
+
+
+def train_state_from_jax(state: Any, device=None):
+    """A JAX ``TrainState`` (``params`` and ``opt`` = {``m``, ``v``,
+    ``step``}; attributes or mapping keys, arrays or numpy) -> the port's
+    ``TrainState`` on ``device`` (``None``: the card), parameters as leaf
+    tensors that require grad."""
+    from repro_torch._device import resolve_device
+    from repro_torch.train.train_step import TrainState
+
+    def get(obj, name):
+        return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+    def as_np(tree):
+        return {k: as_np(v) if isinstance(v, dict) else np.asarray(v)
+                for k, v in tree.items()}
+
+    dev = resolve_device(device)
+    opt = get(state, "opt")
+    params = {n: t.to(dev).requires_grad_(True) for n, t in
+              model_params_from_jax(as_np(get(state, "params"))).items()}
+    moments = {k: {n: t.to(dev) for n, t in
+                   model_params_from_jax(as_np(get(opt, k))).items()}
+               for k in ("m", "v")}
+    step = torch.as_tensor(np.array(get(opt, "step")), dtype=torch.int32,
+                           device=dev)
+    return TrainState(params=params, opt={**moments, "step": step})

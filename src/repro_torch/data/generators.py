@@ -93,3 +93,14 @@ class WorkloadGenerator:
 def make_generator(cfg: WorkloadConfig, seed: int = 0,
                    lateness_dist: str = "lnorm") -> WorkloadGenerator:
     return WorkloadGenerator(cfg, seed=seed, lateness_dist=lateness_dist)
+
+
+def token_batches(vocab_size: int, batch: int, seq_len: int, seed: int = 0
+                  ) -> Iterator[dict]:
+    """LM training batches (synthetic next-token data), the JAX package's
+    draws: ``default_rng(seed)`` gives both packages the same batches."""
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = rng.integers(0, vocab_size, (batch, seq_len + 1),
+                            dtype=np.int32)
+        yield {"tokens": toks[:, :-1], "targets": toks[:, 1:]}

@@ -53,6 +53,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P],
     },
+    "flash_attention_bwd.cu": {
+        # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, Sq, Sk, H,
+        # Hkv, D, causal, window, dtype, stream
+        "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
+    },
 }
 
 

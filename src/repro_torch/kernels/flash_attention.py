@@ -10,9 +10,13 @@ dtype, and the optional log-sum-exp [B*H, Sq] float32 flattened in
 q and k positions from 0 (so Sq != Sk works as in JAX); ``window > 0``
 keeps keys with ``q - k < window``.
 
-Both paths go through one ``torch.autograd.Function`` whose backward
-raises: the flash backward (K6) is not ported yet. The wrapper counts its
-launches in ``flash_attention_cuda.launches``.
+Both paths go through one ``torch.autograd.Function``, differentiable in
+q, k and v: its forward is K5 (keeping the log-sum-exp whenever a gradient
+may be asked for) and its backward the flash backward, K6
+(``kernels/flash_attention_bwd.py``), on the tensors' device: the CUDA
+kernels for CUDA tensors, the plain versions for CPU tensors, or the plain
+versions on any device where the caller asks for them (``plain``). The
+wrapper counts its launches in ``flash_attention_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ import torch
 
 # one source holds K4 and K5, instantiated for the same types and head dims
 from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention_bwd import (
+    flash_attention_bwd_cuda, flash_attention_bwd_plain,
+)
 from repro_torch.kernels.ref import ref_flash_attention
 
 
@@ -76,25 +83,35 @@ def _launch(q, k, v, causal: bool, window: int, return_lse: bool):
 
 
 class _FlashForward(torch.autograd.Function):
-    """The forward pass only: its backward (K6) is not ported yet."""
+    """K5 forward, K6 backward. It saves q, k, v, o and lse for the
+    backward; with ``plain`` both passes take the plain versions, on
+    whatever device the tensors are."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, return_lse):
-        if q.is_cuda:
-            o, lse = _launch(q, k, v, causal, window, return_lse)
+    def forward(ctx, q, k, v, causal, window, return_lse, plain):
+        want_lse = return_lse or any(ctx.needs_input_grad[:3])
+        if q.is_cuda and not plain:
+            o, lse = _launch(q, k, v, causal, window, want_lse)
         else:
             out = flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, return_lse=return_lse)
-            o, lse = out if return_lse else (out, None)
-        if lse is not None:
-            ctx.mark_non_differentiable(lse)
+                                        window=window, return_lse=want_lse)
+            o, lse = out if want_lse else (out, None)
+        ctx.causal, ctx.window, ctx.plain = causal, window, plain
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, o, lse)
+        if not return_lse:
+            return o, None
+        ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            "the flash-attention backward (K6, flash_attention_bwd_pallas) "
-            "is not ported to repro_torch yet")
+        q, k, v, o, lse = ctx.saved_tensors
+        fn = flash_attention_bwd_plain if ctx.plain \
+            else flash_attention_bwd_cuda
+        dq, dk, dv = fn(q, k, v, o, do.contiguous(), lse, causal=ctx.causal,
+                        window=ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,9 +121,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, float32 or bfloat16 -> o [B, Sq, H, D] in q's dtype (and
     lse [B*H, Sq] float32 with ``return_lse``), on the current stream. A
     CPU tensor takes ``flash_attention_plain``. A row with nothing to
-    attend to is NaN (its lse -inf)."""
+    attend to is NaN (its lse -inf). Differentiable in q, k and v through
+    K6 (``flash_attention_bwd_cuda``)."""
     o, lse = _FlashForward.apply(q, k, v, bool(causal), int(window),
-                                 bool(return_lse))
+                                 bool(return_lse), False)
     return (o, lse) if return_lse else o
 
 

@@ -24,7 +24,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_paged_cuda, decode_attention_paged_plain,
 )
 from repro_torch.kernels.flash_attention import (
-    flash_attention_cuda, flash_attention_plain,
+    _FlashForward, flash_attention_cuda, flash_attention_plain,
 )
 from repro_torch.kernels.segment_aggregate import (
     ALL_STATS, empty_batch_identity as _empty_batch_identity,
@@ -231,6 +231,30 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     if backend == "ref":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_vjp(q, k, v, causal: bool = True, window: int = 0,
+                        block_q: int = 512, block_k: int = 512,
+                        backend: str = "auto", device=None):
+    """Attention differentiable in q, k and v (K5 forward, K6 backward):
+    q [B, Sq, H, D], k/v [B, Sk, Hkv, D] -> [B, Sq, H, D], on k's device
+    (``device`` places array-likes; q or v on another device raises).
+    Neither pass materializes the [Sq, Sk] probabilities on the card.
+    ``backend="ref"`` takes both passes' plain versions on any device.
+
+    ``block_q`` and ``block_k`` are the JAX entry point's Pallas tile
+    sizes, accepted for signature parity and read by neither path: K5 and
+    K6 tile by their own 64 query rows x 64 keys, and the plain versions
+    do not tile. The JAX ``interpret`` argument (run the Pallas kernels in
+    the interpreter) has no counterpart: a CPU tensor takes the plain
+    versions, and a CUDA tensor the kernels."""
+    _check(backend, None)
+    dev = _kv_device(k, device)
+    k = _on(k, dev, "k")
+    q, v = _on(q, dev, "q"), _on(v, dev, "v")
+    o, _ = _FlashForward.apply(q, k, v, bool(causal), int(window), False,
+                               backend == "ref")
+    return o
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_table, seq_lens,

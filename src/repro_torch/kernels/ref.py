@@ -33,22 +33,25 @@ def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         return_lse: bool = False):
     """q [B, Sq, H, D]; k, v [B, Sk, Hkv, D] -> [B, Sq, H, D] in q's dtype.
-    Plain materialized softmax attention (fp32 math), one KV head's group
-    at a time so that the [G, Sq, Sk] scores of one group are the largest
-    temporary. A row with nothing to attend to is NaN.
+    Plain materialized softmax attention (fp32 math; float64 for float64
+    inputs, so that ``torch.autograd.gradcheck`` can hold a backward
+    against it), one KV head's group at a time so that the [G, Sq, Sk]
+    scores of one group are the largest temporary. A row with nothing to
+    attend to is NaN.
 
     ``return_lse`` also returns the log-sum-exp of each row's scaled,
-    masked scores, [B*H, Sq] float32 in (b, hkv, g) order: the layout the
-    kernel writes for its backward."""
+    masked scores, [B*H, Sq] float32 (float64 for float64 inputs) in
+    (b, hkv, g) order: the layout the kernel writes for its backward."""
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     g = h // hkv
-    qf = q.to(torch.float32).reshape(b, sq, hkv, g, d)
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(wide).reshape(b, sq, hkv, g, d)
+    kf = k.to(wide)
+    vf = v.to(wide)
     mask = _mask(sq, sk, causal, window, q.device)
-    o = torch.empty((b, sq, hkv, g, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, sq, hkv, g, d), dtype=wide, device=q.device)
+    lse = torch.empty((b, hkv, g, sq), dtype=wide, device=q.device)
     for j in range(hkv):
         s = torch.einsum("bqgd,bkd->bgqk", qf[:, :, j], kf[:, :, j]) \
             / math.sqrt(d)

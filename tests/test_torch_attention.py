@@ -127,14 +127,21 @@ def test_flash_attention_widths_come_from_the_configs():
     assert {sc.resolved_head_dim, hy.resolved_head_dim} <= set(HEAD_DIMS)
 
 
-def test_flash_attention_backward_raises():
-    """The flash backward (K6) comes with the training slice: calling
-    ``.backward`` through the forward raises instead of differentiating
-    the plain version."""
-    q = torch.randn(1, 64, 2, 32, requires_grad=True)
-    o = flash_attention_cuda(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="K6"):
-        o.sum().backward()
+def test_flash_attention_backward_holds_the_gradient():
+    """``.backward`` through the forward wrapper goes through K6 (its plain
+    version on the CPU) and gives the gradient of autograd through the
+    float32 oracle, GQA group sums included."""
+    rng = np.random.default_rng(4)
+    shapes = ((1, 64, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32))
+    arrays = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    got = torch.autograd.grad(flash_attention_cuda(*leaves).square().sum(),
+                              leaves)
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    want = torch.autograd.grad(
+        TR.ref_flash_attention(*leaves).square().sum(), leaves)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=F32, atol=F32)
 
 
 def test_flash_attention_block_sizes_are_not_read():
@@ -304,9 +311,12 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
     the build raises with the reason, never falls back."""
     from repro_torch.kernels import _build
     assert set(_build.SIGNATURES) == {"segment_aggregate.cu",
-                                      "attention.cu"}
+                                      "attention.cu",
+                                      "flash_attention_bwd.cu"}
     assert {"decode_attention_paged", "flash_attention_fwd"} == \
         set(_build.SIGNATURES["attention.cu"])
+    assert {"flash_attention_bwd"} == \
+        set(_build.SIGNATURES["flash_attention_bwd.cu"])
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_build, "BUILD_DIR",

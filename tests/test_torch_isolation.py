@@ -22,7 +22,14 @@ SLICE_MODULES = [
     "repro_torch.configs.base", "repro_torch.configs.starcoder2_7b",
     "repro_torch.configs.hymba_1_5b", "repro_torch.serve",
     "repro_torch.serve.kvcache", "repro_torch.serve.scheduler",
-    "repro_torch.convert",
+    "repro_torch.convert", "repro_torch.kernels.flash_attention_bwd",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.transformer",
+    "repro_torch.models.model", "repro_torch.train",
+    "repro_torch.train.optimizer", "repro_torch.train.train_step",
+    "repro_torch.train.checkpoint", "repro_torch.data.pipeline",
+    "repro_torch.distributed", "repro_torch.distributed.fault",
+    "repro_torch.launch", "repro_torch.launch.train",
 ]
 
 
