@@ -7,8 +7,8 @@ Phases (the first failed check exits non-zero, with no result line):
 
 0. The card's name and power limit, then the nvcc builds of the kernels
    (``src/repro_torch/kernels/csrc/{segment_aggregate,attention,
-   flash_attention_bwd}.cu`` for sm_90a, one nvcc per source, started
-   together).
+   flash_attention_bwd,ssd_scan}.cu`` for sm_90a, one nvcc per source,
+   started together).
 1. Aion's late-event loop: ``StreamEngine`` with the stock operator at the
    Table-1 deployment (10,000 events/s into 30 s tumbling windows,
    1,664-byte payloads, 128 keys, lognormal lateness from
@@ -85,13 +85,55 @@ Phases (the first failed check exits non-zero, with no result line):
    version, the backward of one ``scaled_dot_product_attention`` (a
    yardstick only), K5 on the same q/k/v and the bound.
 
+9. SSM serving at mamba2-780m's full width and depth
+   (``configs/mamba2_780m.py``: 48 layers, d_model 1,536, 48 SSD heads of
+   64, state 128, vocab 50,280, tied embeddings; fp32 parameters from a
+   seeded generator, bf16 compute), all on the card. 9a:
+   ``make_prefill_step`` on 4 x 32,768 tokens (the prefill_32k cell's
+   prompt, its batch of 32 cut to 4), K7 once per layer, then 32 steps
+   of ``make_decode_step``; then one prefill of 1 x 32,768 under
+   ``torch.profiler`` (device time by kernel, the device's busy share).
+   9b, in bf16 and again in float32 compute: prefill of 2 x 4,096 then
+   one ``decode_step`` against the last logits of the prefill of the
+   4,097 tokens; ``prefill_streaming`` of 1 x 16,384 in chunks of 4,096
+   (K7 carrying the state through ``init_state``) against the whole
+   prefill (logits, every layer's SSM state and conv tail); in float32,
+   1 x 4,096 in chunks of 256 against the whole, and the same with
+   ``init_state`` dropped on its last chunk (a control that must be
+   rejected; over a chunk of 4,096 the random model forgets a dropped
+   state). 9c: ``prefill_streaming`` of
+   1 x 131,072 tokens (long_500k's prompt cut to a quarter) in chunks of
+   4,096, then 16 decode steps.
+10. Hybrid serving at hymba-1.5b's full width and depth (32 layers,
+   d_model 1,600, 25 heads with 5 KV heads of 64, window 1,024, 50 SSD
+   heads of 64, state 16, d_ff 5,504): prefill of 4 x 4,096 tokens (K5
+   with the window, K7) and 32 decode steps through ``attn_decode``'s
+   ring, with the 16-bit cache, then with ``kv_cache_bits=8``, in float32
+   compute, and in float32 compute with ``kv_cache_bits=8``, all fed the
+   16-bit run's tokens: each int8 run's logits within the JAX int8
+   test's rule of its compute type's 16-bit run, and in float32 compute
+   (where only the quantization differs) its argmaxes agreeing on 99% and
+   every int8 K/V vector within half a quantization step of the float32
+   one (all layers after the prefill, layer 0 after decoding), with a
+   zeroed slot scale and decode writes one slot off as controls that
+   must be rejected; then prefill of 2 x 4,096 and one decode against
+   the prefill of 4,097 (4,096 is a multiple of the window: ROADMAP
+   Queue 3).
+11. K7 replays: its launch of 9a, one of 9c with a carried state, and
+   hymba's of phase 10, each with y within one bf16 ulp of the plain
+   version (tiled as K7 tiles) on the same bf16 inputs and the final
+   state within K7_STATE_RTOL, a control without the carried state
+   rejected, and timed beside the plain version and the bound (no single
+   PyTorch call computes the scan: no library time).
+
 Every attention output is held within one bf16 ulp of the plain
 version's (``attn_close``), the prefill's log-sum-exp within LSE_TOL. The
 kernels' launch counters are set to 0 just before each of phases 1, 2,
-4, 6b and 7 and read just after. A segment kernel's ``launches`` is its
-count in the run whose launch it replays (K1 and K2 the main run where
-they launched there, K3 the split-K run; ``launches_by_run`` gives both
-counts); K4's and K5's are their counts in phase 4, K6's in phase 6b. The
+4, 6b, 7, 9a, 9c and 10 and read just after. A segment kernel's
+``launches`` is its count in the run whose launch it replays (K1 and K2
+the main run where they launched there, K3 the split-K run;
+``launches_by_run`` gives both counts); K4's and K5's are their counts in
+phase 4, K6's in phase 6b, K7's in phase 9a. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -1437,6 +1479,769 @@ def k6_record(q, k, v, o, do, lse, causal: bool, window: int,
                f"pairs"))
 
 
+# --------------------------------------------------------------- phases 9-11
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "hymba-1.5b"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+#: K7: its name, and the TPU kernel it replaces
+K7 = ("ssd_scan (K7, SSD chunk scan)", "src/repro/kernels/ssd_scan.py:66")
+#: phase 9: SSM_ARCH at full width and depth. 9a: the prefill_32k cell's
+#: prompt length with its batch of 32 cut to 4, then 32 decode steps; 9b:
+#: prefill + one decode against a longer prefill, and a streaming prefill
+#: in chunks of ``chunk`` against the whole one; 9c: long_500k's prompt cut
+#: to a quarter, streamed, then 16 decode steps
+SSM_RUN = dict(batch=4, seq=32768, decode=32, check_batch=2,
+               check_seq=4096, stream_seq=16384, chunk=4096,
+               control_seq=4096, control_chunk=256, long_seq=131072,
+               long_decode=16)
+#: phase 10: HYBRID_ARCH at full width and depth: 4 prompts of 4,096
+#: tokens (a multiple of its 1,024 window, so that the ring is aligned:
+#: ROADMAP Queue 3), 32 decode steps with the 16-bit and the int8 cache,
+#: and prefill + one decode of 2 x 4,096 against a prefill of 4,097
+HYBRID_RUN = dict(batch=4, seq=4096, decode=32, check_batch=2)
+#: prefill + decode, and the streaming prefill, against the whole prefill,
+#: by compute type: the logits' largest difference within ``logits`` (and
+#: in float32 their argmax equal); every layer's SSM state within
+#: ``state`` of its largest |value| and its conv tail within ``conv``. In
+#: bf16 two prefills that differ only in the order of their sums (cuBLAS
+#: on 16,384 rows or on 4,096) part by as much as a dropped state moves
+#: them after 48 layers (readings 0.1493 and 0.1685 in the logits, 7.8%
+#: in a state, 0.156 in a conv tail), and rounding alone flips the argmax
+#: of 8% of this random model's decode positions (phase 10: its top two
+#: logits over 32,001 tokens lie about 0.2 apart): the bf16 limits are
+#: about three times those readings, with no argmax check, and the
+#: argmax checks and the control that must be rejected run in float32
+#: compute, where the same readings are 2.8e-5 in the logits.
+LIMITS = {"bfloat16": dict(logits=0.5, state=0.25, conv=0.5, argmax=False),
+          "float32": dict(logits=1e-2, state=1e-3, conv=1e-3, argmax=True)}
+#: K7's final state against the plain version's on the same inputs,
+#: relative to its largest |value|
+K7_STATE_RTOL = 1e-4
+#: the int8 cache's decode logits against the 16-bit cache's, by the JAX
+#: int8 test's rules (``test_models_smoke.py``): every logit within
+#: INT8_ATOL + INT8_RTOL x |logit|, and the argmaxes equal on INT8_AGREE
+#: of the positions. The argmax rule holds in float32 compute (the
+#: 16-bit cache float32 there), where only the quantization differs: in
+#: bf16, rounding alone flips 8% of this random model's argmaxes
+#: (PERF.md, PR 14)
+INT8_ATOL = 0.35
+INT8_RTOL = 0.1
+INT8_AGREE = 0.99
+#: each int8 K/V vector, dequantized, against the same vector unquantized
+#: (float32 compute): within half a quantization step (its scale), with
+#: room for float32's rounding of x / scale and q x scale
+INT8_STEP = 0.5 + 1e-3
+
+
+def k7_wrapper():
+    return importlib.import_module(
+        "repro_torch.kernels.ssd_scan").ssd_scan_cuda
+
+
+class K7Tap:
+    """While entered, each call of K7's wrapper from ``models/ssm.py`` goes
+    through ``fn(call_index, wrapper, *args, **kw)``. The name is replaced
+    in ``models/ssm.py``, which calls it, so the wrapper's own launch
+    count is untouched."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = 0
+
+    def __enter__(self):
+        self.mod = importlib.import_module("repro_torch.models.ssm")
+        self.orig = self.mod.ssd_scan_cuda
+
+        def tapped(*args, **kw):
+            i = self.calls
+            self.calls += 1
+            return self.fn(i, self.orig, *args, **kw)
+
+        self.mod.ssd_scan_cuda = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ssd_scan_cuda = self.orig
+        return False
+
+
+class K7Timer(K7Tap):
+    """Counts the calls and, on the card, keeps the device milliseconds of
+    every call (CUDA events)."""
+
+    def __init__(self):
+        super().__init__(self._call)
+        self.events = []
+
+    def _call(self, i, fn, *args, **kw):
+        import torch
+        if not args[0].is_cuda:
+            return fn(*args, **kw)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*args, **kw)
+        ev[1].record()
+        self.events.append(ev)
+        return out
+
+    def ms(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class _Kept(Exception):
+    """Ends the run of ``kept_launch`` at the launch it keeps."""
+
+
+def kept_launch(run, keep: int = 0) -> dict:
+    """The inputs (copies, by parameter name) of call ``keep`` of K7's
+    wrapper in ``run()``, which ends right there. Run apart from the timed
+    and counted runs, so that the copy weighs on none of their times,
+    launches or ``max_memory_allocated``; the path is deterministic, so
+    its inputs are the same as theirs."""
+    import inspect
+    import torch
+    kept = {}
+
+    def take(i, fn, *args, **kw):
+        if i < keep:
+            return fn(*args, **kw)
+        a = inspect.signature(fn).bind(*args, **kw)
+        a.apply_defaults()
+        kept.update({k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in a.arguments.items()})
+        raise _Kept
+
+    try:
+        with K7Tap(take):
+            run()
+    except _Kept:
+        return kept
+    raise SmokeFailure(f"K7's wrapper was called fewer than {keep + 1} "
+                       "times")
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _prompt(cfg, b: int, s: int, seed: int, device):
+    """Prompt tokens from ``default_rng(seed)``."""
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)), dtype=torch.int32, device=device)
+
+
+def build_serve(device, cfg, seed: int, **kw):
+    """``cfg``'s model on ``device`` with fp32 parameters from a generator
+    seeded with ``seed``."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg, device=device, **kw)
+    return model, model.init(torch.Generator(device).manual_seed(seed))
+
+
+def decode_loop(step, params, tok, cache, n: int):
+    """``n`` greedy steps from ``tok``. Returns the outputs and the
+    cache."""
+    out = []
+    for _ in range(n):
+        tok, cache = step(params, tok, cache)
+        out.append(tok)
+    return out, cache
+
+
+def ssm_serve(model, params, run: dict, seed: int) -> dict:
+    """9a: ``make_prefill_step`` on run's batch x seq tokens, then its
+    decode steps through ``make_decode_step``; the device time of K7's
+    launches summed."""
+    import torch
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    cfg, dev = model.cfg, model.device
+    b, s, n = run["batch"], run["seq"], run["decode"]
+    toks = _prompt(cfg, b, s, seed, dev)
+    prefill = make_prefill_step(model, max_len=s + n)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with K7Timer() as timer:
+        tok, cache = prefill(params, {"tokens": toks})
+        _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, cache = decode_loop(make_decode_step(model), params, tok, cache, n)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    ids = torch.cat([tok, *out], dim=1)
+    check(tuple(ids.shape) == (b, n + 1) and bool((ids >= 0).all())
+          and bool((ids < cfg.vocab_size).all()),
+          "9a: generated ids outside the vocabulary")
+    check(bool(torch.isfinite(cache["layers"]["ssm"]).all()),
+          "9a: non-finite SSM state")
+    check(int(cache["pos"]) == s + n, "9a: the cache's position is off")
+    return dict(prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
+                decode_s=decode_s, decode_tokens_per_s=b * n / decode_s,
+                k7_calls=timer.calls,
+                k7_ms=timer.ms() if dev.type == "cuda" else None,
+                sample=ids[0, :16].tolist(),
+                largest=lambda: kept_launch(lambda: prefill(
+                    params, {"tokens": toks})))
+
+
+def logits_close(got, want, vocab: int, dtype: str) -> float:
+    """The largest logit difference within the limit of ``dtype`` (the
+    compute type), and in float32 the same argmax in every row. Returns
+    that difference."""
+    import torch
+    lim = LIMITS[dtype]
+    a, b = got[..., :vocab].float(), want[..., :vocab].float()
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          f"logits: shape {tuple(a.shape)} / {tuple(b.shape)} or not finite")
+    err = float((a - b).abs().max())
+    same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    check((same or not lim["argmax"]) and err <= lim["logits"],
+          f"logits ({dtype}): argmax equal {same}, max error {err} (limit "
+          f"{lim['logits']})")
+    return err
+
+
+def cache_diff(got: dict, want: dict) -> dict:
+    """The worst layer's SSM state difference over its largest |value|,
+    and the worst conv tail difference."""
+    worst = {"ssm": 0.0, "conv": 0.0}
+    for name in ("ssm", "conv_x", "conv_b", "conv_c"):
+        a, b = got[name].float(), want[name].float()
+        check(a.shape == b.shape, f"{name}: shape differs")
+        key = "ssm" if name == "ssm" else "conv"
+        for i in range(a.shape[0]):
+            d = float((a[i] - b[i]).abs().max())
+            if name == "ssm":
+                d /= max(float(b[i].abs().max()), 1e-30)
+            worst[key] = max(worst[key], d)
+    return worst
+
+
+def float32_twin(model, **kw):
+    """``model``'s config in float32 compute, on its device (``kw`` to
+    ``build_model``): the same parameters run through it."""
+    from repro_torch.models import build_model
+    return build_model(dataclasses.replace(model.cfg,
+                                           compute_dtype="float32"),
+                       device=model.device, **kw)
+
+
+def prefill_then_decode(model, params, b: int, s: int, seed: int) -> dict:
+    """Prefill of b x s tokens, one decode step of token s + 1, against
+    the last logits of the prefill of all s + 1 tokens, in the model's
+    compute type and in float32, each within its limits. Returns the
+    largest logit difference by compute type."""
+    r = {}
+    for m in (model, float32_twin(model)):
+        v, dt = m.cfg.vocab_size, m.cfg.compute_dtype
+        toks = _prompt(m.cfg, b, s + 1, seed, m.device)
+        whole, _ = m.prefill(params, {"tokens": toks}, max_len=s + 2)
+        _, cache = m.prefill(params, {"tokens": toks[:, :s]},
+                             max_len=s + 1)
+        got, _ = m.decode_step(params, toks[:, s:], cache)
+        err = float((got - whole)[..., :v].abs().max())
+        same = bool((got[..., :v].argmax(-1)
+                     == whole[..., :v].argmax(-1)).all())
+        log(f"  prefill {b} x {s} + one decode against the prefill of "
+            f"{s + 1} ({dt}): max logit error {err:.4g} (|logits| up to "
+            f"{float(whole[..., :v].abs().max()):.3g}), argmax equal {same}")
+        r[dt] = logits_close(got, whole, v, dt)
+    return r
+
+
+
+def stream_close(model, got, want) -> dict:
+    """A streaming prefill's (logits, cache) against the whole prefill's,
+    within the limits of the model's compute type. Returns the
+    readings."""
+    v = model.cfg.vocab_size
+    lim = LIMITS[model.cfg.compute_dtype]
+    err = float((got[0] - want[0])[..., :v].abs().max())
+    worst = cache_diff(got[1]["layers"], want[1]["layers"])
+    log(f"    {model.cfg.compute_dtype}: max logit error {err:.4g}, SSM "
+        f"states {worst['ssm']:.3g} of their largest |value|, conv tails "
+        f"{worst['conv']:.3g}")
+    logits_close(got[0], want[0], v, model.cfg.compute_dtype)
+    check(worst["ssm"] <= lim["state"] and worst["conv"] <= lim["conv"],
+          f"cache: SSM state off by {worst['ssm']:.3g} (limit "
+          f"{lim['state']}), conv tails by {worst['conv']:.3g} (limit "
+          f"{lim['conv']})")
+    return dict(logits=err, **worst)
+
+
+def ssm_checks(model, params, run: dict, seed: int) -> dict:
+    """9b, in the model's bf16 and again in float32 compute (the same
+    parameters): prefill + decode against the longer prefill, and the
+    streaming prefill against the whole one (logits, every layer's SSM
+    state and conv tail). Then, in float32, the streaming prefill of
+    ``control_seq`` tokens in chunks of ``control_chunk`` against the
+    whole, and as a control that must be rejected the same with K7's
+    ``init_state`` dropped on its last chunk's first layer. (Over a chunk
+    of 4,096 tokens the random model's slowest heads decay by exp(-8) or
+    more, so a state dropped there leaves the last logits and states as
+    they were: the control needs a chunk short enough for a state to
+    outlive it.)"""
+    cfg, dev = model.cfg, model.device
+    wide = float32_twin(model)
+    r = {"decode": prefill_then_decode(model, params, run["check_batch"],
+                                       run["check_seq"], seed)}
+
+    def stream(m, s: int, chunk: int, toks, tag: str, drop=None):
+        log(f"  streaming prefill of 1 x {s} in chunks of {chunk} against "
+            "the whole:")
+        whole = m.prefill(params, {"tokens": toks}, max_len=s + 1)
+        got = m.prefill_streaming(params, {"tokens": toks}, chunk=chunk)
+        r[tag] = stream_close(m, got, whole)
+        if drop is None:
+            return
+
+        def dropped(i, fn, *args, **kw):
+            if i == drop:
+                kw["init_state"] = None
+            return fn(*args, **kw)
+
+        with K7Tap(dropped):
+            got = m.prefill_streaming(params, {"tokens": toks}, chunk=chunk)
+        must_fail(f"the {m.cfg.compute_dtype} streaming prefill with K7's "
+                  f"init_state dropped on its last chunk, layer 0",
+                  lambda: stream_close(m, got, whole))
+
+    s, chunk = run["stream_seq"], run["chunk"]
+    toks = _prompt(cfg, 1, s, seed + 1, dev)
+    for m in (model, wide):
+        stream(m, s, chunk, toks, f"stream_{m.cfg.compute_dtype}")
+    s, chunk = run["control_seq"], run["control_chunk"]
+    stream(wide, s, chunk, _prompt(cfg, 1, s, seed + 2, dev),
+           "stream_short_float32",
+           drop=(s // chunk - 1) * cfg.num_layers)
+    return r
+
+
+def ssm_long(model, params, run: dict, seed: int) -> dict:
+    """9c: ``prefill_streaming`` of 1 x long_seq tokens in chunks, then
+    greedy decode steps. ``kept`` takes K7's launch of the second chunk's
+    first layer (a carried state) for phase 11."""
+    import torch
+    from repro_torch.serve import make_decode_step
+    cfg, dev = model.cfg, model.device
+    s, chunk, n = run["long_seq"], run["chunk"], run["long_decode"]
+    toks = _prompt(cfg, 1, s, seed, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with K7Timer() as timer:
+        logits, cache = model.prefill_streaming(params, {"tokens": toks},
+                                                chunk=chunk)
+        _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    t0 = time.perf_counter()
+    out, cache = decode_loop(make_decode_step(model), params, tok, cache, n)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(cache["layers"]["ssm"]).all())
+          and int(cache["pos"]) == s + n, "9c: bad cache after decoding")
+    return dict(prefill_s=prefill_s, prefill_tokens_per_s=s / prefill_s,
+                decode_s=decode_s, decode_tokens_per_s=n / decode_s,
+                k7_calls=timer.calls,
+                kept=lambda: kept_launch(lambda: model.prefill_streaming(
+                    params, {"tokens": toks}, chunk=chunk),
+                    keep=cfg.num_layers))
+
+
+def int8_ring_close(c8: dict, ref: dict, what: str) -> float:
+    """Every K/V vector of an int8 cache (``c8``: k, v and their scales),
+    dequantized, within INT8_STEP quantization steps of the same vector
+    unquantized in ``ref``: each ring slot written where it should be,
+    each with its scale. Returns the largest error, in steps."""
+    worst = 0.0
+    for name in ("k", "v"):
+        q, sc = c8[name], c8[name + "_scale"].float()[..., None]
+        want = ref[name].float()
+        check(q.shape == want.shape, f"{what}: {name} shape differs")
+        err = float(((q.float() * sc - want).abs() / sc).max())
+        check(err <= INT8_STEP, f"{what}: an int8 {name} vector {err:.4g} "
+                                f"quantization steps from the unquantized "
+                                f"one (limit {INT8_STEP})")
+        worst = max(worst, err)
+    return worst
+
+
+def hybrid_serve(device, cfg, run: dict, seed: int) -> dict:
+    """Phase 10: prefill (``make_prefill_step``) of batch x seq tokens and
+    greedy decode steps (``Model.decode_step``, its logits kept) with the
+    16-bit cache; then the same prompts with ``kv_cache_bits=8``, in
+    float32 compute, and in float32 compute with ``kv_cache_bits=8`` (the
+    same parameters), each of their steps fed the 16-bit run's token.
+    The int8 runs' logits stay within the JAX int8 test's rule of their
+    compute type's unquantized run's (INT8_ATOL + INT8_RTOL x |logit|);
+    in float32 compute their argmaxes agree on INT8_AGREE of the
+    positions, and every int8 K/V vector lies within half a quantization
+    step of the float32 run's: all layers after the prefill, layer 0
+    (whose K/V depend on the token alone) after the decode steps. Two
+    controls must be rejected there: a ring slot's k_scale zeroed, and
+    every decode step's K/V written one slot off. Returns the runs'
+    records, the model and its parameters, and ``largest`` (a call that
+    takes K7's first launch of the 16-bit prefill, for phase 11)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.serve import make_prefill_step
+    model, params = build_serve(device, cfg, seed)
+    b, s, n = run["batch"], run["seq"], run["decode"]
+    v = cfg.vocab_size
+    toks = _prompt(cfg, b, s, seed + 1, device)
+    r = {"model": model, "params": params}
+    gen, logits, ring = {}, {}, {}
+    kv = ("k", "v", "k_scale", "v_scale")
+    for tag, m in (("bf16", model),
+                   ("int8", build_model(cfg, kv_cache_bits=8,
+                                        device=device)),
+                   ("fp32", float32_twin(model)),
+                   ("fp32_int8", float32_twin(model, kv_cache_bits=8))):
+        _sync(device)
+        t0 = time.perf_counter()
+        tok, cache = make_prefill_step(m, max_len=s + n)(
+            params, {"tokens": toks})
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        cl = cache["layers"]
+        check(cl["k"].dtype == (torch.int8 if "int8" in tag
+                                else dtype_of(m.cfg.compute_dtype))
+              and cl["k"].shape[2] == min(s + n, cfg.attn_window),
+              f"hybrid: the {tag} cache is not the window's ring")
+        if tag == "fp32":
+            ring["prefill"] = {k: cl[k].clone() for k in ("k", "v")}
+        if tag == "fp32_int8":
+            ring["int8_prefill"] = int8_ring_close(
+                cl, ring["prefill"], "hybrid: the int8 prefill's ring")
+            bad = dict(cl, k_scale=cl["k_scale"].clone())
+            slot, layer = cl["k"].shape[2] // 3, cfg.num_layers // 2
+            bad["k_scale"][layer, :, slot] = 0
+            must_fail(f"the int8 prefill's ring with slot {slot}'s k_scale "
+                      f"zeroed in layer {layer}",
+                      lambda: int8_ring_close(bad, ring["prefill"],
+                                              "the int8 ring"))
+            del bad, ring["prefill"]
+            first = {k: cl[k][0].clone() for k in kv}
+        t0 = time.perf_counter()
+        gen[tag], logits[tag] = [tok], []
+        for i in range(n):
+            inp = tok if tag == "bf16" else gen["bf16"][i]
+            out, cache = m.decode_step(params, inp, cache)
+            tok = torch.argmax(out, dim=-1).to(torch.int32)
+            gen[tag].append(tok)
+            logits[tag].append(out[:, 0, :v].float())
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+        r[tag] = dict(prefill_s=prefill_s,
+                      prefill_tokens_per_s=b * s / prefill_s,
+                      decode_s=decode_s, decode_tokens_per_s=b * n / decode_s)
+        cl = cache["layers"]
+        if tag == "fp32":
+            ring["decode"] = {k: cl[k][0].clone() for k in ("k", "v")}
+        if tag == "fp32_int8":
+            last = {k: cl[k][0] for k in kv}
+            ring["int8_decode"] = int8_ring_close(
+                last, ring["decode"], "hybrid: layer 0's int8 ring after "
+                                      "decoding")
+            w0 = s % cfg.attn_window
+            off = {}
+            for k, t in last.items():
+                off[k] = t.clone()
+                off[k][:, w0 + 1:w0 + n + 1] = t[:, w0:w0 + n]
+                off[k][:, w0] = first[k][:, w0]
+            must_fail("layer 0's int8 ring with every decode step written "
+                      "one slot off", lambda: int8_ring_close(
+                          off, ring["decode"], "the int8 ring"))
+        del cache, cl
+    for ref, tag in (("bf16", "int8"), ("fp32", "fp32_int8")):
+        check(torch.equal(gen[ref][0], gen[tag][0]),
+              f"hybrid: the {tag} prefill's token differs from the {ref} "
+              "one's (its prefill attends the unquantized K/V)")
+    pairs = {"int8": "bf16", "fp32": "bf16", "fp32_int8": "fp32"}
+    for tag, ref in pairs.items():
+        want = torch.stack(logits[ref])
+        diff = (torch.stack(logits[tag]) - want).abs()
+        r[tag].update(
+            against=ref,
+            agree=float((torch.cat(gen[tag][1:], dim=1)
+                         == torch.cat(gen[ref][1:], dim=1)).float().mean()),
+            max_logit_diff=float(diff.max()),
+            outside_jax_rule=int((diff > INT8_ATOL + INT8_RTOL
+                                  * want.abs()).sum()))
+        log(f"  {tag} against {ref} over {b} x {n} decode logits: argmaxes "
+            f"agree on {r[tag]['agree']:.4f}, max logit difference "
+            f"{r[tag]['max_logit_diff']:.4g}, {r[tag]['outside_jax_rule']} "
+            f"logits outside {INT8_ATOL} + {INT8_RTOL} x |logit|")
+    log(f"  the float32 int8 ring within {ring['int8_prefill']:.4g} "
+        f"quantization steps after the prefill (all layers) and "
+        f"{ring['int8_decode']:.4g} after decoding (layer 0); limit "
+        f"{INT8_STEP}")
+    for tag in ("int8", "fp32_int8"):
+        check(r[tag]["outside_jax_rule"] == 0,
+              f"hybrid: {tag} logits outside the JAX int8 test's rule")
+    check(r["fp32_int8"]["agree"] >= INT8_AGREE,
+          f"hybrid: the float32 int8 run's argmaxes agree on "
+          f"{r['fp32_int8']['agree']:.4f} (limit {INT8_AGREE})")
+    r["int8_ring_steps"] = {k: ring[k] for k in ("int8_prefill",
+                                                 "int8_decode")}
+    r["largest"] = lambda: kept_launch(lambda: make_prefill_step(
+        model, max_len=s + n)(params, {"tokens": toks}))
+    return r
+
+
+def k7_bound(b: int, s: int, h: int, p: int, n: int, elt: int,
+             with_state: bool):
+    """(bound ms, what bounds it): the larger of the bytes K7 must move
+    (xdt and y of ``elt`` bytes, a fp32, B and C, the states) over the
+    HBM rate, and the chunked algorithm's operations at the model's chunk
+    of 256 (scores 2 Q^2 n, the causal intra-chunk product Q (Q + 1) h p,
+    the inter-chunk term and the state update 4 Q h p n, per chunk and
+    batch row) over the bf16 tensor-core rate."""
+    nbytes = (2 * b * s * h * p * elt + 4 * b * s * h + 2 * b * s * n * elt
+              + 4 * b * h * p * n * (2 if with_state else 1))
+    ops = 0
+    for c0 in range(0, s, 256):
+        q = min(256, s - c0)
+        ops += 2 * q * q * n + q * (q + 1) * h * p + 4 * q * h * p * n
+    ops *= b
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / BF16_OPS_PER_S * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def k7_record(args: dict, iters: int) -> dict:
+    """Phase 11 for one K7 launch: y within one bf16 ulp of the plain
+    version's (tiled as K7 tiles) on the same bf16 inputs
+    (``attn_close``), the final state within K7_STATE_RTOL of its largest
+    |value|; as a control that must be rejected, the launch without the
+    state its inputs carry (with ``init_state`` dropped, or over the
+    second half alone); timed beside the plain version at the model's
+    chunk of 256, and the bound."""
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    xdt, a, B, C = (args[k] for k in ("xdt", "a", "B", "C"))
+    h0 = args["init_state"]
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0)
+    # tiled by the model's 256 instead, the plain version sums in another
+    # order, and where y cancels that order moved a bf16 output of 9a's
+    # launch by 1.5 ulps
+    ry, rst = ss.ssd_scan_plain(xdt, a, B, C, chunk=ss.KERNEL_CHUNK,
+                                init_state=h0)
+    st_err = float((st - rst).abs().max()) / max(float(rst.abs().max()),
+                                                 1e-30)
+    log(f"  K7 on xdt {tuple(xdt.shape)}: max |y - plain| "
+        f"{float((y.float() - ry.float()).abs().max()):.3g}, final state "
+        f"{st_err:.3g} of its largest |value|")
+    err = attn_close(y, ry)
+    check(st_err <= K7_STATE_RTOL, f"K7 final state off by {st_err:.3g} of "
+                                   f"its largest |value| (limit "
+                                   f"{K7_STATE_RTOL})")
+    if h0 is not None:
+        must_fail("K7 with its init_state dropped", lambda: attn_close(
+            ss.ssd_scan_cuda(xdt, a, B, C)[0], ry))
+    else:
+        half = s // 2
+        must_fail(f"K7 on tokens {half}-{s - 1} without the state of the "
+                  f"tokens before", lambda: attn_close(
+                      ss.ssd_scan_cuda(*(t[:, half:].contiguous()
+                                         for t in (xdt, a, B, C)))[0],
+                      ry[:, half:]))
+    del y, st, ry, rst
+    bound, by = k7_bound(b, s, h, p, n, xdt.element_size(), h0 is not None)
+    return dict(
+        max_abs_err=err, state_err=st_err,
+        ms=_sync_time_ms(lambda: ss.ssd_scan_cuda(xdt, a, B, C,
+                                                  init_state=h0), iters),
+        plain_ms=_sync_time_ms(lambda: ss.ssd_scan_plain(
+            xdt, a, B, C, chunk=256, init_state=h0), 1),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=(f"xdt [{b}, {s}, {h}, {p}] {str(xdt.dtype)[6:]}, a "
+               f"[{b}, {s}, {h}] fp32, B/C [{b}, {s}, {n}], init_state "
+               f"{'carried' if h0 is not None else 'none'}"))
+
+
+def profile_prefill(model, params, b: int, s: int, seed: int) -> None:
+    """One prefill of b x s tokens under ``torch.profiler``;
+    prints the device time by kernel (the ten largest) and the share of
+    the wall time the device was busy by the sum of the kernels' times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    toks = _prompt(model.cfg, b, s, seed, model.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, max_len=s + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    if not rows:
+        log("  profile: the profiler recorded no device time")
+        return
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"  profile: prefill {b} x {s} in {wall:.3f} s (profiled), device "
+        f"busy {busy:.3f} s ({100 * busy / wall:.1f}%) by the kernels' "
+        "summed self time")
+    for us, count, key in rows[:12]:
+        log(f"    {us / 1e3:10.2f} ms  x{count:<5d} {key[:90]}")
+
+
+def serve_ssm(dev, every: dict) -> dict:
+    """Phases 9-11 on the card: mamba2-780m's serving runs and checks,
+    hymba-1.5b's, and K7's replays. ``every`` holds the other kernels'
+    wrappers, whose counters must stay at 0 on these paths. Returns K7's
+    line of the kernels' JSON, its replay's shape, the runs' records and
+    the replays."""
+    import torch
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = {**every, "K7": k7_wrapper()}
+    runs = {}
+    # phase 9: SSM serving at SSM_ARCH's full width and depth
+    t0 = time.perf_counter()
+    scfg = get_config(SSM_ARCH)
+    model, params = build_serve(dev, scfg, SEED + 9)
+    n_params = sum(p.numel() for p in params.values())
+    ssd_heads = scfg.ssm.expand * scfg.d_model // scfg.ssm.head_dim
+    log(f"phase 9: {scfg.name} at full width and depth ({scfg.num_layers} "
+        f"layers, d_model {scfg.d_model}, {ssd_heads} SSD heads of "
+        f"{scfg.ssm.head_dim}, state {scfg.ssm.state_size}, "
+        f"vocab {scfg.vocab_size}): {n_params / 1e6:.1f} M parameters, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    for fn in every.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ssm = ssm_serve(model, params, SSM_RUN, SEED + 10)
+    torch.cuda.synchronize()
+    ssm["launches"] = {k: fn.launches for k, fn in every.items()}
+    ssm["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    largest_9a = ssm.pop("largest")()
+    run = SSM_RUN
+    log(f"phase 9a: prefill {run['batch']} x {run['seq']} in "
+        f"{ssm['prefill_s']:.3f} s ({ssm['prefill_tokens_per_s']:.1f} "
+        f"tokens/s; K7 {ssm['k7_ms']:.1f} ms of it over "
+        f"{ssm['k7_calls']} launches), {run['decode']} decode steps in "
+        f"{ssm['decode_s']:.3f} s ({ssm['decode_tokens_per_s']:.1f} "
+        f"tokens/s); launches {ssm['launches']}; max_memory_allocated "
+        f"{ssm['max_memory_allocated'] / 1e9:.2f} GB; sample ids "
+        f"{ssm['sample']}")
+    for k, n in ssm["launches"].items():
+        want = scfg.num_layers if k == "K7" else 0
+        check(n == want, f"9a: {k} launched {n} times, the path implies "
+                         f"{want}")
+    profile_prefill(model, params, 1, run["seq"], SEED + 10)
+    t0 = time.perf_counter()
+    log("phase 9b: checks against the whole prefill (limits: argmax equal, "
+        f"and by compute type {LIMITS})")
+    ssm["checks"] = ssm_checks(model, params, SSM_RUN, SEED + 11)
+    log(f"phase 9b: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in every.values():
+        fn.launches = 0
+    long = ssm_long(model, params, SSM_RUN, SEED + 12)
+    long["launches"] = {k: fn.launches for k, fn in every.items()}
+    long["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    kept_9c = long.pop("kept")()
+    check(float(kept_9c["init_state"].abs().max()) > 0,
+          "9c: the kept launch carries no state")
+    log(f"phase 9c: prefill_streaming of 1 x {run['long_seq']} in chunks of "
+        f"{run['chunk']} in {long['prefill_s']:.3f} s "
+        f"({long['prefill_tokens_per_s']:.1f} tokens/s), "
+        f"{run['long_decode']} decode steps in {long['decode_s']:.3f} s "
+        f"({long['decode_tokens_per_s']:.1f} tokens/s); launches "
+        f"{long['launches']}; max_memory_allocated "
+        f"{long['max_memory_allocated'] / 1e9:.2f} GB")
+    check(long["launches"]["K7"] == scfg.num_layers * (
+        run["long_seq"] // run["chunk"]), "9c: K7 launches differ from one "
+                                          "per layer and chunk")
+    runs["ssm"], runs["ssm_long"] = ssm, long
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 10: hybrid serving at HYBRID_ARCH's full width and depth
+    t0 = time.perf_counter()
+    hcfg = get_config(HYBRID_ARCH)
+    for fn in every.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    hyb = hybrid_serve(dev, hcfg, HYBRID_RUN, SEED + 13)
+    torch.cuda.synchronize()
+    hyb["launches"] = {k: fn.launches for k, fn in every.items()}
+    hyb["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    hmodel, hparams = hyb.pop("model"), hyb.pop("params")
+    largest_10 = hyb.pop("largest")()
+    run = HYBRID_RUN
+    log(f"phase 10: {hcfg.name} ({hcfg.num_layers} layers, "
+        f"{hcfg.num_heads} heads, {hcfg.num_kv_heads} KV heads of "
+        f"{hcfg.resolved_head_dim}, window {hcfg.attn_window}, "
+        f"{hcfg.ssm.expand * hcfg.d_model // hcfg.ssm.head_dim} SSD heads, "
+        f"state {hcfg.ssm.state_size}, d_ff {hcfg.d_ff})")
+    for tag in ("bf16", "int8", "fp32", "fp32_int8"):
+        r = hyb[tag]
+        log(f"phase 10: {tag}: prefill "
+            f"{run['batch']} x {run['seq']} in {r['prefill_s']:.3f} s "
+            f"({r['prefill_tokens_per_s']:.1f} tokens/s), {run['decode']} "
+            f"decode steps in {r['decode_s']:.3f} s "
+            f"({r['decode_tokens_per_s']:.1f} tokens/s)")
+    log(f"phase 10: launches {hyb['launches']}; max_memory_allocated "
+        f"{hyb['max_memory_allocated'] / 1e9:.2f} GB")
+    for k, n in hyb["launches"].items():
+        want = 4 * hcfg.num_layers if k in ("K5", "K7") else 0
+        check(n == want, f"hybrid: {k} launched {n} times, the path implies "
+                         f"{want}")
+    hyb["decode_err"] = prefill_then_decode(hmodel, hparams,
+                                            run["check_batch"], run["seq"],
+                                            SEED + 14)
+    runs["hybrid"] = hyb
+    del hmodel, hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # phase 11: K7 replays
+    t0 = time.perf_counter()
+    k7_replays = {"K7": k7_record(largest_9a, iters=5),
+                  "K7 carried state": k7_record(kept_9c, iters=20),
+                  "K7 hymba": k7_record(largest_10, iters=10)}
+    del largest_9a, kept_9c, largest_10
+    for key, r in k7_replays.items():
+        log(f"phase 11: {key}: max_abs_err {r['max_abs_err']:.3g} (within "
+            f"one bf16 ulp), final state {r['state_err']:.3g} of its largest"
+            f" |value| (limit {K7_STATE_RTOL}) | kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['shape']}")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    r = k7_replays["K7"]
+    kernel = {
+        "name": K7[0], "route": "cuda", "source": SSD_SOURCE,
+        "replaces": K7[1], "launches": ssm["launches"]["K7"],
+        "path": "ssm", "max_abs_err": max(
+            x["max_abs_err"] for x in k7_replays.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None}
+    return dict(kernel=kernel, shape=r["shape"], runs=runs,
+                k7_replays=k7_replays)
+
+
+
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1762,6 +2567,12 @@ def main(argv=None) -> int:
     report["k6_replays"] = k6_replays
     log(f"phase 8: {time.perf_counter() - t0:.1f} s; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    ssm_out = serve_ssm(dev, every)
+    kernels.append(ssm_out["kernel"])
+    shapes.append(ssm_out["shape"])
+    runs.update(ssm_out["runs"])
+    report["k7_replays"] = ssm_out["k7_replays"]
 
     if args.out is not None:
         report["kernels"] = [dict(x, shape=s)

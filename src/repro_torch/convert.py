@@ -2,7 +2,8 @@
 state (``engine_state_from_jax``), a serving cache's KV pages
 (``tiered_kv_cache_from_jax``), and a model's parameters and a train state
 (``model_params_from_jax``, ``train_state_from_jax``; the reverse,
-``model_params_to_jax``, gives the JAX tree that checkpoints store).
+``model_params_to_jax``, gives the JAX tree that checkpoints store), and
+a model's decode cache (``model_cache_from_jax``).
 
 A streaming engine carries window state where a model carries weights.
 ``engine_state_from_jax(snap)`` takes the dict that the JAX package's
@@ -304,3 +305,19 @@ def train_state_from_jax(state: Any, device=None):
     step = torch.as_tensor(np.array(get(opt, "step")), dtype=torch.int32,
                            device=dev)
     return TrainState(params=params, opt={**moments, "step": step})
+
+
+def model_cache_from_jax(cache: Dict[str, Any], device=None
+                         ) -> Dict[str, Any]:
+    """A JAX ``Model`` decode cache (``pos`` and ``layers``, each leaf
+    stacked on a leading layers axis; arrays or numpy) -> the port's
+    cache on ``device`` (``None``: the card), every leaf in its own type
+    (bfloat16 bit for bit) and ``pos`` a 0-dim int32 tensor, so that the
+    port's ``decode_step`` continues from a JAX prefill."""
+    from repro_torch._device import resolve_device
+    dev = resolve_device(device)
+    layers = {k: _host_tensor(np.asarray(v)).to(dev)
+              for k, v in cache["layers"].items()}
+    pos = torch.tensor(int(np.asarray(cache["pos"])), dtype=torch.int32,
+                       device=dev)
+    return {"pos": pos, "layers": layers}

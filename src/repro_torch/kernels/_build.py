@@ -58,6 +58,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # Hkv, D, causal, window, dtype, stream
         "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
     },
+    "ssd_scan.cu": {
+        # xdt, a, B, C, init_state (may be null), y, final_state, b, s, h,
+        # p, n, dtype, stream
+        "ssd_scan": [_P] * 7 + [_I] * 6 + [_P],
+    },
 }
 
 

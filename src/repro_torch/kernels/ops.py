@@ -8,8 +8,8 @@
           function of its module (which CPU tensors take as well)
 
 Inputs may be tensors or array-likes. The folds run on the values'
-device, attention on the K/V's; array-likes go there, or to ``device``,
-which defaults to the card. The empty-batch guards return the fold identity
+device, attention on the K/V's, the SSD scan on xdt's; array-likes go
+there, or to ``device``, which defaults to the card. The empty-batch guards return the fold identity
 without a launch. ``mesh`` (the JAX package's slot-sharded variants) is
 not ported and raises.
 """
@@ -35,6 +35,7 @@ from repro_torch.kernels.segment_aggregate import (
     segment_aggregate_block_table_splitk_plain, segment_aggregate_cuda,
     segment_aggregate_plain,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 BACKENDS = ("auto", "ref")
 
@@ -275,3 +276,26 @@ def decode_attention_paged(q, k_pages, v_pages, block_table, seq_lens,
                                             block_table, seq_lens)
     return decode_attention_paged_cuda(q, k_pages, v_pages, block_table,
                                        seq_lens)
+
+
+def ssd_chunk_scan(xdt, a, B, C, chunk: int = 256, head_block: int = 8,
+                   backend: str = "auto", device=None):
+    """The Mamba-2 SSD chunk scan (K7) from a zero state: xdt [b, s, h, p]
+    (x * dt), a [b, s, h] (dt * A), B, C [b, s, n] -> y [b, s, h, p] in
+    xdt's type, on xdt's device (``device`` places array-likes). ``a`` is
+    taken as float32.
+
+    ``head_block`` is the JAX entry point's Pallas block of heads,
+    accepted for signature parity and read by neither path. The JAX
+    kernel asserts ``s % chunk == 0`` (for s above the chunk); here the
+    kernel tiles by its own 64 tokens and the plain version by ``chunk``,
+    and both mask a ragged tail, so any length works (ROADMAP Queue 3)."""
+    _check(backend, None)
+    dev = _device_of(xdt, device)
+    xdt = as_tensor(xdt, dev)
+    a = as_tensor(a, dev, torch.float32)
+    B, C = as_tensor(B, dev, xdt.dtype), as_tensor(C, dev, xdt.dtype)
+    if backend == "ref":
+        return ssd_scan_plain(xdt, a, B, C, chunk=chunk)[0]
+    return ssd_scan_cuda(xdt.contiguous(), a.contiguous(), B.contiguous(),
+                         C.contiguous(), chunk=chunk)[0]

@@ -4,12 +4,12 @@ math, as ``repro/kernels/ref.py`` computes them.
 
 The oracle of the segment-aggregate folds is the ``*_plain`` family of
 ``kernels/segment_aggregate.py``: ``backend="ref"`` and every CPU tensor
-take it, and the CUDA kernels K1-K3 are held against it. The SSD oracle
-comes with its kernel.
+take it, and the CUDA kernels K1-K3 are held against it.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -100,3 +100,30 @@ def ref_decode_attention_paged(q: torch.Tensor, kv_pages_k: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, v.to(torch.float32))
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def ref_ssd_chunk_scan(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, chunk: int,
+                       init_state: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential-exact SSD oracle: step the recurrence token by token.
+
+    xdt [b, s, h, p] (x*dt); a [b, s, h] (dt*A); B, C [b, s, n].
+    Returns (y [b, s, h, p] in xdt's dtype, final_state [b, h, p, n]
+    float32). ``chunk`` is accepted for the JAX signature and not read.
+    """
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32,
+                        device=xdt.device) if init_state is None \
+        else init_state.to(torch.float32)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(a[:, t].float())[:, :, None, None]   # [b,h,1,1]
+        upd = torch.einsum("bn,bhp->bhpn", B[:, t].float(),
+                           xdt[:, t].float())
+        state = decay * state + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t].float(), state))
+    y = torch.stack(ys, dim=1) if ys else \
+        torch.zeros((b, 0, h, p), dtype=torch.float32, device=xdt.device)
+    return y.to(xdt.dtype), state

@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import FAMILY_HYBRID, FAMILY_SSM
 from repro_torch.models.transformer import Model
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
@@ -41,7 +42,14 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
     averaged, for one optimizer step per call.
 
     ``grad_transform(grads) -> grads`` is where gradient compression would
-    plug in."""
+    plug in.
+
+    The SSM and hybrid families are refused: their SSD scan (K7) is
+    forward-only, and their training path is not ported yet."""
+    if model.cfg.family in (FAMILY_SSM, FAMILY_HYBRID):
+        raise NotImplementedError(
+            f"training the {model.cfg.family} family is not ported (the SSD "
+            "scan, K7, has no backward yet)")
     opt_cfg = opt_cfg or OptConfig()
 
     def grads_and_metrics(params, batch):

@@ -312,11 +312,13 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
     from repro_torch.kernels import _build
     assert set(_build.SIGNATURES) == {"segment_aggregate.cu",
                                       "attention.cu",
-                                      "flash_attention_bwd.cu"}
+                                      "flash_attention_bwd.cu",
+                                      "ssd_scan.cu"}
     assert {"decode_attention_paged", "flash_attention_fwd"} == \
         set(_build.SIGNATURES["attention.cu"])
     assert {"flash_attention_bwd"} == \
         set(_build.SIGNATURES["flash_attention_bwd.cu"])
+    assert {"ssd_scan"} == set(_build.SIGNATURES["ssd_scan.cu"])
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_build, "BUILD_DIR",
@@ -324,4 +326,4 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build("attention.cu")
     with pytest.raises(ValueError, match="unknown kernel source"):
-        _build.library("ssd_scan.cu")
+        _build.library("moe.cu")

@@ -30,6 +30,9 @@ SLICE_MODULES = [
     "repro_torch.train.checkpoint", "repro_torch.data.pipeline",
     "repro_torch.distributed", "repro_torch.distributed.fault",
     "repro_torch.launch", "repro_torch.launch.train",
+    "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
+    "repro_torch.configs.mamba2_780m", "repro_torch.serve.serve_step",
+    "repro_torch.launch.serve",
 ]
 
 

@@ -1,0 +1,131 @@
+"""The SSD chunk scan (K7) against its plain torch version on the card.
+Marked ``gpu``: it builds the kernel with nvcc and skips where there is no
+CUDA device. Run it on a GPU machine with
+``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_ssd_gpu.py``.
+
+Tolerances: the final state within rtol 1e-4 and atol 1e-4 x its largest
+|value| (both sides sum in fp32); y in float32 within the same, and in
+bfloat16 within one bf16 ulp of the larger magnitude, magnitudes below
+2**-10 x the largest |reference| counted as that floor (both compute in
+fp32 on the same bf16 inputs and round once). The plain version is tiled
+as K7 tiles (``KERNEL_CHUNK``, 64 tokens): tiled by the model's 256, it
+sums in another order, and where y cancels that order moved a bf16
+output 1.5 ulps on mamba2-780m's 4 x 32,768-token prefill."""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+ref = importlib.import_module("repro_torch.kernels.ref")
+ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _case(dev, dtype, b, s, h, p, n, with_state, seed):
+    g = np.random.default_rng(seed)
+    xdt = torch.tensor(g.normal(size=(b, s, h, p)) * 0.1, dtype=dtype,
+                       device=dev)
+    a = torch.tensor(-np.abs(g.normal(size=(b, s, h))) * 0.1,
+                     dtype=torch.float32, device=dev)
+    B = torch.tensor(g.normal(size=(b, s, n)), dtype=dtype, device=dev)
+    C = torch.tensor(g.normal(size=(b, s, n)), dtype=dtype, device=dev)
+    h0 = torch.tensor(g.normal(size=(b, h, p, n)), dtype=torch.float32,
+                      device=dev) if with_state else None
+    return xdt, a, B, C, h0
+
+
+def _close(got, want, dtype):
+    a, b = got.float().cpu(), want.float().cpu()
+    assert a.shape == b.shape
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())
+    if dtype == torch.float32:
+        scale = max(float(b.abs().max()), 1e-30)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4 * scale)
+        return
+    floor = max(float(b.abs().max()), 1e-30) * 2.0 ** -10
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=floor)
+    ulps = (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert float(ulps.max()) <= 1.0, float(ulps.max())
+
+
+CASES = [
+    # b, s, h, p, n, with_state
+    (2, 512, 48, 64, 128, False),     # mamba2-780m widths
+    (1, 1000, 48, 64, 128, True),     # ragged tail, a carried state
+    (2, 700, 50, 64, 16, True),       # hymba-1.5b widths
+    (3, 37, 4, 24, 8, True),          # shorter than one chunk, p % 16 != 0
+    (1, 256, 2, 16, 256, False),      # the widest state
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_scan_matches_plain(dev, dtype, case):
+    xdt, a, B, C, h0 = _case(dev, dtype, *case, seed=sum(case[:5]))
+    before = ss.ssd_scan_cuda.launches
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, chunk=256, init_state=h0)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_cuda.launches == before + 1
+    want_y, want_st = ss.ssd_scan_plain(xdt, a, B, C,
+                                        chunk=ss.KERNEL_CHUNK,
+                                        init_state=h0)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    _close(y, want_y, dtype)
+    _close(st, want_st, torch.float32)
+
+
+def test_ssd_scan_carries_the_state_across_calls(dev):
+    """Two launches, the second from the first's final state, give one
+    launch's y and state."""
+    xdt, a, B, C, h0 = _case(dev, torch.bfloat16, 1, 640, 48, 64, 128, True,
+                             seed=3)
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0)
+    y1, s1 = ss.ssd_scan_cuda(*(t[:, :256].contiguous()
+                                for t in (xdt, a, B, C)), init_state=h0)
+    y2, s2 = ss.ssd_scan_cuda(*(t[:, 256:].contiguous()
+                                for t in (xdt, a, B, C)), init_state=s1)
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert torch.equal(s2, st)
+
+
+def test_ssd_scan_large_decay_makes_no_nan(dev):
+    """Strongly negative a (about -2 a token: cum falls by about 130 over
+    K7's chunk of 64 and 500 over the plain version's 256), so that the
+    exponents cum_i - cum_j of the pairs j > i reach past fp32's 88.7:
+    the kernel exponentiates no positive number, so nothing overflows to
+    inf and no inf * 0 turns into NaN. (Much steeper decays put cum at
+    1e4, where its fp32 rounding moves exp(cum_i - cum_j) by 0.1% in
+    either chunked version.) Held to the sequential oracle, whose decays
+    are products of exp(a_t)."""
+    xdt, a, B, C, _ = _case(dev, torch.float32, 1, 256, 4, 16, 16, False,
+                            seed=5)
+    a = a * 25.0
+    assert float(a[0, :64].sum(0).min()) < -88.7
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C)
+    want_y, want_st = ref.ref_ssd_chunk_scan(xdt, a, B, C, 256)
+    _close(y, want_y, torch.float32)
+    _close(st, want_st, torch.float32)
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(dev):
+    xdt, a, B, C, _ = _case(dev, torch.float32, 1, 64, 2, 16, 8, False, 0)
+    with pytest.raises(ValueError):
+        ss.ssd_scan_cuda(xdt, a.double(), B, C)
+    with pytest.raises(ValueError):
+        ss.ssd_scan_cuda(xdt, a, B.bfloat16(), C)
+    with pytest.raises(ValueError):
+        ss.ssd_scan_cuda(xdt.transpose(1, 2), a, B, C)
+    big = torch.zeros((1, 64, 300), device=dev)
+    with pytest.raises(ValueError):
+        ss.ssd_scan_cuda(xdt, a, big, big)
