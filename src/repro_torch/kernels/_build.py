@@ -4,9 +4,9 @@ Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface,
 which is loaded with ``ctypes``. A library lands in ``build/kernels/`` at
 the root of the checkout, named by the source's stem and a hash of its
-text and flags, so an edit to a source rebuilds that library only and an
-unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
-source at once.
+text, the shared headers' (``csrc/*.cuh``) and the flags, so an edit to a
+source rebuilds that library only and an unchanged one is loaded as it
+is. ``build_all`` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines with no ``nvcc`` and no card.
@@ -57,6 +57,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, Sq, Sk, H,
         # Hkv, D, causal, window, dtype, stream
         "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
+    },
+    "flash_fwd_hopper.cu": {
+        # q, k, v, o, lse (may be null), sched, n_sched, B, Sq, Sk, H, Hkv,
+        # D, causal, window, stream
+        "flash_fwd_wgmma": [_P] * 6 + [_I] * 9 + [_P],
+    },
+    "flash_bwd_hopper.cu": {
+        # q, k, v, o, dO, lse, scratch, dq, dk, dv, sched_q, n_q, sched_k,
+        # n_k, B, Sq, Sk, H, Hkv, D, causal, window, stream
+        "flash_bwd_wgmma": [_P] * 11 + [_I, _P] + [_I] * 9 + [_P],
     },
     "ssd_scan.cu": {
         # xdt, a, B, C, init_state (may be null), y, final_state, b, s, h,
@@ -113,7 +123,8 @@ def build(source: str = "segment_aggregate.cu") -> KernelLibrary:
         raise ValueError(f"unknown kernel source {source!r} (of "
                          f"{sorted(SIGNATURES)})")
     src = CSRC / source
-    tag = hashlib.sha256(src.read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}_{tag}.so"
     t0 = time.time()

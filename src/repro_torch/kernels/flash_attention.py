@@ -1,9 +1,13 @@
-"""Flash attention, forward (K5): a hand-written CUDA kernel for Hopper
-and its plain PyTorch version. Attention for the prefill path.
+"""Flash attention, forward (K5): hand-written CUDA kernels for Hopper and
+their plain PyTorch version. Attention for the prefill path.
 
-``flash_attention_cuda`` launches ``flash_attention_fwd``
-(``csrc/attention.cu``) for a CUDA tensor and takes the plain version only
-for a tensor on the CPU. Layouts are the JAX package's: q [B, Sq, H, D],
+``flash_attention_cuda`` launches a kernel for a CUDA tensor and takes the
+plain version only for a tensor on the CPU. The kernel's design comes from
+the table of ``kernels/flash_tiles.py``: bf16 at head dims 64 and 128 runs
+``flash_fwd_wgmma`` (``csrc/flash_fwd_hopper.cu``: wgmma tensor cores fed
+by TMA, P rounded to bf16 before P.V as the Pallas kernel rounds it),
+everything else ``flash_attention_fwd`` (``csrc/attention.cu``: fp32 on
+the CUDA cores). Layouts are the JAX package's: q [B, Sq, H, D],
 k/v [B, Sk, Hkv, D] (GQA: H a multiple of Hkv), o [B, Sq, H, D] in q's
 dtype, and the optional log-sum-exp [B*H, Sq] float32 flattened in
 (b, hkv, g) order, the layout the backward reads. The causal mask counts
@@ -16,12 +20,14 @@ may be asked for) and its backward the flash backward, K6
 (``kernels/flash_attention_bwd.py``), on the tensors' device: the CUDA
 kernels for CUDA tensors, the plain versions for CPU tensors, or the plain
 versions on any device where the caller asks for them (``plain``). The
-wrapper counts its launches in ``flash_attention_cuda.launches``.
+wrapper counts its launches in ``flash_attention_cuda.launches``, and by
+design in ``flash_attention_cuda.launches_by_design``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_tiles
 # one source holds K4 and K5, instantiated for the same types and head dims
 from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS
 from repro_torch.kernels.flash_attention_bwd import (
@@ -63,22 +69,36 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous on {q.device}")
 
 
-def _launch(q, k, v, causal: bool, window: int, return_lse: bool):
+def _launch(q, k, v, causal: bool, window: int, return_lse: bool,
+            design: str | None):
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    design = flash_tiles.design(q.dtype, d, design)
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if sq == 0 or b == 0:
         return o, lse
     from repro_torch.kernels._build import library
-    library("attention.cu").call(
-        "flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, sk, h,
-        hkv, d, int(bool(causal)), int(window), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if design == "wgmma":
+        flash_tiles.check_tma(q=q, k=k, v=v)
+        sched = flash_tiles.schedule_tensor(sq, sk, bool(causal), int(window),
+                                            *flash_tiles.FWD_TILES, False,
+                                            q.device)
+        library("flash_fwd_hopper.cu").call(
+            "flash_fwd_wgmma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse_ptr, sched.data_ptr(), sched.shape[0], b, sq,
+            sk, h, hkv, d, int(bool(causal)), int(window), stream)
+    else:
+        library("attention.cu").call(
+            "flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse_ptr, b, sq, sk, h, hkv, d, int(bool(causal)),
+            int(window), DTYPES[q.dtype], stream)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_design[design] += 1
     return o, lse
 
 
@@ -88,10 +108,10 @@ class _FlashForward(torch.autograd.Function):
     whatever device the tensors are."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, return_lse, plain):
+    def forward(ctx, q, k, v, causal, window, return_lse, plain, design):
         want_lse = return_lse or any(ctx.needs_input_grad[:3])
         if q.is_cuda and not plain:
-            o, lse = _launch(q, k, v, causal, window, want_lse)
+            o, lse = _launch(q, k, v, causal, window, want_lse, design)
         else:
             out = flash_attention_plain(q, k, v, causal=causal,
                                         window=window, return_lse=want_lse)
@@ -111,21 +131,26 @@ class _FlashForward(torch.autograd.Function):
             else flash_attention_bwd_cuda
         dq, dk, dv = fn(q, k, v, o, do.contiguous(), lse, causal=ctx.causal,
                         window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
+                         return_lse: bool = False,
+                         design: str | None = None):
     """K5: attention forward. q [B, Sq, H, D], k/v [B, Sk, Hkv, D]
     contiguous, float32 or bfloat16 -> o [B, Sq, H, D] in q's dtype (and
     lse [B*H, Sq] float32 with ``return_lse``), on the current stream. A
     CPU tensor takes ``flash_attention_plain``. A row with nothing to
     attend to is NaN (its lse -inf). Differentiable in q, k and v through
-    K6 (``flash_attention_bwd_cuda``)."""
+    K6 (``flash_attention_bwd_cuda``). ``design`` None takes the design of
+    ``flash_tiles``' table; a name forces that design (for measurements)
+    and raises where it does not take the inputs."""
     o, lse = _FlashForward.apply(q, k, v, bool(causal), int(window),
-                                 bool(return_lse), False)
+                                 bool(return_lse), False, design)
     return (o, lse) if return_lse else o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_design = dict.fromkeys(flash_tiles.DESIGNS,
+                                                        0)

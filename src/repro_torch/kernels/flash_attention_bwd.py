@@ -1,10 +1,15 @@
-"""Flash attention, backward (K6): a hand-written CUDA kernel for Hopper
-and its plain PyTorch version. The gradient of the training path's
+"""Flash attention, backward (K6): hand-written CUDA kernels for Hopper and
+their plain PyTorch version. The gradient of the training path's
 attention.
 
-``flash_attention_bwd_cuda`` launches ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``) for a CUDA tensor and takes the plain
-version only for a tensor on the CPU. Layouts are the model's, with GQA
+``flash_attention_bwd_cuda`` launches a kernel for a CUDA tensor and takes
+the plain version only for a tensor on the CPU. The kernel's design comes
+from the table of ``kernels/flash_tiles.py``: bf16 at head dims 64 and 128
+runs ``flash_bwd_wgmma`` (``csrc/flash_bwd_hopper.cu``: wgmma tensor
+cores fed by TMA, P and dS rounded to bf16 before their products as the
+Pallas kernels round them), everything else ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``: fp32 on the CUDA cores). Layouts are
+the model's, with GQA
 native: q, o, do and dq [B, Sq, H, D]; k, v, dk and dv [B, Sk, Hkv, D]
 (H a multiple of Hkv); lse [B*H, Sq] float32 in (b, hkv, g) order, as the
 forward (K5) writes it. Masks count q and k positions from 0, as the
@@ -12,15 +17,17 @@ forward's.
 
 The JAX wrapper (``repro/kernels/ops.py``, ``_fa_bwd``) repeats K and V
 over the group and sums dK and dV per group after rounding each head to
-the input type. Here the shared KV head is read once and the group is
-summed in float32, so the result follows the float32 oracle (autograd
-through ``ref_flash_attention``).
+the input type. Here both designs read the shared KV head once and sum
+the group in float32 accumulators, rounding once; the CUDA-core design
+follows the float32 oracle (autograd through ``ref_flash_attention``),
+the wgmma design the Pallas kernels' rounding of P and dS.
 
 A row with nothing to attend to (lse -inf, o NaN: only ``Sq > Sk`` with a
 window makes one) gets dq = 0 and adds nothing to dk or dv, in the plain
 version and the kernel alike, as in the JAX package (whose forward masks
 with -1e30, so its o there is a mean of V). The wrapper counts its
-launches in ``flash_attention_bwd_cuda.launches``.
+launches in ``flash_attention_bwd_cuda.launches``, and by design in
+``flash_attention_bwd_cuda.launches_by_design``.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import flash_tiles
 from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS
 from repro_torch.kernels.ref import _mask
 
@@ -110,32 +118,58 @@ def _check(q, k, v, o, do, lse):
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
-                             causal: bool = True, window: int = 0):
+                             causal: bool = True, window: int = 0,
+                             design: str | None = None):
     """K6: attention backward. q, o, do [B, Sq, H, D] and k, v
     [B, Sk, Hkv, D] contiguous, one type of float32 or bfloat16; lse
     [B*H, Sq] float32 -> (dq, dk, dv) in the inputs' type, on the current
-    stream. A CPU tensor takes ``flash_attention_bwd_plain``."""
+    stream. A CPU tensor takes ``flash_attention_bwd_plain``. ``design``
+    None takes the design of ``flash_tiles``' table; a name forces that
+    design (for measurements) and raises where it does not take the
+    inputs."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          window=window)
     _check(q, k, v, o, do, lse)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    design = flash_tiles.design(q.dtype, d, design)
     dq = torch.empty_like(q)
     dk = torch.zeros_like(k) if sq == 0 else torch.empty_like(k)
     dv = torch.zeros_like(v) if sq == 0 else torch.empty_like(v)
     if sq == 0 or b == 0:
         return dq, dk, dv
-    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     from repro_torch.kernels._build import library
-    library("flash_attention_bwd.cu").call(
-        "flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, d,
-        int(bool(causal)), int(window), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    causal, window = bool(causal), int(window)
+    if design == "wgmma":
+        flash_tiles.check_tma(q=q, k=k, v=v, do=do)
+        sqp = -(-sq // flash_tiles.ROW_PAD) * flash_tiles.ROW_PAD
+        # lse * log2(e) and D = rowsum(do * o), each [B*H, sqp]
+        scratch = torch.empty((2, b * h * sqp), dtype=torch.float32,
+                              device=q.device)
+        sched_q = flash_tiles.schedule_tensor(
+            sq, sk, causal, window, *flash_tiles.DQ_TILES, False, q.device)
+        sched_k = flash_tiles.schedule_tensor(
+            sq, sk, causal, window, *flash_tiles.DKV_TILES, True, q.device)
+        library("flash_bwd_hopper.cu").call(
+            "flash_bwd_wgmma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sched_q.data_ptr(),
+            sched_q.shape[0], sched_k.data_ptr(), sched_k.shape[0], b, sq, sk,
+            h, hkv, d, int(causal), window, stream)
+    else:
+        delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+        library("flash_attention_bwd.cu").call(
+            "flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, d,
+            int(causal), window, DTYPES[q.dtype], stream)
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_design[design] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.launches_by_design = dict.fromkeys(
+    flash_tiles.DESIGNS, 0)

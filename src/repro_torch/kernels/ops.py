@@ -223,8 +223,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     [B, Sq, H, D], on k's device (``device`` places array-likes; q or v on
     another device raises). ``block_q`` and ``block_k`` are the JAX entry
     point's Pallas tile sizes, accepted for signature parity and read by
-    neither path here: the CUDA kernel tiles by its own 64 query rows x 64
-    keys, and the plain version does not tile."""
+    neither path here: the CUDA kernels tile by their own sizes
+    (``kernels/flash_tiles.py``), and the plain version does not tile."""
     _check(backend, None)
     dev = _kv_device(k, device)
     k = _on(k, dev, "k")
@@ -245,16 +245,16 @@ def flash_attention_vjp(q, k, v, causal: bool = True, window: int = 0,
 
     ``block_q`` and ``block_k`` are the JAX entry point's Pallas tile
     sizes, accepted for signature parity and read by neither path: K5 and
-    K6 tile by their own 64 query rows x 64 keys, and the plain versions
-    do not tile. The JAX ``interpret`` argument (run the Pallas kernels in
-    the interpreter) has no counterpart: a CPU tensor takes the plain
-    versions, and a CUDA tensor the kernels."""
+    K6 tile by their own sizes (``kernels/flash_tiles.py``), and the plain
+    versions do not tile. The JAX ``interpret`` argument (run the Pallas
+    kernels in the interpreter) has no counterpart: a CPU tensor takes the
+    plain versions, and a CUDA tensor the kernels."""
     _check(backend, None)
     dev = _kv_device(k, device)
     k = _on(k, dev, "k")
     q, v = _on(q, dev, "q"), _on(v, dev, "v")
     o, _ = _FlashForward.apply(q, k, v, bool(causal), int(window), False,
-                               backend == "ref")
+                               backend == "ref", None)
     return o
 
 

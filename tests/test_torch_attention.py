@@ -313,11 +313,17 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
     assert set(_build.SIGNATURES) == {"segment_aggregate.cu",
                                       "attention.cu",
                                       "flash_attention_bwd.cu",
+                                      "flash_fwd_hopper.cu",
+                                      "flash_bwd_hopper.cu",
                                       "ssd_scan.cu"}
     assert {"decode_attention_paged", "flash_attention_fwd"} == \
         set(_build.SIGNATURES["attention.cu"])
     assert {"flash_attention_bwd"} == \
         set(_build.SIGNATURES["flash_attention_bwd.cu"])
+    assert {"flash_fwd_wgmma"} == \
+        set(_build.SIGNATURES["flash_fwd_hopper.cu"])
+    assert {"flash_bwd_wgmma"} == \
+        set(_build.SIGNATURES["flash_bwd_hopper.cu"])
     assert {"ssd_scan"} == set(_build.SIGNATURES["ssd_scan.cu"])
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")

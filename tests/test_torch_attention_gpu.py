@@ -4,11 +4,16 @@ with nvcc and skip where there is no CUDA device. Run them on a GPU
 machine with ``PYTHONPATH=src python -m pytest -m gpu tests/``.
 
 Tolerances: float32 within rtol and atol 2e-5 (both sides compute in
-fp32, summing in another order); bfloat16 within one bf16 ulp of the
-larger magnitude, magnitudes below 2**-10 counted as 2**-10 (both round
-one fp32 result to bf16 once); lse within 1e-4 (float32) and 1e-3
-(bfloat16 inputs). NaN rows (no position to attend to) must be NaN on
-both sides."""
+fp32, summing in another order); bfloat16 on the CUDA-core design (K4,
+and K5 at head dims 32 and 256) within one bf16 ulp of the larger
+magnitude, magnitudes below 2**-10 counted as 2**-10 (both round one fp32
+result to bf16 once); bfloat16 on K5's wgmma design (head dims 64 and
+128), which rounds P to bf16 before P.V as the Pallas kernel does, within
+the limits of ``repro_torch.kernels.flash_limits`` (the worst row's
+norm-relative error FWD_ROW_RTOL, elementwise ULP_LIMIT ulps; anchored on
+the Pallas kernel's own readings by ``tests/test_torch_flash_rounding.py``);
+lse within 1e-4 (float32) and 1e-3 (bfloat16 inputs). NaN rows (no
+position to attend to) must be NaN on both sides."""
 import importlib
 
 import numpy as np
@@ -17,6 +22,8 @@ import torch
 
 da = importlib.import_module("repro_torch.kernels.decode_attention")
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
+FL = importlib.import_module("repro_torch.kernels.flash_limits")
+FT = importlib.import_module("repro_torch.kernels.flash_tiles")
 
 pytestmark = pytest.mark.gpu
 
@@ -42,6 +49,25 @@ def _close(a, b, tol):
     mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -10)
     ulps = (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
     assert float(ulps.max()) <= 1.0, float(ulps.max())
+
+
+def _close_wgmma(a, b):
+    """K5's wgmma design against the fp32 oracle: NaN at the same places,
+    the worst row within FWD_ROW_RTOL, elementwise within ULP_LIMIT."""
+    a, b = a.float().cpu(), b.float().cpu()
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert FL.row_error(a, b) <= FL.FWD_ROW_RTOL, FL.row_error(a, b)
+    assert FL.ulp_error(a, b, 2.0 ** -10) <= FL.ULP_LIMIT
+
+
+def _qkv(dev, dtype, b, sq, sk, h, hkv, d, seed):
+    g = np.random.default_rng(seed)
+    return (torch.tensor(g.normal(size=(b, sq, h, d)), dtype=dtype,
+                         device=dev),
+            torch.tensor(g.normal(size=(b, sk, hkv, d)), dtype=dtype,
+                         device=dev),
+            torch.tensor(g.normal(size=(b, sk, hkv, d)), dtype=dtype,
+                         device=dev))
 
 
 def _paged_case(dev, dtype, b, h, hkv, d, pages, page, pps, seed):
@@ -104,19 +130,24 @@ def test_decode_kernel_matches_plain(dev, dtype, b, h, hkv, d, pages, page,
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, hkv, d,
                                     causal, window):
-    g = np.random.default_rng(sq + sk + h)
-    q = torch.tensor(g.normal(size=(b, sq, h, d)), dtype=dtype, device=dev)
-    k = torch.tensor(g.normal(size=(b, sk, hkv, d)), dtype=dtype, device=dev)
-    v = torch.tensor(g.normal(size=(b, sk, hkv, d)), dtype=dtype, device=dev)
+    q, k, v = _qkv(dev, dtype, b, sq, sk, h, hkv, d, seed=sq + sk + h)
+    design = FT.design(dtype, d)
     before = fa.flash_attention_cuda.launches
+    by_design = fa.flash_attention_cuda.launches_by_design[design]
     o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                      return_lse=True)
     torch.cuda.synchronize()
     assert fa.flash_attention_cuda.launches == before + 1
+    assert fa.flash_attention_cuda.launches_by_design[design] == \
+        by_design + 1
     ro, rlse = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, return_lse=True)
     assert o.dtype == dtype and lse.shape == (b * h, sq)
-    _close(o, ro, TOL[dtype])
+    if design == "wgmma":
+        _close_wgmma(o, fa.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal, window=window))
+    else:
+        _close(o, ro, TOL[dtype])
     lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
     np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
                                rtol=lse_tol, atol=lse_tol)
@@ -137,6 +168,68 @@ def test_flash_kernel_row_with_nothing_to_attend_is_nan(dev):
     _close(o, ro, 2e-5)
     assert bool(torch.isnan(o[0, 200]).all())
     assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,window", [
+    (1, 600, 600, 4, 2, 128, True, 0),     # ragged: S = 600
+    (1, 1000, 600, 4, 1, 64, True, 0),     # Sq > Sk
+    (1, 600, 1000, 4, 1, 128, True, 0),    # Sq < Sk
+    (1, 1024, 1024, 36, 4, 128, True, 0),  # starcoder2-7b: G = 9
+    (1, 2048, 2048, 25, 5, 64, True, 1024),  # hymba-1.5b: G = 5, window
+    (2, 384, 384, 4, 2, 64, False, 100),   # a window without causal
+])
+def test_flash_wgmma_matches_plain(dev, b, sq, sk, h, hkv, d, causal,
+                                   window):
+    """bf16 K5 on the tensor cores against the fp32 oracle, with the lse
+    within 1e-3."""
+    q, k, v = _qkv(dev, torch.bfloat16, b, sq, sk, h, hkv, d, seed=sq + d)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    ro, rlse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window,
+                                        return_lse=True)
+    _close_wgmma(o, ro)
+    np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_flash_wgmma_row_with_nothing_to_attend_is_nan(dev):
+    """bf16 at D 64 (the wgmma design): Sq > Sk + window leaves late rows
+    with no key, NaN with lse -inf, as the plain version; the rest within
+    the wgmma limits."""
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 256, 64, 2, 2, 64, seed=3)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=32,
+                                     return_lse=True)
+    ro, rlse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=True, window=32,
+                                        return_lse=True)
+    _close_wgmma(o, ro)
+    assert bool(torch.isnan(o[0, 200]).all())
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
+
+
+def test_flash_dispatch_follows_the_design_table(dev):
+    """bf16 at D 128 launches the wgmma design, float32 the CUDA-core one;
+    bf16 forced onto the CUDA-core design computes the all-fp32 function
+    (within one ulp of the oracle), and forcing wgmma on float32 raises
+    before any launch."""
+    counts = fa.flash_attention_cuda.launches_by_design
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 256, 256, 4, 2, 128, seed=5)
+    before = dict(counts)
+    fa.flash_attention_cuda(q, k, v)
+    assert counts["wgmma"] == before["wgmma"] + 1
+    assert counts["cuda_core"] == before["cuda_core"]
+    o = fa.flash_attention_cuda(q, k, v, design="cuda_core")
+    assert counts["cuda_core"] == before["cuda_core"] + 1
+    _close(o, fa.flash_attention_plain(q.float(), k.float(), v.float()),
+           None)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    fa.flash_attention_cuda(q32, k32, v32)
+    assert counts["cuda_core"] == before["cuda_core"] + 2
+    launches = fa.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="wgmma design takes"):
+        fa.flash_attention_cuda(q32, k32, v32, design="wgmma")
+    assert fa.flash_attention_cuda.launches == launches
 
 
 def test_attention_wrappers_reject_bad_inputs(dev):

@@ -32,7 +32,8 @@ SLICE_MODULES = [
     "repro_torch.launch", "repro_torch.launch.train",
     "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
     "repro_torch.configs.mamba2_780m", "repro_torch.serve.serve_step",
-    "repro_torch.launch.serve",
+    "repro_torch.launch.serve", "repro_torch.kernels.flash_tiles",
+    "repro_torch.kernels.flash_limits",
 ]
 
 
