@@ -6,10 +6,11 @@
 Phases (the first failed check exits non-zero, with no result line):
 
 0. The card's name and power limit, then the nvcc builds of the kernels
-   (``src/repro_torch/kernels/csrc/{segment_aggregate,attention,
-   flash_attention_bwd,flash_fwd_hopper,flash_bwd_hopper,ssd_scan}.cu``
-   for sm_90a, one nvcc per source, started together), with each
-   tensor-core kernel's registers and spills as ptxas reports them.
+   (``src/repro_torch/kernels/csrc/{segment_aggregate,segment_splitk,
+   attention,decode_hopper,flash_attention_bwd,flash_fwd_hopper,
+   flash_bwd_hopper,ssd_scan}.cu`` for sm_90a, one nvcc per source,
+   started together), with each kernel's registers and spills as ptxas
+   reports them.
 1. Aion's late-event loop: ``StreamEngine`` with the stock operator at the
    Table-1 deployment (10,000 events/s into 30 s tumbling windows,
    1,664-byte payloads, 128 keys, lognormal lateness from
@@ -24,7 +25,8 @@ Phases (the first failed check exits non-zero, with no result line):
    split-K fold and the stacked fallback under pool pressure. Three
    quarters of the way, a manifest ``checkpoint_state`` is restored into
    a new engine over the same log store (``restore_state``), which
-   finishes the stream.
+   finishes the stream. Every K3 launch must take its shared-memory
+   design (``launches_by_design``).
 3. Kernel checks on the loop's own launches. While phases 1 and 2 run, a
    recorder around the fold entry points of ``repro_torch.kernels``
    keeps the inputs of each kernel's largest call (most rows): the value
@@ -35,8 +37,13 @@ Phases (the first failed check exits non-zero, with no result line):
    slot 0, which only padding rows name, holds NaN (they must stay
    inert). Each is timed with CUDA events beside its plain version, one
    PyTorch ``index_add_`` of the same sums (a yardstick only) and its
-   bound. Besides: K3 on rows that its wrapper must pad, its raw
-   partials, and a NaN case for min/max in K1.
+   bound. Besides: K3 on rows that its wrapper must pad and its raw
+   partials, on both of its designs; its earlier design's time
+   (``earlier_ms``, the global-atomic kernel the rule keeps for partials
+   past shared memory) and the time of its launch alone (the C call on
+   prepared arguments, ``launch_ms``) beside the wrapper's; K3 with one
+   live row's valid flags cleared, a control that ``compare`` must
+   reject; and a NaN case for min/max in K1.
 4. LM serving at starcoder2-7b's attention width (32 layers, 36 heads, 4
    KV heads of 128, bf16, from ``repro_torch.configs``): a
    ``TieredKVCache`` of 14,336 pages of 16 tokens (15.0 GB of KV on the
@@ -50,9 +57,14 @@ Phases (the first failed check exits non-zero, with no result line):
    version at launch time, and two or more sessions whose pages came
    back are held against attention over their K/V kept aside untiered;
    that check must reject the same attention with a restaged page
-   holding another page's K/V (a planted control).
+   holding another page's K/V (a planted control). Every K4 launch must
+   take its split-KV design (``launches_by_design``).
 5. Kernel replays: K4 on its largest launch of phase 4 (and, as a
-   control that must be rejected, with one page of one row dropped), K5
+   control that must be rejected, with one page of one row dropped),
+   timed beside its earlier CUDA-core design (``earlier_ms``) and its
+   split-KV design with one split per sequence (``one_split_ms``: the
+   grid of the earlier design, 64 blocks) and with runs of 8, 16 and 64
+   pages, each also held within one bf16 ulp; K5
    on the longest prefill and on a sliding-window case at hymba-1.5b's
    width (25 heads, 5 KV heads of 64, window 1,024, 4,096 tokens), each
    held against the fp32 plain version on the same bf16 inputs (K5, on
@@ -185,7 +197,12 @@ SEED = 0
 
 JAX_FILE = "src/repro/kernels/segment_aggregate.py"
 SOURCE = "src/repro_torch/kernels/csrc/segment_aggregate.cu"
+#: K3's shared-memory design; SOURCE keeps its earlier, global-atomic one
+SPLITK_SOURCE = "src/repro_torch/kernels/csrc/segment_splitk.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+#: K4's split-KV design (bf16 at head dims 64 and 128, G <= 16);
+#: ATTN_SOURCE keeps its earlier CUDA-core design for the rest
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_hopper.cu"
 #: K5's and K6's tensor-core (wgmma) design, which every bf16 launch of
 #: the main paths takes; ATTN_SOURCE and BWD_SOURCE keep their earlier
 #: CUDA-core design, for float32 and bf16 at head dims 32 and 256
@@ -303,7 +320,7 @@ KERNELS = {
            "segment_aggregate_batched"),
     "K2": ("seg_agg_block_table (K2, resident block-table fold)", 339,
            "segment_aggregate_block_table"),
-    "K3": ("seg_agg_block_table_splitk (K3, split-K block-table fold)", 505,
+    "K3": ("seg_agg_splitk_smem (K3, split-K block-table fold)", 505,
            "segment_aggregate_block_table_splitk"),
 }
 ENTRY_POINTS = {k: v[2] for k, v in KERNELS.items()}
@@ -524,14 +541,46 @@ def check_replay(key: str, rp: dict) -> float:
                        chunk), dict(kw, valid=kw["valid"][:cut],
                                     slot_ids=kw["slot_ids"][:cut])))
         cases.append((args, dict(kw, merge=False)))
+    if key == "K3":
+        cases += [(a, dict(k, design="global")) for a, k in cases]
     err = 0.0
     for a, k in cases:
         out = kernel(*a, **k)
         if key != "K1":
             check(not any(bool(torch.isnan(v).any()) for v in out.values()),
                   f"{key}: a padding row read the NaN-poisoned pool slot 0")
-        err = max(err, compare(out, plain(*a, **k), rp["scale"]))
+        ref = plain(*a, **{n: v for n, v in k.items() if n != "design"})
+        err = max(err, compare(out, ref, rp["scale"]))
     return err
+
+
+def k3_extras(rp: dict, iters: int) -> dict:
+    """Phase 3's additions for K3 on its replay: the earlier design's
+    time, the launch alone (``seg_agg_splitk_smem`` on arguments prepared
+    once, CUDA events around the C call only) and the cleared-row
+    control."""
+    import torch
+    sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
+    from repro_torch.kernels._build import library
+    kernel, plain, args, kw = rp["kernel"], rp["plain"], rp["args"], rp["kw"]
+    arena, ids, table, num_segments, chunk = args
+    launch, outs, keep = sa.splitk_smem_launch(
+        arena, ids, table, num_segments, chunk, kw["valid"], kw["slot_ids"],
+        kw["num_slots"], sa.norm_stats(kw["stats"]), kw["num_cols"], True)
+    lib = library("segment_splitk.cu")
+    launch_ms = _sync_time_ms(
+        lambda: lib.call("seg_agg_splitk_smem", *launch), iters)
+    del outs, keep
+    valid = kw["valid"].clone()
+    row = int(torch.nonzero(valid.any(1)).flatten()[0])
+    valid[row] = False
+    must_fail(f"K3 with live row {row}'s valid flags cleared",
+              lambda: compare(kernel(*args, **dict(kw, valid=valid)),
+                              plain(*args, **kw), rp["scale"]))
+    return dict(
+        earlier_ms=_sync_time_ms(lambda: kernel(*args, design="global",
+                                                **kw), iters),
+        launch_ms=launch_ms)
 
 
 def nan_check(dev, g) -> float:
@@ -578,15 +627,18 @@ def kernel_record(key: str, rec: dict, g, iters: int) -> dict:
     shape += (f", S={rec['num_segments']}, slots={rec['num_slots']}, "
               f"valid={n_valid}")
     name, line, _ = KERNELS[key]
-    return dict(
-        name=name, route="cuda", source=SOURCE,
-        replaces=f"{JAX_FILE}:{line}", max_abs_err=err,
+    out = dict(
+        name=name, route="cuda", source=SPLITK_SOURCE if key == "K3"
+        else SOURCE, replaces=f"{JAX_FILE}:{line}", max_abs_err=err,
         ms=_sync_time_ms(lambda: kernel(*args, **kw), iters),
         plain_ms=_sync_time_ms(lambda: plain(*args, **kw),
                                max(iters // 4, 1)),
         bound_ms=bound, bound_by=by,
         library_ms=_library_sum_ms(rp["read"], comp, valid, s_total, iters),
         shape=shape)
+    if key == "K3":
+        out.update(k3_extras(rp, iters), earlier_source=SOURCE)
+    return out
 
 
 # --------------------------------------------------------------- phases 1-2
@@ -796,7 +848,7 @@ def _print_run(tag: str, rec: dict) -> None:
 #: the attention kernels: name, the TPU kernel they replace, and the
 #: module of ``repro_torch.kernels`` whose ``*_cuda`` wrapper counts them
 ATTN_KERNELS = {
-    "K4": ("decode_attention_paged (K4, paged decode attention)",
+    "K4": ("decode_split_kv (K4, paged decode attention)",
            "src/repro/kernels/decode_attention.py:69", "decode_attention",
            "decode_attention_paged_cuda"),
     "K5": ("flash_fwd_wgmma (K5, prefill flash attention)",
@@ -1176,20 +1228,31 @@ def _sdpa_ms(q, k, v, iters: int, **kw) -> float:
 
 def k4_record(cache, launch: dict, iters: int) -> dict:
     """Phase 5 for K4: replay the largest launch of phase 4 on the pool,
-    hold it against the fp32 plain version on the same bf16 inputs, time
-    it beside the plain version (on the bf16 inputs), SDPA over K/V
-    gathered into contiguous padded tensors (gather excluded) and its
-    bound."""
+    hold it (on its split-KV design, on that design with one split per
+    sequence, and on its earlier CUDA-core design) against the fp32 plain
+    version on the same bf16 inputs, time each beside the plain version
+    (on the bf16 inputs), SDPA over K/V gathered into contiguous padded
+    tensors (gather excluded) and its bound."""
     import torch
     dec = importlib.import_module("repro_torch.kernels.decode_attention")
     q, table, lens = launch["q"], launch["table"], launch["lens"]
     kp, vp = cache.k_pool[0], cache.v_pool[0]
     b, h, d = q.shape
     _, page, hkv, _ = kp.shape
-    out = dec.decode_attention_paged_cuda(q, kp, vp, table, lens)
+    pps = table.shape[1]
+    check(dec.decode_design(q.dtype, d, h // hkv) == "split_kv",
+          "K4's replay does not take the split-KV design")
+    per, n_split = dec.split_plan(page, pps)
+    # the plan's split length, a sweep around it, one split per row
+    variants = {"split_kv": dict(), "one_split": dict(pages_per_split=pps),
+                "cuda_core": dict(design="cuda_core"),
+                **{f"pages_per_split={n}": dict(pages_per_split=n)
+                   for n in (8, 16, 64) if n != per}}
     ref = dec.decode_attention_paged_plain(q.float(), kp.float(), vp.float(),
                                            table, lens)
-    err = attn_close(out, ref)
+    errs = {k: attn_close(dec.decode_attention_paged_cuda(
+        q, kp, vp, table, lens, **kw), ref) for k, kw in variants.items()}
+    err = max(errs.values())
     # control: the kernel with one resident page of one row dropped
     row = int(torch.argmax(lens))
     need = -(-int(lens[row]) // kp.shape[1])
@@ -1201,7 +1264,6 @@ def k4_record(cache, launch: dict, iters: int) -> dict:
         dec.decode_attention_paged_cuda(q, kp, vp, dropped, lens), ref))
     del ref, dropped
     # SDPA's inputs: the table's pages gathered contiguously, masked like K4
-    pps = table.shape[1]
     safe = table.long().clamp(min=0)
     kg = kp[safe].reshape(b, pps * page, hkv, d).transpose(1, 2).contiguous()
     vg = vp[safe].reshape(b, pps * page, hkv, d).transpose(1, 2).contiguous()
@@ -1213,9 +1275,14 @@ def k4_record(cache, launch: dict, iters: int) -> dict:
               + table.numel() * 4 + lens.numel() * 4)
     ops_ = 4 * positions * h * d
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_OPS_PER_S * 1e3
-    r = dict(max_abs_err=err,
-             ms=_sync_time_ms(lambda: dec.decode_attention_paged_cuda(
-                 q, kp, vp, table, lens), iters),
+    ms = {k: _sync_time_ms(lambda: dec.decode_attention_paged_cuda(
+        q, kp, vp, table, lens, **kw), iters) for k, kw in variants.items()}
+    r = dict(max_abs_err=err, errs=errs, ms=ms["split_kv"],
+             earlier_ms=ms["cuda_core"], one_split_ms=ms["one_split"],
+             pages_per_split=per, n_split=n_split, sweep_ms={
+                 k: v for k, v in ms.items() if k.startswith("pages_")},
+             # the bytes the bound counts over each design's time
+             tb_per_s={k: nbytes / (v * 1e-3) / 1e12 for k, v in ms.items()},
              plain_ms=_sync_time_ms(lambda: dec.decode_attention_paged_plain(
                  q, kp, vp, table, lens), max(iters // 5, 1)),
              bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o
@@ -1226,7 +1293,7 @@ def k4_record(cache, launch: dict, iters: int) -> dict:
                     f"{d}] bf16, table [{b}, {pps}], {positions} resident "
                     f"positions (sum of seq_lens {int(lens.sum())}), "
                     f"{minus_one_pages(table, lens, page)} -1 pages inside "
-                    f"seq_len"))
+                    f"seq_len, {n_split} splits of {per} pages"))
     del kg, vg, mask
     return r
 
@@ -2550,7 +2617,9 @@ def main(argv=None) -> int:
             runs[tag] = rec
             recorded[tag] = recorder.largest
             log(f"phase {phase}: {tag} run in {rec['wall_s']:.1f} s, kernel "
-                f"launches {rec['launches']}, max_memory_allocated "
+                f"launches {rec['launches']} (K3 by design "
+                f"{dict(wrappers['K3'].launches_by_design)}), "
+                f"max_memory_allocated "
                 f"{rec['max_memory_allocated'] / 1e9:.3f} GB (arena "
                 f"{rec['arena_bytes'] / 1e9:.3f} GB)")
             _print_run(tag, rec)
@@ -2565,8 +2634,13 @@ def main(argv=None) -> int:
                 check(n == 0 or k in recorder.largest,
                       f"{tag}: {k} launched outside the recorded entry "
                       f"points")
+            rec["by_design"] = {"K3": dict(wrappers["K3"].launches_by_design)}
             if tag == "splitk":
                 check(c["splitk_launches"] > 0, "splitk: no split-K launch")
+                check(rec["by_design"]["K3"] == {
+                    "smem": rec["launches"]["K3"], "global": 0},
+                    f"splitk: K3 by design {rec['by_design']['K3']}: a "
+                    "launch missed the shared-memory design")
     finally:
         shutil.rmtree(spill_root, ignore_errors=True)
     fallback = sum(r["counts"]["fallback_rows"] for r in runs.values())
@@ -2591,8 +2665,11 @@ def main(argv=None) -> int:
             f"(count/min/max exact, sum rtol {SUM_RTOL} + atol {SUM_ATOL} x "
             f"max|v| x events/segment) | kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) | the "
-            f"largest launch of the {path} run ({by_run}): {r['shape']}")
+            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})"
+            + (f", earlier design {r['earlier_ms']:.4f} ms, launch alone "
+               f"{r['launch_ms']:.4f} ms" if key == "K3" else "")
+            + f" | the largest launch of the {path} run ({by_run}): "
+            f"{r['shape']}")
         shapes.append(r.pop("shape"))
         kernels.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
@@ -2601,6 +2678,11 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if key == "K3":
+            kernels[-1].update(
+                earlier_source=r["earlier_source"],
+                earlier_ms=r["earlier_ms"], launch_ms=r["launch_ms"],
+                launches_by_design=runs[path]["by_design"]["K3"])
         torch.cuda.synchronize()
         del rec
         torch.cuda.empty_cache()
@@ -2643,14 +2725,18 @@ def main(argv=None) -> int:
         f"version (max err {serve['k4_max_err']:.3g}), untiered sessions "
         f"{json.dumps(serve['untiered_max_err'])}, wrong restaged pages "
         f"rejected {serve['controls_rejected']}; "
-        f"launches {serve['launches']} (K5 by design "
-        f"{serve['by_design']['K5']}); KV pool "
+        f"launches {serve['launches']} (K4 by design "
+        f"{serve['by_design']['K4']}, K5 {serve['by_design']['K5']}); KV pool "
         f"{serve['pool_bytes'] / 1e9:.2f} GB, max_memory_allocated "
         f"{serve['max_memory_allocated'] / 1e9:.2f} GB")
     check(serve["max_memory_allocated"] >= serve["pool_bytes"],
           "serve: the KV pool is not on the card")
     for k in ATTN_KERNELS:
         check(serve["launches"][k] > 0, f"serve: {k} never launched")
+    check(serve["by_design"]["K4"] == {"split_kv": serve["launches"]["K4"],
+                                       "cuda_core": 0},
+          f"serve: K4 by design {serve['by_design']['K4']}: a launch "
+          "missed the split-KV design")
     check(serve["by_design"]["K5"] == {"wgmma": serve["launches"]["K5"],
                                        "cuda_core": 0},
           f"serve: K5 by design {serve['by_design']['K5']}: a bf16 launch "
@@ -2675,9 +2761,13 @@ def main(argv=None) -> int:
     FL = flash_limits()
     r = replays["K4"]
     log(f"phase 5: K4: max_abs_err {r['max_abs_err']:.3g} (within one bf16 "
-        f"ulp) | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"ulp; by design {json.dumps(r['errs'])}) | kernel {r['ms']:.4f} ms"
+        f", one split {r['one_split_ms']:.4f} ms, earlier "
+        f"{r['earlier_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']}) | {r['shape']}")
+        f"({r['bound_by']}); split lengths {json.dumps(r['sweep_ms'])} "
+        f"ms; TB/s of the bound's bytes "
+        f"{json.dumps(r['tb_per_s'])} | {r['shape']}")
     for key in ("K5", "K5 window"):
         r = replays[key]
         log(f"phase 5: {key}: worst row {r['row_err']:.3g} of its norm "
@@ -2698,6 +2788,12 @@ def main(argv=None) -> int:
             "path": "serve", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if key == "K4":
+            entry.update(
+                source=DECODE_SOURCE, earlier_source=ATTN_SOURCE,
+                earlier_ms=r["earlier_ms"], one_split_ms=r["one_split_ms"],
+                n_split=r["n_split"],
+                launches_by_design=serve["by_design"]["K4"])
         if key == "K5":
             entry.update(
                 source=FWD_SOURCE, earlier_source=ATTN_SOURCE,

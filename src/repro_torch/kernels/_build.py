@@ -43,6 +43,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "seg_agg_block_table_splitk": [_P, _I, _I, _I, _I, _P, _I, _P, _P,
                                        _I, _I, _P, _P, _P, _P, _P],
     },
+    "segment_splitk.cu": {
+        # arena, pool_slots, cap, W, w_out, table, R, ids, slots, valid
+        # (may be null), S, S_total, chunk_rows, k, blocks_per_chunk,
+        # events_per_block, stats, merge, scratch, sum, count, min, max
+        # (each may be null), stream
+        "seg_agg_splitk_smem": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P]
+        + [_I] * 8 + [_P] * 6,
+    },
     "attention.cu": {
         # q, k_pages, v_pages, table, lens, out, B, H, Hkv, D, P, page,
         # pages_per_seq, dtype, stream
@@ -52,6 +60,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # window, dtype, stream
         "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P],
+    },
+    "decode_hopper.cu": {
+        # q, k_pages, v_pages, table, lens, scratch, out, B, H, Hkv, D, P,
+        # page, pages_per_seq, pages_per_split, n_split, stream
+        "decode_split_kv": [_P] * 7 + [_I] * 9 + [_P],
     },
     "flash_attention_bwd.cu": {
         # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, Sq, Sk, H,

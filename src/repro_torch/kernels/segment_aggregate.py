@@ -16,8 +16,15 @@ tensor on the CPU:
      keeping the first ``num_cols`` value columns.
   K3 ``segment_aggregate_block_table_splitk_cuda``  the K2 fold with the
      table's rows cut into fixed chunks of ``chunk_rows``; chunk ``c``
-     accumulates its own partial ``[k, slots, S(, W)]``, merged by
-     ``merge_partials`` or returned raw.
+     accumulates its own partial ``[k, slots, S(, W)]``, merged or
+     returned raw. Its design comes from ``splitk_design``: where a
+     block's partial fits SPLITK_SMEM_BYTES of shared memory, ``smem``
+     (``csrc/segment_splitk.cu``: each block of ``splitk_plan``'s events
+     folds into a private shared-memory partial, and the last block of
+     each chunk to finish merges the chunk's blocks in order, all in one
+     launch); else ``global``, the K2 kernel on
+     padded rows with global atomics into the partials. It counts its
+     launches by design in ``launches_by_design``.
 
 Only the requested ``stats`` are allocated and computed: a sum/count fold
 touches no min/max memory. Empty segments hold the fold identities (0 sum
@@ -78,6 +85,54 @@ def empty_batch_identity(num_slots: int, num_segments: int, w: int,
     oracle so the empty-batch contract cannot drift between them."""
     return _identity(ALL_STATS, (num_slots, num_segments), w,
                      resolve_device(device))
+
+
+SPLITK_DESIGNS = ("smem", "global")
+#: the largest per-block partial the smem design keeps (the shared memory
+#: a block gets without opting in)
+SPLITK_SMEM_BYTES = 48 * 1024
+#: events one block of the smem design folds, 4 for each of its 512
+#: threads (one batch of loads): a chunk of 64 rows of 512 events takes 16
+#: blocks (the partials its last block merges), so the 8 chunks of the
+#: stock fold give 128 blocks, one on each SM
+SPLITK_EVENTS_PER_BLOCK = 2048
+#: the stats argument of the smem kernel: one bit per requested stat
+_STAT_BITS = {"sum": 1, "count": 2, "min": 4, "max": 8}
+
+
+def splitk_partial_bytes(stats, s_total: int, w_out: int) -> int:
+    """Bytes of one block's partial for normalized ``stats``: [s_total]
+    counts, [s_total, w_out] for each value stat, float32."""
+    return 4 * s_total * (w_out * len(stats) - (w_out - 1) * ("count"
+                                                             in stats))
+
+
+def splitk_design(stats, s_total: int, w_out: int,
+                  forced: str | None = None) -> str:
+    """K3's design for normalized ``stats``: ``smem`` where a block's
+    partial fits SPLITK_SMEM_BYTES, else ``global``; or ``forced`` (a
+    measurement's choice), which must take these inputs."""
+    nbytes = splitk_partial_bytes(stats, s_total, w_out)
+    table = "smem" if 0 < nbytes <= SPLITK_SMEM_BYTES else "global"
+    if forced is None:
+        return table
+    if forced not in SPLITK_DESIGNS:
+        raise ValueError(f"design {forced!r} is none of {SPLITK_DESIGNS}")
+    if forced == "smem" and table != "smem":
+        raise ValueError(f"the smem design keeps partials of at most "
+                         f"{SPLITK_SMEM_BYTES} bytes, these take {nbytes}")
+    return forced
+
+
+def splitk_plan(rows: int, cap: int, chunk_rows: int) -> tuple:
+    """(chunks k, blocks per chunk, events per block) of an smem launch:
+    each chunk's chunk_rows x cap events cut into equal runs of at most
+    SPLITK_EVENTS_PER_BLOCK (the last chunk's blocks past row ``rows``
+    fold nothing)."""
+    k = -(-rows // chunk_rows)
+    events = chunk_rows * cap
+    per_chunk = max(1, -(-events // SPLITK_EVENTS_PER_BLOCK))
+    return k, per_chunk, -(-events // per_chunk)
 
 
 def next_pow2(n: int) -> int:
@@ -223,10 +278,12 @@ def _splitk_prologue(values_arena, segment_ids, table, chunk_rows, valid,
     r = table.shape[0]
     slot_ids, num_slots = _slots(slot_ids, num_slots, r,
                                  values_arena.device)
-    if valid is None:
-        valid = torch.ones((r, cap), dtype=torch.bool,
-                           device=values_arena.device)
-    return w_out, r, slot_ids, num_slots, valid
+    return w_out, r, slot_ids, num_slots
+
+
+def _all_valid(valid, r: int, cap: int, device) -> torch.Tensor:
+    return torch.ones((r, cap), dtype=torch.bool, device=device) \
+        if valid is None else valid
 
 
 def _splitk_empty(stats, num_slots, num_segments, w_out, merge, device):
@@ -250,12 +307,13 @@ def segment_aggregate_block_table_splitk_plain(
     through ``merge_partials`` or come back raw."""
     stats = norm_stats(stats)
     dev = values_arena.device
-    w_out, r, slot_ids, num_slots, valid = _splitk_prologue(
+    w_out, r, slot_ids, num_slots = _splitk_prologue(
         values_arena, segment_ids, table, chunk_rows, valid, slot_ids,
         num_slots, num_cols)
     if r == 0 or num_slots == 0:
         return _splitk_empty(stats, num_slots, num_segments, w_out, merge,
                              dev)
+    valid = _all_valid(valid, r, values_arena.shape[1], dev)
     table, segment_ids, valid, slot_ids, k = _pad_rows(
         table.to(dev), segment_ids.to(dev), valid.to(dev),
         slot_ids.to(dev), chunk_rows)
@@ -285,19 +343,37 @@ def _valid_u8(valid, shape, device) -> torch.Tensor:
 
 
 def _i32(t: torch.Tensor, shape, device, name: str) -> torch.Tensor:
-    if t.device != device or tuple(t.shape) != tuple(shape):
+    if t.shape != shape or t.device != device:
         raise ValueError(f"{name} must be {tuple(shape)} on {device}, got "
                          f"{tuple(t.shape)} on {t.device}")
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
     return t.to(torch.int32).contiguous()
 
 
+def _valid_bytes(valid, shape, device) -> Optional[torch.Tensor]:
+    """``valid`` as contiguous bool bytes (0 / 1) of ``shape``, or None
+    (every event valid)."""
+    if valid is None:
+        return None
+    if valid.shape != shape or valid.device != device:
+        raise ValueError(f"valid must be {tuple(shape)} on {device}, got "
+                         f"{tuple(valid.shape)} on {valid.device}")
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    return valid if valid.is_contiguous() else valid.contiguous()
+
+
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's handle on a tensor's device (the binding that
+    PyTorch's own generated kernel launchers call: a ``Stream`` object
+    costs several microseconds of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def _lib():
+def _lib(source: str = "segment_aggregate.cu"):
     from repro_torch.kernels._build import library
-    return library()
+    return library(source)
 
 
 def segment_aggregate_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -359,13 +435,9 @@ def segment_aggregate_batched_cuda(values, segment_ids, num_segments: int,
     return _shape(out, (num_slots, num_segments), w)
 
 
-def _block_table_launch(name: str, values_arena, segment_ids, table,
-                        num_segments, valid, slot_ids, num_slots, stats,
-                        num_cols, chunk_rows: int, parts: int):
-    """Shared K2/K3 launch: composite ids, checks, identity outputs of
-    ``parts`` partials, one launch. Returns flat outputs."""
-    dev = values_arena.device
-    p, cap, w = values_arena.shape
+def _check_arena(values_arena, num_cols) -> int:
+    """The arena's checks; returns the columns the fold reads."""
+    w = values_arena.shape[2]
     w_out = num_cols if num_cols is not None else w
     if not 1 <= w_out <= w:
         raise ValueError(f"num_cols must be in [1, {w}], got {num_cols}")
@@ -373,6 +445,17 @@ def _block_table_launch(name: str, values_arena, segment_ids, table,
             or not values_arena.is_contiguous():
         raise ValueError("values_arena must be a contiguous float32 "
                          "[pool_slots, cap, W] tensor")
+    return w_out
+
+
+def _block_table_launch(name: str, values_arena, segment_ids, table,
+                        num_segments, valid, slot_ids, num_slots, stats,
+                        num_cols, chunk_rows: int, parts: int):
+    """Shared K2/K3 launch: composite ids, checks, identity outputs of
+    ``parts`` partials, one launch. Returns flat outputs."""
+    dev = values_arena.device
+    p, cap, w = values_arena.shape
+    w_out = _check_arena(values_arena, num_cols)
     r = table.shape[0]
     tbl = _i32(table, (r,), dev, "table")
     comp = (_i32(slot_ids, (r,), dev, "slot_ids")[:, None] * num_segments
@@ -424,16 +507,63 @@ def segment_aggregate_block_table_cuda(values_arena, segment_ids, table,
 segment_aggregate_block_table_cuda.launches = 0
 
 
+def splitk_smem_launch(values_arena, segment_ids, table, num_segments: int,
+                       chunk_rows: int, valid, slot_ids, num_slots: int,
+                       stats, num_cols: Optional[int], merge: bool):
+    """The checks, outputs, scratch and C arguments of one launch of K3's
+    smem design (``seg_agg_splitk_smem``): returns (arguments, outputs,
+    tensors the launch reads, to be kept alive until it is enqueued).
+    ``stats`` must be normalized and ``slot_ids`` given."""
+    dev = values_arena.device
+    p, cap, w = values_arena.shape
+    w_out = _check_arena(values_arena, num_cols)
+    r = table.shape[0]
+    tbl = _i32(table, (r,), dev, "table")
+    ids = _i32(segment_ids, (r, cap), dev, "segment_ids")
+    slots = _i32(slot_ids, (r,), dev, "slot_ids")
+    ok = _valid_bytes(valid, (r, cap), dev)
+    s_total = num_slots * num_segments
+    k, per_chunk, per_block = splitk_plan(r, cap, chunk_rows)
+    # one allocation (an allocation or a view costs the host more than
+    # the device's fold): the outputs, each a view of it, then the
+    # kernel's scratch: block partials, chunk partials, k + 1 int32
+    # counters
+    k_out = 1 if merge else k
+    lead = () if merge else (k,)
+    words = splitk_partial_bytes(stats, s_total, w_out) // 4
+    buf = torch.empty((k_out + k * per_chunk + k) * words + k + 1,
+                      dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    out, ptr, at = {}, dict.fromkeys(ALL_STATS), 0
+    for s in stats:
+        # [k,] slots, S(, w_out), contiguous, one stat after another
+        width, tail = (1, ()) if s == "count" else (w_out, (w_out,))
+        out[s] = buf.as_strided(
+            (*lead, num_slots, num_segments, *tail),
+            (*(s_total * width,) * len(lead), num_segments * width, width,
+             *(1,) * len(tail)), at)
+        ptr[s] = base + 4 * at
+        at += k_out * s_total * width
+    args = (values_arena.data_ptr(), p, cap, w, w_out, tbl.data_ptr(), r,
+            ids.data_ptr(), slots.data_ptr(), _ptr(ok), num_segments,
+            s_total, chunk_rows, k, per_chunk, per_block,
+            sum(_STAT_BITS[s] for s in stats), int(merge), base + 4 * at,
+            ptr["sum"], ptr["count"], ptr["min"], ptr["max"], _stream(dev))
+    return args, out, (tbl, ids, slots, ok, buf)
+
+
 def segment_aggregate_block_table_splitk_cuda(
         values_arena, segment_ids, table, num_segments: int,
         chunk_rows: int, valid=None, slot_ids=None,
         num_slots: Optional[int] = None,
         stats: Tuple[str, ...] = ALL_STATS,
-        num_cols: Optional[int] = None, merge: bool = True) -> dict:
-    """K3: the K2 fold with the rows padded to a multiple of
-    ``chunk_rows`` (inert rows: pool slot 0, slot 0, valid 0) and chunk
-    ``c`` folding into its own partial. ``merge=False`` returns the raw
-    ``[k, num_slots, S(, W)]`` partials."""
+        num_cols: Optional[int] = None, merge: bool = True,
+        design: Optional[str] = None) -> dict:
+    """K3: the K2 fold with the rows cut into chunks of ``chunk_rows``,
+    chunk ``c`` folding into its own partial. ``merge=False`` returns the
+    raw ``[k, num_slots, S(, W)]`` partials. ``design`` None takes
+    ``splitk_design``'s choice; a name forces that design (for
+    measurements) and raises where it does not take the inputs."""
     stats = norm_stats(stats)
     if not values_arena.is_cuda:
         return segment_aggregate_block_table_splitk_plain(
@@ -441,24 +571,40 @@ def segment_aggregate_block_table_splitk_cuda(
             valid=valid, slot_ids=slot_ids, num_slots=num_slots,
             stats=stats, num_cols=num_cols, merge=merge)
     dev = values_arena.device
-    w_out, r, slot_ids, num_slots, valid = _splitk_prologue(
+    w_out, r, slot_ids, num_slots = _splitk_prologue(
         values_arena, segment_ids, table, chunk_rows, valid, slot_ids,
         num_slots, num_cols)
     if r == 0 or num_slots == 0:
         return _splitk_empty(stats, num_slots, num_segments, w_out, merge,
                              dev)
-    table, segment_ids, valid, slot_ids, k = _pad_rows(
-        table, segment_ids, valid.to(torch.bool), slot_ids, chunk_rows)
-    out, w_out = _block_table_launch(
-        "seg_agg_block_table_splitk", values_arena, segment_ids, table,
-        num_segments, valid, slot_ids, num_slots, stats, num_cols,
-        chunk_rows, k)
+    chosen = splitk_design(stats, num_slots * num_segments, w_out, design)
+    if chosen == "smem":
+        args, parts, _keep = splitk_smem_launch(
+            values_arena, segment_ids, table, num_segments, chunk_rows,
+            valid, slot_ids, num_slots, stats, num_cols, merge)
+        _lib("segment_splitk.cu").call("seg_agg_splitk_smem", *args)
+    else:
+        # the K2 kernel on rows padded to a chunk multiple (inert rows:
+        # pool slot 0, slot 0, valid 0), global atomics into the partials
+        table, segment_ids, valid, slot_ids, k = _pad_rows(
+            table, segment_ids,
+            _all_valid(valid, r, values_arena.shape[1], dev).to(torch.bool),
+            slot_ids, chunk_rows)
+        out, w_out = _block_table_launch(
+            "seg_agg_block_table_splitk", values_arena, segment_ids, table,
+            num_segments, valid, slot_ids, num_slots, stats, num_cols,
+            chunk_rows, k)
+        parts = _shape(out, (k, num_slots, num_segments), w_out)
+        if merge:
+            parts = merge_partials(parts)
     segment_aggregate_block_table_splitk_cuda.launches += 1
-    parts = _shape(out, (k, num_slots, num_segments), w_out)
-    return merge_partials(parts) if merge else parts
+    segment_aggregate_block_table_splitk_cuda.launches_by_design[chosen] += 1
+    return parts
 
 
 segment_aggregate_block_table_splitk_cuda.launches = 0
+segment_aggregate_block_table_splitk_cuda.launches_by_design = \
+    dict.fromkeys(SPLITK_DESIGNS, 0)
 
 #: the kernel wrappers whose ``launches`` the smoke run reads
 KERNEL_WRAPPERS = (segment_aggregate_cuda,

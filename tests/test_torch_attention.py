@@ -315,7 +315,9 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
                                       "flash_attention_bwd.cu",
                                       "flash_fwd_hopper.cu",
                                       "flash_bwd_hopper.cu",
-                                      "ssd_scan.cu"}
+                                      "ssd_scan.cu",
+                                      "decode_hopper.cu",
+                                      "segment_splitk.cu"}
     assert {"decode_attention_paged", "flash_attention_fwd"} == \
         set(_build.SIGNATURES["attention.cu"])
     assert {"flash_attention_bwd"} == \

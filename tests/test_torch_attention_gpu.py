@@ -4,11 +4,13 @@ with nvcc and skip where there is no CUDA device. Run them on a GPU
 machine with ``PYTHONPATH=src python -m pytest -m gpu tests/``.
 
 Tolerances: float32 within rtol and atol 2e-5 (both sides compute in
-fp32, summing in another order); bfloat16 on the CUDA-core design (K4,
-and K5 at head dims 32 and 256) within one bf16 ulp of the larger
-magnitude, magnitudes below 2**-10 counted as 2**-10 (both round one fp32
-result to bf16 once); bfloat16 on K5's wgmma design (head dims 64 and
-128), which rounds P to bf16 before P.V as the Pallas kernel does, within
+fp32, summing in another order); bfloat16 on K4 (both designs: the
+split-KV design's tensor-core products of bf16 values are exact, and P
+goes through them as a high and a low bf16 part, so it keeps fp32
+accuracy) and on K5's CUDA-core design (head dims 32 and 256) within one
+bf16 ulp of the larger magnitude, magnitudes below 2**-10 counted as
+2**-10 (both round one fp32 result to bf16 once); bfloat16 on K5's
+wgmma design (head dims 64 and 128), which rounds P to bf16 before P.V as the Pallas kernel does, within
 the limits of ``repro_torch.kernels.flash_limits`` (the worst row's
 norm-relative error FWD_ROW_RTOL, elementwise ULP_LIMIT ulps; anchored on
 the Pallas kernel's own readings by ``tests/test_torch_flash_rounding.py``);
@@ -108,12 +110,108 @@ def test_decode_kernel_matches_plain(dev, dtype, b, h, hkv, d, pages, page,
                                      pps):
     args = _paged_case(dev, dtype, b, h, hkv, d, pages, page, pps,
                        seed=b * h + d)
+    design = da.decode_design(dtype, d, h // hkv)
     before = da.decode_attention_paged_cuda.launches
+    by_design = da.decode_attention_paged_cuda.launches_by_design[design]
     out = da.decode_attention_paged_cuda(*args)
     torch.cuda.synchronize()
     assert da.decode_attention_paged_cuda.launches == before + 1
+    assert da.decode_attention_paged_cuda.launches_by_design[design] == \
+        by_design + 1
     assert out.dtype == dtype and out.shape == (b, h, d)
     _close(out, da.decode_attention_paged_plain(*args), TOL[dtype])
+
+
+def _split_case(dev, b, h, hkv, d, page, pps, seed):
+    """bf16 pages with sequences that end inside a split, a row with
+    nothing (seq_len 0), a row whose first splits are all -1 pages, a -1
+    page inside a split, and a full row."""
+    g = np.random.default_rng(seed)
+    pages = b * pps + 4
+    q = torch.tensor(g.normal(size=(b, h, d)), dtype=torch.bfloat16,
+                     device=dev)
+    kp, vp = (torch.tensor(g.normal(size=(pages, page, hkv, d)),
+                           dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    table = g.permutation(pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    lens = g.integers(1, pps * page + 1, b).astype(np.int32)
+    lens[0] = 0
+    lens[1] = pps * page
+    table[2, :pps // 2] = -1              # its first half masked
+    lens[2] = pps * page - page // 2
+    table[3, pps // 3] = -1
+    return q, kp, vp, torch.tensor(table, device=dev), \
+        torch.tensor(lens, device=dev)
+
+
+@pytest.mark.parametrize("per", [None, 1, 3, 8])
+@pytest.mark.parametrize("b,h,hkv,d,page,pps", [
+    (5, 36, 4, 128, 16, 40),             # starcoder2-7b: G = 9
+    (6, 25, 5, 64, 16, 37),              # hymba-1.5b: G = 5
+    (4, 16, 1, 128, 8, 30),              # G = 16, pages of 8
+    (4, 4, 4, 64, 64, 9),                # G = 1, pages of 64
+])
+def test_decode_split_kv_matches_plain(dev, per, b, h, hkv, d, page, pps):
+    """The split-KV design on several splits (forced run lengths, the
+    plan's included), splits with nothing to attend to, rows ending inside
+    a split, and seq_len 0 (NaN), within one bf16 ulp of the fp32 plain
+    version."""
+    q, kp, vp, table, lens = _split_case(dev, b, h, hkv, d, page, pps,
+                                         seed=h + d + page)
+    counts = da.decode_attention_paged_cuda.launches_by_design
+    before = dict(counts)
+    out = da.decode_attention_paged_cuda(q, kp, vp, table, lens,
+                                         pages_per_split=per)
+    torch.cuda.synchronize()
+    assert counts["split_kv"] == before["split_kv"] + 1
+    assert counts["cuda_core"] == before["cuda_core"]
+    ref = da.decode_attention_paged_plain(q.float(), kp.float(), vp.float(),
+                                          table, lens)
+    assert bool(torch.isnan(out[0]).all())
+    _close(out, ref, None)
+
+
+def test_decode_split_kv_skips_pages_outside_the_pool(dev):
+    """A page id past the pool is masked as a -1 page is."""
+    q, kp, vp, table, lens = _split_case(dev, 4, 36, 4, 128, 16, 40,
+                                         seed=9)
+    bad = table.clone()
+    bad[1, 5] = kp.shape[0] + 7
+    out = da.decode_attention_paged_cuda(q, kp, vp, bad, lens)
+    masked = table.clone()
+    masked[1, 5] = -1
+    _close(out, da.decode_attention_paged_plain(
+        q.float(), kp.float(), vp.float(), masked, lens), None)
+
+
+def test_decode_dispatch_follows_the_design_table(dev):
+    """bf16 at D 64/128 with G <= 16 launches split_kv; float32, D 32 and
+    256, and G > 16 the CUDA-core design; bf16 forced onto the CUDA-core
+    design computes the same function, and forcing split_kv where it does
+    not apply raises before any launch."""
+    counts = da.decode_attention_paged_cuda.launches_by_design
+    cases = [(torch.bfloat16, 4, 2, 128, "split_kv"),
+             (torch.bfloat16, 10, 2, 64, "split_kv"),
+             (torch.float32, 4, 2, 128, "cuda_core"),
+             (torch.bfloat16, 4, 2, 32, "cuda_core"),
+             (torch.bfloat16, 8, 1, 256, "cuda_core"),
+             (torch.bfloat16, 40, 2, 64, "cuda_core")]
+    for dtype, h, hkv, d, want in cases:
+        args = _paged_case(dev, dtype, 3, h, hkv, d, 16, 16, 4, seed=d)
+        before = dict(counts)
+        da.decode_attention_paged_cuda(*args)
+        assert counts[want] == before[want] + 1, (dtype, h, hkv, d)
+    args = _paged_case(dev, torch.bfloat16, 3, 36, 4, 128, 16, 16, 4,
+                       seed=1)
+    forced = da.decode_attention_paged_cuda(*args, design="cuda_core")
+    _close(forced, da.decode_attention_paged_cuda(*args), None)
+    launches = da.decode_attention_paged_cuda.launches
+    f32 = [x.float() if x.is_floating_point() else x for x in args]
+    with pytest.raises(ValueError, match="split_kv design takes"):
+        da.decode_attention_paged_cuda(*f32, design="split_kv")
+    with pytest.raises(ValueError, match="pages_per_split"):
+        da.decode_attention_paged_cuda(*f32, pages_per_split=2)
+    assert da.decode_attention_paged_cuda.launches == launches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -84,19 +84,84 @@ def test_block_table_kernel_matches_plain(dev, num_cols):
     _close(out, ref, ids.numel(), 5.0)
 
 
-@pytest.mark.parametrize("chunk", [1, 7, 32])
-def test_splitk_kernel_matches_plain_and_pads_inert(dev, chunk):
+@pytest.mark.parametrize("design", ["smem", "global"])
+@pytest.mark.parametrize("chunk", [1, 7, 32, 64])
+def test_splitk_kernel_matches_plain_and_pads_inert(dev, chunk, design):
+    """Both designs (the smem one by the rule, the global one forced), on
+    90 rows: ragged last chunks, merged and raw partials."""
     arena, ids, table, valid, sl, s, ns = _case(dev, r=90)
     arena[0] = 1e30                             # only padding reads slot 0
+    counts = sa.segment_aggregate_block_table_splitk_cuda.launches_by_design
     for merge in (True, False):
+        before = dict(counts)
         out = sa.segment_aggregate_block_table_splitk_cuda(
             arena, ids, table, s, chunk, valid=valid, slot_ids=sl,
-            num_slots=ns, num_cols=1, merge=merge)
+            num_slots=ns, num_cols=1, merge=merge,
+            design=None if design == "smem" else design)
+        assert counts[design] == before[design] + 1
         ref = sa.segment_aggregate_block_table_splitk_plain(
             arena, ids, table, s, chunk, valid=valid, slot_ids=sl,
             num_slots=ns, num_cols=1, merge=merge)
         torch.cuda.synchronize()
         _close(out, ref, ids.numel(), 5.0)
+
+
+@pytest.mark.parametrize("stats", [sa.ALL_STATS, ("sum", "count"),
+                                   ("min", "max"), ("count",)])
+def test_splitk_smem_nan_stats_and_empty_chunks(dev, stats):
+    """NaN values win min/max and poison only their own sums; a chunk
+    whose rows are all invalid holds the identities; every column (no
+    num_cols), no valid mask given."""
+    arena, ids, table, valid, sl, s, ns = _case(dev, r=40, w=3)
+    arena[table[5], 3, 1] = float("nan")
+    arena[table[17], 0, 0] = float("nan")
+    valid[8:16] = False                          # chunk 1 of 8 rows empty
+    valid[5, 3] = True
+    valid[17, 0] = True
+    for merge in (True, False):
+        out = sa.segment_aggregate_block_table_splitk_cuda(
+            arena, ids, table, s, 8, valid=valid, slot_ids=sl, num_slots=ns,
+            stats=stats, merge=merge)
+        ref = sa.segment_aggregate_block_table_splitk_plain(
+            arena, ids, table, s, 8, valid=valid, slot_ids=sl, num_slots=ns,
+            stats=stats, merge=merge)
+        if not merge and "count" in stats:
+            assert float(out["count"][1].abs().sum()) == 0.0
+        if "sum" in stats:
+            assert torch.equal(torch.isnan(out["sum"]),
+                               torch.isnan(ref["sum"]))
+            out["sum"] = torch.nan_to_num(out["sum"])
+            ref["sum"] = torch.nan_to_num(ref["sum"])
+        _close(out, ref, ids.numel(), 5.0)
+    whole = sa.segment_aggregate_block_table_splitk_cuda(
+        arena, ids, table, s, 8, slot_ids=sl, num_slots=ns, stats=stats)
+    _close({k: torch.nan_to_num(v) for k, v in whole.items()},
+           {k: torch.nan_to_num(v) for k, v in
+            sa.segment_aggregate_block_table_splitk_plain(
+                arena, ids, table, s, 8, slot_ids=sl, num_slots=ns,
+                stats=stats).items()}, ids.numel(), 5.0)
+
+
+def test_splitk_design_rule_sends_large_partials_to_global(dev):
+    """A partial past SPLITK_SMEM_BYTES goes to the global design, by the
+    rule and counted; forcing smem there raises before any launch."""
+    arena, ids, table, valid, sl, s, ns = _case(dev, w=8, s=600, r=30)
+    assert sa.splitk_design(sa.ALL_STATS, ns * s, 8) == "global"
+    counts = sa.segment_aggregate_block_table_splitk_cuda.launches_by_design
+    before = dict(counts)
+    out = sa.segment_aggregate_block_table_splitk_cuda(
+        arena, ids, table, s, 7, valid=valid, slot_ids=sl, num_slots=ns)
+    assert counts["global"] == before["global"] + 1
+    assert counts["smem"] == before["smem"]
+    _close(out, sa.segment_aggregate_block_table_splitk_plain(
+        arena, ids, table, s, 7, valid=valid, slot_ids=sl, num_slots=ns),
+        ids.numel(), 5.0)
+    launches = sa.segment_aggregate_block_table_splitk_cuda.launches
+    with pytest.raises(ValueError, match="smem design keeps"):
+        sa.segment_aggregate_block_table_splitk_cuda(
+            arena, ids, table, s, 7, valid=valid, slot_ids=sl,
+            num_slots=ns, design="smem")
+    assert sa.segment_aggregate_block_table_splitk_cuda.launches == launches
 
 
 def test_wrappers_reject_bad_inputs(dev):
