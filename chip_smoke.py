@@ -8,7 +8,7 @@ Phases (the first failed check exits non-zero, with no result line):
 0. The card's name and power limit, then the nvcc builds of the kernels
    (``src/repro_torch/kernels/csrc/{segment_aggregate,segment_splitk,
    attention,decode_hopper,flash_attention_bwd,flash_fwd_hopper,
-   flash_bwd_hopper,ssd_scan}.cu`` for sm_90a, one nvcc per source,
+   flash_bwd_hopper,ssd_scan,ssd_hopper}.cu`` for sm_90a, one nvcc per source,
    started together), with each kernel's registers and spills as ptxas
    reports them.
 1. Aion's late-event loop: ``StreamEngine`` with the stock operator at the
@@ -19,7 +19,8 @@ Phases (the first failed check exits non-zero, with no result line):
    log store. The stream runs ``--windows`` windows of processing time,
    then closes out (watermark past the end, polls, one batched sweep of
    every window) and every window's result is held against a numpy
-   oracle over all events.
+   oracle over all events. Every K2 launch whose block partial fits
+   shared memory must take its smem design (``launches_by_design``).
 2. The same deployment with ``splitk_chunk_rows=64`` and a 1,024-slot
    pool below the live state, over ``--splitk-windows`` windows: the
    split-K fold and the stacked fallback under pool pressure. Three
@@ -37,11 +38,12 @@ Phases (the first failed check exits non-zero, with no result line):
    slot 0, which only padding rows name, holds NaN (they must stay
    inert). Each is timed with CUDA events beside its plain version, one
    PyTorch ``index_add_`` of the same sums (a yardstick only) and its
-   bound. Besides: K3 on rows that its wrapper must pad and its raw
-   partials, on both of its designs; its earlier design's time
-   (``earlier_ms``, the global-atomic kernel the rule keeps for partials
-   past shared memory) and the time of its launch alone (the C call on
-   prepared arguments, ``launch_ms``) beside the wrapper's; K3 with one
+   bound. Besides: K2 on both of its designs, and K3 on rows that its
+   wrapper must pad and its raw partials, on both of its designs; for K2
+   and K3 the earlier design's time (``earlier_ms``, the global-atomic
+   kernel the rule keeps for partials past shared memory) and the time of
+   the launch alone (the C call on prepared arguments, ``launch_ms``)
+   beside the wrapper's; K3 with one
    live row's valid flags cleared, a control that ``compare`` must
    reject; and a NaN case for min/max in K1.
 4. LM serving at starcoder2-7b's attention width (32 layers, 36 heads, 4
@@ -112,7 +114,8 @@ Phases (the first failed check exits non-zero, with no result line):
    64, state 128, vocab 50,280, tied embeddings; fp32 parameters from a
    seeded generator, bf16 compute), all on the card. 9a:
    ``make_prefill_step`` on 4 x 32,768 tokens (the prefill_32k cell's
-   prompt, its batch of 32 cut to 4), K7 once per layer, then 32 steps
+   prompt, its batch of 32 cut to 4), K7 once per layer (every launch on
+   its tensor design), then 32 steps
    of ``make_decode_step``; then one prefill of 1 x 32,768 under
    ``torch.profiler`` (device time by kernel, the device's busy share).
    9b, in bf16 and again in float32 compute: prefill of 2 x 4,096 then
@@ -141,12 +144,20 @@ Phases (the first failed check exits non-zero, with no result line):
    must be rejected; then prefill of 2 x 4,096 and one decode against
    the prefill of 4,097 (4,096 is a multiple of the window: ROADMAP
    Queue 3).
-11. K7 replays: its launch of 9a, one of 9c with a carried state, and
-   hymba's of phase 10, each with y within one bf16 ulp of the plain
-   version (tiled as K7 tiles) on the same bf16 inputs and the final
-   state within K7_STATE_RTOL, a control without the carried state
-   rejected, and timed beside the plain version and the bound (no single
-   PyTorch call computes the scan: no library time).
+11. K7 replays on its tensor design: its launch of 9a, one of 9c with a
+   carried state, and hymba's of phase 10, each with y within one bf16
+   ulp of the plain version (tiled as the design tiles) on the same bf16
+   inputs and the final state within K7_STATE_RTOL, a control without the
+   carried state rejected; the same at each chunk the design is built for
+   (64, 128), each timed; its earlier CUDA-core design on the same
+   inputs, held the same way against the plain version tiled by its own
+   chunk and timed (``earlier_ms``); the plain version and the bound (no
+   single PyTorch call computes the scan: no library time). Hymba's
+   launch cast to float32, the type the float32-compute runs of phases
+   9b and 10 give K7, goes through the CUDA-core design, held against
+   the plain version within K7_FP32_RTOL. In phase 10 every bf16 K7
+   launch takes the tensor design and every float32 one the CUDA-core
+   design.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -318,7 +329,7 @@ def ptxas_lines(build_log: str):
 KERNELS = {
     "K1": ("seg_agg_flat (K1, stacked fallback fold)", 165,
            "segment_aggregate_batched"),
-    "K2": ("seg_agg_block_table (K2, resident block-table fold)", 339,
+    "K2": ("seg_agg_block_table_smem (K2, resident block-table fold)", 339,
            "segment_aggregate_block_table"),
     "K3": ("seg_agg_splitk_smem (K3, split-K block-table fold)", 505,
            "segment_aggregate_block_table_splitk"),
@@ -335,6 +346,7 @@ class LaunchRecorder:
 
     def __init__(self):
         self.largest = {}
+        self.fits = dict.fromkeys(ENTRY_POINTS, 0)
         self._saved = {}
 
     def __enter__(self):
@@ -364,6 +376,15 @@ class LaunchRecorder:
     def _keep(self, key, a) -> None:
         vals = a["values"] if key == "K1" else a["values_arena"]
         rows = vals.shape[0] if key == "K1" else a["table"].shape[0]
+        if key != "K1" and rows and a["num_slots"] and vals.shape[1]:
+            # a launch whose block partial fits shared memory, which the
+            # block-table folds' design rule sends to their smem design
+            sa = importlib.import_module(
+                "repro_torch.kernels.segment_aggregate")
+            w_out = a["num_cols"] or vals.shape[2]
+            self.fits[key] += sa.splitk_design(
+                sa.norm_stats(a["stats"]),
+                a["num_slots"] * a["num_segments"], w_out) == "smem"
         if rows <= self.largest.get(key, {}).get("rows", 0):
             return
         rec = {"rows": rows, "num_segments": a["num_segments"],
@@ -541,7 +562,7 @@ def check_replay(key: str, rp: dict) -> float:
                        chunk), dict(kw, valid=kw["valid"][:cut],
                                     slot_ids=kw["slot_ids"][:cut])))
         cases.append((args, dict(kw, merge=False)))
-    if key == "K3":
+    if key in ("K2", "K3"):
         cases += [(a, dict(k, design="global")) for a, k in cases]
     err = 0.0
     for a, k in cases:
@@ -554,29 +575,33 @@ def check_replay(key: str, rp: dict) -> float:
     return err
 
 
-def k3_extras(rp: dict, iters: int) -> dict:
-    """Phase 3's additions for K3 on its replay: the earlier design's
-    time, the launch alone (``seg_agg_splitk_smem`` on arguments prepared
-    once, CUDA events around the C call only) and the cleared-row
-    control."""
+def smem_extras(key: str, rp: dict, iters: int) -> dict:
+    """Phase 3's additions for K2 and K3 on their replay: the earlier
+    design's time, the launch alone (the smem design's C call on
+    arguments prepared once, CUDA events around the C call only) and, for
+    K3, the cleared-row control."""
     import torch
     sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
     from repro_torch.kernels._build import library
     kernel, plain, args, kw = rp["kernel"], rp["plain"], rp["args"], rp["kw"]
-    arena, ids, table, num_segments, chunk = args
-    launch, outs, keep = sa.splitk_smem_launch(
-        arena, ids, table, num_segments, chunk, kw["valid"], kw["slot_ids"],
-        kw["num_slots"], sa.norm_stats(kw["stats"]), kw["num_cols"], True)
+    prepared = (kw["valid"], kw["slot_ids"], kw["num_slots"],
+                sa.norm_stats(kw["stats"]), kw["num_cols"])
+    if key == "K3":
+        launch, outs, keep = sa.splitk_smem_launch(*args, *prepared, True)
+        entry = "seg_agg_splitk_smem"
+    else:
+        launch, outs, keep = sa.block_table_smem_launch(*args, *prepared)
+        entry = "seg_agg_block_table_smem"
     lib = library("segment_splitk.cu")
-    launch_ms = _sync_time_ms(
-        lambda: lib.call("seg_agg_splitk_smem", *launch), iters)
+    launch_ms = _sync_time_ms(lambda: lib.call(entry, *launch), iters)
     del outs, keep
-    valid = kw["valid"].clone()
-    row = int(torch.nonzero(valid.any(1)).flatten()[0])
-    valid[row] = False
-    must_fail(f"K3 with live row {row}'s valid flags cleared",
-              lambda: compare(kernel(*args, **dict(kw, valid=valid)),
-                              plain(*args, **kw), rp["scale"]))
+    if key == "K3":
+        valid = kw["valid"].clone()
+        row = int(torch.nonzero(valid.any(1)).flatten()[0])
+        valid[row] = False
+        must_fail(f"K3 with live row {row}'s valid flags cleared",
+                  lambda: compare(kernel(*args, **dict(kw, valid=valid)),
+                                  plain(*args, **kw), rp["scale"]))
     return dict(
         earlier_ms=_sync_time_ms(lambda: kernel(*args, design="global",
                                                 **kw), iters),
@@ -628,16 +653,16 @@ def kernel_record(key: str, rec: dict, g, iters: int) -> dict:
               f"valid={n_valid}")
     name, line, _ = KERNELS[key]
     out = dict(
-        name=name, route="cuda", source=SPLITK_SOURCE if key == "K3"
-        else SOURCE, replaces=f"{JAX_FILE}:{line}", max_abs_err=err,
+        name=name, route="cuda", source=SOURCE if key == "K1"
+        else SPLITK_SOURCE, replaces=f"{JAX_FILE}:{line}", max_abs_err=err,
         ms=_sync_time_ms(lambda: kernel(*args, **kw), iters),
         plain_ms=_sync_time_ms(lambda: plain(*args, **kw),
                                max(iters // 4, 1)),
         bound_ms=bound, bound_by=by,
         library_ms=_library_sum_ms(rp["read"], comp, valid, s_total, iters),
         shape=shape)
-    if key == "K3":
-        out.update(k3_extras(rp, iters), earlier_source=SOURCE)
+    if key != "K1":
+        out.update(smem_extras(key, rp, iters), earlier_source=SOURCE)
     return out
 
 
@@ -1777,9 +1802,12 @@ def k6_record(q, k, v, o, do, lse, causal: bool, window: int,
 # --------------------------------------------------------------- phases 9-11
 SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "hymba-1.5b"
+#: K7's tensor-core design, which every bf16 launch of the main paths
+#: takes; SSD_SOURCE keeps its earlier CUDA-core design, for float32
+SSD_TENSOR_SOURCE = "src/repro_torch/kernels/csrc/ssd_hopper.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 #: K7: its name, and the TPU kernel it replaces
-K7 = ("ssd_scan (K7, SSD chunk scan)", "src/repro/kernels/ssd_scan.py:66")
+K7 = ("ssd_tensor (K7, SSD chunk scan)", "src/repro/kernels/ssd_scan.py:66")
 #: phase 9: SSM_ARCH at full width and depth. 9a: the prefill_32k cell's
 #: prompt length with its batch of 32 cut to 4, then 32 decode steps; 9b:
 #: prefill + one decode against a longer prefill, and a streaming prefill
@@ -1812,6 +1840,10 @@ LIMITS = {"bfloat16": dict(logits=0.5, state=0.25, conv=0.5, argmax=False),
 #: K7's final state against the plain version's on the same inputs,
 #: relative to its largest |value|
 K7_STATE_RTOL = 1e-4
+#: K7 in float32 against the plain version on the same inputs, y and the
+#: final state alike: within K7_FP32_RTOL x |plain| + K7_FP32_RTOL x the
+#: largest |plain| (the float32 rule of ``tests/test_torch_ssd_gpu.py``)
+K7_FP32_RTOL = 1e-4
 #: the int8 cache's decode logits against the 16-bit cache's, by the JAX
 #: int8 test's rules (``test_models_smoke.py``): every logit within
 #: INT8_ATOL + INT8_RTOL x |logit|, and the argmaxes equal on INT8_AGREE
@@ -2312,34 +2344,47 @@ def k7_bound(b: int, s: int, h: int, p: int, n: int, elt: int,
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def _k7_close(y, st, ry, rst) -> tuple:
+    """y within one bf16 ulp of the plain version's, the final state
+    within K7_STATE_RTOL of its largest |value|: (max |y - plain|, the
+    state's error)."""
+    st_err = float((st - rst).abs().max()) / max(float(rst.abs().max()),
+                                                 1e-30)
+    err = attn_close(y, ry)
+    check(st_err <= K7_STATE_RTOL, f"K7 final state off by {st_err:.3g} of "
+                                   f"its largest |value| (limit "
+                                   f"{K7_STATE_RTOL})")
+    return err, st_err
+
+
 def k7_record(args: dict, iters: int) -> dict:
-    """Phase 11 for one K7 launch: y within one bf16 ulp of the plain
-    version's (tiled as K7 tiles) on the same bf16 inputs
-    (``attn_close``), the final state within K7_STATE_RTOL of its largest
-    |value|; as a control that must be rejected, the launch without the
-    state its inputs carry (with ``init_state`` dropped, or over the
-    second half alone); timed beside the plain version at the model's
-    chunk of 256, and the bound."""
+    """Phase 11 for one K7 launch, on the tensor design: y within one bf16
+    ulp of the plain version's, tiled as the design tiles, on the same
+    bf16 inputs (``attn_close``), the final state within K7_STATE_RTOL of
+    its largest |value|; as a control that must be rejected, the launch
+    without the state its inputs carry (with ``init_state`` dropped, or
+    over the second half alone); each chunk the design is built for, held
+    the same way against the plain version tiled by it and timed; the
+    earlier CUDA-core design on the same inputs, held the same way against
+    the plain version tiled by its own chunk and timed (``earlier_ms``);
+    the plain version at the model's chunk of 256 and the bound."""
     ss = importlib.import_module("repro_torch.kernels.ssd_scan")
     xdt, a, B, C = (args[k] for k in ("xdt", "a", "B", "C"))
     h0 = args["init_state"]
     b, s, h, p = xdt.shape
     n = B.shape[-1]
+    check(ss.ssd_design(xdt.dtype, p, n) == "tensor"
+          or not xdt.is_cuda, "K7's replay does not take the tensor design")
     y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0)
-    # tiled by the model's 256 instead, the plain version sums in another
-    # order, and where y cancels that order moved a bf16 output of 9a's
-    # launch by 1.5 ulps
-    ry, rst = ss.ssd_scan_plain(xdt, a, B, C, chunk=ss.KERNEL_CHUNK,
+    # tiled another way, the plain version sums in another order, and
+    # where y cancels that order moved a bf16 output of 9a's launch by
+    # 1.5 ulps
+    ry, rst = ss.ssd_scan_plain(xdt, a, B, C,
+                                chunk=ss.kernel_chunk(xdt.dtype, p, n),
                                 init_state=h0)
-    st_err = float((st - rst).abs().max()) / max(float(rst.abs().max()),
-                                                 1e-30)
     log(f"  K7 on xdt {tuple(xdt.shape)}: max |y - plain| "
-        f"{float((y.float() - ry.float()).abs().max()):.3g}, final state "
-        f"{st_err:.3g} of its largest |value|")
-    err = attn_close(y, ry)
-    check(st_err <= K7_STATE_RTOL, f"K7 final state off by {st_err:.3g} of "
-                                   f"its largest |value| (limit "
-                                   f"{K7_STATE_RTOL})")
+        f"{float((y.float() - ry.float()).abs().max()):.3g}")
+    err, st_err = _k7_close(y, st, ry, rst)
     if h0 is not None:
         must_fail("K7 with its init_state dropped", lambda: attn_close(
             ss.ssd_scan_cuda(xdt, a, B, C)[0], ry))
@@ -2351,17 +2396,72 @@ def k7_record(args: dict, iters: int) -> dict:
                                          for t in (xdt, a, B, C)))[0],
                       ry[:, half:]))
     del y, st, ry, rst
+    ey, est = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0,
+                               design="cuda_core")
+    ry, rst = ss.ssd_scan_plain(xdt, a, B, C,
+                                chunk=ss.KERNEL_CHUNK["cuda_core"],
+                                init_state=h0)
+    earlier_err, earlier_st = _k7_close(ey, est, ry, rst)
+    del ey, est, ry, rst
+    chunks = {}
+    for q in ss.TENSOR_CHUNKS:
+        cy, cst = ss.tensor_scan(xdt, a, B, C, h0, chunk=q)
+        qy, qst = ss.ssd_scan_plain(xdt, a, B, C, chunk=q, init_state=h0)
+        q_err, q_st = _k7_close(cy, cst, qy, qst)
+        del cy, cst, qy, qst
+        chunks[q] = dict(max_abs_err=q_err, state_err=q_st,
+                         ms=_sync_time_ms(lambda: ss.tensor_scan(
+                             xdt, a, B, C, h0, chunk=q), iters))
     bound, by = k7_bound(b, s, h, p, n, xdt.element_size(), h0 is not None)
     return dict(
         max_abs_err=err, state_err=st_err,
         ms=_sync_time_ms(lambda: ss.ssd_scan_cuda(xdt, a, B, C,
                                                   init_state=h0), iters),
+        earlier_ms=_sync_time_ms(lambda: ss.ssd_scan_cuda(
+            xdt, a, B, C, init_state=h0, design="cuda_core"),
+            max(iters // 5, 1)),
         plain_ms=_sync_time_ms(lambda: ss.ssd_scan_plain(
             xdt, a, B, C, chunk=256, init_state=h0), 1),
-        bound_ms=bound, bound_by=by, library_ms=None,
+        bound_ms=bound, bound_by=by, library_ms=None, chunks=chunks,
+        earlier_max_abs_err=earlier_err, earlier_state_err=earlier_st,
         shape=(f"xdt [{b}, {s}, {h}, {p}] {str(xdt.dtype)[6:]}, a "
                f"[{b}, {s}, {h}] fp32, B/C [{b}, {s}, {n}], init_state "
                f"{'carried' if h0 is not None else 'none'}"))
+
+
+def k7_fp32_record(args: dict, iters: int) -> dict:
+    """Phase 11 for K7 in float32, the type the float32-compute runs of
+    phases 9b and 10 give it: one launch's inputs cast to float32 go
+    through the design the table picks (``cuda_core``), held against the
+    plain version tiled by that design's chunk, y and the final state
+    within K7_FP32_RTOL; then timed."""
+    import torch
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    xdt, B, C = (args[k].float() for k in ("xdt", "B", "C"))
+    a, h0 = args["a"], args["init_state"]
+    p, n = xdt.shape[-1], B.shape[-1]
+    design = ss.ssd_design(xdt.dtype, p, n)
+    check(design == "cuda_core", f"K7 in float32 takes {design}, not the "
+                                 "CUDA-core design")
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0)
+    ry, rst = ss.ssd_scan_plain(xdt, a, B, C,
+                                chunk=ss.kernel_chunk(xdt.dtype, p, n),
+                                init_state=h0)
+    errs = {}
+    for name, got, want in (("y", y, ry), ("state", st, rst)):
+        check(bool(torch.isfinite(got).all()), f"K7 float32: {name} is not "
+                                               "finite")
+        scale = max(float(want.abs().max()), 1e-30)
+        over = (got - want).abs() - K7_FP32_RTOL * (want.abs() + scale)
+        check(float(over.max()) <= 0, f"K7 float32: {name} outside "
+                                      f"{K7_FP32_RTOL} x (|plain| + its "
+                                      "largest |value|)")
+        errs[name] = float((got - want).abs().max())
+    del y, st, ry, rst
+    return dict(design=design, max_abs_err=errs["y"],
+                state_abs_err=errs["state"],
+                ms=_sync_time_ms(lambda: ss.ssd_scan_cuda(
+                    xdt, a, B, C, init_state=h0), iters))
 
 
 def device_profile(fn):
@@ -2435,6 +2535,7 @@ def serve_ssm(dev, every: dict) -> dict:
     ssm = ssm_serve(model, params, SSM_RUN, SEED + 10)
     torch.cuda.synchronize()
     ssm["launches"] = {k: fn.launches for k, fn in every.items()}
+    ssm["by_design"] = by_design(every)
     ssm["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     largest_9a = ssm.pop("largest")()
     run = SSM_RUN
@@ -2443,13 +2544,19 @@ def serve_ssm(dev, every: dict) -> dict:
         f"tokens/s; K7 {ssm['k7_ms']:.1f} ms of it over "
         f"{ssm['k7_calls']} launches), {run['decode']} decode steps in "
         f"{ssm['decode_s']:.3f} s ({ssm['decode_tokens_per_s']:.1f} "
-        f"tokens/s); launches {ssm['launches']}; max_memory_allocated "
+        f"tokens/s); launches {ssm['launches']} (K7 by design "
+        f"{ssm['by_design']['K7']}); max_memory_allocated "
         f"{ssm['max_memory_allocated'] / 1e9:.2f} GB; sample ids "
         f"{ssm['sample']}")
     for k, n in ssm["launches"].items():
         want = scfg.num_layers if k == "K7" else 0
         check(n == want, f"9a: {k} launched {n} times, the path implies "
                          f"{want}")
+    # bf16 compute: every K7 launch on the tensor design
+    check(ssm["by_design"]["K7"] == {"tensor": scfg.num_layers,
+                                     "cuda_core": 0},
+          f"9a: K7 by design {ssm['by_design']['K7']}: a bf16 launch "
+          "missed the tensor design")
     profile_prefill(model, params, 1, run["seq"], SEED + 10)
     t0 = time.perf_counter()
     log("phase 9b: checks against the whole prefill (limits: argmax equal, "
@@ -2460,6 +2567,7 @@ def serve_ssm(dev, every: dict) -> dict:
     zero_counts(every.values())
     long = ssm_long(model, params, SSM_RUN, SEED + 12)
     long["launches"] = {k: fn.launches for k, fn in every.items()}
+    long["by_design"] = by_design(every)
     long["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     kept_9c = long.pop("kept")()
     check(float(kept_9c["init_state"].abs().max()) > 0,
@@ -2469,11 +2577,15 @@ def serve_ssm(dev, every: dict) -> dict:
         f"({long['prefill_tokens_per_s']:.1f} tokens/s), "
         f"{run['long_decode']} decode steps in {long['decode_s']:.3f} s "
         f"({long['decode_tokens_per_s']:.1f} tokens/s); launches "
-        f"{long['launches']}; max_memory_allocated "
-        f"{long['max_memory_allocated'] / 1e9:.2f} GB")
+        f"{long['launches']} (K7 by design {long['by_design']['K7']}); "
+        f"max_memory_allocated {long['max_memory_allocated'] / 1e9:.2f} GB")
     check(long["launches"]["K7"] == scfg.num_layers * (
         run["long_seq"] // run["chunk"]), "9c: K7 launches differ from one "
                                           "per layer and chunk")
+    check(long["by_design"]["K7"] == {"tensor": long["launches"]["K7"],
+                                      "cuda_core": 0},
+          f"9c: K7 by design {long['by_design']['K7']}: a bf16 launch "
+          "missed the tensor design")
     runs["ssm"], runs["ssm_long"] = ssm, long
     del model, params
     gc.collect()
@@ -2511,12 +2623,14 @@ def serve_ssm(dev, every: dict) -> dict:
         want = 4 * hcfg.num_layers if k in ("K5", "K7") else 0
         check(n == want, f"hybrid: {k} launched {n} times, the path implies "
                          f"{want}")
-    # the bf16 and int8 runs compute in bf16 (the wgmma design), the two
-    # float32-compute runs in float32 (the CUDA-core design)
-    want = {"wgmma": 2 * hcfg.num_layers, "cuda_core": 2 * hcfg.num_layers}
-    check(hyb["by_design"]["K5"] == want,
-          f"hybrid: K5 by design {hyb['by_design']['K5']}, the runs imply "
-          f"{want}")
+    # the bf16 and int8 runs compute in bf16 (K5's wgmma design, K7's
+    # tensor design), the two float32-compute runs in float32 (each one's
+    # CUDA-core design)
+    for k, fast in (("K5", "wgmma"), ("K7", "tensor")):
+        want = {fast: 2 * hcfg.num_layers, "cuda_core": 2 * hcfg.num_layers}
+        check(hyb["by_design"][k] == want,
+              f"hybrid: {k} by design {hyb['by_design'][k]}, the runs imply "
+              f"{want}")
     hyb["decode_err"] = prefill_then_decode(hmodel, hparams,
                                             run["check_batch"], run["seq"],
                                             SEED + 14)
@@ -2531,24 +2645,45 @@ def serve_ssm(dev, every: dict) -> dict:
     k7_replays = {"K7": k7_record(largest_9a, iters=5),
                   "K7 carried state": k7_record(kept_9c, iters=20),
                   "K7 hymba": k7_record(largest_10, iters=10)}
+    k7_fp32 = k7_fp32_record(largest_10, iters=10)
     del largest_9a, kept_9c, largest_10
     for key, r in k7_replays.items():
         log(f"phase 11: {key}: max_abs_err {r['max_abs_err']:.3g} (within "
             f"one bf16 ulp), final state {r['state_err']:.3g} of its largest"
             f" |value| (limit {K7_STATE_RTOL}) | kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library none, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['shape']}")
+            f"earlier {r['earlier_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library none, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) | {r['shape']}")
+        log(f"phase 11: {key}: by chunk "
+            + "; ".join(f"{q}: {c['ms']:.4f} ms, max_abs_err "
+                        f"{c['max_abs_err']:.3g}, state {c['state_err']:.3g}"
+                        for q, c in r["chunks"].items())
+            + f"; cuda_core: max_abs_err {r['earlier_max_abs_err']:.3g} "
+            f"(within one bf16 ulp), state {r['earlier_state_err']:.3g}")
+    log(f"phase 11: K7 hymba in float32 on {k7_fp32['design']}: max |y - "
+        f"plain| {k7_fp32['max_abs_err']:.3g}, max |state - plain| "
+        f"{k7_fp32['state_abs_err']:.3g} (within {K7_FP32_RTOL} x (|plain| "
+        f"+ its largest |value|)) | kernel {k7_fp32['ms']:.4f} ms")
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     r = k7_replays["K7"]
     kernel = {
-        "name": K7[0], "route": "cuda", "source": SSD_SOURCE,
+        "name": K7[0], "route": "cuda", "source": SSD_TENSOR_SOURCE,
+        "earlier_source": SSD_SOURCE,
         "replaces": K7[1], "launches": ssm["launches"]["K7"],
+        "launches_by_design": ssm["by_design"]["K7"],
         "path": "ssm", "max_abs_err": max(
             x["max_abs_err"] for x in k7_replays.values()),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "earlier_max_abs_err": max(
+            x["earlier_max_abs_err"] for x in k7_replays.values()),
+        "fp32_max_abs_err": k7_fp32["max_abs_err"],
+        "fp32_state_abs_err": k7_fp32["state_abs_err"],
+        "ms": r["ms"], "earlier_ms": r["earlier_ms"],
+        "fp32_ms": k7_fp32["ms"],
+        "chunk_ms": {q: c["ms"] for q, c in r["chunks"].items()},
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
     return dict(kernel=kernel, shape=r["shape"], runs=runs,
-                k7_replays=k7_replays)
+                k7_replays=k7_replays, k7_fp32=k7_fp32)
 
 
 
@@ -2616,9 +2751,12 @@ def main(argv=None) -> int:
             rec["wall_s"] = time.perf_counter() - t0
             runs[tag] = rec
             recorded[tag] = recorder.largest
+            rec["by_design"] = by_design(wrappers)
+            rec["smem_fits"] = dict(recorder.fits)
             log(f"phase {phase}: {tag} run in {rec['wall_s']:.1f} s, kernel "
-                f"launches {rec['launches']} (K3 by design "
-                f"{dict(wrappers['K3'].launches_by_design)}), "
+                f"launches {rec['launches']} (by design {rec['by_design']}; "
+                f"launches whose partial fits shared memory "
+                f"{rec['smem_fits']}), "
                 f"max_memory_allocated "
                 f"{rec['max_memory_allocated'] / 1e9:.3f} GB (arena "
                 f"{rec['arena_bytes'] / 1e9:.3f} GB)")
@@ -2634,7 +2772,13 @@ def main(argv=None) -> int:
                 check(n == 0 or k in recorder.largest,
                       f"{tag}: {k} launched outside the recorded entry "
                       f"points")
-            rec["by_design"] = {"K3": dict(wrappers["K3"].launches_by_design)}
+            for k in ("K2", "K3"):
+                fits = rec["smem_fits"][k]
+                check(rec["by_design"][k] == {
+                    "smem": fits, "global": rec["launches"][k] - fits},
+                    f"{tag}: {k} by design {rec['by_design'][k]}, but "
+                    f"{fits} of its {rec['launches'][k]} launches fit "
+                    "shared memory: a launch missed the smem design")
             if tag == "splitk":
                 check(c["splitk_launches"] > 0, "splitk: no split-K launch")
                 check(rec["by_design"]["K3"] == {
@@ -2667,7 +2811,7 @@ def main(argv=None) -> int:
             f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})"
             + (f", earlier design {r['earlier_ms']:.4f} ms, launch alone "
-               f"{r['launch_ms']:.4f} ms" if key == "K3" else "")
+               f"{r['launch_ms']:.4f} ms" if key != "K1" else "")
             + f" | the largest launch of the {path} run ({by_run}): "
             f"{r['shape']}")
         shapes.append(r.pop("shape"))
@@ -2678,11 +2822,11 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if key == "K3":
+        if key != "K1":
             kernels[-1].update(
                 earlier_source=r["earlier_source"],
                 earlier_ms=r["earlier_ms"], launch_ms=r["launch_ms"],
-                launches_by_design=runs[path]["by_design"]["K3"])
+                launches_by_design=runs[path]["by_design"][key])
         torch.cuda.synchronize()
         del rec
         torch.cuda.empty_cache()
@@ -2952,6 +3096,7 @@ def main(argv=None) -> int:
     shapes.append(ssm_out["shape"])
     runs.update(ssm_out["runs"])
     report["k7_replays"] = ssm_out["k7_replays"]
+    report["k7_fp32"] = ssm_out["k7_fp32"]
 
     if args.out is not None:
         report["kernels"] = [dict(x, shape=s)

@@ -45,3 +45,11 @@ def to_numpy(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream's handle on ``device``, for a kernel's C
+    entry point (the binding that PyTorch's own generated kernel launchers
+    call: a ``Stream`` object costs several microseconds of host time a
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -50,6 +50,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # (each may be null), stream
         "seg_agg_splitk_smem": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P]
         + [_I] * 8 + [_P] * 6,
+        # arena, pool_slots, cap, W, w_out, table, R, ids, slots, valid
+        # (may be null), S, S_total, events_per_block, stats, out, stream
+        "seg_agg_block_table_smem": [_P, _I, _I, _I, _I, _P, _I, _P, _P,
+                                     _P, _I, _I, _I, _I, _P, _P],
     },
     "attention.cu": {
         # q, k_pages, v_pages, table, lens, out, B, H, Hkv, D, P, page,
@@ -85,6 +89,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # xdt, a, B, C, init_state (may be null), y, final_state, b, s, h,
         # p, n, dtype, stream
         "ssd_scan": [_P] * 7 + [_I] * 6 + [_P],
+    },
+    "ssd_hopper.cu": {
+        # xdt, a, B, C, init_state (may be null), y, final_state,
+        # workspace, b, s, h, p, n, chunk, heads per block, stream
+        "ssd_tensor": [_P] * 8 + [_I] * 7 + [_P],
     },
 }
 

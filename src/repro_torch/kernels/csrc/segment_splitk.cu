@@ -1,7 +1,8 @@
-// The split-K block-table fold for Hopper (sm_90a) with shared-memory
-// partials: K3's design where a block's partial fits shared memory (the
+// The block-table folds for Hopper (sm_90a) with shared-memory partials:
+// K3's and K2's design where a block's partial fits shared memory (the
 // rule of repro_torch/kernels/segment_aggregate.py, splitk_design; the
-// rest keeps seg_agg_block_table_splitk of segment_aggregate.cu).
+// rest keeps seg_agg_block_table_splitk and seg_agg_block_table of
+// segment_aggregate.cu).
 //
 //   seg_agg_splitk_smem  replaces segment_aggregate_block_table_splitk_pallas
 //                        (repro/kernels/segment_aggregate.py,
@@ -44,8 +45,29 @@
 //   the launch). One launch: on this fold the host's cost of a launch is
 //   most of the wrapper's time.
 //
-// The entry point zeroes the counters and launches the kernel on the
-// caller's stream, allocates nothing and returns cudaGetLastError().
+//   seg_agg_block_table_smem  K2's design where a block's partial fits
+//                        shared memory (the same rule): replaces
+//                        segment_aggregate_block_table_pallas (_bt_kernel),
+//                        the fold of every table row into one result. The
+//                        events are cut into blocks as above, each folding
+//                        into its own shared-memory partial, but no block
+//                        waits for the others: each flushes its partial
+//                        straight into the output with one global atomic
+//                        per touched word (segment, stat and column), so no
+//                        block folds every block's partial alone. The
+//                        output starts as zero (one memset in the same C
+//                        call), which is the identity of sum and count;
+//                        min and max travel as order-preserving unsigned
+//                        keys (atomicMax, in shared memory too: no
+//                        compare-and-swap loop), in which 0 is the identity
+//                        and a NaN is the largest key, so a NaN wins as in
+//                        jnp.minimum / jnp.maximum; the last block to
+//                        finish turns the keys back into floats (+inf /
+//                        -inf where nothing landed).
+//
+// The entry points zero the counters (and K2's output) and launch the
+// kernel on the caller's stream, allocate nothing and return
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -92,6 +114,42 @@ __device__ __forceinline__ float reduce_peers(unsigned peers, float x,
         rank >>= 1;
     }
     return x;
+}
+
+// reduce_peers over unsigned keys, for the larger key.
+__device__ __forceinline__ unsigned reduce_peers_max(unsigned peers,
+                                                     unsigned x, int lane) {
+    unsigned rank = __popc(peers & ((1u << lane) - 1u));
+    peers &= 0xfffffffeu << lane;
+    while (__any_sync(kFull, peers)) {
+        const int next = __ffs(peers);
+        const unsigned t = __shfl_sync(kFull, x, (next - 1) & 31);
+        if (next) x = max(x, t);
+        peers &= __ballot_sync(kFull, !(rank & 1u));
+        rank >>= 1;
+    }
+    return x;
+}
+
+// Order-preserving keys of K2's min and max: 0 is the identity (no float
+// maps to it), every NaN maps to the largest key, and a larger key is a
+// smaller float (min) or a larger one (max).
+__device__ __forceinline__ unsigned ordered(float x) {
+    const unsigned u = __float_as_uint(x);
+    return u & 0x80000000u ? ~u : u | 0x80000000u;
+}
+__device__ __forceinline__ unsigned min_key(float x) {
+    return x != x ? 0xffffffffu : ~ordered(x);
+}
+__device__ __forceinline__ unsigned max_key(float x) {
+    return x != x ? 0xffffffffu : ordered(x);
+}
+// key -> float; q 2 min, 3 max
+__device__ __forceinline__ float from_key(int q, unsigned k) {
+    if (k == 0u) return q == 2 ? CUDART_INF_F : -CUDART_INF_F;
+    if (k == 0xffffffffu) return CUDART_NAN_F;
+    const unsigned o = q == 2 ? ~k : k;
+    return __uint_as_float(o & 0x80000000u ? o & 0x7fffffffu : ~o);
 }
 
 // NaN-propagating minimum / maximum on shared (or global) memory.
@@ -292,6 +350,103 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
                   mn, mx, 0, nullptr);
 }
 
+// K2: block j folds events [j * events_per_block, ...) of the R x cap
+// flattened rows into its shared-memory partial (sum and count as floats,
+// min and max as keys, all starting at 0), then adds it into `out` (the
+// same layout, zeroed) with one atomic per touched word; the last block
+// turns out's keys into floats.
+__global__ void __launch_bounds__(kThreads) flush_kernel(
+        const float* __restrict__ arena, int pool_slots, int cap, int w,
+        int w_out, const int* __restrict__ table, int R,
+        const int* __restrict__ ids, const int* __restrict__ slots,
+        const uint8_t* __restrict__ valid, int S, int s_total,
+        int events_per_block, int stats, float* out, int* counter) {
+    extern __shared__ float part[];
+    unsigned* keys = reinterpret_cast<unsigned*>(part);
+    const Words words(stats, s_total, w_out);
+    for (int i = threadIdx.x; i < words.total; i += kThreads) keys[i] = 0u;
+    __syncthreads();
+
+    const int e0 = blockIdx.x * events_per_block;
+    const int e1 = min(e0 + events_per_block, R * cap);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const bool values = (stats & (kSum | kMin | kMax)) != 0;
+    for (int base = e0 + warp * 32 * kBatch; base < e1;
+         base += kWarps * 32 * kBatch) {     // warp-uniform trip count
+        int key[kBatch];
+        bool ok[kBatch];
+        const float* row[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            const int e = base + u * 32 + lane;
+            ok[u] = e < e1;
+            key[u] = -1 - lane;              // a group of its own
+            row[u] = arena;
+            if (ok[u]) {
+                const int r = e / cap;
+                const bool live = valid == nullptr || valid[e] != 0;
+                const int p = table[r];
+                const int comp = slots[r] * S + ids[e];
+                ok[u] = live && comp >= 0 && comp < s_total && p >= 0
+                    && p < pool_slots;
+                if (ok[u]) {
+                    key[u] = comp;
+                    row[u] = arena + ((long long)p * cap + (e - r * cap)) * w;
+                }
+            }
+        }
+        unsigned peers[kBatch];
+        bool leader[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            peers[u] = __match_any_sync(kFull, key[u]);
+            leader[u] = ok[u] && __ffs(peers[u]) - 1 == lane;
+            if (words.count >= 0 && leader[u])
+                atomicAdd(part + words.count + key[u],
+                          (float)__popc(peers[u]));
+        }
+        if (!values) continue;
+        for (int col = 0; col < w_out; ++col) {
+            float v[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u)
+                v[u] = ok[u] ? __ldg(row[u] + col) : 0.f;
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+                const int at = key[u] * w_out + col;
+                if (words.sum >= 0) {
+                    const float t = reduce_peers(peers[u], v[u], lane, Add());
+                    if (leader[u]) atomicAdd(part + words.sum + at, t);
+                }
+                if (words.min >= 0) {
+                    const unsigned t = reduce_peers_max(peers[u],
+                                                        min_key(v[u]), lane);
+                    if (leader[u]) atomicMax(keys + words.min + at, t);
+                }
+                if (words.max >= 0) {
+                    const unsigned t = reduce_peers_max(peers[u],
+                                                        max_key(v[u]), lane);
+                    if (leader[u]) atomicMax(keys + words.max + at, t);
+                }
+            }
+        }
+    }
+    __syncthreads();
+    unsigned* out_keys = reinterpret_cast<unsigned*>(out);
+    for (int i = threadIdx.x; i < words.total; i += kThreads) {
+        const unsigned k = keys[i];
+        if (k == 0u) continue;                   // untouched
+        if (words.stat(i) < 2) atomicAdd(out + i, part[i]);
+        else atomicMax(out_keys + i, k);
+    }
+
+    if (!last_to_arrive(counter, gridDim.x)) return;
+    const int first = words.min >= 0 ? words.min : words.max;
+    if (first < 0) return;
+    for (int i = first + threadIdx.x; i < words.total; i += kThreads)
+        out[i] = from_key(words.stat(i), __ldcg(out_keys + i));
+}
+
 }  // namespace
 
 extern "C" {
@@ -324,6 +479,35 @@ int seg_agg_splitk_smem(const float* arena, int pool_slots, int cap, int w,
         arena, pool_slots, cap, w, w_out, table, r, ids, slots, valid, S,
         s_total, chunk_rows, k, blocks_per_chunk, events_per_block, stats,
         merge, scratch, chunks, counters, sum, cnt, mn, mx);
+    return (int)cudaGetLastError();
+}
+
+// out: float32 [words] in the layout of a partial (sum [S_total, w_out],
+// count [S_total], min, max; each present where requested), then one int
+// counter; the entry point zeroes both. stats: bits 1 sum, 2 count, 4 min,
+// 8 max.
+int seg_agg_block_table_smem(const float* arena, int pool_slots, int cap,
+                             int w, int w_out, const int* table, int r,
+                             const int* ids, const int* slots,
+                             const uint8_t* valid, int S, int s_total,
+                             int events_per_block, int stats, float* out,
+                             void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const Words words(stats, s_total, w_out);
+    const size_t smem = (size_t)words.total * sizeof(float);
+    const long long events = (long long)r * cap;
+    if (words.total == 0 || events <= 0 || events_per_block <= 0
+        || smem > 48 * 1024 || events > 0x7fffffffLL - kThreads * kBatch)
+        return (int)cudaErrorInvalidValue;
+    const long long blocks = (events + events_per_block - 1)
+        / events_per_block;
+    int* counter = reinterpret_cast<int*>(out + words.total);
+    cudaError_t e = cudaMemsetAsync(out, 0,
+                                    (words.total + 1) * sizeof(float), s);
+    if (e != cudaSuccess) return (int)e;
+    flush_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
+        arena, pool_slots, cap, w, w_out, table, r, ids, slots, valid, S,
+        s_total, events_per_block, stats, out, counter);
     return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 //
 //   ssd_scan  replaces ssd_scan_pallas (repro/kernels/ssd_scan.py, _kernel):
 //             the state-space-duality scan, forward, with the carried state
-//             passed in and out.
+//             passed in and out. K7's cuda_core design: float32, and the
+//             shapes the tensor-core design (ssd_hopper.cu) does not take
+//             (the table of repro_torch/kernels/ssd_scan.py, ssd_design).
 //
 // Layout: the model's. xdt [b, s, h, p] (x * dt), a [b, s, h] float32
 // (dt * A, <= 0), B and C [b, s, n] shared by every head (n_groups = 1),
@@ -25,10 +27,11 @@
 // a sequence chunk after chunk.
 //
 // Never exponentiate a positive number: the Pallas kernel computes
-// exp(cum_i - cum_j) for every pair and masks after, and for j > i that
-// exponent is positive, can reach inf, and inf * 0 is NaN. Here the decay
-// is computed for j <= i only, as a select. Every other exponent
-// (cum_i, cum_last - cum_j, cum_last) is <= 0 because a is.
+// exp(cum_i - cum_j) for every pair, where for j > i the exponent is
+// positive and can reach inf, and then selects 0 there with jnp.where, so
+// no inf enters a product and no NaN arises. Here the decay is computed
+// for j <= i only, as a select, so no inf arises at all. Every other
+// exponent (cum_i, cum_last - cum_j, cum_last) is <= 0 because a is.
 //
 // What bounds it: bytes. The chunked algorithm at the model's chunk of 256
 // does 2 Q n flops a token for the scores (shared by the heads), Q h p for
@@ -52,8 +55,8 @@
 // lie above the diagonal; y takes the intra- and inter-chunk terms; then
 // the state is updated. A ragged last chunk is padded with a = 0 and zero
 // xdt, B and C, which leaves the state and the valid rows unchanged. The
-// products run on the CUDA cores; the tensor cores and a shared score
-// tile are later work. Shared memory: (2 * 64 + 16) (n + 1) + 64 * 65 +
+// products run on the CUDA cores (ssd_hopper.cu puts bf16 inputs on the
+// tensor cores, with a score tile shared by a block's heads). Shared memory: (2 * 64 + 16) (n + 1) + 64 * 65 +
 // 64 * 17 + 3 * 64 floats, 96 KB at n 128 and 168 KB at n 256 (the most
 // it takes).
 //

@@ -2,9 +2,10 @@
 late-event loop, as hand-written CUDA kernels for Hopper and their plain
 PyTorch versions.
 
-Three kernels (``csrc/segment_aggregate.cu``), each behind a wrapper that
-launches it for a CUDA tensor and takes the plain version only for a
-tensor on the CPU:
+Three kernels (``csrc/segment_aggregate.cu``, and the shared-memory
+designs of K2 and K3 in ``csrc/segment_splitk.cu``), each behind a
+wrapper that launches it for a CUDA tensor and takes the plain version
+only for a tensor on the CPU:
 
   K1 ``segment_aggregate_cuda``              flat reduce-by-key: values
      [N, W], ids [N], valid [N] -> per-segment sum / count / min / max.
@@ -13,7 +14,14 @@ tensor on the CPU:
   K2 ``segment_aggregate_block_table_cuda``  the K1 reduction over the
      persistent block pool: row ``r``'s event tile is read straight out
      of ``arena[table[r]]`` inside the kernel (no per-batch gather copy),
-     keeping the first ``num_cols`` value columns.
+     keeping the first ``num_cols`` value columns. Its design comes from
+     the rule of K3: ``smem`` (``csrc/segment_splitk.cu``: blocks of
+     SPLITK_EVENTS_PER_BLOCK events fold into shared-memory partials,
+     each flushed into the output with one global atomic per touched word,
+     the composite ids and identities made inside the kernel) where a
+     block's partial fits SPLITK_SMEM_BYTES, else ``global``, the kernel
+     with one thread an event and global atomics. It counts its launches
+     by design in ``launches_by_design``.
   K3 ``segment_aggregate_block_table_splitk_cuda``  the K2 fold with the
      table's rows cut into fixed chunks of ``chunk_rows``; chunk ``c``
      accumulates its own partial ``[k, slots, S(, W)]``, merged or
@@ -46,7 +54,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import raw_stream, resolve_device
 
 ALL_STATS = ("sum", "count", "min", "max")
 
@@ -109,9 +117,9 @@ def splitk_partial_bytes(stats, s_total: int, w_out: int) -> int:
 
 def splitk_design(stats, s_total: int, w_out: int,
                   forced: str | None = None) -> str:
-    """K3's design for normalized ``stats``: ``smem`` where a block's
-    partial fits SPLITK_SMEM_BYTES, else ``global``; or ``forced`` (a
-    measurement's choice), which must take these inputs."""
+    """K3's and K2's design for normalized ``stats``: ``smem`` where a
+    block's partial fits SPLITK_SMEM_BYTES, else ``global``; or ``forced``
+    (a measurement's choice), which must take these inputs."""
     nbytes = splitk_partial_bytes(stats, s_total, w_out)
     table = "smem" if 0 < nbytes <= SPLITK_SMEM_BYTES else "global"
     if forced is None:
@@ -364,13 +372,6 @@ def _valid_bytes(valid, shape, device) -> Optional[torch.Tensor]:
     return valid if valid.is_contiguous() else valid.contiguous()
 
 
-def _stream(device: torch.device) -> int:
-    """The current stream's handle on a tensor's device (the binding that
-    PyTorch's own generated kernel launchers call: a ``Stream`` object
-    costs several microseconds of host time a launch)."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
 def _lib(source: str = "segment_aggregate.cu"):
     from repro_torch.kernels._build import library
     return library(source)
@@ -399,7 +400,7 @@ def segment_aggregate_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
     _lib().call("seg_agg_flat", values.data_ptr(), values.stride(0), w,
                 ids.data_ptr(), ok.data_ptr(), n, num_segments,
                 _ptr(out.get("sum")), _ptr(out.get("count")),
-                _ptr(out.get("min")), _ptr(out.get("max")), _stream(dev))
+                _ptr(out.get("min")), _ptr(out.get("max")), raw_stream(dev))
     segment_aggregate_cuda.launches += 1
     return out
 
@@ -468,9 +469,58 @@ def _block_table_launch(name: str, values_arena, segment_ids, table,
     if chunk_rows:
         args.append(chunk_rows)
     args += [_ptr(out.get("sum")), _ptr(out.get("count")),
-             _ptr(out.get("min")), _ptr(out.get("max")), _stream(dev)]
+             _ptr(out.get("min")), _ptr(out.get("max")), raw_stream(dev)]
     _lib().call(name, *args)
     return out, w_out
+
+
+def _stat_views(buf: torch.Tensor, stats, lead: tuple, num_slots: int,
+                num_segments: int, w_out: int, k_out: int) -> tuple:
+    """Each stat's output as a view of ``buf`` ([*lead,] slots, S(, w_out),
+    one stat after another, in a partial's layout) and its address; returns
+    (views, addresses by stat, floats used)."""
+    s_total = num_slots * num_segments
+    base = buf.data_ptr()
+    out, ptr, at = {}, dict.fromkeys(ALL_STATS), 0
+    for s in stats:
+        width, tail = (1, ()) if s == "count" else (w_out, (w_out,))
+        out[s] = buf.as_strided(
+            (*lead, num_slots, num_segments, *tail),
+            (*(s_total * width,) * len(lead), num_segments * width, width,
+             *(1,) * len(tail)), at)
+        ptr[s] = base + 4 * at
+        at += k_out * s_total * width
+    return out, ptr, at
+
+
+def block_table_smem_launch(values_arena, segment_ids, table,
+                            num_segments: int, valid, slot_ids,
+                            num_slots: int, stats, num_cols: Optional[int]):
+    """The checks, outputs and C arguments of one launch of K2's smem
+    design (``seg_agg_block_table_smem``): returns (arguments, outputs,
+    tensors the launch reads, to be kept alive until it is enqueued).
+    ``stats`` must be normalized, ``slot_ids`` given and the table
+    non-empty."""
+    dev = values_arena.device
+    p, cap, w = values_arena.shape
+    w_out = _check_arena(values_arena, num_cols)
+    r = table.shape[0]
+    tbl = _i32(table, (r,), dev, "table")
+    ids = _i32(segment_ids, (r, cap), dev, "segment_ids")
+    slots = _i32(slot_ids, (r,), dev, "slot_ids")
+    ok = _valid_bytes(valid, (r, cap), dev)
+    s_total = num_slots * num_segments
+    # one allocation: the outputs, each a view of it, then the kernel's
+    # block counter
+    words = splitk_partial_bytes(stats, s_total, w_out) // 4
+    buf = torch.empty(words + 1, dtype=torch.float32, device=dev)
+    out, _, _ = _stat_views(buf, stats, (), num_slots, num_segments, w_out,
+                            1)
+    args = (values_arena.data_ptr(), p, cap, w, w_out, tbl.data_ptr(), r,
+            ids.data_ptr(), slots.data_ptr(), _ptr(ok), num_segments,
+            s_total, SPLITK_EVENTS_PER_BLOCK,
+            sum(_STAT_BITS[s] for s in stats), buf.data_ptr(), raw_stream(dev))
+    return args, out, (tbl, ids, slots, ok, buf)
 
 
 def segment_aggregate_block_table_cuda(values_arena, segment_ids, table,
@@ -478,12 +528,18 @@ def segment_aggregate_block_table_cuda(values_arena, segment_ids, table,
                                        slot_ids=None,
                                        num_slots: Optional[int] = None,
                                        stats: Tuple[str, ...] = ALL_STATS,
-                                       num_cols: Optional[int] = None
+                                       num_cols: Optional[int] = None,
+                                       design: Optional[str] = None
                                        ) -> dict:
     """K2: fold over the block pool, reading each row's tile from the
     arena inside the kernel. values_arena [P, cap, W] float32, table [R]
     pool slots, segment_ids / valid [R, cap], slot_ids [R] -> per-slot
-    stats [num_slots, S(, num_cols)]."""
+    stats [num_slots, S(, num_cols)]. Its design is ``splitk_design``'s
+    for one result: ``smem`` (``csrc/segment_splitk.cu``: block partials
+    in shared memory, flushed into the output by atomics) where a block's
+    partial fits, else ``global`` (``csrc/segment_aggregate.cu``: one
+    thread an event, global atomics). ``design`` forces one (for
+    measurements) and raises where it does not take the inputs."""
     stats = norm_stats(stats)
     if not values_arena.is_cuda:
         return segment_aggregate_block_table_plain(
@@ -494,17 +550,28 @@ def segment_aggregate_block_table_cuda(values_arena, segment_ids, table,
     slot_ids, num_slots = _slots(slot_ids, num_slots, r,
                                  values_arena.device)
     w_out = num_cols if num_cols is not None else values_arena.shape[2]
-    if r == 0 or num_slots == 0:
+    if r == 0 or num_slots == 0 or values_arena.shape[1] == 0:
         return _identity(stats, (num_slots, num_segments), w_out,
                          values_arena.device)
-    out, w_out = _block_table_launch(
-        "seg_agg_block_table", values_arena, segment_ids, table,
-        num_segments, valid, slot_ids, num_slots, stats, num_cols, 0, 1)
+    chosen = splitk_design(stats, num_slots * num_segments, w_out, design)
+    if chosen == "smem":
+        args, out, _keep = block_table_smem_launch(
+            values_arena, segment_ids, table, num_segments, valid, slot_ids,
+            num_slots, stats, num_cols)
+        _lib("segment_splitk.cu").call("seg_agg_block_table_smem", *args)
+    else:
+        out, w_out = _block_table_launch(
+            "seg_agg_block_table", values_arena, segment_ids, table,
+            num_segments, valid, slot_ids, num_slots, stats, num_cols, 0, 1)
+        out = _shape(out, (num_slots, num_segments), w_out)
     segment_aggregate_block_table_cuda.launches += 1
-    return _shape(out, (num_slots, num_segments), w_out)
+    segment_aggregate_block_table_cuda.launches_by_design[chosen] += 1
+    return out
 
 
 segment_aggregate_block_table_cuda.launches = 0
+segment_aggregate_block_table_cuda.launches_by_design = \
+    dict.fromkeys(SPLITK_DESIGNS, 0)
 
 
 def splitk_smem_launch(values_arena, segment_ids, table, num_segments: int,
@@ -529,26 +596,17 @@ def splitk_smem_launch(values_arena, segment_ids, table, num_segments: int,
     # kernel's scratch: block partials, chunk partials, k + 1 int32
     # counters
     k_out = 1 if merge else k
-    lead = () if merge else (k,)
     words = splitk_partial_bytes(stats, s_total, w_out) // 4
     buf = torch.empty((k_out + k * per_chunk + k) * words + k + 1,
                       dtype=torch.float32, device=dev)
     base = buf.data_ptr()
-    out, ptr, at = {}, dict.fromkeys(ALL_STATS), 0
-    for s in stats:
-        # [k,] slots, S(, w_out), contiguous, one stat after another
-        width, tail = (1, ()) if s == "count" else (w_out, (w_out,))
-        out[s] = buf.as_strided(
-            (*lead, num_slots, num_segments, *tail),
-            (*(s_total * width,) * len(lead), num_segments * width, width,
-             *(1,) * len(tail)), at)
-        ptr[s] = base + 4 * at
-        at += k_out * s_total * width
+    out, ptr, at = _stat_views(buf, stats, () if merge else (k,),
+                               num_slots, num_segments, w_out, k_out)
     args = (values_arena.data_ptr(), p, cap, w, w_out, tbl.data_ptr(), r,
             ids.data_ptr(), slots.data_ptr(), _ptr(ok), num_segments,
             s_total, chunk_rows, k, per_chunk, per_block,
             sum(_STAT_BITS[s] for s in stats), int(merge), base + 4 * at,
-            ptr["sum"], ptr["count"], ptr["min"], ptr["max"], _stream(dev))
+            ptr["sum"], ptr["count"], ptr["min"], ptr["max"], raw_stream(dev))
     return args, out, (tbl, ids, slots, ok, buf)
 
 

@@ -316,6 +316,7 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
                                       "flash_fwd_hopper.cu",
                                       "flash_bwd_hopper.cu",
                                       "ssd_scan.cu",
+                                      "ssd_hopper.cu",
                                       "decode_hopper.cu",
                                       "segment_splitk.cu"}
     assert {"decode_attention_paged", "flash_attention_fwd"} == \
@@ -327,6 +328,9 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
     assert {"flash_bwd_wgmma"} == \
         set(_build.SIGNATURES["flash_bwd_hopper.cu"])
     assert {"ssd_scan"} == set(_build.SIGNATURES["ssd_scan.cu"])
+    assert {"ssd_tensor"} == set(_build.SIGNATURES["ssd_hopper.cu"])
+    assert {"seg_agg_splitk_smem", "seg_agg_block_table_smem"} == \
+        set(_build.SIGNATURES["segment_splitk.cu"])
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_build, "BUILD_DIR",

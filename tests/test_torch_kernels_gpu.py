@@ -1,6 +1,7 @@
-"""The CUDA kernels (K1 flat, K2 block table, K3 split-K) against their
-plain torch versions on the card. Marked ``gpu``: they build the kernels
-with nvcc and skip where there is no CUDA device. Run them on a GPU
+"""The CUDA kernels (K1 flat; K2 block table and K3 split-K, each on both
+of its designs) against their plain torch versions on the card. Marked
+``gpu``: they build the kernels with nvcc and skip where there is no CUDA
+device. Run them on a GPU
 machine with ``PYTHONPATH=src python -m pytest -m gpu tests/``.
 
 Tolerances: count, min and max exact (float atomics add whole ones below
@@ -162,6 +163,72 @@ def test_splitk_design_rule_sends_large_partials_to_global(dev):
             arena, ids, table, s, 7, valid=valid, slot_ids=sl,
             num_slots=ns, design="smem")
     assert sa.segment_aggregate_block_table_splitk_cuda.launches == launches
+
+
+@pytest.mark.parametrize("design", ["smem", "global"])
+@pytest.mark.parametrize("stats", [sa.ALL_STATS, ("sum", "count"),
+                                   ("min", "max"), ("count",)])
+def test_block_table_designs_nan_and_pool_slot_zero(dev, stats, design):
+    """K2 on both designs (the smem one by the rule, the global one
+    forced): NaN values of live events win min/max and poison only their
+    own sums; padding rows (valid 0) name pool slot 0, which holds NaN, and
+    stay inert; a slot no row names holds the identities; counted by
+    design."""
+    arena, ids, table, valid, sl, s, ns = _case(dev, r=120, w=3, slots=8)
+    arena[0] = float("nan")
+    table[100:] = 0                              # padding rows
+    valid[100:] = False
+    sl[sl == 7] = 6                              # slot 7: no row
+    arena[table[5], 3, 1] = float("nan")
+    arena[table[17], 0, 0] = float("nan")
+    valid[5, 3] = True
+    valid[17, 0] = True
+    assert sa.splitk_design(sa.norm_stats(stats), ns * s, 3) == "smem"
+    counts = sa.segment_aggregate_block_table_cuda.launches_by_design
+    for num_cols in (None, 1):
+        before = dict(counts)
+        out = sa.segment_aggregate_block_table_cuda(
+            arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns,
+            stats=stats, num_cols=num_cols,
+            design=None if design == "smem" else design)
+        assert counts[design] == before[design] + 1
+        ref = sa.segment_aggregate_block_table_plain(
+            arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns,
+            stats=stats, num_cols=num_cols)
+        torch.cuda.synchronize()
+        for k in out:
+            assert torch.equal(torch.isnan(out[k]), torch.isnan(ref[k])), k
+        if "count" in stats:
+            assert float(out["count"][7].abs().sum()) == 0.0
+        if "min" in stats:
+            assert bool(torch.isinf(out["min"][7]).all())
+        if "sum" in stats:
+            out["sum"] = torch.nan_to_num(out["sum"])
+            ref["sum"] = torch.nan_to_num(ref["sum"])
+        _close(out, ref, ids.numel(), 5.0)
+
+
+def test_block_table_design_rule_sends_large_partials_to_global(dev):
+    """K2: a partial past SPLITK_SMEM_BYTES goes to the global design, by
+    the rule and counted; forcing smem there raises before any launch; the
+    stock fold's 24 slots of 128 keys at four stats still fit."""
+    assert sa.splitk_design(sa.ALL_STATS, 24 * 128, 1) == "smem"
+    assert sa.splitk_design(sa.ALL_STATS, 25 * 128, 1) == "global"
+    arena, ids, table, valid, sl, s, ns = _case(dev, w=8, s=600, r=30)
+    counts = sa.segment_aggregate_block_table_cuda.launches_by_design
+    before = dict(counts)
+    out = sa.segment_aggregate_block_table_cuda(
+        arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns)
+    assert counts == dict(before, **{"global": before["global"] + 1})
+    _close(out, sa.segment_aggregate_block_table_plain(
+        arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns),
+        ids.numel(), 5.0)
+    launches = sa.segment_aggregate_block_table_cuda.launches
+    with pytest.raises(ValueError, match="smem design keeps"):
+        sa.segment_aggregate_block_table_cuda(
+            arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns,
+            design="smem")
+    assert sa.segment_aggregate_block_table_cuda.launches == launches
 
 
 def test_wrappers_reject_bad_inputs(dev):

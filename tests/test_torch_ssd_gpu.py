@@ -1,16 +1,20 @@
-"""The SSD chunk scan (K7) against its plain torch version on the card.
-Marked ``gpu``: it builds the kernel with nvcc and skips where there is no
-CUDA device. Run it on a GPU machine with
-``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_ssd_gpu.py``.
+"""The SSD chunk scan (K7), on both of its designs, against its plain
+torch version on the card. Marked ``gpu``: it builds the kernels with
+nvcc and skips where there is no CUDA device. Run it on a GPU machine
+with ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_ssd_gpu.py``.
 
 Tolerances: the final state within rtol 1e-4 and atol 1e-4 x its largest
-|value| (both sides sum in fp32); y in float32 within the same, and in
-bfloat16 within one bf16 ulp of the larger magnitude, magnitudes below
-2**-10 x the largest |reference| counted as that floor (both compute in
-fp32 on the same bf16 inputs and round once). The plain version is tiled
-as K7 tiles (``KERNEL_CHUNK``, 64 tokens): tiled by the model's 256, it
-sums in another order, and where y cancels that order moved a bf16
-output 1.5 ulps on mamba2-780m's 4 x 32,768-token prefill."""
+|value| (both sides sum in fp32; the tensor design's float32 operands go
+through the tensor cores as three bf16 parts, fp32's 24 bits); y in
+float32 within the same, and in bfloat16 within one bf16 ulp of the
+larger magnitude, magnitudes below 2**-10 x the largest |reference|
+counted as that floor (both compute in fp32 on the same bf16 inputs and
+round once). The plain version is tiled as the design tiles
+(``kernel_chunk``: 64 tokens for ``cuda_core``, for ``tensor`` 128 at
+state 128 and 64 at state 16): tiled otherwise, it sums in another
+order, and where y
+cancels that order moved a bf16 output 1.5 ulps on mamba2-780m's
+4 x 32,768-token prefill."""
 import importlib
 
 import numpy as np
@@ -77,9 +81,9 @@ def test_ssd_scan_matches_plain(dev, dtype, case):
     y, st = ss.ssd_scan_cuda(xdt, a, B, C, chunk=256, init_state=h0)
     torch.cuda.synchronize()
     assert ss.ssd_scan_cuda.launches == before + 1
-    want_y, want_st = ss.ssd_scan_plain(xdt, a, B, C,
-                                        chunk=ss.KERNEL_CHUNK,
-                                        init_state=h0)
+    p, n = case[3], case[4]
+    want_y, want_st = ss.ssd_scan_plain(
+        xdt, a, B, C, chunk=ss.kernel_chunk(dtype, p, n), init_state=h0)
     assert y.dtype == dtype and st.dtype == torch.float32
     _close(y, want_y, dtype)
     _close(st, want_st, torch.float32)
@@ -129,3 +133,121 @@ def test_ssd_scan_refuses_what_it_does_not_take(dev):
     big = torch.zeros((1, 64, 300), device=dev)
     with pytest.raises(ValueError):
         ss.ssd_scan_cuda(xdt, a, big, big)
+
+
+# the tensor design: bf16 at head dim 64 and state 16 or 128
+TENSOR_CASES = [
+    # b, s, h, n, with_state
+    (2, 600, 4, 128, False),          # a ragged tail
+    (2, 600, 4, 16, True),            # hymba's state, a carried state
+    (1, 1000, 48, 128, True),         # mamba2-780m's heads
+    (3, 37, 5, 16, False),            # shorter than one chunk, h % 4 != 0
+]
+
+
+@pytest.mark.parametrize("case", TENSOR_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_tensor_design_matches_plain_and_counts(dev, case):
+    b, s, h, n, with_state = case
+    xdt, a, B, C, h0 = _case(dev, torch.bfloat16, b, s, h, 64, n,
+                             with_state, seed=s + n)
+    assert ss.ssd_design(torch.bfloat16, 64, n) == "tensor"
+    counts = ss.ssd_scan_cuda.launches_by_design
+    before = dict(counts)
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0)
+    torch.cuda.synchronize()
+    assert counts == dict(before, tensor=before["tensor"] + 1)
+    want_y, want_st = ss.ssd_scan_plain(
+        xdt, a, B, C, chunk=ss.kernel_chunk(torch.bfloat16, 64, n),
+        init_state=h0)
+    _close(y, want_y, torch.bfloat16)
+    _close(st, want_st, torch.float32)
+
+
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_tensor_design_at_each_chunk(dev, chunk, n):
+    """Every chunk the design is built for, against the plain version
+    tiled the same way."""
+    xdt, a, B, C, h0 = _case(dev, torch.bfloat16, 2, 700, 6, 64, n, True,
+                             seed=chunk + n)
+    y, st = ss.tensor_scan(xdt, a, B, C, h0, chunk=chunk)
+    want_y, want_st = ss.ssd_scan_plain(xdt, a, B, C, chunk=chunk,
+                                        init_state=h0)
+    _close(y, want_y, torch.bfloat16)
+    _close(st, want_st, torch.float32)
+
+
+def test_tensor_design_carries_the_state_across_calls(dev):
+    """Split at a chunk boundary, two launches give one launch's y and
+    state bit for bit."""
+    xdt, a, B, C, h0 = _case(dev, torch.bfloat16, 1, 900, 8, 64, 128, True,
+                             seed=4)
+    cut = ss.kernel_chunk(torch.bfloat16, 64, 128) * 2
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0)
+    y1, s1 = ss.ssd_scan_cuda(*(t[:, :cut].contiguous()
+                                for t in (xdt, a, B, C)), init_state=h0)
+    y2, s2 = ss.ssd_scan_cuda(*(t[:, cut:].contiguous()
+                                for t in (xdt, a, B, C)), init_state=s1)
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert torch.equal(s2, st)
+
+
+def test_tensor_design_large_decay_makes_no_nan(dev):
+    """bf16 with a about -2.5 a token: cum falls past fp32's 88.7 inside
+    one chunk, so a decay of a pair j > i would overflow; the design
+    exponentiates no positive number. Held to the sequential oracle."""
+    xdt, a, B, C, _ = _case(dev, torch.bfloat16, 1, 512, 4, 64, 16, False,
+                            seed=6)
+    a = a * 25.0
+    assert float(a[0, :64].sum(0).min()) < -88.7
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C)
+    assert bool(torch.isfinite(y.float()).all())
+    want_y, want_st = ref.ref_ssd_chunk_scan(xdt.float(), a, B.float(),
+                                             C.float(), 256)
+    _close(y, want_y.to(torch.bfloat16), torch.bfloat16)
+    _close(st, want_st, torch.float32)
+
+
+def test_forced_designs(dev):
+    """The cuda_core design takes bf16 too when forced, and counts there;
+    forcing the tensor design where it does not take the inputs raises
+    before any launch."""
+    xdt, a, B, C, h0 = _case(dev, torch.bfloat16, 1, 300, 4, 64, 128, True,
+                             seed=8)
+    counts = ss.ssd_scan_cuda.launches_by_design
+    before = dict(counts)
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=h0,
+                             design="cuda_core")
+    assert counts == dict(before, cuda_core=before["cuda_core"] + 1)
+    want_y, want_st = ss.ssd_scan_plain(
+        xdt, a, B, C, chunk=ss.KERNEL_CHUNK["cuda_core"], init_state=h0)
+    _close(y, want_y, torch.bfloat16)
+    _close(st, want_st, torch.float32)
+    launches = ss.ssd_scan_cuda.launches
+    with pytest.raises(ValueError, match="tensor design takes"):
+        ss.ssd_scan_cuda(xdt.float(), a, B.float(), C.float(),
+                         design="tensor")
+    assert ss.ssd_scan_cuda.launches == launches
+
+
+def test_tensor_design_refuses_a_misaligned_state(dev):
+    """The state pass reads init_state by 16-byte loads: a contiguous view
+    that starts 4 bytes into its storage raises before any launch, and the
+    same values at an aligned address are taken."""
+    xdt, a, B, C, h0 = _case(dev, torch.bfloat16, 1, 200, 4, 64, 16, True,
+                             seed=10)
+    buf = torch.empty(h0.numel() + 1, dtype=torch.float32, device=dev)
+    shifted = buf[1:].view(h0.shape)
+    shifted.copy_(h0)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    launches = ss.ssd_scan_cuda.launches
+    with pytest.raises(ValueError, match="init_state must be 16-byte"):
+        ss.ssd_scan_cuda(xdt, a, B, C, init_state=shifted)
+    assert ss.ssd_scan_cuda.launches == launches
+    y, st = ss.ssd_scan_cuda(xdt, a, B, C, init_state=shifted.clone())
+    want_y, want_st = ss.ssd_scan_plain(
+        xdt, a, B, C, chunk=ss.kernel_chunk(torch.bfloat16, 64, 16),
+        init_state=h0)
+    _close(y, want_y, torch.bfloat16)
+    _close(st, want_st, torch.float32)
