@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--windows 6] [--splitk-windows 2] [--out FILE]
+    python3 chip_smoke.py [--windows 6] [--splitk-windows 2]
+                          [--lrb-windows 3] [--out FILE]
 
 Phases (the first failed check exits non-zero, with no result line):
 
@@ -28,24 +29,26 @@ Phases (the first failed check exits non-zero, with no result line):
    a new engine over the same log store (``restore_state``), which
    finishes the stream. Every K3 launch must take its shared-memory
    design (``launches_by_design``).
-3. Kernel checks on the loop's own launches. While phases 1 and 2 run, a
-   recorder around the fold entry points of ``repro_torch.kernels``
+3. Kernel checks on the loop's own launches. While phases 1, 2 and 12
+   run, a recorder around the fold entry points of ``repro_torch.kernels``
    keeps the inputs of each kernel's largest call (most rows): the value
-   column the fold reads, the ids, valid flags, table and window slots.
-   Each kernel (K1 flat / stacked fallback, K2 block table, K3 split-K)
-   is replayed on those inputs and held against its plain PyTorch
-   version on the card: the unread value columns are random, and pool
-   slot 0, which only padding rows name, holds NaN (they must stay
+   columns the fold reads, the ids, valid flags, table and window slots.
+   Each kernel (K1 stacked: Linear Road's fold of phase 12, its row of
+   the table, and the stock fallback of phases 1-2; K2 block table, K3
+   split-K) is replayed on those inputs and held against its plain
+   PyTorch version on the card: the unread value columns are random, and
+   pool slot 0, which only padding rows name, holds NaN (they must stay
    inert). Each is timed with CUDA events beside its plain version, one
    PyTorch ``index_add_`` of the same sums (a yardstick only) and its
-   bound. Besides: K2 on both of its designs, and K3 on rows that its
-   wrapper must pad and its raw partials, on both of its designs; for K2
-   and K3 the earlier design's time (``earlier_ms``, the global-atomic
-   kernel the rule keeps for partials past shared memory) and the time of
-   the launch alone (the C call on prepared arguments, ``launch_ms``)
-   beside the wrapper's; K3 with one
+   bound. Each runs on both of its designs (K3 also on rows that its
+   wrapper must pad and as raw partials), with the earlier design's time
+   (``earlier_ms``, the global-atomic kernel the rule keeps for partials
+   past shared memory) and the time of the launch alone (the C call on
+   prepared arguments, ``launch_ms``) beside the wrapper's; K3 with one
    live row's valid flags cleared, a control that ``compare`` must
-   reject; and a NaN case for min/max in K1.
+   reject; and a NaN case for min/max in K1, on both designs. In phases
+   1, 2 and 12 every K1, K2 and K3 launch whose block partial fits shared
+   memory must take its smem design (``launches_by_design``).
 4. LM serving at starcoder2-7b's attention width (32 layers, 36 heads, 4
    KV heads of 128, bf16, from ``repro_torch.configs``): a
    ``TieredKVCache`` of 14,336 pages of 16 tokens (15.0 GB of KV on the
@@ -158,6 +161,20 @@ Phases (the first failed check exits non-zero, with no result line):
    the plain version within K7_FP32_RTOL. In phase 10 every bf16 K7
    launch takes the tensor design and every float32 one the CUDA-core
    design.
+12. Linear Road, the paper's fourth Table-1 deployment (10,000 events/s
+   into 60 s tumbling windows, 1,536-byte payloads, 256 road segments,
+   lognormal lateness; ``configs/workloads.py: LRB``), through
+   ``StreamEngine`` with the lrb operator and a 4,096-slot block pool
+   (3.2 GB of window state on the card), over ``--lrb-windows`` windows
+   of processing time (1.8 M events), as phase 1 runs and closes out
+   stock. Every window against a numpy oracle over all events: count,
+   accident (2 or more stopped vehicles) and toll exact, avg_speed within
+   the mean's tolerance. The operator gathers each table row's full
+   payload, derives [speed, stopped] and folds every execution through
+   K1; the close-out's re-execution of every window runs under
+   ``torch.profiler``: device time of K1, of the row gathers and of the
+   rest, and the device's busy share. It runs after phase 2, so that
+   phase 3 replays its largest K1 launch.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -165,12 +182,12 @@ design (bf16 at head dims 64 and 128) within the limits that
 ``tests/test_torch_flash_rounding.py`` anchors on the Pallas kernels'
 readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
-set to 0 just before each of phases 1, 2, 4, 6b, 7, 9a, 9c and 10 and
-read just after; every bf16 launch of K5 and K6 in phases 4, 6b and 10
+set to 0 just before each of phases 1, 2, 12, 4, 6b, 7, 9a, 9c and 10
+and read just after; every bf16 launch of K5 and K6 in phases 4, 6b and 10
 must have gone through the wgmma design. A segment kernel's
-``launches`` is its count in the run whose launch it replays (K1 and K2
-the main run where they launched there, K3 the split-K run;
-``launches_by_run`` gives both counts); K4's and K5's are their counts in
+``launches`` is its count in the run whose launch it replays (K1 the
+Linear Road run, K2 the main run, K3 the split-K run;
+``launches_by_run`` gives every run's count); K4's and K5's are their counts in
 phase 4, K6's in phase 6b, K7's in phase 9a. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
@@ -327,8 +344,8 @@ def ptxas_lines(build_log: str):
 #: JAX_FILE, and the fold entry point of ``repro_torch.kernels`` (and the
 #: ``*_cuda`` / ``*_plain`` pair of the module) that reaches it
 KERNELS = {
-    "K1": ("seg_agg_flat (K1, stacked fallback fold)", 165,
-           "segment_aggregate_batched"),
+    "K1": ("seg_agg_flat_smem (K1, Linear Road's fold and the stock "
+           "fallback)", 165, "segment_aggregate_batched"),
     "K2": ("seg_agg_block_table_smem (K2, resident block-table fold)", 339,
            "segment_aggregate_block_table"),
     "K3": ("seg_agg_splitk_smem (K3, split-K block-table fold)", 505,
@@ -376,15 +393,17 @@ class LaunchRecorder:
     def _keep(self, key, a) -> None:
         vals = a["values"] if key == "K1" else a["values_arena"]
         rows = vals.shape[0] if key == "K1" else a["table"].shape[0]
-        if key != "K1" and rows and a["num_slots"] and vals.shape[1]:
+        slots = a["num_slots"] if a["num_slots"] is not None else rows
+        if rows and slots and vals.shape[1] and a["num_segments"]:
             # a launch whose block partial fits shared memory, which the
-            # block-table folds' design rule sends to their smem design
+            # folds' design rule sends to their smem design
             sa = importlib.import_module(
                 "repro_torch.kernels.segment_aggregate")
-            w_out = a["num_cols"] or vals.shape[2]
+            w_out = vals.shape[2] if key == "K1" \
+                else a["num_cols"] or vals.shape[2]
             self.fits[key] += sa.splitk_design(
-                sa.norm_stats(a["stats"]),
-                a["num_slots"] * a["num_segments"], w_out) == "smem"
+                sa.norm_stats(a["stats"]), slots * a["num_segments"],
+                w_out) == "smem"
         if rows <= self.largest.get(key, {}).get("rows", 0):
             return
         rec = {"rows": rows, "num_segments": a["num_segments"],
@@ -392,7 +411,9 @@ class LaunchRecorder:
         for k in ("segment_ids", "valid", "slot_ids"):
             rec[k] = a[k].clone()
         if key == "K1":
-            # [B, cap, 1]: the column the fold reads out of its width-W rows
+            # [B, cap, w]: the columns the fold reads (the stock fallback's
+            # price column out of its width-W rows, LRB's stacked [speed,
+            # stopped]) and the stride of an event's row
             rec["values"] = vals.clone()
             rec["row_width"] = vals.stride(1)
         else:
@@ -464,15 +485,17 @@ def compare(out: dict, ref: dict, scale: float) -> float:
 
 
 def _bound(n_events: int, n_valid: int, w_out: int, n_rows: int,
-           s_total: int, stats) -> tuple:
+           s_total: int, stats, row_bytes: int) -> tuple:
     """Least time (ms) for the fold on an H100, and what bounds it. Bytes:
     every event's valid flag (1 B), each valid event's id (4 B) and its
-    w_out value columns (4 B each), 8 B per table row (pool slot and
-    window slot), the outputs written once. Operations: one per value
-    stat per column and one count per valid event, in fp32."""
+    w_out value columns (4 B each), ``row_bytes`` per row (K2 and K3: 8,
+    the pool slot and the window slot; K1: 4, the window slot), the
+    outputs written once. Operations: one per value stat per column and
+    one count per valid event, in fp32."""
     n_val = sum(1 for s in stats if s != "count")
     out_bytes = s_total * 4 * (w_out * n_val + ("count" in stats))
-    nbytes = n_events + n_valid * (4 + 4 * w_out) + 8 * n_rows + out_bytes
+    nbytes = (n_events + n_valid * (4 + 4 * w_out) + row_bytes * n_rows
+              + out_bytes)
     ops = n_valid * (w_out * n_val + ("count" in stats))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -514,10 +537,10 @@ def replay(key: str, rec: dict, g) -> dict:
         return torch.rand(shape, generator=g, device=dev) * 490.0 + 10.0
 
     if key == "K1":
-        b, cap, _ = rec["values"].shape
-        full = prices((b, cap, rec["row_width"]))
-        full[:, :, :1] = rec["values"]
-        read = full[:, :, :1]
+        b, cap, w = rec["values"].shape
+        full = prices((b, cap, max(rec["row_width"], w)))
+        full[:, :, :w] = rec["values"]
+        read = full[:, :, :w]
         args = (read, rec["segment_ids"], rec["num_segments"])
         return dict(kernel=kernel, plain=plain, args=args, kw=kw,
                     read=read, scale=float(read.abs().max()))
@@ -562,8 +585,7 @@ def check_replay(key: str, rp: dict) -> float:
                        chunk), dict(kw, valid=kw["valid"][:cut],
                                     slot_ids=kw["slot_ids"][:cut])))
         cases.append((args, dict(kw, merge=False)))
-    if key in ("K2", "K3"):
-        cases += [(a, dict(k, design="global")) for a, k in cases]
+    cases += [(a, dict(k, design="global")) for a, k in cases]
     err = 0.0
     for a, k in cases:
         out = kernel(*a, **k)
@@ -575,26 +597,50 @@ def check_replay(key: str, rp: dict) -> float:
     return err
 
 
+#: events a block of K1's smem design at which phase 3 times its launch
+#: alone (the design's SPLITK_EVENTS_PER_BLOCK is 2,048)
+K1_PER_BLOCK = (2048, 4096, 8192, 16384)
+
+
 def smem_extras(key: str, rp: dict, iters: int) -> dict:
-    """Phase 3's additions for K2 and K3 on their replay: the earlier
+    """Phase 3's additions for K1, K2 and K3 on their replay: the earlier
     design's time, the launch alone (the smem design's C call on
-    arguments prepared once, CUDA events around the C call only) and, for
-    K3, the cleared-row control."""
+    arguments prepared once, CUDA events around the C call only; for K1
+    also at each of K1_PER_BLOCK events a block) and, for K3, the
+    cleared-row control."""
     import torch
     sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
     from repro_torch.kernels._build import library
     kernel, plain, args, kw = rp["kernel"], rp["plain"], rp["args"], rp["kw"]
     prepared = (kw["valid"], kw["slot_ids"], kw["num_slots"],
-                sa.norm_stats(kw["stats"]), kw["num_cols"])
-    if key == "K3":
-        launch, outs, keep = sa.splitk_smem_launch(*args, *prepared, True)
+                sa.norm_stats(kw["stats"]))
+    if key == "K1":
+        launch, outs, keep = sa.flat_smem_launch(*args, *prepared)
+        entry = "seg_agg_flat_smem"
+    elif key == "K3":
+        launch, outs, keep = sa.splitk_smem_launch(*args, *prepared,
+                                                   kw["num_cols"], True)
         entry = "seg_agg_splitk_smem"
     else:
-        launch, outs, keep = sa.block_table_smem_launch(*args, *prepared)
+        launch, outs, keep = sa.block_table_smem_launch(*args, *prepared,
+                                                        kw["num_cols"])
         entry = "seg_agg_block_table_smem"
     lib = library("segment_splitk.cu")
     launch_ms = _sync_time_ms(lambda: lib.call(entry, *launch), iters)
     del outs, keep
+    extra = {}
+    if key == "K1":
+        # the launch alone by events a block, each result held against
+        # the plain version
+        ref = plain(*args, **kw)
+        extra["per_block_ms"] = {}
+        for per in K1_PER_BLOCK:
+            launch, outs, keep = sa.flat_smem_launch(*args, *prepared,
+                                                     per_block=per)
+            extra["per_block_ms"][per] = _sync_time_ms(
+                lambda: lib.call(entry, *launch), iters)
+            compare(outs, ref, rp["scale"])
+            del outs, keep
     if key == "K3":
         valid = kw["valid"].clone()
         row = int(torch.nonzero(valid.any(1)).flatten()[0])
@@ -605,12 +651,13 @@ def smem_extras(key: str, rp: dict, iters: int) -> dict:
     return dict(
         earlier_ms=_sync_time_ms(lambda: kernel(*args, design="global",
                                                 **kw), iters),
-        launch_ms=launch_ms)
+        launch_ms=launch_ms, **extra)
 
 
 def nan_check(dev, g) -> float:
-    """K1 with NaN values: NaN wins min/max as jnp.minimum/maximum, and
-    a NaN value poisons only its own segment's sum."""
+    """K1 with NaN values, on both designs: NaN wins min/max as
+    jnp.minimum/maximum, and a NaN value poisons only its own segment's
+    sum."""
     import torch
     sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
     n = 5000
@@ -622,8 +669,10 @@ def nan_check(dev, g) -> float:
     ok = torch.rand(n, generator=g, device=dev) > 0.2
     ok[7] = True
     ok[4000] = True
-    return compare(sa.segment_aggregate_cuda(v, sid, 37, valid=ok),
-                   sa.segment_aggregate_plain(v, sid, 37, valid=ok), 5.0)
+    ref = sa.segment_aggregate_plain(v, sid, 37, valid=ok)
+    return max(compare(sa.segment_aggregate_cuda(v, sid, 37, valid=ok,
+                                                 design=d), ref, 5.0)
+               for d in sa.SPLITK_DESIGNS)
 
 
 def kernel_record(key: str, rec: dict, g, iters: int) -> dict:
@@ -637,11 +686,12 @@ def kernel_record(key: str, rec: dict, g, iters: int) -> dict:
     comp = slots[:, None] * rec["num_segments"] + ids
     n_valid = int(valid.sum())
     bound, by = _bound(valid.numel(), n_valid, rp["read"].shape[2],
-                       rec["rows"], s_total, rec["stats"])
+                       rec["rows"], s_total, rec["stats"],
+                       4 if key == "K1" else 8)
     if key == "K1":
-        b, cap, _ = rec["values"].shape
-        shape = (f"stacked [{b}, {cap}, {rec['row_width']}] (column 0 "
-                 f"read)")
+        b, cap, w = rec["values"].shape
+        shape = (f"stacked [{b}, {cap}, {max(rec['row_width'], w)}] "
+                 f"(columns {list(range(w))} read)")
     else:
         shape = (f"arena {list(args[0].shape)}, table [{rec['rows']}]"
                  f" ({int(valid.any(1).sum())} live rows), num_cols="
@@ -653,16 +703,15 @@ def kernel_record(key: str, rec: dict, g, iters: int) -> dict:
               f"valid={n_valid}")
     name, line, _ = KERNELS[key]
     out = dict(
-        name=name, route="cuda", source=SOURCE if key == "K1"
-        else SPLITK_SOURCE, replaces=f"{JAX_FILE}:{line}", max_abs_err=err,
+        name=name, route="cuda", source=SPLITK_SOURCE,
+        replaces=f"{JAX_FILE}:{line}", max_abs_err=err,
         ms=_sync_time_ms(lambda: kernel(*args, **kw), iters),
         plain_ms=_sync_time_ms(lambda: plain(*args, **kw),
                                max(iters // 4, 1)),
         bound_ms=bound, bound_by=by,
         library_ms=_library_sum_ms(rp["read"], comp, valid, s_total, iters),
         shape=shape)
-    if key != "K1":
-        out.update(smem_extras(key, rp, iters), earlier_source=SOURCE)
+    out.update(smem_extras(key, rp, iters), earlier_source=SOURCE)
     return out
 
 
@@ -690,31 +739,113 @@ def stock_oracle(keys, ts, price, window: float, num_keys: int) -> dict:
     return out
 
 
+def lrb_oracle(keys, ts, speed, window: float, num_keys: int) -> dict:
+    """Per-window per-segment vehicle count, average speed, accident flag
+    and toll over every event: counts and sums in float64; the stopped
+    test (speed <= 1e-3) and the toll in float32, as the operator takes
+    them."""
+    import numpy as np
+    wstart = np.floor(ts / window) * window
+    out = {}
+    for s in np.unique(wstart):
+        sel = wstart == s
+        k = keys[sel] % num_keys
+        v = np.asarray(speed[sel], np.float32)
+        ct = np.zeros(num_keys)
+        sm = np.zeros(num_keys)
+        stopped = np.zeros(num_keys)
+        np.add.at(ct, k, 1.0)
+        np.add.at(sm, k, v.astype(np.float64))
+        np.add.at(stopped, k, (v <= np.float32(1e-3)).astype(np.float64))
+        count = ct.astype(np.float32)
+        accident = stopped >= 2
+        toll = np.where(accident, 0.0,
+                        2.0 * np.maximum(count - 50, 0.0) ** 2 * 1e-4)
+        out[(float(s), float(s) + window)] = {
+            "count": ct, "avg_speed": sm / np.maximum(ct, 1.0),
+            "accident": accident, "toll": toll}
+    return out
+
+
+def hold_stock(wid, got: dict, ref: dict, num_keys: int, max_v: float):
+    """A stock window against the oracle: min and max exact, the mean
+    within SUM_RTOL x |mean| + SUM_ATOL x max|price|. Returns the mean's
+    largest error."""
+    import numpy as np
+    for k in ("min", "max"):
+        a = np.asarray(got[k], np.float32)
+        check(a.shape == (num_keys,), f"{wid} {k} shape {a.shape}")
+        check(np.array_equal(a, ref[k].astype(np.float32)),
+              f"{wid} {k} differs from the oracle")
+    mean = np.asarray(got["mean"], np.float64)
+    check(mean.shape == (num_keys,) and np.isfinite(mean).all(),
+          f"{wid} mean not finite / wrong shape")
+    err = np.abs(mean - ref["mean"])
+    # mean = sum / count: the sum tolerance divided by the count
+    tol = SUM_RTOL * np.abs(ref["mean"]) + SUM_ATOL * max_v
+    check(bool((err <= tol).all()),
+          f"{wid} mean max error {err.max()} beyond tolerance")
+    return float(err.max())
+
+
+def hold_lrb(wid, got: dict, ref: dict, num_keys: int, max_v: float):
+    """A Linear Road window against the oracle: count, accident and toll
+    exact, avg_speed within the stock mean's tolerance (max_v the largest
+    speed). Returns avg_speed's largest error."""
+    import numpy as np
+    for k in ("count", "accident", "toll"):
+        a = np.asarray(got[k])
+        check(a.shape == (num_keys,), f"{wid} {k} shape {a.shape}")
+        check(np.array_equal(a.astype(ref[k].dtype), ref[k]),
+              f"{wid} {k} differs from the oracle")
+    avg = np.asarray(got["avg_speed"], np.float64)
+    check(avg.shape == (num_keys,) and np.isfinite(avg).all(),
+          f"{wid} avg_speed not finite / wrong shape")
+    err = np.abs(avg - ref["avg_speed"])
+    tol = SUM_RTOL * np.abs(ref["avg_speed"]) + SUM_ATOL * max_v
+    check(bool((err <= tol).all()),
+          f"{wid} avg_speed max error {err.max()} beyond tolerance")
+    return float(err.max())
+
+
+#: the Table-1 deployments the streaming phases run: the workload (its
+#: name in ``repro_torch.configs.workloads``), the operator's keyword for
+#: the key count, the oracle and the check of one window
+DEPLOYMENTS = {"stock": ("STOCK_MARKET", "num_keys", stock_oracle,
+                         hold_stock),
+               "lrb": ("LRB", "num_segments", lrb_oracle, hold_lrb)}
+
+
 def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
-               seed: int, spill_root: Path, rate: float = None,
+               seed: int, spill_root: Path, operator: str = "stock",
+               rate: float = None,
                width: int = None, device_budget: int = 6 << 30,
                host_budget: int = 512 << 20, step_seconds: float = 1.0,
                late_horizon: float = 300.0,
-               restore_at: float = None) -> dict:
-    """Drive the port's ``StreamEngine`` with the stock-market deployment
-    for ``windows`` windows of processing time, close out, and hold every
+               restore_at: float = None, profile: bool = False) -> dict:
+    """Drive the port's ``StreamEngine`` with the Table-1 deployment of
+    ``operator`` (stock market or Linear Road, ``DEPLOYMENTS``) for
+    ``windows`` windows of processing time, close out, and hold every
     window against the oracle. ``restore_at`` (a fraction of the stream)
     takes a manifest checkpoint there, closes the engine, and resumes in a
-    new engine restored from it over the same log store. ``rate`` and
-    ``width`` default to Table 1 (CPU rehearsals pass smaller ones).
-    Returns the run's record."""
+    new engine restored from it over the same log store. ``profile`` runs
+    the close-out's re-execution of every window under ``torch.profiler``
+    (``device_profile``). ``rate`` and ``width`` default to Table 1 (CPU
+    rehearsals pass smaller ones). Returns the run's record."""
     import numpy as np
+    from repro_torch.configs import workloads
     from repro_torch.configs.base import AionConfig
-    from repro_torch.configs.workloads import STOCK_MARKET, WorkloadConfig
     from repro_torch.core import PredictiveCleanup, StreamEngine, \
         TumblingWindows
     from repro_torch.core.batch_exec import BatchWorkItem
     from repro_torch.core.operators import make_operator
     from repro_torch.data.generators import make_generator
 
-    wl = STOCK_MARKET
+    wl_name, keys_kw, oracle, hold = DEPLOYMENTS[operator]
+    wl = getattr(workloads, wl_name)
     if width is not None:
-        wl = WorkloadConfig(**{**wl.__dict__, "value_width": width})
+        wl = workloads.WorkloadConfig(**{**wl.__dict__,
+                                         "value_width": width})
     rate = rate or wl.max_ingestion_rate
     gen = make_generator(wl, seed=seed)
     w = gen.width
@@ -738,8 +869,9 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     def make():
         return StreamEngine(
             assigner=TumblingWindows(wd),
-            operator=make_operator("stock", aion.block_size, w,
-                                   num_keys=wl.num_keys, device=device),
+            operator=make_operator(operator, aion.block_size, w,
+                                   device=device,
+                                   **{keys_kw: wl.num_keys}),
             aion=aion, value_width=w,
             cleanup=KeepAll(coverage=aion.cleanup_coverage,
                             confidence=aion.cleanup_confidence),
@@ -812,7 +944,8 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     check(eng.io.drain(timeout=600), "I/O executor did not drain")
     items = [BatchWorkItem(wid, eng.windows[wid], True)
              for wid in sorted(eng.windows, key=lambda x: x.start)]
-    eng.batch_exec.execute(items, end + 70.0)
+    sweep = functools.partial(eng.batch_exec.execute, items, end + 70.0)
+    prof = device_profile(sweep) if profile else sweep()
     secs["close_out"] = time.perf_counter() - t0
     results = {(wid.start, wid.end): r for wid, r in eng.results.items()}
     absorb(eng)
@@ -823,41 +956,30 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
 
     t0 = time.perf_counter()
     keys = np.concatenate(ledger_k)
-    want = stock_oracle(keys, np.concatenate(ledger_t),
-                        np.concatenate(ledger_p), wd, wl.num_keys)
+    first = np.concatenate(ledger_p)
+    want = oracle(keys, np.concatenate(ledger_t), first, wd, wl.num_keys)
     check(set(results) == set(want),
           f"windows {sorted(results)} != oracle {sorted(want)}")
-    worst = 0.0
-    for wid, ref in want.items():
-        got = results[wid]
-        for k in ("min", "max"):
-            a = np.asarray(got[k], np.float32)
-            check(a.shape == (wl.num_keys,), f"{wid} {k} shape {a.shape}")
-            check(np.array_equal(a, ref[k].astype(np.float32)),
-                  f"{wid} {k} differs from the oracle")
-        mean = np.asarray(got["mean"], np.float64)
-        check(mean.shape == (wl.num_keys,) and np.isfinite(mean).all(),
-              f"{wid} mean not finite / wrong shape")
-        err = np.abs(mean - ref["mean"])
-        # mean = sum / count: the sum tolerance divided by the count
-        tol = SUM_RTOL * np.abs(ref["mean"]) + SUM_ATOL * 500.0
-        check(bool((err <= tol).all()),
-              f"{wid} mean max error {err.max()} beyond tolerance")
-        worst = max(worst, float(err.max()))
+    # the largest value: Table 1's stock prices lie in [10, 500)
+    max_v = 500.0 if operator == "stock" else float(first.max())
+    worst = max(hold(wid, results[wid], ref, wl.num_keys, max_v)
+                for wid, ref in want.items())
     secs["oracle"] = time.perf_counter() - t0
     return {
         "events": int(keys.shape[0]), "windows": len(want),
         "events_per_s": keys.shape[0] / stream_s, "stream_s": stream_s,
         "seconds": secs, "counts": counts, "arena_bytes": arena_bytes,
         "max_mean_abs_err": worst, "observability": obs,
-        "width": w, "rate": rate,
+        "width": w, "rate": rate, "operator": operator,
+        "profile": prof if profile else None,
     }
 
 
 def _print_run(tag: str, rec: dict) -> None:
+    mean = "avg_speed" if rec["operator"] == "lrb" else "mean"
     log(f"  {tag}: {rec['events']} events, {rec['windows']} windows, "
         f"{rec['events_per_s']:.1f} events/s over {rec['stream_s']:.2f} s "
-        f"of ingest/watermark/poll; max |mean - oracle| "
+        f"of ingest/watermark/poll; max |{mean} - oracle| "
         f"{rec['max_mean_abs_err']:.3g}")
     log(f"  {tag} seconds: " + json.dumps(
         {k: round(v, 3) for k, v in rec["seconds"].items()}))
@@ -867,6 +989,34 @@ def _print_run(tag: str, rec: dict) -> None:
     summary["io"] = {k: v for k, v in obs.get("io", {}).items()
                      if isinstance(v, (int, float))}
     log(f"  {tag} observability: " + json.dumps(summary, default=str))
+
+
+#: K1's kernels as the profiler names them (its smem design is the
+#: strided-row case of the shared fold, its earlier design flat_kernel)
+K1_PROFILE_NAMES = ("StridedRows", "flat_kernel")
+#: the kernels of ``index_select`` (the operator's row gathers)
+GATHER_PROFILE_NAMES = ("gather_kernel", "indexSelect")
+
+
+def fold_profile(rec: dict) -> dict:
+    """The profiled close-out of a run (``run_stream(profile=True)``):
+    device time of K1, of the operator's row gathers (``index_select``)
+    and of the rest, the device's busy share of the wall time by the
+    kernels' summed self time, and the largest kernels. None where the
+    profiler recorded no device time."""
+    wall, rows = rec["profile"]
+    if not rows:
+        return None
+    busy = sum(r[0] for r in rows)
+    k1 = sum(us for us, _, key in rows
+             if any(n in key for n in K1_PROFILE_NAMES))
+    gather = sum(us for us, _, key in rows
+                 if any(n in key for n in GATHER_PROFILE_NAMES))
+    return dict(wall_s=wall, busy_s=busy / 1e6, busy_share=busy / 1e6 / wall,
+                k1_ms=k1 / 1e3, gather_ms=gather / 1e3,
+                rest_ms=(busy - k1 - gather) / 1e3,
+                top=[(round(us / 1e3, 4), n, key[:90])
+                     for us, n, key in rows[:10]])
 
 
 # --------------------------------------------------------------- phases 4-5
@@ -2694,6 +2844,8 @@ def main(argv=None) -> int:
                     help="windows of processing time streamed in phase 1")
     ap.add_argument("--splitk-windows", type=float, default=2.0,
                     help="windows of processing time streamed in phase 2")
+    ap.add_argument("--lrb-windows", type=float, default=3.0,
+                    help="windows of processing time streamed in phase 12")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every number of the run to this JSON file")
     args = ap.parse_args(argv)
@@ -2739,7 +2891,12 @@ def main(argv=None) -> int:
                  ("K2",)),
                 (2, "splitk", SEED + 3, dict(windows=args.splitk_windows,
                                              pool_slots=1024, splitk=64,
-                                             restore_at=0.75), ("K3",))):
+                                             restore_at=0.75), ("K3",)),
+                # phase 12 runs here, so that phase 3 replays its launch
+                (12, "lrb", SEED + 12, dict(operator="lrb",
+                                            windows=args.lrb_windows,
+                                            pool_slots=4096, splitk=0,
+                                            profile=True), ("K1",))):
             zero_counts(wrappers.values())
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2761,6 +2918,22 @@ def main(argv=None) -> int:
                 f"{rec['max_memory_allocated'] / 1e9:.3f} GB (arena "
                 f"{rec['arena_bytes'] / 1e9:.3f} GB)")
             _print_run(tag, rec)
+            if rec["profile"] is not None:
+                rec["profile"] = fold_profile(rec)
+                pr = rec["profile"]
+                if pr is None:
+                    log(f"  {tag} profile: the profiler recorded no device "
+                        "time")
+                else:
+                    log(f"  {tag} profile of the close-out's re-execution of "
+                        f"every window: {pr['wall_s']:.3f} s wall, device "
+                        f"busy {pr['busy_s']:.4f} s "
+                        f"({100 * pr['busy_share']:.1f}%): K1 "
+                        f"{pr['k1_ms']:.4f} ms, row gathers (index_select) "
+                        f"{pr['gather_ms']:.4f} ms, the rest "
+                        f"{pr['rest_ms']:.4f} ms")
+                    for ms, n, key in pr["top"]:
+                        log(f"    {ms:10.4f} ms  x{n:<5d} {key}")
             c = rec["counts"]
             check(c["late_executions"] > 0, f"{tag}: no late executions")
             check(c["pooled_rows"] > 0, f"{tag}: no pooled rows")
@@ -2772,7 +2945,7 @@ def main(argv=None) -> int:
                 check(n == 0 or k in recorder.largest,
                       f"{tag}: {k} launched outside the recorded entry "
                       f"points")
-            for k in ("K2", "K3"):
+            for k in KERNELS:
                 fits = rec["smem_fits"][k]
                 check(rec["by_design"][k] == {
                     "smem": fits, "global": rec["launches"][k] - fits},
@@ -2790,43 +2963,60 @@ def main(argv=None) -> int:
     fallback = sum(r["counts"]["fallback_rows"] for r in runs.values())
     check(fallback > 0, "no fallback rows in phases 1-2")
 
-    # phase 3: each kernel replays its largest launch of the first run
-    # (main, then split-K) in which it launched
+    # phase 3: each kernel replays its largest launch of the first run in
+    # which it launched, of the runs it serves: K1 Linear Road's (phase
+    # 12, its row of the table) and the stock fallback's (main, then
+    # split-K); K2 and K3 the stock runs'
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
     kernels, shapes = [], []
-    for key in KERNELS:
+    for key, label, served in (("K1", "K1", ("lrb",)),
+                               ("K1", "K1 stock fallback",
+                                ("main", "splitk")),
+                               ("K2", "K2", ("main", "splitk")),
+                               ("K3", "K3", ("main", "splitk"))):
         by_run = {tag: r["launches"][key] for tag, r in runs.items()}
-        path = next((t for t, n in by_run.items() if n > 0), None)
-        check(path is not None, f"{key} was never launched on the main path")
+        path = next((t for t in served if by_run[t] > 0), None)
+        check(path is not None, f"{label} was never launched on the main "
+                                "path")
         rec = recorded[path][key]
         r = kernel_record(key, rec, g, iters=50)
-        if key == "K1":
+        if label == "K1":
             r["max_abs_err"] = max(r["max_abs_err"], nan_check(dev, g))
-        log(f"phase 3: {key} {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
+        log(f"phase 3: {label} {r['name']}: max_abs_err "
+            f"{r['max_abs_err']:.3g} "
             f"(count/min/max exact, sum rtol {SUM_RTOL} + atol {SUM_ATOL} x "
             f"max|v| x events/segment) | kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})"
-            + (f", earlier design {r['earlier_ms']:.4f} ms, launch alone "
-               f"{r['launch_ms']:.4f} ms" if key != "K1" else "")
+            + f", earlier design {r['earlier_ms']:.4f} ms, launch alone "
+            f"{r['launch_ms']:.4f} ms"
+            + ("" if key != "K1" else " (by events a block: " + ", ".join(
+                f"{n}: {t:.4f}" for n, t in r["per_block_ms"].items())
+               + " ms)")
             + f" | the largest launch of the {path} run ({by_run}): "
             f"{r['shape']}")
-        shapes.append(r.pop("shape"))
-        kernels.append({
-            "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": by_run[path],
-            "path": path, "launches_by_run": by_run,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if key != "K1":
-            kernels[-1].update(
-                earlier_source=r["earlier_source"],
-                earlier_ms=r["earlier_ms"], launch_ms=r["launch_ms"],
-                launches_by_design=runs[path]["by_design"][key])
+        if label == "K1 stock fallback":
+            # the table's K1 row is Linear Road's; the fallback's replay
+            # rides along in it
+            kernels[0]["stock_fallback"] = dict(r, path=path)
+        else:
+            shapes.append(r.pop("shape"))
+            kernels.append({
+                "name": r["name"], "route": r["route"],
+                "source": r["source"], "replaces": r["replaces"],
+                "launches": by_run[path], "path": path,
+                "launches_by_run": by_run, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "earlier_source": r["earlier_source"],
+                "earlier_ms": r["earlier_ms"], "launch_ms": r["launch_ms"],
+                "launches_by_design": runs[path]["by_design"][key]})
+            if "per_block_ms" in r:
+                kernels[-1]["per_block_ms"] = r["per_block_ms"]
         torch.cuda.synchronize()
         del rec
         torch.cuda.empty_cache()

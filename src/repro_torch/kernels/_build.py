@@ -54,6 +54,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # (may be null), S, S_total, events_per_block, stats, out, stream
         "seg_agg_block_table_smem": [_P, _I, _I, _I, _I, _P, _I, _P, _P,
                                      _P, _I, _I, _I, _I, _P, _P],
+        # values, ld, N, rows, w_out, ids, slots (may be null), valid (may
+        # be null), S, S_total, events_per_block, stats, out, stream
+        "seg_agg_flat_smem": [_P, _L, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                              _I, _P, _P],
     },
     "attention.cu": {
         # q, k_pages, v_pages, table, lens, out, B, H, Hkv, D, P, page,

@@ -1,5 +1,7 @@
 // Segment aggregation (reduce-by-key) for Hopper (sm_90a): the three folds
-// of Aion's late-event loop.
+// of Aion's late-event loop, in their global-atomic design. Where a block's
+// partial fits shared memory, the wrappers take the designs of
+// segment_splitk.cu instead (splitk_design); these kernels keep the rest.
 //
 //   seg_agg_flat              replaces segment_aggregate_pallas
 //                             (repro/kernels/segment_aggregate.py, _kernel /

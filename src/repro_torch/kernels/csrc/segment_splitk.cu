@@ -1,8 +1,8 @@
-// The block-table folds for Hopper (sm_90a) with shared-memory partials:
-// K3's and K2's design where a block's partial fits shared memory (the
-// rule of repro_torch/kernels/segment_aggregate.py, splitk_design; the
-// rest keeps seg_agg_block_table_splitk and seg_agg_block_table of
-// segment_aggregate.cu).
+// The segment folds for Hopper (sm_90a) with shared-memory partials:
+// K3's, K2's and K1's design where a block's partial fits shared memory
+// (the rule of repro_torch/kernels/segment_aggregate.py, splitk_design;
+// the rest keeps seg_agg_block_table_splitk, seg_agg_block_table and
+// seg_agg_flat of segment_aggregate.cu).
 //
 //   seg_agg_splitk_smem  replaces segment_aggregate_block_table_splitk_pallas
 //                        (repro/kernels/segment_aggregate.py,
@@ -64,6 +64,20 @@
 //                        jnp.minimum / jnp.maximum; the last block to
 //                        finish turns the keys back into floats (+inf /
 //                        -inf where nothing landed).
+//
+//   seg_agg_flat_smem    K1's design by the same rule: replaces
+//                        segment_aggregate_pallas (_kernel / _acc_tile),
+//                        reached flat (values [N, W], ids already the
+//                        segments) and stacked (segment_aggregate_batched:
+//                        values [B, N, W], ids [B, N], window slots [B]).
+//                        The same fold and flush as K2's (flush_kernel is
+//                        one template over how event e finds its values:
+//                        TableRows for K2, StridedRows for K1, at values +
+//                        e * ld, the composite id slots[e / N] * S + id
+//                        made here); no composite id, identity or mask is
+//                        built before the launch. On Linear Road's fold
+//                        (rows of [speed, stopped], 256 segments a slot:
+//                        3 KB of partial a slot) it takes 13 B an event.
 //
 // The entry points zero the counters (and K2's output) and launch the
 // kernel on the caller's stream, allocate nothing and return
@@ -350,17 +364,60 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
                   mn, mx, 0, nullptr);
 }
 
-// K2: block j folds events [j * events_per_block, ...) of the R x cap
-// flattened rows into its shared-memory partial (sum and count as floats,
-// min and max as keys, all starting at 0), then adds it into `out` (the
-// same layout, zeroed) with one atomic per touched word; the last block
-// turns out's keys into floats.
+// How event e of a flush fold finds its composite segment and its values;
+// event(e, comp, row) is false where the event matches no segment (or,
+// for a table row, names a pool slot past the arena). Both read every
+// index of the event before either result is used, so the loads of a
+// batch are in flight together.
+//
+// K2: row r = e / cap of the block table, values at
+// arena[table[r], e mod cap, :w_out].
+struct TableRows {
+    const float* arena;
+    int pool_slots, cap, w;
+    const int* table;
+    const int* ids;
+    const int* slots;
+    int S, s_total;
+    __device__ __forceinline__ bool event(int e, int& comp,
+                                          const float*& row) const {
+        const int r = e / cap;
+        const int p = __ldg(table + r);
+        comp = __ldg(slots + r) * S + __ldg(ids + e);
+        row = arena + ((long long)p * cap + (e - r * cap)) * w;
+        return comp >= 0 && comp < s_total && p >= 0 && p < pool_slots;
+    }
+};
+
+// K1: values at values + e * ld (rows of n events, one window slot each:
+// slots[e / n]); with slots null the ids are already composite.
+struct StridedRows {
+    const float* values;
+    long long ld;
+    int n;
+    const int* ids;
+    const int* slots;
+    int S, s_total;
+    __device__ __forceinline__ bool event(int e, int& comp,
+                                          const float*& row) const {
+        const int id = __ldg(ids + e);
+        comp = slots ? __ldg(slots + e / n) * S + id : id;
+        row = values + e * ld;
+        return comp >= 0 && comp < s_total;
+    }
+};
+
+// K2 and K1: block j folds events [j * events_per_block, ...) of the
+// `events` in the order of Rows into its shared-memory partial (sum and
+// count as floats, min and max as keys, all starting at 0), then adds it
+// into `out` (the same layout, zeroed) with one atomic per touched word;
+// where min or max is requested, the last block turns out's keys into
+// floats.
+template <typename Rows>
 __global__ void __launch_bounds__(kThreads) flush_kernel(
-        const float* __restrict__ arena, int pool_slots, int cap, int w,
-        int w_out, const int* __restrict__ table, int R,
-        const int* __restrict__ ids, const int* __restrict__ slots,
-        const uint8_t* __restrict__ valid, int S, int s_total,
-        int events_per_block, int stats, float* out, int* counter) {
+        Rows rows, int events, int w_out, const uint8_t* __restrict__ valid,
+        int s_total, int events_per_block, int stats, float* out,
+        int* counter) {
     extern __shared__ float part[];
     unsigned* keys = reinterpret_cast<unsigned*>(part);
     const Words words(stats, s_total, w_out);
@@ -368,7 +425,7 @@ __global__ void __launch_bounds__(kThreads) flush_kernel(
     __syncthreads();
 
     const int e0 = blockIdx.x * events_per_block;
-    const int e1 = min(e0 + events_per_block, R * cap);
+    const int e1 = min(e0 + events_per_block, events);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const bool values = (stats & (kSum | kMin | kMax)) != 0;
     for (int base = e0 + warp * 32 * kBatch; base < e1;
@@ -381,17 +438,16 @@ __global__ void __launch_bounds__(kThreads) flush_kernel(
             const int e = base + u * 32 + lane;
             ok[u] = e < e1;
             key[u] = -1 - lane;              // a group of its own
-            row[u] = arena;
+            row[u] = nullptr;
             if (ok[u]) {
-                const int r = e / cap;
                 const bool live = valid == nullptr || valid[e] != 0;
-                const int p = table[r];
-                const int comp = slots[r] * S + ids[e];
-                ok[u] = live && comp >= 0 && comp < s_total && p >= 0
-                    && p < pool_slots;
+                int comp;
+                const float* at;
+                const bool in = rows.event(e, comp, at);
+                ok[u] = live && in;
                 if (ok[u]) {
                     key[u] = comp;
-                    row[u] = arena + ((long long)p * cap + (e - r * cap)) * w;
+                    row[u] = at;
                 }
             }
         }
@@ -440,11 +496,35 @@ __global__ void __launch_bounds__(kThreads) flush_kernel(
         else atomicMax(out_keys + i, k);
     }
 
-    if (!last_to_arrive(counter, gridDim.x)) return;
     const int first = words.min >= 0 ? words.min : words.max;
-    if (first < 0) return;
+    if (first < 0 || !last_to_arrive(counter, gridDim.x)) return;
     for (int i = first + threadIdx.x; i < words.total; i += kThreads)
         out[i] = from_key(words.stat(i), __ldcg(out_keys + i));
+}
+
+// One flush launch over `events` events: checks, the memset of out and
+// its counter, the kernel; returns cudaGetLastError().
+template <typename Rows>
+int launch_flush(const Rows& rows, long long events, int w_out,
+                 const uint8_t* valid, int s_total, int events_per_block,
+                 int stats, float* out, cudaStream_t s) {
+    const Words words(stats, s_total, w_out);
+    const size_t smem = (size_t)words.total * sizeof(float);
+    // event indices fit an int, with a batch of headroom past the end
+    if (words.total <= 0 || w_out <= 0 || events <= 0
+        || events_per_block <= 0 || smem > 48 * 1024
+        || events > 0x7fffffffLL - kThreads * kBatch)
+        return (int)cudaErrorInvalidValue;
+    const long long blocks = (events + events_per_block - 1)
+        / events_per_block;
+    int* counter = reinterpret_cast<int*>(out + words.total);
+    cudaError_t e = cudaMemsetAsync(out, 0,
+                                    (words.total + 1) * sizeof(float), s);
+    if (e != cudaSuccess) return (int)e;
+    flush_kernel<Rows><<<(unsigned)blocks, kThreads, smem, s>>>(
+        rows, (int)events, w_out, valid, s_total, events_per_block, stats,
+        out, counter);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -492,23 +572,24 @@ int seg_agg_block_table_smem(const float* arena, int pool_slots, int cap,
                              const uint8_t* valid, int S, int s_total,
                              int events_per_block, int stats, float* out,
                              void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const Words words(stats, s_total, w_out);
-    const size_t smem = (size_t)words.total * sizeof(float);
-    const long long events = (long long)r * cap;
-    if (words.total == 0 || events <= 0 || events_per_block <= 0
-        || smem > 48 * 1024 || events > 0x7fffffffLL - kThreads * kBatch)
-        return (int)cudaErrorInvalidValue;
-    const long long blocks = (events + events_per_block - 1)
-        / events_per_block;
-    int* counter = reinterpret_cast<int*>(out + words.total);
-    cudaError_t e = cudaMemsetAsync(out, 0,
-                                    (words.total + 1) * sizeof(float), s);
-    if (e != cudaSuccess) return (int)e;
-    flush_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
-        arena, pool_slots, cap, w, w_out, table, r, ids, slots, valid, S,
-        s_total, events_per_block, stats, out, counter);
-    return (int)cudaGetLastError();
+    const TableRows rows{arena, pool_slots, cap, w, table, ids, slots, S,
+                         s_total};
+    return launch_flush(rows, (long long)r * cap, w_out, valid, s_total,
+                        events_per_block, stats, out, (cudaStream_t)stream);
+}
+
+// K1: values [rows, n, w_out] at values + (r * n + i) * ld (columns
+// contiguous), ids and valid (may be null) [rows, n], slots [rows] or
+// null (the ids are composite); out as seg_agg_block_table_smem's.
+int seg_agg_flat_smem(const float* values, long long ld, int n, int rows,
+                      int w_out, const int* ids, const int* slots,
+                      const uint8_t* valid, int S, int s_total,
+                      int events_per_block, int stats, float* out,
+                      void* stream) {
+    if (ld < w_out) return (int)cudaErrorInvalidValue;
+    const StridedRows src{values, ld, n, ids, slots, S, s_total};
+    return launch_flush(src, (long long)rows * n, w_out, valid, s_total,
+                        events_per_block, stats, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

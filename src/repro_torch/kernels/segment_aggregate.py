@@ -3,14 +3,20 @@ late-event loop, as hand-written CUDA kernels for Hopper and their plain
 PyTorch versions.
 
 Three kernels (``csrc/segment_aggregate.cu``, and the shared-memory
-designs of K2 and K3 in ``csrc/segment_splitk.cu``), each behind a
+designs of K1, K2 and K3 in ``csrc/segment_splitk.cu``), each behind a
 wrapper that launches it for a CUDA tensor and takes the plain version
 only for a tensor on the CPU:
 
   K1 ``segment_aggregate_cuda``              flat reduce-by-key: values
      [N, W], ids [N], valid [N] -> per-segment sum / count / min / max.
      ``segment_aggregate_batched_cuda`` reaches it with composite ids
-     ``slot * S + key`` (the stacked fold of many windows).
+     ``slot * S + key`` (the stacked fold of many windows). Its design
+     comes from the rule of K3: ``smem`` (``seg_agg_flat_smem`` in
+     ``csrc/segment_splitk.cu``: K2's fold and flush with the event's row
+     at ``values + e * ld``, the composite ids made inside the kernel)
+     where a block's partial fits SPLITK_SMEM_BYTES, else ``global``
+     (one thread an event, global atomics). Both wrappers count on
+     ``segment_aggregate_cuda``, by design in ``launches_by_design``.
   K2 ``segment_aggregate_block_table_cuda``  the K1 reduction over the
      persistent block pool: row ``r``'s event tile is read straight out
      of ``arena[table[r]]`` inside the kernel (no per-batch gather copy),
@@ -117,7 +123,7 @@ def splitk_partial_bytes(stats, s_total: int, w_out: int) -> int:
 
 def splitk_design(stats, s_total: int, w_out: int,
                   forced: str | None = None) -> str:
-    """K3's and K2's design for normalized ``stats``: ``smem`` where a
+    """K3's, K2's and K1's design for normalized ``stats``: ``smem`` where a
     block's partial fits SPLITK_SMEM_BYTES, else ``global``; or ``forced``
     (a measurement's choice), which must take these inputs."""
     nbytes = splitk_partial_bytes(stats, s_total, w_out)
@@ -377,45 +383,116 @@ def _lib(source: str = "segment_aggregate.cu"):
     return library(source)
 
 
-def segment_aggregate_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
-                           num_segments: int,
-                           valid: Optional[torch.Tensor] = None,
-                           stats: Tuple[str, ...] = ALL_STATS) -> dict:
-    """K1: flat reduce-by-key. values [N, W] float32 (rows may be strided,
-    columns contiguous), segment_ids [N], valid [N] -> dict of [S, W] /
-    [S] stats. A CPU tensor takes ``segment_aggregate_plain``."""
-    stats = norm_stats(stats)
-    if not values.is_cuda:
-        return segment_aggregate_plain(values, segment_ids, num_segments,
-                                       valid=valid, stats=stats)
+def flat_smem_launch(values: torch.Tensor, segment_ids, num_segments: int,
+                     valid, slot_ids, num_slots: Optional[int], stats,
+                     per_block: Optional[int] = None):
+    """The checks, outputs and C arguments of one launch of K1's smem
+    design (``seg_agg_flat_smem``): returns (arguments, outputs, tensors
+    the launch reads, to be kept alive until it is enqueued). ``values``
+    is [N, W] with ``slot_ids`` None (the ids are the segments; outputs
+    [S(, W)]), or [B, N, W] with ``slot_ids`` [B] (composite ids ``slot *
+    S + id`` made in the kernel; outputs [num_slots, S(, W)]); an event's
+    row may be strided, its columns contiguous. ``stats`` must be
+    normalized and the events non-empty. ``per_block`` (a measurement's
+    choice) replaces SPLITK_EVENTS_PER_BLOCK."""
+    dev = values.device
+    if values.dtype != torch.float32 or values.stride(-1) != 1:
+        raise ValueError("values must be float32 with contiguous columns")
+    lead, w = tuple(values.shape[:-1]), values.shape[-1]
+    rows, n = (1, lead[0]) if slot_ids is None else lead
+    if slot_ids is not None and rows > 1 \
+            and values.stride(0) != n * values.stride(1):
+        # event b * N + i must sit at (b * N + i) * ld
+        values = values.contiguous()
+    ids = _i32(segment_ids, lead, dev, "segment_ids")
+    slots = None if slot_ids is None else _i32(slot_ids, (rows,), dev,
+                                               "slot_ids")
+    ok = _valid_bytes(valid, lead, dev)
+    s_total = (num_slots or 1) * num_segments
+    # one allocation: the outputs, each a view of it, then the kernel's
+    # block counter
+    words = splitk_partial_bytes(stats, s_total, w) // 4
+    buf = torch.empty(words + 1, dtype=torch.float32, device=dev)
+    out, _, _ = _stat_views(buf, stats, (), num_slots, num_segments, w, 1)
+    args = (values.data_ptr(), values.stride(-2), n, rows, w,
+            ids.data_ptr(), _ptr(slots), _ptr(ok), num_segments, s_total,
+            per_block or SPLITK_EVENTS_PER_BLOCK,
+            sum(_STAT_BITS[s] for s in stats),
+            buf.data_ptr(), raw_stream(dev))
+    return args, out, (values, ids, slots, ok, buf)
+
+
+def _flat_global(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                 valid, stats) -> dict:
+    """K1's earlier design (``seg_agg_flat``: one thread an event, global
+    atomics into outputs filled with the identities) on values [N, W] and
+    composite ids [N]."""
     dev = values.device
     n, w = values.shape
     if values.dtype != torch.float32 or values.stride(1) != 1:
         raise ValueError("values must be float32 with contiguous columns")
-    ids = _i32(segment_ids, (n,), dev, "segment_ids")
+    ids = _i32(ids, (n,), dev, "segment_ids")
     ok = _valid_u8(valid, (n,), dev)
     out = _identity(stats, (num_segments,), w, dev)
-    if n == 0 or num_segments == 0:
-        return out
     _lib().call("seg_agg_flat", values.data_ptr(), values.stride(0), w,
                 ids.data_ptr(), ok.data_ptr(), n, num_segments,
                 _ptr(out.get("sum")), _ptr(out.get("count")),
                 _ptr(out.get("min")), _ptr(out.get("max")), raw_stream(dev))
+    return out
+
+
+def _count_k1(design: str) -> None:
     segment_aggregate_cuda.launches += 1
+    segment_aggregate_cuda.launches_by_design[design] += 1
+
+
+def segment_aggregate_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
+                           num_segments: int,
+                           valid: Optional[torch.Tensor] = None,
+                           stats: Tuple[str, ...] = ALL_STATS,
+                           design: Optional[str] = None) -> dict:
+    """K1: flat reduce-by-key. values [N, W] float32 (rows may be strided,
+    columns contiguous), segment_ids [N], valid [N] -> dict of [S, W] /
+    [S] stats. Its design is ``splitk_design``'s: ``smem``
+    (``seg_agg_flat_smem`` in ``csrc/segment_splitk.cu``: block partials
+    in shared memory flushed into the output by atomics) where a block's
+    partial fits, else ``global`` (``seg_agg_flat``). ``design`` forces
+    one (for measurements) and raises where it does not take the inputs.
+    Launches count on this wrapper, by design in ``launches_by_design``,
+    whichever K1 wrapper launched. A CPU tensor takes
+    ``segment_aggregate_plain``."""
+    stats = norm_stats(stats)
+    if not values.is_cuda:
+        return segment_aggregate_plain(values, segment_ids, num_segments,
+                                       valid=valid, stats=stats)
+    n, w = values.shape
+    if n == 0 or num_segments == 0:
+        return _identity(stats, (num_segments,), w, values.device)
+    chosen = splitk_design(stats, num_segments, w, design)
+    if chosen == "smem":
+        args, out, _keep = flat_smem_launch(values, segment_ids,
+                                            num_segments, valid, None, None,
+                                            stats)
+        _lib("segment_splitk.cu").call("seg_agg_flat_smem", *args)
+    else:
+        out = _flat_global(values, segment_ids, num_segments, valid, stats)
+    _count_k1(chosen)
     return out
 
 
 segment_aggregate_cuda.launches = 0
+segment_aggregate_cuda.launches_by_design = dict.fromkeys(SPLITK_DESIGNS, 0)
 
 
 def segment_aggregate_batched_cuda(values, segment_ids, num_segments: int,
                                    valid=None, slot_ids=None,
                                    num_slots: Optional[int] = None,
-                                   stats: Tuple[str, ...] = ALL_STATS
-                                   ) -> dict:
+                                   stats: Tuple[str, ...] = ALL_STATS,
+                                   design: Optional[str] = None) -> dict:
     """Many windows in ONE K1 launch: values [B, N, W], ids [B, N],
-    slot_ids [B] -> [num_slots, S(, W)], through composite segment ids
-    ``slot * S + key`` built here."""
+    slot_ids [B] -> [num_slots, S(, W)] through composite segment ids
+    ``slot * S + key``: made inside the kernel on the smem design, here
+    on the global one. ``design`` as ``segment_aggregate_cuda``'s."""
     stats = norm_stats(stats)
     if not values.is_cuda:
         return segment_aggregate_batched_plain(
@@ -423,17 +500,26 @@ def segment_aggregate_batched_cuda(values, segment_ids, num_segments: int,
             slot_ids=slot_ids, num_slots=num_slots, stats=stats)
     b, n, w = values.shape
     slot_ids, num_slots = _slots(slot_ids, num_slots, b, values.device)
-    if b == 0 or num_slots == 0:
+    if b == 0 or n == 0 or num_slots == 0 or num_segments == 0:
         return _identity(stats, (num_slots, num_segments), w, values.device)
-    comp = (slot_ids.to(torch.int32)[:, None] * num_segments
-            + segment_ids.to(torch.int32))
-    flat = values.reshape(b * n, w)
-    if flat.stride(1) != 1:
-        flat = flat.contiguous()
-    out = segment_aggregate_cuda(
-        flat, comp.reshape(b * n), num_slots * num_segments,
-        valid=None if valid is None else valid.reshape(b * n), stats=stats)
-    return _shape(out, (num_slots, num_segments), w)
+    chosen = splitk_design(stats, num_slots * num_segments, w, design)
+    if chosen == "smem":
+        args, out, _keep = flat_smem_launch(values, segment_ids,
+                                            num_segments, valid, slot_ids,
+                                            num_slots, stats)
+        _lib("segment_splitk.cu").call("seg_agg_flat_smem", *args)
+    else:
+        comp = (slot_ids.to(torch.int32)[:, None] * num_segments
+                + segment_ids.to(torch.int32))
+        flat = values.reshape(b * n, w)
+        if flat.stride(1) != 1:
+            flat = flat.contiguous()
+        out = _shape(_flat_global(
+            flat, comp.reshape(b * n), num_slots * num_segments,
+            None if valid is None else valid.reshape(b * n), stats),
+            (num_slots, num_segments), w)
+    _count_k1(chosen)
+    return out
 
 
 def _check_arena(values_arena, num_cols) -> int:
@@ -474,19 +560,23 @@ def _block_table_launch(name: str, values_arena, segment_ids, table,
     return out, w_out
 
 
-def _stat_views(buf: torch.Tensor, stats, lead: tuple, num_slots: int,
-                num_segments: int, w_out: int, k_out: int) -> tuple:
+def _stat_views(buf: torch.Tensor, stats, lead: tuple,
+                num_slots: Optional[int], num_segments: int, w_out: int,
+                k_out: int) -> tuple:
     """Each stat's output as a view of ``buf`` ([*lead,] slots, S(, w_out),
-    one stat after another, in a partial's layout) and its address; returns
-    (views, addresses by stat, floats used)."""
-    s_total = num_slots * num_segments
+    one stat after another, in a partial's layout; no slot axis where
+    ``num_slots`` is None) and its address; returns (views, addresses by
+    stat, floats used)."""
+    slot_axis = () if num_slots is None else (num_slots,)
+    s_total = (num_slots or 1) * num_segments
     base = buf.data_ptr()
     out, ptr, at = {}, dict.fromkeys(ALL_STATS), 0
     for s in stats:
         width, tail = (1, ()) if s == "count" else (w_out, (w_out,))
         out[s] = buf.as_strided(
-            (*lead, num_slots, num_segments, *tail),
-            (*(s_total * width,) * len(lead), num_segments * width, width,
+            (*lead, *slot_axis, num_segments, *tail),
+            (*(s_total * width,) * len(lead),
+             *(num_segments * width,) * len(slot_axis), width,
              *(1,) * len(tail)), at)
         ptr[s] = base + 4 * at
         at += k_out * s_total * width

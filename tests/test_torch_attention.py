@@ -329,7 +329,8 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
         set(_build.SIGNATURES["flash_bwd_hopper.cu"])
     assert {"ssd_scan"} == set(_build.SIGNATURES["ssd_scan.cu"])
     assert {"ssd_tensor"} == set(_build.SIGNATURES["ssd_hopper.cu"])
-    assert {"seg_agg_splitk_smem", "seg_agg_block_table_smem"} == \
+    assert {"seg_agg_splitk_smem", "seg_agg_block_table_smem",
+            "seg_agg_flat_smem"} == \
         set(_build.SIGNATURES["segment_splitk.cu"])
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")

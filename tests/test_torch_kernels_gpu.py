@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 flat; K2 block table and K3 split-K, each on both
-of its designs) against their plain torch versions on the card. Marked
+"""The CUDA kernels (K1 flat and stacked, K2 block table and K3 split-K,
+each on both of its designs) against their plain torch versions on the
+card. Marked
 ``gpu``: they build the kernels with nvcc and skip where there is no CUDA
 device. Run them on a GPU
 machine with ``PYTHONPATH=src python -m pytest -m gpu tests/``.
@@ -242,3 +243,114 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         sa.segment_aggregate_block_table_cuda(
             arena, ids, table, s, slot_ids=sl, num_slots=ns, num_cols=99)
+
+
+def _stacked(dev, b=48, n=512, w=2, ld=2, s=256, slots=4, seed=3,
+             pad_rows=0):
+    """K1's stacked launch: values [b, n, w] read out of rows ``ld`` floats
+    apart (``pad_rows`` extra events a row break the uniform stride),
+    ids [b, n] with two out of range, ragged fills, slots [b]."""
+    g = np.random.default_rng(seed)
+    full = torch.tensor(g.uniform(0.0, 120.0, (b, n + pad_rows, ld)),
+                        dtype=torch.float32, device=dev)
+    vals = full[:, :n, :w]
+    ids = torch.tensor(g.integers(0, s, (b, n)), dtype=torch.int32,
+                       device=dev)
+    ids[1, 3], ids[2, 7] = -1, s * slots + 3
+    fills = g.integers(0, n + 1, b)
+    valid = torch.tensor(np.arange(n)[None] < fills[:, None], device=dev)
+    valid[1, 3] = valid[2, 7] = True
+    sl = torch.tensor(g.integers(0, slots, b), dtype=torch.int32,
+                      device=dev)
+    return vals, ids, valid, sl, s, slots
+
+
+@pytest.mark.parametrize("design", ["smem", "global"])
+@pytest.mark.parametrize("w,ld,pad_rows,stats", [
+    (2, 2, 0, ("sum", "count")),       # Linear Road's [speed, stopped]
+    (1, 416, 0, sa.ALL_STATS),         # the stock fallback's price column
+    (2, 5, 3, sa.ALL_STATS),           # rows off the uniform stride
+])
+def test_flat_smem_stacked_matches_plain(dev, design, w, ld, pad_rows,
+                                         stats):
+    """K1's stacked fold on both designs (the smem one by the rule, the
+    global one forced) against the plain version: strided rows, invalid
+    rows and out-of-range ids inert; counted by design on K1's wrapper."""
+    vals, ids, valid, sl, s, ns = _stacked(dev, w=w, ld=ld,
+                                           pad_rows=pad_rows)
+    assert sa.splitk_design(sa.norm_stats(stats), ns * s, w) == "smem"
+    counts = sa.segment_aggregate_cuda.launches_by_design
+    before = dict(counts)
+    out = sa.segment_aggregate_batched_cuda(
+        vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns, stats=stats,
+        design=None if design == "smem" else design)
+    assert counts[design] == before[design] + 1
+    ref = sa.segment_aggregate_batched_plain(
+        vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns, stats=stats)
+    torch.cuda.synchronize()
+    _close(out, ref, ids.numel(), 120.0)
+
+
+@pytest.mark.parametrize("stats", [sa.ALL_STATS, ("sum", "count"),
+                                   ("min", "max"), ("count",)])
+def test_flat_smem_nan_and_empty_slot_on_both_designs(dev, stats):
+    """NaN values of live events win min/max and poison only their own
+    sums; an invalid NaN stays inert; a slot no row names holds the
+    identities; the flat wrapper (no slots) and the stacked one agree
+    with the plain version on both designs."""
+    vals, ids, valid, sl, s, ns = _stacked(dev, b=40, w=3, ld=3, s=16,
+                                           slots=8)
+    sl[sl == 7] = 6                              # slot 7: no row
+    vals[5, 3, 1] = float("nan")
+    valid[5, 3] = True
+    vals[6, 4, 0] = float("nan")
+    valid[6, 4] = False
+    ref = sa.segment_aggregate_batched_plain(
+        vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns, stats=stats)
+    comp = (sl[:, None] * s + ids).reshape(-1)
+    flat_ref = sa.segment_aggregate_plain(vals.reshape(-1, 3), comp, ns * s,
+                                          valid=valid.reshape(-1),
+                                          stats=stats)
+    for design in sa.SPLITK_DESIGNS:
+        outs = [(sa.segment_aggregate_batched_cuda(
+            vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns,
+            stats=stats, design=design), ref),
+            (sa.segment_aggregate_cuda(vals.reshape(-1, 3), comp, ns * s,
+                                       valid=valid.reshape(-1), stats=stats,
+                                       design=design), flat_ref)]
+        torch.cuda.synchronize()
+        for out, want in outs:
+            for k in out:
+                assert torch.equal(torch.isnan(out[k]),
+                                   torch.isnan(want[k])), k
+            if "count" in stats:
+                assert float(outs[0][0]["count"][7].abs().sum()) == 0.0
+            if "min" in stats:
+                assert bool(torch.isinf(outs[0][0]["min"][7]).all())
+            _close({k: torch.nan_to_num(v) for k, v in out.items()},
+                   {k: torch.nan_to_num(v) for k, v in want.items()},
+                   ids.numel(), 120.0)
+
+
+def test_flat_design_rule_sends_large_partials_to_global(dev):
+    """K1: a partial past SPLITK_SMEM_BYTES goes to the global design, by
+    the rule and counted; forcing smem there raises before any launch;
+    Linear Road's 16 slots of 256 segments still fit."""
+    assert sa.splitk_design(("sum", "count"), 16 * 256, 2) == "smem"
+    assert sa.splitk_design(("sum", "count"), 17 * 256, 2) == "global"
+    vals, ids, valid, sl, s, ns = _stacked(dev, b=20, slots=17)
+    counts = sa.segment_aggregate_cuda.launches_by_design
+    before = dict(counts)
+    out = sa.segment_aggregate_batched_cuda(
+        vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns,
+        stats=("sum", "count"))
+    assert counts == dict(before, **{"global": before["global"] + 1})
+    _close(out, sa.segment_aggregate_batched_plain(
+        vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns,
+        stats=("sum", "count")), ids.numel(), 120.0)
+    launches = sa.segment_aggregate_cuda.launches
+    with pytest.raises(ValueError, match="smem design keeps"):
+        sa.segment_aggregate_batched_cuda(
+            vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns,
+            stats=("sum", "count"), design="smem")
+    assert sa.segment_aggregate_cuda.launches == launches
