@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--windows 6] [--splitk-windows 2]
-                          [--lrb-windows 3] [--out FILE]
+                          [--lrb-windows 3] [--pipeline-windows 6]
+                          [--failure-windows 2] [--tenant-seconds 60]
+                          [--out FILE]
 
 Phases (the first failed check exits non-zero, with no result line):
 
@@ -175,6 +177,43 @@ Phases (the first failed check exits non-zero, with no result line):
    ``torch.profiler``: device time of K1, of the row gathers and of the
    rest, and the device's busy share. It runs after phase 2, so that
    phase 3 replays its largest K1 launch.
+13. Phase 1's deployment, seed and pool, pipelined with learned
+   prefetch (``AionConfig(pipelined_execution=True,
+   prefetch_backend="learned")``) over ``--pipeline-windows`` windows
+   (default phase 1's): every fold round, the close-out's sweep too, on
+   the engine's pipeline worker thread. Every window against the oracle
+   as in phase 1; every K1-K3 launch must have gone out from the worker
+   thread on the arena's stream (the recorder keeps each launch's thread
+   and stream), no round may have failed, and every K2 launch that fits
+   shared memory must take its smem design. Printed: events/s beside
+   phase 1's of the same run (over the loop and the time the rounds it
+   submitted took to fold after it, the backlog; the loop alone beside
+   it), the pipeline's rounds and retries, epoch-
+   demoted, pooled and fallback rows, demand fills and their stall, the
+   learned scheduler's and the store's counts (sweeps, bytes swept,
+   readahead hits, coalesced windows) and, under ``torch.profiler``, the
+   close-out's device busy share.
+   13b. Failure controls on ``--failure-windows`` windows of the same
+   deployment, each over a log store that fails one demand read once
+   (``PermanentStoreError``, which the I/O path does not retry): with
+   ``fold_round_retry`` the round must be retried through the engine's
+   backup executor and win, and every window still meet the oracle;
+   without it the pipeline's ``drain()`` after the stream must raise
+   ``PipelineError``.
+14. ``MultiTenantEngine.from_profiles`` with four tenants of
+   ``configs/workloads.py: TENANT_PROFILES``: qwen3_moe_30b,
+   command_r_35b and mistral_large_123b (the Table-1 stock deployment,
+   I/O weights 2, 2, 4) share one 4,096-slot arena (3.5 GB), and
+   granite_34b (Linear Road, weight 2), whose width is not the arena's,
+   takes the unpooled per-block path; pipelined with learned prefetch,
+   one 8 GiB device budget, one 2 GiB host budget sliced by the
+   profiles, one log store, one transfer executor and one pipeline.
+   Each tenant streams at its Table-1 rate (40,000 events/s in all) for
+   ``--tenant-seconds`` of processing time (2.4 M events), then closes
+   out; every stock window is held to the stock oracle and the Linear
+   Road window to its own, every tenant must have had I/O executed
+   (``fairness_stats``), and every fold launch must have gone out from
+   the shared pipeline's worker thread.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -182,9 +221,9 @@ design (bf16 at head dims 64 and 128) within the limits that
 ``tests/test_torch_flash_rounding.py`` anchors on the Pallas kernels'
 readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
-set to 0 just before each of phases 1, 2, 12, 4, 6b, 7, 9a, 9c and 10
-and read just after; every bf16 launch of K5 and K6 in phases 4, 6b and 10
-must have gone through the wgmma design. A segment kernel's
+set to 0 just before each of phases 1, 2, 12, 13, 14, 4, 6b, 7, 9a, 9c
+and 10 and read just after; every bf16 launch of K5 and K6 in phases 4,
+6b and 10 must have gone through the wgmma design. A segment kernel's
 ``launches`` is its count in the run whose launch it replays (K1 the
 Linear Road run, K2 the main run, K3 the split-K run;
 ``launches_by_run`` gives every run's count); K4's and K5's are their counts in
@@ -364,6 +403,10 @@ class LaunchRecorder:
     def __init__(self):
         self.largest = {}
         self.fits = dict.fromkeys(ENTRY_POINTS, 0)
+        # each kernel's launches by the thread that made them, and the
+        # CUDA streams (raw handles; None for a CPU tensor) they went to
+        self.threads = {k: {} for k in ENTRY_POINTS}
+        self.streams = {k: set() for k in ENTRY_POINTS}
         self._saved = {}
 
     def __enter__(self):
@@ -391,7 +434,14 @@ class LaunchRecorder:
         return recorded
 
     def _keep(self, key, a) -> None:
+        import threading
+        import torch
         vals = a["values"] if key == "K1" else a["values_arena"]
+        name = threading.current_thread().name
+        self.threads[key][name] = self.threads[key].get(name, 0) + 1
+        self.streams[key].add(
+            torch.cuda.current_stream(vals.device).cuda_stream
+            if vals.is_cuda else None)
         rows = vals.shape[0] if key == "K1" else a["table"].shape[0]
         slots = a["num_slots"] if a["num_slots"] is not None else rows
         if rows and slots and vals.shape[1] and a["num_segments"]:
@@ -822,7 +872,10 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                width: int = None, device_budget: int = 6 << 30,
                host_budget: int = 512 << 20, step_seconds: float = 1.0,
                late_horizon: float = 300.0,
-               restore_at: float = None, profile: bool = False) -> dict:
+               restore_at: float = None, profile: bool = False,
+               pipelined: bool = False, prefetch_backend: str = "fixed",
+               fold_round_retry: bool = True, store_wrap=None,
+               on_engine=None) -> dict:
     """Drive the port's ``StreamEngine`` with the Table-1 deployment of
     ``operator`` (stock market or Linear Road, ``DEPLOYMENTS``) for
     ``windows`` windows of processing time, close out, and hold every
@@ -831,7 +884,12 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     new engine restored from it over the same log store. ``profile`` runs
     the close-out's re-execution of every window under ``torch.profiler``
     (``device_profile``). ``rate`` and ``width`` default to Table 1 (CPU
-    rehearsals pass smaller ones). Returns the run's record."""
+    rehearsals pass smaller ones). ``pipelined`` folds every round on the
+    engine's pipeline worker (the close-out's sweep too, submitted as one
+    round), with ``prefetch_backend`` and ``fold_round_retry`` as in
+    ``AionConfig``; ``store_wrap`` wraps the log store the engine gets,
+    and ``on_engine`` is called with the engine once it is built.
+    Returns the run's record."""
     import numpy as np
     from repro_torch.configs import workloads
     from repro_torch.configs.base import AionConfig
@@ -840,6 +898,7 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     from repro_torch.core.batch_exec import BatchWorkItem
     from repro_torch.core.operators import make_operator
     from repro_torch.data.generators import make_generator
+    from repro_torch.storage import make_store
 
     wl_name, keys_kw, oracle, hold = DEPLOYMENTS[operator]
     wl = getattr(workloads, wl_name)
@@ -856,18 +915,29 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
         def should_purge(self, window_end, watermark):
             return False
 
-    aion = AionConfig(pool_slots=pool_slots, splitk_chunk_rows=splitk)
+    aion = AionConfig(pool_slots=pool_slots, splitk_chunk_rows=splitk,
+                      pipelined_execution=pipelined,
+                      prefetch_backend=prefetch_backend,
+                      fold_round_retry=fold_round_retry)
     per_step = int(round(rate * step_seconds))
     steps = int(round(windows * wd / step_seconds))
     spill = Path(tempfile.mkdtemp(prefix="store_", dir=spill_root))
     counted = ("ingested", "ingested_late", "live_executions",
                "late_executions", "batch_executions", "batched_windows",
                "pooled_rows", "fallback_rows", "demand_pool_fills",
-               "splitk_launches", "dropped", "purged_windows")
+               "splitk_launches", "dropped", "purged_windows",
+               "pipeline_rounds", "epoch_demoted_rows",
+               "demoted_sync_rounds", "batch_stall_seconds")
     counts = dict.fromkeys(counted, 0)
 
     def make():
-        return StreamEngine(
+        store = None
+        if store_wrap is not None:
+            store = store_wrap(make_store(
+                aion.store_backend, spill,
+                segment_bytes=aion.store_segment_bytes,
+                readahead_bytes=aion.store_readahead_bytes))
+        eng = StreamEngine(
             assigner=TumblingWindows(wd),
             operator=make_operator(operator, aion.block_size, w,
                                    device=device,
@@ -876,7 +946,11 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
             cleanup=KeepAll(coverage=aion.cleanup_coverage,
                             confidence=aion.cleanup_confidence),
             device_budget_bytes=device_budget,
-            host_budget_bytes=host_budget, spill_dir=spill, device=device)
+            host_budget_bytes=host_budget, spill_dir=spill, store=store,
+            device=device)
+        if on_engine is not None:
+            on_engine(eng)
+        return eng
 
     def absorb(e):
         for k in counted:
@@ -931,8 +1005,11 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                 f"device={eng.device_bytes() / 2**30:.2f}GiB "
                 f"host={eng.host_bytes() / 2**30:.2f}GiB "
                 f"elapsed={time.perf_counter() - t_stream:.1f}s")
-    stream_s = (time.perf_counter() - t_stream - secs["generate"]
-                - secs.get("checkpoint_restore", 0.0))
+    loop_s = (time.perf_counter() - t_stream - secs["generate"]
+              - secs.get("checkpoint_restore", 0.0))
+    # the stream's work is done when its rounds have folded: the
+    # pipelined loop returns before they do, so their backlog counts
+    stream_s = loop_s + backlog_drain(eng.pipeline, secs)
 
     # close out as the soak does: watermark past every lateness, the
     # remaining plans fire, then one batched sweep of every window
@@ -941,16 +1018,24 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     eng.advance_watermark(end + late_horizon, end)
     for t in np.linspace(end, end + 70.0, 6):
         eng.poll(float(t))
+    if eng.pipeline is not None:
+        check(eng.pipeline.drain(timeout=600), "pipeline did not drain")
     check(eng.io.drain(timeout=600), "I/O executor did not drain")
     items = [BatchWorkItem(wid, eng.windows[wid], True)
              for wid in sorted(eng.windows, key=lambda x: x.start)]
-    sweep = functools.partial(eng.batch_exec.execute, items, end + 70.0)
+    if eng.pipeline is not None:
+        sweep = functools.partial(pipelined_sweep, eng, items, end + 70.0)
+    else:
+        sweep = functools.partial(eng.batch_exec.execute, items,
+                                  end + 70.0)
     prof = device_profile(sweep) if profile else sweep()
     secs["close_out"] = time.perf_counter() - t0
     results = {(wid.start, wid.end): r for wid, r in eng.results.items()}
     absorb(eng)
     obs = eng.observability()
     arena_bytes = eng.pool.arena_bytes if eng.pool is not None else 0
+    prefetch = dict(eng.prestage.stats)
+    stream = pool_stream(eng.pool)
     eng.close(drain_timeout=600)
     shutil.rmtree(spill, ignore_errors=True)
 
@@ -968,19 +1053,282 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     return {
         "events": int(keys.shape[0]), "windows": len(want),
         "events_per_s": keys.shape[0] / stream_s, "stream_s": stream_s,
+        "loop_events_per_s": keys.shape[0] / loop_s,
         "seconds": secs, "counts": counts, "arena_bytes": arena_bytes,
         "max_mean_abs_err": worst, "observability": obs,
         "width": w, "rate": rate, "operator": operator,
         "profile": prof if profile else None,
+        "pipeline": obs.get("pipeline", {}), "prefetch": prefetch,
+        "pool_stream": stream,
     }
+
+
+def pool_stream(pool):
+    """The raw handle of the CUDA stream an arena's writes and folds run
+    on (None off the card or without a pool)."""
+    if pool is None or pool.device.type != "cuda":
+        return None
+    import torch
+    with pool.stream():
+        return torch.cuda.current_stream(pool.device).cuda_stream
+
+
+def backlog_drain(pipeline, secs: dict) -> float:
+    """Wait for the rounds a pipelined stream submitted to fold (a failed
+    round raises ``PipelineError`` here); records and returns the
+    seconds it took (0 without a pipeline)."""
+    if pipeline is None:
+        return 0.0
+    t0 = time.perf_counter()
+    check(pipeline.drain(timeout=600), "pipeline did not drain")
+    secs["backlog_drain"] = time.perf_counter() - t0
+    return secs["backlog_drain"]
+
+
+def pipelined_sweep(eng, items, now: float) -> dict:
+    """The close-out's re-execution of ``items`` as one round on the
+    engine's pipeline worker; drains it and returns the results."""
+    futs = eng.pipeline.submit(eng, items, now)
+    check(eng.pipeline.drain(timeout=600), "pipeline did not drain")
+    return {wid: f.result() for wid, f in futs.items()}
+
+
+class FailOnceStore:
+    """A log store that fails one demand read once (phase 13b): ``arm``
+    names a record, and the next ``get`` of it raises
+    ``PermanentStoreError``, which the I/O path does not retry, so the
+    demand fill and with it its fold round fail. Every other call goes to
+    the store."""
+
+    def __init__(self, store):
+        import threading
+        self._store = store
+        self._lock = threading.Lock()
+        self._armed = None
+        self.failures = 0
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+    def arm(self, window_key, block_id) -> None:
+        with self._lock:
+            if not self.failures and self._armed is None:
+                self._armed = (tuple(window_key), int(block_id))
+
+    def get(self, window_key, block_id):
+        from repro_torch.storage.blockstore import PermanentStoreError
+        with self._lock:
+            hit = self._armed == (tuple(window_key), int(block_id))
+            if hit:
+                self._armed = None
+                self.failures += 1
+        if hit:
+            raise PermanentStoreError(
+                "planted: one demand read fails once")
+        return self._store.get(window_key, block_id)
+
+
+def failure_control(device, *, retry: bool, **run) -> dict:
+    """Phase 13b: ``run_stream`` pipelined with learned prefetch over a
+    ``FailOnceStore``, armed on the first record in storage that a demand
+    fill asks for. With ``retry`` (``fold_round_retry``) the failed round
+    is retried through the engine's backup executor and must win, and the
+    run holds every window to the oracle as any other; without it the
+    pipeline's ``drain()`` after the stream raises ``PipelineError``,
+    which this function re-raises after closing the engine."""
+    from repro_torch.core import PipelineError, Tier
+    stores, engines = [], []
+
+    def wrap(store):
+        stores.append(FailOnceStore(store))
+        return stores[-1]
+
+    def arm_on_demand(eng):
+        engines.append(eng)
+        real = eng.io.request_stage
+        store = stores[-1]
+
+        def request_stage(window, blocks=None, demand=False, parent=None):
+            if demand and not store.failures:
+                for b in blocks if blocks is not None else ():
+                    if b.tier == Tier.STORAGE and b.in_storage:
+                        store.arm(b.window_key, b.block_id)
+                        break
+            return real(window, blocks, demand=demand, parent=parent)
+        eng.io.request_stage = request_stage
+
+    try:
+        rec = run_stream(device, pipelined=True, prefetch_backend="learned",
+                         fold_round_retry=retry, store_wrap=wrap,
+                         on_engine=arm_on_demand, **run)
+    except PipelineError:
+        eng = engines[-1]
+        eng.close(drain_timeout=600)      # the failure was consumed
+        check(stores[-1].failures == 1, "the control failed elsewhere")
+        raise
+    rec["store_failures"] = stores[-1].failures
+    return rec
+
+
+#: phase 14's tenants (``configs/workloads.py: TENANT_PROFILES``): three
+#: stock-market streams sharing the pooled arena and one Linear Road
+#: stream, whose width is not the arena's, on the unpooled per-block path
+TENANTS = ("qwen3_moe_30b", "command_r_35b", "mistral_large_123b",
+           "granite_34b")
+
+
+def run_tenants(device, *, seconds: float, seed: int, spill_root: Path,
+                pool_slots: int = 4096, device_budget: int = 8 << 30,
+                host_budget: int = 2 << 30, rate: float = None,
+                widths: dict = None, step_seconds: float = 1.0,
+                late_horizon: float = 300.0) -> dict:
+    """Phase 14: ``MultiTenantEngine.from_profiles`` with ``TENANTS``,
+    pipelined with learned prefetch, one shared device budget (the arena
+    at most half of it), one host budget sliced by the profiles, one log
+    store, one transfer executor and one pipeline. Each tenant streams at
+    its Table-1 rate (``rate`` and ``widths``, by operator, override it
+    for CPU rehearsals) for ``seconds`` of processing time; then every
+    tenant closes out as ``run_stream`` does (its sweep submitted to the
+    shared pipeline) and every window is held to its operator's oracle.
+    Returns the run's record."""
+    import numpy as np
+    from repro_torch.configs import workloads
+    from repro_torch.configs.base import AionConfig
+    from repro_torch.core import MultiTenantEngine
+    from repro_torch.core.batch_exec import BatchWorkItem
+    from repro_torch.data.generators import make_generator
+
+    profiles = []
+    for name in TENANTS:
+        p = workloads.get_tenant_profile(name)
+        wl = p.workload
+        over = {}
+        if widths is not None:
+            over["value_width"] = widths[wl.operator]
+        if rate is not None:
+            over["max_ingestion_rate"] = rate
+        if over:
+            p = dataclasses.replace(p, workload=dataclasses.replace(
+                wl, **over))
+        profiles.append(p)
+    aion = AionConfig(pool_slots=pool_slots, pipelined_execution=True,
+                      prefetch_backend="learned")
+    spill = Path(tempfile.mkdtemp(prefix="tenants_", dir=spill_root))
+    t_build = time.perf_counter()
+    mt = MultiTenantEngine.from_profiles(
+        profiles, device_budget_bytes=device_budget,
+        host_budget_bytes=host_budget, spill_dir=spill, aion=aion,
+        device=device)
+    secs = {"build": time.perf_counter() - t_build, "generate": 0.0,
+            "ingest": 0.0, "advance_watermark": 0.0, "poll": 0.0}
+    for eng in mt.engines.values():
+        # the oracles keep every event: no window is ever purged
+        eng.cleanup.should_purge = lambda window_end, watermark: False
+    gens = {p.name: make_generator(p.workload, seed=seed + i)
+            for i, p in enumerate(profiles)}
+    ledger = {p.name: ([], [], []) for p in profiles}
+    steps = int(round(seconds / step_seconds))
+    now = 0.0
+    t_stream = time.perf_counter()
+    for i in range(steps):
+        for p in profiles:
+            t0 = time.perf_counter()
+            batch = gens[p.name].batch(
+                int(round(p.workload.max_ingestion_rate * step_seconds)),
+                now)
+            lk, lt, lv = ledger[p.name]
+            lk.append(batch.keys)
+            lt.append(batch.timestamps)
+            lv.append(batch.values[:, 0].copy())
+            t1 = time.perf_counter()
+            mt.ingest(p.name, batch, now)
+            secs["generate"] += t1 - t0
+            secs["ingest"] += time.perf_counter() - t1
+        t0 = time.perf_counter()
+        mt.advance_watermark(now, now)
+        t1 = time.perf_counter()
+        mt.poll(now)
+        secs["advance_watermark"] += t1 - t0
+        secs["poll"] += time.perf_counter() - t1
+        now += step_seconds
+        if (i + 1) % max(steps // 4, 1) == 0:
+            log(f"  t={now:6.1f}s " + " ".join(
+                f"{n}: windows={len(e.windows)} "
+                f"late={e.metrics.late_executions}"
+                for n, e in mt.engines.items())
+                + f" elapsed={time.perf_counter() - t_stream:.1f}s")
+    loop_s = time.perf_counter() - t_stream - secs["generate"]
+    stream_s = loop_s + backlog_drain(mt.pipeline, secs)
+
+    t0 = time.perf_counter()
+    end = now
+    mt.advance_watermark(end + late_horizon, end)
+    for t in np.linspace(end, end + 70.0, 6):
+        mt.poll(float(t))
+    check(mt.pipeline.drain(timeout=600), "pipeline did not drain")
+    for eng in mt.engines.values():
+        check(eng.io.drain(timeout=600), "I/O executor did not drain")
+        items = [BatchWorkItem(wid, eng.windows[wid], True)
+                 for wid in sorted(eng.windows, key=lambda x: x.start)]
+        pipelined_sweep(eng, items, end + 70.0)
+    secs["close_out"] = time.perf_counter() - t0
+
+    counted = ("ingested", "live_executions", "late_executions",
+               "pooled_rows", "fallback_rows", "demand_pool_fills",
+               "pipeline_rounds", "epoch_demoted_rows")
+    tenants, events, worst = {}, 0, 0.0
+    t0 = time.perf_counter()
+    for p in profiles:
+        eng = mt.engines[p.name]
+        wl = p.workload
+        _, keys_kw, oracle, hold = DEPLOYMENTS[wl.operator]
+        lk, lt, lv = (np.concatenate(x) for x in ledger[p.name])
+        want = oracle(lk, lt, lv, wl.window_duration, wl.num_keys)
+        got = {(w.start, w.end): r for w, r in eng.results.items()}
+        check(set(got) == set(want),
+              f"{p.name}: windows {sorted(got)} != oracle {sorted(want)}")
+        max_v = 500.0 if wl.operator == "stock" else float(lv.max())
+        err = max(hold(wid, got[wid], ref, wl.num_keys, max_v)
+                  for wid, ref in want.items())
+        worst = max(worst, err)
+        events += int(lk.shape[0])
+        tenants[p.name] = dict(
+            operator=wl.operator, weight=p.weight, events=int(lk.shape[0]),
+            windows=len(want), pooled=eng.pool is not None,
+            max_err=err, **{k: getattr(eng.metrics, k) for k in counted})
+    secs["oracle"] = time.perf_counter() - t0
+    rec = {
+        "events": events, "events_per_s": events / stream_s,
+        "stream_s": stream_s, "loop_events_per_s": events / loop_s,
+        "seconds": secs, "tenants": tenants,
+        "windows": sum(t["windows"] for t in tenants.values()),
+        "fairness": mt.fairness_stats(),
+        "pipeline": mt.pipeline.stats.copy(),
+        "arena_bytes": mt.pool.arena_bytes if mt.pool is not None else 0,
+        "max_mean_abs_err": worst,
+        "counts": {k: sum(t[k] for t in tenants.values())
+                   for k in counted},
+        "operator": "tenants", "profile": None,
+        "pool_stream": pool_stream(mt.pool),
+        "observability": {"pool": mt.pool.stats.copy()
+                          if mt.pool is not None else {},
+                          "store": mt.store.stats.copy()},
+    }
+    mt.close()
+    shutil.rmtree(spill, ignore_errors=True)
+    return rec
 
 
 def _print_run(tag: str, rec: dict) -> None:
     mean = "avg_speed" if rec["operator"] == "lrb" else "mean"
+    backlog = rec["seconds"].get("backlog_drain")
     log(f"  {tag}: {rec['events']} events, {rec['windows']} windows, "
         f"{rec['events_per_s']:.1f} events/s over {rec['stream_s']:.2f} s "
-        f"of ingest/watermark/poll; max |{mean} - oracle| "
-        f"{rec['max_mean_abs_err']:.3g}")
+        "of ingest/watermark/poll"
+        + ("" if backlog is None else
+           f" and the {backlog:.2f} s its pipeline's backlog took to fold "
+           f"(the loop alone: {rec['loop_events_per_s']:.1f} events/s)")
+        + f"; max |{mean} - oracle| {rec['max_mean_abs_err']:.3g}")
     log(f"  {tag} seconds: " + json.dumps(
         {k: round(v, 3) for k, v in rec["seconds"].items()}))
     log(f"  {tag} counts: " + json.dumps(rec["counts"]))
@@ -2837,6 +3185,95 @@ def serve_ssm(dev, every: dict) -> dict:
 
 
 
+# ------------------------------------------------------------ phases 13-14
+def pipelined_checks(tag: str, rec: dict, recorder, main: dict) -> None:
+    """Phases 13 and 14 beyond the checks every streaming phase takes:
+    rounds went through the pipeline and none failed (a retry would hide
+    a fault), every K1-K3 launch went out from the pipeline's worker
+    thread on the stream of the arena's writes, and the numbers the
+    phase prints (events/s beside phase 1's in the same run, the
+    learned scheduler's and the store's counts, the fairness counts)."""
+    c, pl = rec["counts"], rec["pipeline"]
+    log(f"  {tag}: {rec['events_per_s']:.1f} events/s against phase 1's "
+        f"{main['events_per_s']:.1f} in this run "
+        f"({rec['events_per_s'] / main['events_per_s']:.3f}x; the loop "
+        f"alone {rec['loop_events_per_s']:.1f}, backlog "
+        f"{rec['seconds']['backlog_drain']:.2f} s); pipeline "
+        f"{json.dumps(pl)}; pipeline_rounds {c['pipeline_rounds']}, "
+        f"epoch_demoted_rows {c['epoch_demoted_rows']}, pooled_rows "
+        f"{c['pooled_rows']}, fallback_rows {c['fallback_rows']}, "
+        f"demand_pool_fills {c['demand_pool_fills']}"
+        + (f", batch_stall_seconds {c['batch_stall_seconds']:.3f}"
+           if "batch_stall_seconds" in c else ""))
+    log(f"  {tag}: launches by thread "
+        f"{json.dumps(recorder.threads)}, streams "
+        f"{ {k: sorted(map(str, v)) for k, v in recorder.streams.items()} }")
+    check(c["pipeline_rounds"] > 0, f"{tag}: no round went through the "
+                                    "pipeline")
+    check(pl["round_retries"] == 0, f"{tag}: {pl['round_retries']} fold "
+                                    "rounds failed and were retried")
+    for k in KERNELS:
+        check(set(recorder.threads[k]) <= {"aion-fold-worker"},
+              f"{tag}: {k} launched from {sorted(recorder.threads[k])}, "
+              "not only from the pipeline's worker thread")
+        check(recorder.streams[k] <= {rec["pool_stream"]},
+              f"{tag}: {k} launched on streams {recorder.streams[k]}, not "
+              f"the arena's ({rec['pool_stream']})")
+    if tag == "pipelined":
+        st = rec["observability"].get("store", {})
+        log(f"  {tag}: learned prefetch {json.dumps(rec['prefetch'])}; "
+            f"store " + json.dumps({k: st.get(k) for k in (
+                "segment_sweeps", "sweep_bytes_read", "readahead_hits",
+                "readahead_misses", "coalesced_windows")}))
+    else:
+        log(f"  {tag}: fairness (I/O tasks by tenant) "
+            f"{json.dumps(rec['fairness'])}")
+        for name, t in rec["tenants"].items():
+            log(f"    {name}: " + json.dumps(t))
+        for name in TENANTS:
+            check(rec["fairness"].get(name, 0) > 0,
+                  f"{tag}: no I/O executed for tenant {name}")
+        check(not rec["tenants"]["granite_34b"]["pooled"]
+              and all(t["pooled"] for n, t in rec["tenants"].items()
+                      if t["operator"] == "stock"),
+              f"{tag}: the stock tenants must share the arena and Linear "
+              "Road take the unpooled path")
+
+
+def failure_controls(dev, spill_root: Path, windows: float) -> dict:
+    """Phase 13b: phase 13's deployment over ``windows`` windows with one
+    demand read failing once: with ``fold_round_retry`` the round must be
+    retried and win and every window meet the oracle; without it the
+    pipeline's ``drain()`` must raise ``PipelineError``."""
+    from repro_torch.core import PipelineError
+    run = dict(windows=windows, pool_slots=3072, splitk=0, seed=SEED + 13,
+               spill_root=spill_root)
+    t0 = time.perf_counter()
+    rec = failure_control(dev, retry=True, **run)
+    pl = rec["pipeline"]
+    log(f"phase 13b: a demand read failed {rec['store_failures']} time(s) "
+        f"with fold_round_retry: pipeline {json.dumps(pl)}; "
+        f"{rec['events']} events, {rec['windows']} windows held (max |mean "
+        f"- oracle| {rec['max_mean_abs_err']:.3g}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rec["store_failures"] == 1, "13b: the planted read never failed")
+    check(pl["round_retry_wins"] >= 1, "13b: the failed round was not "
+                                       "retried to a win")
+    t0 = time.perf_counter()
+    try:
+        failure_control(dev, retry=False, **run)
+    except PipelineError as e:
+        log(f"  control rejected, as it must be: the same failure without "
+            f"fold_round_retry ({str(e)[:160]}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        raise SmokeFailure("13b control: a failed round without "
+                           "fold_round_retry drained clean")
+    return {"retry": {k: rec[k] for k in (
+        "events", "windows", "events_per_s", "max_mean_abs_err",
+        "pipeline", "store_failures", "counts")}}
+
+
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2846,9 +3283,19 @@ def main(argv=None) -> int:
                     help="windows of processing time streamed in phase 2")
     ap.add_argument("--lrb-windows", type=float, default=3.0,
                     help="windows of processing time streamed in phase 12")
+    ap.add_argument("--pipeline-windows", type=float, default=None,
+                    help="windows of processing time streamed in phase 13 "
+                    "(default: phase 1's)")
+    ap.add_argument("--failure-windows", type=float, default=2.0,
+                    help="windows of processing time streamed by each "
+                    "failure control of phase 13b")
+    ap.add_argument("--tenant-seconds", type=float, default=60.0,
+                    help="seconds of processing time streamed in phase 14")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every number of the run to this JSON file")
     args = ap.parse_args(argv)
+    if args.pipeline_windows is None:
+        args.pipeline_windows = args.windows
 
     import torch
     if not torch.cuda.is_available():
@@ -2885,23 +3332,29 @@ def main(argv=None) -> int:
     try:
         # the data seeds of these runs stay those of the earlier phase
         # numbering (2 and 3), so the streams match the recorded runs
-        for phase, tag, seed, kw, need in (
-                (1, "main", SEED + 2, dict(windows=args.windows,
-                                           pool_slots=3072, splitk=0),
+        for phase, tag, seed, drive, kw, need in (
+                (1, "main", SEED + 2, run_stream,
+                 dict(windows=args.windows, pool_slots=3072, splitk=0),
                  ("K2",)),
-                (2, "splitk", SEED + 3, dict(windows=args.splitk_windows,
-                                             pool_slots=1024, splitk=64,
-                                             restore_at=0.75), ("K3",)),
+                (2, "splitk", SEED + 3, run_stream,
+                 dict(windows=args.splitk_windows, pool_slots=1024,
+                      splitk=64, restore_at=0.75), ("K3",)),
                 # phase 12 runs here, so that phase 3 replays its launch
-                (12, "lrb", SEED + 12, dict(operator="lrb",
-                                            windows=args.lrb_windows,
-                                            pool_slots=4096, splitk=0,
-                                            profile=True), ("K1",))):
+                (12, "lrb", SEED + 12, run_stream,
+                 dict(operator="lrb", windows=args.lrb_windows,
+                      pool_slots=4096, splitk=0, profile=True), ("K1",)),
+                # phase 1's deployment and seed, pipelined
+                (13, "pipelined", SEED + 2, run_stream,
+                 dict(windows=args.pipeline_windows, pool_slots=3072,
+                      splitk=0, pipelined=True, prefetch_backend="learned",
+                      profile=True), ("K2",)),
+                (14, "tenants", SEED + 14, run_tenants,
+                 dict(seconds=args.tenant_seconds), ("K2",))):
             zero_counts(wrappers.values())
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             with LaunchRecorder() as recorder:
-                rec = run_stream(dev, seed=seed, spill_root=spill_root, **kw)
+                rec = drive(dev, seed=seed, spill_root=spill_root, **kw)
             torch.cuda.synchronize()
             rec["launches"] = {k: fn.launches for k, fn in wrappers.items()}
             rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -2958,6 +3411,10 @@ def main(argv=None) -> int:
                     "smem": rec["launches"]["K3"], "global": 0},
                     f"splitk: K3 by design {rec['by_design']['K3']}: a "
                     "launch missed the shared-memory design")
+            if tag in ("pipelined", "tenants"):
+                pipelined_checks(tag, rec, recorder, runs["main"])
+        report["failure_controls"] = failure_controls(
+            dev, spill_root, args.failure_windows)
     finally:
         shutil.rmtree(spill_root, ignore_errors=True)
     fallback = sum(r["counts"]["fallback_rows"] for r in runs.values())

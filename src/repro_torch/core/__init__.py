@@ -9,6 +9,10 @@ from repro_torch.core.policies import (
     EngineOOM, GlobalMemoryPolicy, InMemoryPolicy, LocalRhoMinPolicy,
     StandardPolicy,
 )
+from repro_torch.core.pipeline import (
+    EnginePipeline, MultiTenantEngine, PipelineError, ResultFuture,
+    TenantSpec,
+)
 from repro_torch.core.proactive import PrestageScheduler, StagingCostModel
 from repro_torch.core.staging import (
     IOScheduler, StagingError, TaskHandle, TransferExecutor,
@@ -32,7 +36,8 @@ __all__ = [
     "make_operator", "EngineOOM", "GlobalMemoryPolicy", "InMemoryPolicy",
     "LocalRhoMinPolicy", "StandardPolicy", "PrestageScheduler",
     "StagingCostModel", "IOScheduler", "StagingError", "TaskHandle",
-    "TransferExecutor", "deltaev_times", "deltat_times",
+    "TransferExecutor", "EnginePipeline", "MultiTenantEngine",
+    "PipelineError", "ResultFuture", "TenantSpec", "deltaev_times", "deltat_times",
     "executions_for_bound", "max_staleness_of", "minimize_max_staleness",
     "PeriodicWatermarkGenerator", "WatermarkTracker", "AionStalenessTrigger",
     "DeltaEvTrigger", "DeltaTTrigger", "CountWindows", "SessionWindows",

@@ -43,9 +43,46 @@ through ``IOScheduler.fetch_block_host`` (accounted,
 simulated-cost-charged). The stacked fold goes through the flat kernel.
 
 The port runs on one device: multi-device slot sharding
-(``AionConfig.slot_sharding``) and the pipelined engine's epoch-checked
-pin strategy are not ported (the engine refuses both at construction),
-so every round folds unsharded under one pool pin.
+(``AionConfig.slot_sharding``) is not ported (the engine refuses it at
+construction), so every round folds unsharded.
+
+Pin strategy. The synchronous engine holds ONE pool pin across the whole
+round, the demand-fill wait included. Under the pipelined engine
+(``core.pipeline``; ``AionConfig.pool_slot_epochs``) the round runs on
+the fold worker thread while the main thread ingests and the I/O thread
+fills, destages and recycles slots, so the pin shrinks to the
+validate -> dispatch section: rows are classified OUTSIDE any pin from a
+``(slot, epoch)`` read (``pool.slot_epochs``), demand fills are waited
+for unpinned, and then, under ONE short ``pool.pinned()``, the executor
+takes ``snapshot_with_epochs``, validates each row and launches the
+folds. A row whose slot or epoch moved since the classify read
+(destaged, purged, recycled) demotes to the stacked fallback
+(``metrics.epoch_demoted_rows``), which reads the block's current truth.
+
+Why an unchanged epoch proves the fold reads the classified data, on an
+arena written IN PLACE (the JAX package's argument was made for an
+immutable XLA array captured by value, which the port does not have):
+a slot's epoch bumps under the pool lock on every commit and release,
+and a commit enqueues its arena write (or, under a deferred-fill lease,
+buffers it; ``snapshot_with_epochs`` flushes the buffer before it
+returns) on the pool's stream in the same critical section. So an epoch
+unchanged between the classify read and the pinned validation means
+every write of the row's data was enqueued before the validation, and
+no write to the slot was enqueued since. While the pin is held, a
+released slot is quarantined rather than freed, so no new occupant can
+be committed into a validated slot until the pin ends; the folds are
+enqueued before it ends, on the same stream as every arena write, so
+any write enqueued after the pin lands behind them. Validation and
+dispatch must therefore sit under ONE pin: two pins would leave a gap in
+which a validated slot could be released, reallocated and overwritten
+before its fold is enqueued.
+
+Every device op of a round — the block-table folds, the stacked
+fallback's host-to-device copies, ``merge_acc`` and ``finalize_batch`` —
+runs with the pool's stream current (``DeviceBlockPool.stream``), on
+whichever thread executes the round: current streams are per thread in
+PyTorch, and the worker thread must not fold on another stream than the
+one the I/O thread writes the arena on.
 
 Split-K chunk planning (``AionConfig.splitk_chunk_rows > 0``, operators
 with ``supports_splitk``): instead of one stripe per window padded to the
@@ -59,6 +96,7 @@ changes across rounds keep the launch shapes fixed.
 """
 from __future__ import annotations
 
+import contextlib
 import time as _time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -160,8 +198,11 @@ class BatchExecutor:
         if not items:
             return {}
         if not op.supports_batch or len(items) == 1:
-            return {it.wid: eng.execute_window(it.wid, now, it.late)
-                    for it in items}
+            stream = eng.pool.stream() if eng.pool is not None \
+                else contextlib.nullcontext()
+            with stream:
+                return {it.wid: eng.execute_window(it.wid, now, it.late)
+                        for it in items}
 
         span = eng.tracer.child(
             trace_parent, "fold_round", windows=len(items),
@@ -192,7 +233,7 @@ class BatchExecutor:
                     enabled=getattr(eng.aion, "profiler_annotations",
                                     False)):
                 if eng.pool is not None:
-                    # every fold of the round on the arena's stream
+                    # every device op of the round on the arena's stream
                     with eng.pool.stream():
                         results, slot_of, num_slots, dev_dt, gather_dt = \
                             self._fold_pooled(plans)
@@ -374,11 +415,15 @@ class BatchExecutor:
           * fallback rows — unpoolable (slot/budget exhaustion, legacy
             device_data): the stacked gather.
 
-        The whole round runs under ONE pool pin: a slot released while a
-        fold that names it may still be unlaunched is quarantined, never
-        refilled (see ``core.block_pool``). ``deferred_fills`` batches
-        the round's cold fills into ONE ``index_copy_`` at the second
-        snapshot — k overlapped fills cost one write of k blocks.
+        The synchronous engine runs the whole round under ONE pool pin: a
+        slot released while a fold that names it may still be unlaunched
+        is quarantined, never refilled (see ``core.block_pool``).
+        ``deferred_fills`` batches the round's cold fills into ONE
+        ``index_copy_`` at the second snapshot — k overlapped fills cost
+        one write of k blocks. The pipelined engine takes the
+        epoch-checked strategy instead (``_fold_pooled_epochs``; the
+        module docstring sets out why it is sound on an arena written in
+        place).
         """
         eng = self.engine
         pool = eng.pool
@@ -393,8 +438,12 @@ class BatchExecutor:
                 if blk.fill:
                     blocks.append((blk, i))
 
+        if eng.pipeline is not None \
+                and getattr(eng.aion, "pool_slot_epochs", True):
+            return self._fold_pooled_epochs(plans, blocks, slot_of,
+                                            num_slots, g0)
+
         accs: List[Any] = []
-        evs: List[Any] = []
         cold: List[Tuple[Any, int]] = []          # (block, window index)
         fallback: List[Tuple[Any, int]] = []      # (block, wslot)
         with pool.pinned(), pool.deferred_fills():
@@ -416,14 +465,7 @@ class BatchExecutor:
             # resident fold so the I/O executor stages while the device
             # folds (the paper's demand-staging-outranks-prestaging rule,
             # at pool granularity)
-            if cold:
-                by_window: Dict[int, List[Any]] = {}
-                for blk, i in cold:
-                    by_window.setdefault(i, []).append(blk)
-                for i, blks in by_window.items():
-                    evs.append(eng.io.request_stage(plans[i][0].state,
-                                                    blks, demand=True))
-                eng.metrics.demand_pool_fills += len(cold)
+            evs = self._request_fills(plans, cold)
             gather_dt += _time.time() - g0
 
             if pooled:
@@ -435,12 +477,7 @@ class BatchExecutor:
                 eng.metrics.pooled_rows += len(pooled)
 
             if evs:
-                w0 = _time.time()
-                for ev in evs:
-                    ev.wait(timeout=60)
-                eng.metrics.batch_stall_seconds += _time.time() - w0
-                for ev in evs:
-                    ev.check()       # failed demand fill aborts the round
+                self._wait_fills(evs)
                 g0 = _time.time()
                 k2, v2, ps2 = pool.snapshot_for([b for b, _ in cold])
                 staged: List[Tuple[Any, int, int]] = []
@@ -464,6 +501,96 @@ class BatchExecutor:
 
         return self._fold_pooled_tail(accs, fallback, slot_of, num_slots,
                                       dev_dt, gather_dt)
+
+    def _fold_pooled_epochs(self, plans, blocks, slot_of, num_slots, g0):
+        """The pipelined engine's pin strategy: classify every row from an
+        unpinned ``(slot, epoch)`` read, issue and wait for the demand
+        fills unpinned, then validate and dispatch under ONE short pin.
+        Resident and freshly filled rows fold as one block table; rows
+        whose pair moved since classification demote to the stacked
+        fallback (``metrics.epoch_demoted_rows``)."""
+        eng = self.engine
+        pool = eng.pool
+        gather_dt = 0.0
+        dev_dt = 0.0
+        accs: List[Any] = []
+        cold: List[Tuple[Any, int]] = []          # (block, window index)
+        fallback: List[Tuple[Any, int]] = []      # (block, wslot)
+        # (block, window index, pool slot, epoch)
+        classified: List[Tuple[Any, int, int, int]] = []
+        for (blk, i), (ps, ep) in zip(blocks, pool.slot_epochs(
+                [b for b, _ in blocks])):
+            if ps is not None:
+                classified.append((blk, i, ps, ep))
+            elif blk.tier != Tier.DEVICE and eng.aion.pool_overlap_prefetch:
+                cold.append((blk, i))
+            else:
+                fallback.append((blk, slot_of[i]))
+        if cold:
+            # wait UNPINNED, before the snapshot: inter-round overlap
+            # comes from the round queue (round k+1's prefetch staged
+            # during round k's fold), so this wait is only the prefetch
+            # residual, and resident and freshly filled rows then fold
+            # as ONE table
+            self._wait_fills(self._request_fills(plans, cold))
+            for (blk, i), (ps, ep) in zip(cold, pool.slot_epochs(
+                    [b for b, _ in cold])):
+                if ps is not None:
+                    classified.append((blk, i, ps, ep))
+                else:           # the fill could not take a slot
+                    fallback.append((blk, slot_of[i]))
+        gather_dt += _time.time() - g0
+
+        if classified:
+            g0 = _time.time()
+            # one short pin: capture + validate + pack + dispatch
+            with pool.pinned():
+                k_arena, v_arena, ps_now, ep_now = \
+                    pool.snapshot_with_epochs(
+                        [b for b, _, _, _ in classified])
+                pooled: List[Tuple[Any, int, int]] = []
+                for (blk, i, ps, ep), ps2, ep2 in zip(classified, ps_now,
+                                                       ep_now):
+                    if ps2 == ps and ep2 == ep:
+                        pooled.append((blk, slot_of[i], ps))
+                    else:
+                        # destaged / purged / recycled since the classify
+                        # read: fold the block's current truth through the
+                        # stacked fallback
+                        eng.metrics.epoch_demoted_rows += 1
+                        fallback.append((blk, slot_of[i]))
+                if pooled:
+                    groups = self._plan_table_groups(pooled)
+                    gather_dt += _time.time() - g0
+                    dev_dt += self._fold_table_groups(
+                        groups, {"keys": k_arena, "values": v_arena},
+                        num_slots, accs)
+                    eng.metrics.pooled_rows += len(pooled)
+                else:
+                    gather_dt += _time.time() - g0
+        return self._fold_pooled_tail(accs, fallback, slot_of, num_slots,
+                                      dev_dt, gather_dt)
+
+    def _request_fills(self, plans, cold) -> List[Any]:
+        """Demand pool-fills for cold ``(block, window index)`` rows, one
+        request per window; returns their task handles."""
+        eng = self.engine
+        by_window: Dict[int, List[Any]] = {}
+        for blk, i in cold:
+            by_window.setdefault(i, []).append(blk)
+        eng.metrics.demand_pool_fills += len(cold)
+        return [eng.io.request_stage(plans[i][0].state, blks, demand=True)
+                for i, blks in by_window.items()]
+
+    def _wait_fills(self, evs) -> None:
+        """Wait for demand fills, counting the stall; a failed fill aborts
+        the round (``StagingError``)."""
+        w0 = _time.time()
+        for ev in evs:
+            ev.wait(timeout=60)
+        self.engine.metrics.batch_stall_seconds += _time.time() - w0
+        for ev in evs:
+            ev.check()
 
     def _fold_pooled_tail(self, accs, fallback, slot_of, num_slots,
                           dev_dt, gather_dt):

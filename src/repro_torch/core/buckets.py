@@ -315,10 +315,16 @@ class WindowState:
         (device vs host) is decided by the policy/staging layer."""
         new_blocks: List[Block] = []
         start = 0
-        # fill the last block if it has room and is host-resident
-        if self.blocks and not self.blocks[-1].full \
-                and self.blocks[-1].tier == Tier.HOST:
-            start += self.blocks[-1].append(batch, start)
+        # fill the last block if it has room and is host-resident — under
+        # its lock: the I/O thread's spill, stage and destage decide the
+        # block's residency under it, so they see the append whole or not
+        # at all (an append between a spill's write and its drop of the
+        # host copy would otherwise be lost)
+        if self.blocks:
+            last = self.blocks[-1]
+            with last.lock:
+                if not last.full and last.tier == Tier.HOST:
+                    start += last.append(batch, start)
         while start < len(batch):
             blk = Block.new(self.block_capacity, self.width)
             blk.window_key = (self.window_start, self.window_end)

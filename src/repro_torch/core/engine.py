@@ -20,10 +20,14 @@ and the operator implements the batch contract, all due windows of one
 priority class fold in a single device pass through ``core.batch_exec``;
 the per-window ``execute_window`` path is retained as the reference.
 
+With ``AionConfig.pipelined_execution`` the fold rounds run on a worker
+thread (``core.pipeline.EnginePipeline``) while ingestion continues, and
+``prefetch_backend="learned"`` swaps the fixed-margin pre-stage scheduler
+for the lateness-model-driven segment planner (``repro_torch.prefetch``).
+
 The engine runs on ``device`` (None: the card). The JAX package's
-pipelined execution, learned prefetch backend and multi-device slot
-sharding are not ported: asking for them raises ``NotImplementedError``
-at construction instead of being ignored.
+multi-device slot sharding is not ported: asking for it raises
+``NotImplementedError`` at construction instead of being ignored.
 """
 from __future__ import annotations
 
@@ -211,15 +215,9 @@ class StreamEngine:
                  pipeline=None,
                  device=None):
         self.aion = aion or AionConfig()
-        unported = [name for name, on in (
-            ("pipelined_execution=True", self.aion.pipelined_execution),
-            ("pipeline=", pipeline is not None),
-            ("prefetch_backend='learned'",
-             self.aion.prefetch_backend == "learned"),
-            ("slot_sharding=True", self.aion.slot_sharding)) if on]
-        if unported:
+        if self.aion.slot_sharding:
             raise NotImplementedError(
-                f"not ported to repro_torch: {', '.join(unported)}")
+                "not ported to repro_torch: slot_sharding=True")
         self.device = io.device if io is not None \
             else resolve_device(device)
         self.assigner = assigner
@@ -316,8 +314,14 @@ class StreamEngine:
         self.prestage_margin = 0.25 * (
             watermark_gen.period if watermark_gen is not None
             else self.aion.watermark_period)
-        self.prestage = PrestageScheduler(StagingCostModel(),
-                                          punctuated=punctuated)
+        if self.aion.prefetch_backend == "learned":
+            from repro_torch.prefetch import LearnedPrestageScheduler
+            self.prestage = LearnedPrestageScheduler(
+                self.aion, punctuated=punctuated,
+                margin=self.prestage_margin)
+        else:
+            self.prestage = PrestageScheduler(StagingCostModel(),
+                                              punctuated=punctuated)
         self.windows: Dict[WindowId, WindowState] = {}
         self.reexec_plans: Dict[WindowId, _ReexecPlan] = {}
         self.metrics = EngineMetrics(
@@ -325,6 +329,22 @@ class StreamEngine:
             series_max=self.aion.metrics_series_max)
         self.results: Dict[WindowId, Any] = {}
         self.batch_exec = BatchExecutor(self)
+        # pipelined execution (core/pipeline.py): fold rounds submit to
+        # a worker instead of running inline; results additionally
+        # resolve through result_futures. A passed-in pipeline is shared
+        # infrastructure (multi-tenant) and not closed by this engine.
+        # Only meaningful on the batched path — a no-contract operator
+        # keeps the synchronous reference loop.
+        self._owns_pipeline = False
+        if pipeline is not None:
+            self.pipeline = pipeline if self.batching_enabled else None
+        elif self.aion.pipelined_execution and self.batching_enabled:
+            from repro_torch.core.pipeline import EnginePipeline
+            self.pipeline = EnginePipeline(registry=self.registry)
+            self._owns_pipeline = True
+        else:
+            self.pipeline = None
+        self.result_futures: Dict[WindowId, Any] = {}
         # --- self-healing I/O path -------------------------------------
         # circuit breaker on store health driving the degradation ladder
         # (core/health.py); per-engine, so only built when this engine
@@ -349,6 +369,16 @@ class StreamEngine:
         # deferral is bounded ADMISSION, not loss: every deferred batch
         # is eventually folded (flush_deferred() is the drain barrier)
         self._deferred: List[Tuple[EventBatch, float]] = []
+        # failed pipelined fold rounds retry ONCE through a backup
+        # executor (folds are pure functions of bucket contents —
+        # idempotent). min_deadline is large so the straggler race never
+        # issues a CONCURRENT duplicate against this engine's pool state;
+        # the retry itself (after the primary failed) is sequential.
+        self.round_backup = None
+        if self.pipeline is not None and self.aion.fold_round_retry:
+            from repro_torch.distributed.fault import BackupExecutor
+            self.round_backup = BackupExecutor(workers=2,
+                                               min_deadline=30.0)
 
     @property
     def batching_enabled(self) -> bool:
@@ -520,7 +550,33 @@ class StreamEngine:
                if not self.windows[wid].expired and wid.end <= wm]
         if span.sampled:
             span.set(due=len(due))
-        if self.batching_enabled and len(due) > 1:
+        demote = (self.pipeline is not None and self.health is not None
+                  and self.health.demotes_rounds())
+        if demote and due:
+            # ladder rung 3: the pipeline would QUEUE rounds against a
+            # failing store — demote to the synchronous batched path (no
+            # overlap, but nothing in flight to lose either)
+            self.metrics.demoted_sync_rounds += 1
+            span.event("demoted_sync")
+            for wid in due:
+                self.windows[wid].expired = True
+            self.batch_exec.execute(
+                [BatchWorkItem(wid, self.windows[wid], False)
+                 for wid in due], now, trace_parent=span)
+            for wid in due:
+                self.policy.on_expiry(self.windows[wid], self.io, now)
+        elif self.pipeline is not None and due:
+            # pipelined: the watermark advance fences only the slots it
+            # closes — the round (and the expiry destages, which must
+            # run AFTER the fold reads the blocks) executes on the
+            # pipeline worker while ingestion keeps appending; results
+            # resolve through result_futures
+            for wid in due:
+                self.windows[wid].expired = True
+            self._submit_round(
+                [BatchWorkItem(wid, self.windows[wid], False)
+                 for wid in due], now, expiry=True, parent=span)
+        elif self.batching_enabled and len(due) > 1:
             # live batch: every newly-expired window folds in one pass
             for wid in due:
                 self.windows[wid].expired = True
@@ -536,6 +592,24 @@ class StreamEngine:
                 self.execute_window(wid, now, late=False)
                 self.policy.on_expiry(state, self.io, now)
         span.end()
+
+    def _submit_round(self, items: List[BatchWorkItem], now: float,
+                      expiry: bool = False, parent=None) -> None:
+        """Submit one fold round to the pipeline; with ``expiry`` the
+        transfer policy's on_expiry hooks run on the worker after the
+        round folds (same order the synchronous path guarantees —
+        destaging a window before its fold read the blocks would turn
+        the whole round cold)."""
+        on_done = None
+        if expiry:
+            states = [it.state for it in items]
+
+            def on_done():
+                for st in states:
+                    self.policy.on_expiry(st, self.io, now)
+        futs = self.pipeline.submit(self, items, now, on_done=on_done,
+                                    trace_parent=parent)
+        self.result_futures.update(futs)
 
     # ----------------------------------------------------------- execution
     def execute_window(self, wid: WindowId, now: float, late: bool) -> Any:
@@ -670,12 +744,49 @@ class StreamEngine:
         if not due:
             return
         items = [BatchWorkItem(wid, state, True) for wid, state, _ in due]
-        self.batch_exec.execute(items, now, trace_parent=parent)
+        demote = (self.pipeline is not None and self.health is not None
+                  and self.health.demotes_rounds())
+        if demote:
+            # ladder rung 3 (see advance_watermark): fold inline
+            self.metrics.demoted_sync_rounds += 1
+            self.batch_exec.execute(items, now, trace_parent=parent)
+        elif self.pipeline is not None:
+            # late rounds queue behind any live round submitted this
+            # tick (FIFO worker = the paper's live-before-late rule at
+            # round granularity); plan bookkeeping advances immediately
+            # — re-execution is a pure function of bucket contents, so
+            # the fold's timing doesn't change its result
+            self._submit_round(items, now, parent=parent)
+        else:
+            self.batch_exec.execute(items, now, trace_parent=parent)
         for wid, state, plan in due:
             plan.next_idx += 1
             if self.prestage_enabled and plan.next_idx < len(plan.times):
                 self.prestage.plan(wid, state, plan.times[plan.next_idx],
                                    now, self.prestage_margin)
+
+    def prefetch_round(self, items, parent=None) -> None:
+        """Pipelined staging lookahead (``EnginePipeline.submit`` while
+        a round is in flight): start staging the new round's cold blocks
+        so their I/O overlaps the running fold. With the learned
+        prefetch backend the storage half goes first — one sequential
+        sweep per log segment, queued in the SAME priority class as the
+        stage tasks that follow (FIFO runs the sweeps first), so the
+        pool fills read cache hits instead of per-record seeks."""
+        states = [it.state for it in items if it.state.p_blocks()]
+        if not states:
+            return
+        if self.health is not None and self.health.sheds_prefetch():
+            # ladder rung 2: next-round prefetch is speculative load on
+            # a struggling store — the round's own demand staging will
+            # still fetch what the fold needs
+            self.metrics.shed_prefetch_rounds += 1
+            return
+        readahead_now = getattr(self.prestage, "readahead_now", None)
+        if readahead_now is not None and self.io.store is not None:
+            readahead_now(self.io, states)
+        for state in states:
+            self.io.request_stage(state, parent=parent)
 
     def _poll_tail(self, now: float, parent=NULL_SPAN) -> None:
         # 2. due pre-staging (for future re-executions), preceded by
@@ -710,6 +821,12 @@ class StreamEngine:
             for wid in list(self.windows):
                 state = self.windows[wid]
                 if state.expired and self.cleanup.should_purge(wid.end, wm):
+                    if self.pipeline is not None \
+                            and self.pipeline.window_in_flight(wid):
+                        # a queued/executing fold round references this
+                        # window — purging now would fold empty state; the
+                        # next poll retries once the round completes
+                        continue
                     # drop_all reports the device bytes committed at drop
                     # time; an in-flight stage that commits later sees the
                     # dropped flag and releases its own reservation
@@ -762,6 +879,8 @@ class StreamEngine:
                       if self.store is not None else {}),
             "pool": {},
             "health": {},
+            "pipeline": (self.pipeline.stats.copy()
+                         if self.pipeline is not None else {}),
             "fold": {},
             "trace": self.tracer.stats(),
         }
@@ -785,13 +904,29 @@ class StreamEngine:
 
     # ------------------------------------------------------------ shutdown
     def close(self, drain_timeout: float = 30.0) -> None:
-        """Drain I/O and shut down owned infrastructure.
+        """Drain pipeline + I/O and shut down owned infrastructure.
 
-        Raises ``RuntimeError`` if the I/O executor did not drain in time
-        — close must not silently discard in-flight work."""
+        Raises: ``PipelineError`` if a pipelined round failed (or the
+        pipeline cannot drain), ``RuntimeError`` if the I/O executor
+        did not drain in time — close must not silently discard
+        in-flight work."""
         # backpressure-deferred ingest folds BEFORE the drains: deferral
         # bounds admission, it never loses events
         self.flush_deferred()
+        try:
+            if self.pipeline is not None:
+                from repro_torch.core.pipeline import PipelineError
+                if not self.pipeline.drain(timeout=drain_timeout * 4,
+                                           raise_on_error=True):
+                    raise PipelineError(
+                        "fold pipeline failed to drain before close")
+                if self._owns_pipeline:
+                    self.pipeline.close()
+        finally:
+            # after the drain — queued rounds may still retry through it
+            if self.round_backup is not None:
+                self.round_backup.shutdown()
+                self.round_backup = None
         if not self.io.drain(timeout=drain_timeout):
             raise RuntimeError(
                 "I/O executor failed to drain before close "
@@ -956,6 +1091,14 @@ class StreamEngine:
         # deferred ingest must be IN the checkpoint (it was acknowledged
         # to the caller as deferred, not dropped)
         self.flush_deferred()
+        if self.pipeline is not None:
+            from repro_torch.core.pipeline import PipelineError
+            # a checkpoint must capture post-fold state: wait out (and
+            # surface failures of) every submitted round first
+            if not self.pipeline.drain(timeout=drain_timeout * 4,
+                                       raise_on_error=True):
+                raise PipelineError(
+                    "fold pipeline failed to drain before checkpoint")
         if not include_stored_data:
             # manifest checkpoints reference store records by (id, fill)
             # — an in-flight spill/late-write racing the snapshot could

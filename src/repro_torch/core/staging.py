@@ -719,6 +719,7 @@ class IOScheduler:
             return fail()
 
         device_data = None
+        fill = block.fill
         if slot is None:
             device_data = {
                 k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -737,6 +738,11 @@ class IOScheduler:
                 # orphan the winner's slot (or double-charge the budget)
                 fail()
                 return True
+            if slot is None and block.fill != fill:
+                # ingest appended after the device copy was taken: the
+                # copy is stale, the block stays on the host (a pool
+                # fill copies under this lock, after any append)
+                return fail()
             if slot is not None:
                 # arena write + slot attach, from the host arrays read
                 # above (not block.host_data — a racing spill may have
@@ -1007,6 +1013,14 @@ class IOScheduler:
                     # this finalize: the record stays (purge already
                     # tombstoned it if it ran), the residency is theirs
                     self._unaccount_unspillable(block)
+                    continue
+                if self.store.current_fill(block.window_key,
+                                           block.block_id) != block.fill:
+                    # ingest appended to the block after its record was
+                    # written: the record is stale, so the host copy
+                    # stays and the block goes back on the candidate
+                    # list (its next spill writes the longer fill)
+                    self._requeue_spill([block])
                     continue
                 nbytes = block.nbytes
                 block.host_data = None

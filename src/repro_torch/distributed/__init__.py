@@ -1,3 +1,5 @@
-from repro_torch.distributed.fault import RestartManager
+from repro_torch.distributed.fault import (
+    BackupExecutor, BackupStats, RestartManager,
+)
 
-__all__ = ["RestartManager"]
+__all__ = ["BackupExecutor", "BackupStats", "RestartManager"]

@@ -1,12 +1,73 @@
-"""Fault tolerance: the crash/restore loop of the training entry point, the
-JAX package's ``distributed/fault.py`` ``RestartManager``.
+"""Fault tolerance: straggler backup execution and the crash/restore loop,
+the JAX package's ``distributed/fault.py`` ``BackupExecutor`` and
+``RestartManager``.
 
-Its ``HeartbeatMonitor``, ``BackupExecutor`` and ``EngineRecovery`` come
-with the chaos soaks of a later slice.
+* ``BackupExecutor`` — straggler mitigation for window re-executions: a
+  task slower than ``deadline_factor`` x its EWMA latency gets a backup
+  issued; first result wins. Safe because Aion window (re-)execution is a
+  pure function of bucket contents (idempotent). The pipelined engine
+  retries a failed fold round once through one
+  (``AionConfig.fold_round_retry``).
+* ``RestartManager`` — crash/restore loop glue used by launch/train.py:
+  on failure, restore the latest complete checkpoint and resume at the
+  recorded step.
+
+Its ``HeartbeatMonitor`` and ``EngineRecovery`` come with the chaos soaks
+of a later slice.
 """
 from __future__ import annotations
 
+import time
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from dataclasses import dataclass
 from typing import Any, Callable, Optional
+
+
+@dataclass
+class BackupStats:
+    launched: int = 0
+    backups_issued: int = 0
+    backup_wins: int = 0
+
+
+class BackupExecutor:
+    """Run idempotent tasks with deadline-triggered backup copies."""
+
+    def __init__(self, workers: int = 4, deadline_factor: float = 3.0,
+                 min_deadline: float = 0.05):
+        self._pool = ThreadPoolExecutor(max_workers=workers)
+        self.deadline_factor = deadline_factor
+        self.min_deadline = min_deadline
+        self._ewma: Optional[float] = None
+        self.stats = BackupStats()
+
+    def _observe(self, dt: float) -> None:
+        self._ewma = dt if self._ewma is None else \
+            0.7 * self._ewma + 0.3 * dt
+
+    def run(self, fn: Callable[[], Any]) -> Any:
+        """Execute fn; if it exceeds the deadline, race a backup."""
+        self.stats.launched += 1
+        t0 = time.time()
+        primary = self._pool.submit(fn)
+        deadline = max((self._ewma or 0.0) * self.deadline_factor,
+                       self.min_deadline)
+        done, _ = wait([primary], timeout=deadline)
+        if done:
+            self._observe(time.time() - t0)
+            return primary.result()
+        # straggler: issue a backup, take whichever finishes first
+        self.stats.backups_issued += 1
+        backup = self._pool.submit(fn)
+        done, _ = wait([primary, backup], return_when=FIRST_COMPLETED)
+        winner = done.pop()
+        if winner is backup:
+            self.stats.backup_wins += 1
+        self._observe(time.time() - t0)
+        return winner.result()
+
+    def shutdown(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
 
 
 class RestartManager:

@@ -262,15 +262,27 @@ def test_engine_state_from_jax_validates():
 
 def test_engine_defaults_to_the_card(tmp_path):
     """No device given: the engine resolves CUDA, and raises where CUDA
-    is missing; features outside the port raise at construction."""
+    is missing; the pipelined engine and the learned prefetch backend
+    build on ``device="cpu"`` and resolve the device the same way; slot
+    sharding, outside the port, raises at construction."""
     op = tops.make_operator("stock", CAP, WIDTH, device="cpu")
     kw = dict(assigner=tcore.TumblingWindows(WINDOW), operator=op,
               value_width=WIDTH)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tcore.StreamEngine(**kw)
-    for bad in ({"pipelined_execution": True},
-                {"prefetch_backend": "learned"}, {"slot_sharding": True}):
-        with pytest.raises(NotImplementedError):
-            tcore.StreamEngine(aion=tcfg.AionConfig(**bad), device="cpu",
-                               **kw)
+    for ported in ({"pipelined_execution": True},
+                   {"prefetch_backend": "learned"}):
+        aion = tcfg.AionConfig(**ported)
+        eng = tcore.StreamEngine(aion=aion, device="cpu", **kw)
+        assert (eng.pipeline is not None) == aion.pipelined_execution
+        assert type(eng.prestage).__name__ == (
+            "LearnedPrestageScheduler" if aion.prefetch_backend == "learned"
+            else "PrestageScheduler")
+        eng.close()
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tcore.StreamEngine(aion=aion, **kw)
+    with pytest.raises(NotImplementedError):
+        tcore.StreamEngine(aion=tcfg.AionConfig(slot_sharding=True),
+                           device="cpu", **kw)

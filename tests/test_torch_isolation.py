@@ -33,7 +33,9 @@ SLICE_MODULES = [
     "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
     "repro_torch.configs.mamba2_780m", "repro_torch.serve.serve_step",
     "repro_torch.launch.serve", "repro_torch.kernels.flash_tiles",
-    "repro_torch.kernels.flash_limits",
+    "repro_torch.kernels.flash_limits", "repro_torch.core.pipeline",
+    "repro_torch.prefetch", "repro_torch.prefetch.model",
+    "repro_torch.prefetch.planner", "repro_torch.prefetch.scheduler",
 ]
 
 
