@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--windows 6] [--splitk-windows 2]
                           [--lrb-windows 3] [--pipeline-windows 6]
                           [--failure-windows 2] [--tenant-seconds 60]
+                          [--chaos-windows 3] [--recovery-windows 3]
                           [--out FILE]
 
 Phases (the first failed check exits non-zero, with no result line):
@@ -214,6 +215,47 @@ Phases (the first failed check exits non-zero, with no result line):
    Road window to its own, every tenant must have had I/O executed
    (``fairness_stats``), and every fold launch must have gone out from
    the shared pipeline's worker thread.
+15. Aion's failure path on phase 1's deployment, seed, 3,072-slot pool
+   and budgets, each run over ``--chaos-windows`` windows (900,000 events
+   at the default 3): the log store behind a ``FaultyBlockStore`` whose
+   ``FaultInjector`` (``repro_torch.testing``; seed 77, max_consecutive
+   2) fails a quarter of the store's get, put, commit and readahead
+   calls, with ``AionConfig(io_retry_backoff=0.0,
+   breaker_error_threshold=2)``, the JAX chaos soak's settings
+   (``tests/test_soak_differential.py``). 15a runs synchronously, 15b
+   pipelined with learned prefetch. Checks, each exact: every window
+   against the oracle as in phase 1, every event ingested, no retry given
+   up (``gave_up == 0``), at least 100 faults injected and retried, the
+   degradation ladder engaged with ``(0, 1)`` first and one rung at a
+   time, every deferred event readmitted, the pool's books balanced
+   after the close-out (free + held + quarantined slots == pool_slots),
+   every K1-K3 launch on the arena's stream, and every K2 launch that
+   fits shared memory on its smem design. Printed: events/s beside phase
+   1's, injected faults by operation, retries, shed readahead drives,
+   the ladder's transitions and highest rung, demoted rounds and the
+   launches by thread.
+16. Crash and recovery at full size: phase 13's deployment (pipelined,
+   learned prefetch, the same pool and budgets) over ``--recovery-windows``
+   windows, its store failing 5% of the data path (seed 5), an
+   ``EngineRecovery`` manifest checkpoint every 10 s of processing time
+   (the injector paused). At the half, as
+   ``tests/test_soak_differential.py::test_soak_differential_chaos_restart``:
+   drain, destage every device block and spill every host block (paused),
+   poison every ``get``: the next watermark, poll and close must raise
+   ``PipelineError`` or ``StagingError``; heal, close the pipeline, shut
+   the I/O down, and crash the store with 66 bytes torn off its log's
+   tail (``FaultyBlockStore.crash``). The dead engine's arena must be
+   unreachable and device memory one arena lower; ``EngineRecovery.
+   restore()`` reopens the store (the WAL replay) into a fresh engine and
+   pool on the card, the batches after the checkpoint are replayed, and
+   the stream runs to its end. Checks: one restart, a torn tail
+   truncated, no record the checkpoint references lost (``restore_state``
+   raises ``KeyError``), no retry given up after the restore, memory after
+   the restore within 256 MiB of the reading before the crash, the pool's
+   books, every window against the oracle. Printed: the seconds of
+   ``restore()`` and of the replay to its first poll, the events replayed,
+   the bytes truncated, the device memory at the three readings and the
+   restored engine's K1-K3 launches.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -221,9 +263,9 @@ design (bf16 at head dims 64 and 128) within the limits that
 ``tests/test_torch_flash_rounding.py`` anchors on the Pallas kernels'
 readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
-set to 0 just before each of phases 1, 2, 12, 13, 14, 4, 6b, 7, 9a, 9c
-and 10 and read just after; every bf16 launch of K5 and K6 in phases 4,
-6b and 10 must have gone through the wgmma design. A segment kernel's
+set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16, 4,
+6b, 7, 9a, 9c and 10 and read just after; every bf16 launch of K5 and
+K6 in phases 4, 6b and 10 must have gone through the wgmma design. A segment kernel's
 ``launches`` is its count in the run whose launch it replays (K1 the
 Linear Road run, K2 the main run, K3 the split-K run;
 ``launches_by_run`` gives every run's count); K4's and K5's are their counts in
@@ -247,6 +289,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -875,7 +918,7 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                restore_at: float = None, profile: bool = False,
                pipelined: bool = False, prefetch_backend: str = "fixed",
                fold_round_retry: bool = True, store_wrap=None,
-               on_engine=None) -> dict:
+               on_engine=None, aion_kw: dict = None, drill=None) -> dict:
     """Drive the port's ``StreamEngine`` with the Table-1 deployment of
     ``operator`` (stock market or Linear Road, ``DEPLOYMENTS``) for
     ``windows`` windows of processing time, close out, and hold every
@@ -889,7 +932,12 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     round), with ``prefetch_backend`` and ``fold_round_retry`` as in
     ``AionConfig``; ``store_wrap`` wraps the log store the engine gets,
     and ``on_engine`` is called with the engine once it is built.
-    Returns the run's record."""
+    ``aion_kw`` adds ``AionConfig`` fields (phase 15's retry and breaker
+    settings). ``drill`` (a ``CrashDrill``, phase 16) sees every step
+    and may crash the engine, which the run then restores through it.
+    The close-out readmits deferred ingest first, and the record keeps
+    the ladder's transitions, the I/O retry counts and the pool's books
+    (``pool_books``). Returns the run's record."""
     import numpy as np
     from repro_torch.configs import workloads
     from repro_torch.configs.base import AionConfig
@@ -918,7 +966,8 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     aion = AionConfig(pool_slots=pool_slots, splitk_chunk_rows=splitk,
                       pipelined_execution=pipelined,
                       prefetch_backend=prefetch_backend,
-                      fold_round_retry=fold_round_retry)
+                      fold_round_retry=fold_round_retry,
+                      **(aion_kw or {}))
     per_step = int(round(rate * step_seconds))
     steps = int(round(windows * wd / step_seconds))
     spill = Path(tempfile.mkdtemp(prefix="store_", dir=spill_root))
@@ -927,8 +976,14 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                "pooled_rows", "fallback_rows", "demand_pool_fills",
                "splitk_launches", "dropped", "purged_windows",
                "pipeline_rounds", "epoch_demoted_rows",
-               "demoted_sync_rounds", "batch_stall_seconds")
+               "demoted_sync_rounds", "batch_stall_seconds",
+               "shed_readahead_drives", "shed_prefetch_rounds",
+               "deferred_events", "readmitted_events")
     counts = dict.fromkeys(counted, 0)
+    io_counted = ("errors", "retries", "gave_up", "readahead_shed",
+                  "staged_blocks")
+    io_counts = dict.fromkeys(io_counted, 0)
+    transitions = []
 
     def make():
         store = None
@@ -955,9 +1010,14 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     def absorb(e):
         for k in counted:
             counts[k] += getattr(e.metrics, k)
+        for k in io_counted:
+            io_counts[k] += e.io.stats[k]
+        transitions.extend(e.metrics.ladder_transitions)
 
     t_build = time.perf_counter()
     eng = make()
+    if drill is not None:
+        drill.bind(make)
     secs = {"build": time.perf_counter() - t_build, "generate": 0.0,
             "ingest": 0.0, "advance_watermark": 0.0, "poll": 0.0}
     restore_step = -1 if restore_at is None else int(restore_at * steps)
@@ -982,6 +1042,15 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
         secs["advance_watermark"] += t3 - t2
         secs["poll"] += t4 - t3
         now += step_seconds
+        if drill is not None:
+            t0 = time.perf_counter()
+            if drill.step(i + 1, now, eng, batch) is None:
+                # the drill crashed the engine: drop it, then restore
+                absorb(eng)
+                eng = None
+                eng = drill.restore(now)
+            secs["drill"] = secs.get("drill", 0.0) + \
+                time.perf_counter() - t0
         if i + 1 == restore_step:
             t0 = time.perf_counter()
             snap = eng.checkpoint_state(include_stored_data=False)
@@ -997,16 +1066,9 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                 f"references) in {secs['checkpoint_restore']:.2f} s")
             del snap, blocks
         if (i + 1) % max(steps // 6, 1) == 0:
-            m = eng.metrics
-            log(f"  t={now:6.1f}s windows={len(eng.windows)} "
-                f"live={m.live_executions} late={m.late_executions} "
-                f"pooled_rows={m.pooled_rows} "
-                f"fallback_rows={m.fallback_rows} "
-                f"device={eng.device_bytes() / 2**30:.2f}GiB "
-                f"host={eng.host_bytes() / 2**30:.2f}GiB "
-                f"elapsed={time.perf_counter() - t_stream:.1f}s")
+            progress(eng, now, time.perf_counter() - t_stream)
     loop_s = (time.perf_counter() - t_stream - secs["generate"]
-              - secs.get("checkpoint_restore", 0.0))
+              - secs.get("checkpoint_restore", 0.0) - secs.get("drill", 0.0))
     # the stream's work is done when its rounds have folded: the
     # pipelined loop returns before they do, so their backlog counts
     stream_s = loop_s + backlog_drain(eng.pipeline, secs)
@@ -1018,6 +1080,8 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     eng.advance_watermark(end + late_horizon, end)
     for t in np.linspace(end, end + 70.0, 6):
         eng.poll(float(t))
+    # backpressure deferral bounds admission, it never loses events
+    eng.flush_deferred(end + 70.0)
     if eng.pipeline is not None:
         check(eng.pipeline.drain(timeout=600), "pipeline did not drain")
     check(eng.io.drain(timeout=600), "I/O executor did not drain")
@@ -1036,6 +1100,11 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     arena_bytes = eng.pool.arena_bytes if eng.pool is not None else 0
     prefetch = dict(eng.prestage.stats)
     stream = pool_stream(eng.pool)
+    # the books are read with the I/O thread idle (a destage or a
+    # prefetch stage the sweep left queued moves a slot while they count)
+    check(eng.io.drain(timeout=600), "I/O executor did not drain")
+    books = pool_books(eng)
+    io_final = {k: eng.io.stats[k] for k in io_counted}
     eng.close(drain_timeout=600)
     shutil.rmtree(spill, ignore_errors=True)
 
@@ -1059,8 +1128,61 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
         "width": w, "rate": rate, "operator": operator,
         "profile": prof if profile else None,
         "pipeline": obs.get("pipeline", {}), "prefetch": prefetch,
-        "pool_stream": stream,
+        "pool_stream": stream, "books": books, "io": io_counts,
+        "io_final": io_final, "transitions": transitions,
+        "drill": drill.record if drill is not None else None,
     }
+
+
+def progress(eng, now: float, elapsed: float) -> None:
+    """One line of a stream's progress. (A helper, so that the run's frame
+    keeps no reference into an engine that a drill replaces.)"""
+    m = eng.metrics
+    log(f"  t={now:6.1f}s windows={len(eng.windows)} "
+        f"live={m.live_executions} late={m.late_executions} "
+        f"pooled_rows={m.pooled_rows} fallback_rows={m.fallback_rows} "
+        f"device={eng.device_bytes() / 2**30:.2f}GiB "
+        f"host={eng.host_bytes() / 2**30:.2f}GiB elapsed={elapsed:.1f}s")
+
+
+def pool_books(eng):
+    """The block pool's books after a close-out: free slots, slots held by
+    the engine's blocks and quarantined slots, which must add up to the
+    pool's slots (None without a pool), with no slot both free and held,
+    on the free list twice or held by two blocks."""
+    pool = eng.pool
+    if pool is None:
+        return None
+    blocks = [b for st in eng.windows.values() for b in st.blocks]
+    with pool._lock:
+        # slots attach and detach under the pool's lock: one snapshot
+        held = [b.pool_slot for b in blocks if b.pool_slot is not None]
+        free = [s for f in pool._free for s in f]
+        quarantined = len(pool._quarantine)
+        pending = len(pool._pending)
+        pins = pool._pins
+    return {"slots": pool.pool_slots, "free": len(free),
+            "distinct_free": len(set(free)), "held": len(held),
+            "distinct_held": len(set(held)),
+            "free_and_held": len(set(free) & set(held)),
+            "quarantined": quarantined, "pending_writes": pending,
+            "pins": pins}
+
+
+def check_books(tag: str, books) -> None:
+    """``pool_books`` balanced: no slot leaked or counted twice."""
+    check(books is not None, f"{tag}: no block pool")
+    check(books["held"] == books["distinct_held"],
+          f"{tag}: two blocks hold one pool slot: {books}")
+    check(books["free"] == books["distinct_free"]
+          and books["free_and_held"] == 0,
+          f"{tag}: a slot is on the free list twice, or free and held: "
+          f"{books}")
+    check(books["pins"] == 0, f"{tag}: a pin is still held: {books}")
+    check(books["free"] + books["held"] + books["quarantined"]
+          == books["slots"], f"{tag}: the pool's books do not balance "
+                             f"(free + held + quarantined != slots): "
+                             f"{books}")
 
 
 def pool_stream(pool):
@@ -1094,33 +1216,46 @@ def pipelined_sweep(eng, items, now: float) -> dict:
 
 
 class FailOnceStore:
-    """A log store that fails one demand read once (phase 13b): ``arm``
-    names a record, and the next ``get`` of it raises
-    ``PermanentStoreError``, which the I/O path does not retry, so the
-    demand fill and with it its fold round fail. Every other call goes to
-    the store."""
+    """A log store that fails one demand read once (phase 13b): once
+    ``arm``-ed, the next ``get`` made inside a demand fill's I/O task (a
+    task whose handle ``demand`` registered; ``task_hook``, installed as
+    the executor's ``fault_hook``, tells the store which task its thread
+    runs) raises ``PermanentStoreError``, which the I/O path does not
+    retry, so the demand fill and with it its fold round fail. A read by
+    any other task (a prefetch stage of the same record) goes through,
+    so the failure lands in a fold round. Every other call goes to the
+    store."""
 
     def __init__(self, store):
         import threading
         self._store = store
         self._lock = threading.Lock()
-        self._armed = None
+        self._armed = False
+        self._demand = weakref.WeakSet()     # handles of demand fills
+        self._local = threading.local()
         self.failures = 0
 
     def __getattr__(self, name):
         return getattr(self._store, name)
 
-    def arm(self, window_key, block_id) -> None:
+    def task_hook(self, task) -> None:
+        self._local.handle = task.handle
+
+    def demand(self, handle) -> None:
         with self._lock:
-            if not self.failures and self._armed is None:
-                self._armed = (tuple(window_key), int(block_id))
+            self._demand.add(handle)
+
+    def arm(self) -> None:
+        with self._lock:
+            self._armed = not self.failures
 
     def get(self, window_key, block_id):
         from repro_torch.storage.blockstore import PermanentStoreError
         with self._lock:
-            hit = self._armed == (tuple(window_key), int(block_id))
+            hit = self._armed and \
+                getattr(self._local, "handle", None) in self._demand
             if hit:
-                self._armed = None
+                self._armed = False
                 self.failures += 1
         if hit:
             raise PermanentStoreError(
@@ -1130,8 +1265,8 @@ class FailOnceStore:
 
 def failure_control(device, *, retry: bool, **run) -> dict:
     """Phase 13b: ``run_stream`` pipelined with learned prefetch over a
-    ``FailOnceStore``, armed on the first record in storage that a demand
-    fill asks for. With ``retry`` (``fold_round_retry``) the failed round
+    ``FailOnceStore``, armed by the first demand fill that asks for a
+    record in storage. With ``retry`` (``fold_round_retry``) the failed round
     is retried through the engine's backup executor and must win, and the
     run holds every window to the oracle as any other; without it the
     pipeline's ``drain()`` after the stream raises ``PipelineError``,
@@ -1147,14 +1282,17 @@ def failure_control(device, *, retry: bool, **run) -> dict:
         engines.append(eng)
         real = eng.io.request_stage
         store = stores[-1]
+        eng.io.executor.fault_hook = store.task_hook
 
         def request_stage(window, blocks=None, demand=False, parent=None):
-            if demand and not store.failures:
-                for b in blocks if blocks is not None else ():
-                    if b.tier == Tier.STORAGE and b.in_storage:
-                        store.arm(b.window_key, b.block_id)
-                        break
-            return real(window, blocks, demand=demand, parent=parent)
+            stored = demand and not store.failures and any(
+                b.tier == Tier.STORAGE and b.in_storage
+                for b in (blocks if blocks is not None else ()))
+            handle = real(window, blocks, demand=demand, parent=parent)
+            if stored:
+                store.demand(handle)
+                store.arm()
+            return handle
         eng.io.request_stage = request_stage
 
     try:
@@ -1168,6 +1306,326 @@ def failure_control(device, *, retry: bool, **run) -> dict:
         raise
     rec["store_failures"] = stores[-1].failures
     return rec
+
+
+#: the store operations the chaos phases inject faults on: the data path,
+#: as the JAX chaos soak (``tests/test_soak_differential.py``)
+CHAOS_OPS = ("get", "put", "commit", "readahead")
+#: phase 15's settings: the JAX chaos soak's injector (seed 77, a quarter
+#: of the calls failing, runs of at most 2, below ``io_retry_limit``, so
+#: every retry wins) and its chaos axis of ``AionConfig``
+CHAOS_SEED, CHAOS_RATE = 77, 0.25
+CHAOS_AION = dict(io_retry_backoff=0.0, breaker_error_threshold=2)
+#: phase 16's settings: the JAX restart soak's injector and ``AionConfig``
+#: fields, a checkpoint every 10 s of processing time, and the bytes torn
+#: off the log's tail at the crash
+RECOVERY_SEED, RECOVERY_RATE = 5, 0.05
+RECOVERY_AION = dict(io_retry_backoff=0.0, breaker_error_threshold=4)
+CHECKPOINT_EVERY = 10.0
+TORN_TAIL_BYTES = 66
+#: device bytes phase 16 allows beyond its readings (one arena apart)
+MEMORY_SLACK = 256 << 20
+
+
+def chaos_stream(device, *, pipelined: bool, **run) -> dict:
+    """Phase 15: ``run_stream`` over a ``FaultyBlockStore`` that fails a
+    quarter of its get/put/commit/readahead calls (``CHAOS_SEED``,
+    ``max_consecutive=2``), with ``CHAOS_AION``; synchronous, or
+    pipelined with learned prefetch. Adds the injector's counts to the
+    record (``injected``)."""
+    from repro_torch.testing import FaultInjector, FaultyBlockStore
+    inj = FaultInjector(seed=CHAOS_SEED,
+                        rates={op: CHAOS_RATE for op in CHAOS_OPS},
+                        max_consecutive=2)
+    rec = run_stream(device, pipelined=pipelined,
+                     prefetch_backend="learned" if pipelined else "fixed",
+                     aion_kw=CHAOS_AION,
+                     store_wrap=lambda store: FaultyBlockStore(store, inj),
+                     **run)
+    rec["injected"] = dict(inj.stats)
+    return rec
+
+
+class CrashDrill:
+    """Phase 16, ``tests/test_soak_differential.py::
+    test_soak_differential_chaos_restart`` step for step on
+    ``run_stream``: the engine's store is a ``FaultyBlockStore`` (5% of
+    the data path failing, runs of at most 2); every
+    ``CHECKPOINT_EVERY`` seconds of processing time
+    ``EngineRecovery.checkpoint`` takes a manifest checkpoint under
+    ``paused()``. At step ``crash_step`` the engine drains, destages
+    every device block and spills every host block (paused), then every
+    ``get`` is poisoned: the next watermark, poll and close must raise
+    ``PipelineError`` or ``StagingError``. The engine is healed, its
+    pipeline closed and its I/O drained and shut down, and the store
+    crashes with ``TORN_TAIL_BYTES`` torn off its log's tail. ``step``
+    then returns None; the run drops the engine and calls ``restore``,
+    which checks that the dead engine's arena is gone, rebuilds through
+    ``EngineRecovery.restore()`` (the factory reopens the store: the WAL
+    replay) and replays the batches after the checkpoint. ``record``
+    keeps the readings."""
+
+    def __init__(self, *, crash_step: int, late_horizon: float):
+        from repro_torch.testing import FaultInjector
+        self.inj = FaultInjector(seed=RECOVERY_SEED,
+                                 rates={op: RECOVERY_RATE
+                                        for op in CHAOS_OPS},
+                                 max_consecutive=2)
+        self.crash_step, self.late_horizon = crash_step, late_horizon
+        self.store = None        # the store the live engine writes
+        self.pending = []        # (step, batch) after the last checkpoint
+        self.last_checkpoint = 0.0
+        self.recovery = None
+        self.crashed = False
+        self.device = None       # the dead engine's
+        self._dead = []          # weak references to its arena
+        self.record = {"checkpoints": 0, "checkpoint_s": 0.0}
+
+    def wrap(self, store):
+        """``run_stream``'s ``store_wrap``: every store the engines get
+        (the first, and the one each restore reopens) fails through the
+        one injector."""
+        from repro_torch.testing import FaultyBlockStore
+        self.store = FaultyBlockStore(store, self.inj)
+        return self.store
+
+    def bind(self, make) -> None:
+        from repro_torch.distributed import EngineRecovery
+        self.recovery = EngineRecovery(make, max_restarts=1)
+
+    def step(self, step: int, now: float, eng, batch):
+        self.pending.append((step, batch))
+        if now - self.last_checkpoint >= CHECKPOINT_EVERY:
+            t0 = time.perf_counter()
+            with self.inj.paused():
+                self.recovery.checkpoint(eng, token=(step, now, now))
+            self.record["checkpoints"] += 1
+            self.record["checkpoint_s"] += time.perf_counter() - t0
+            self.last_checkpoint = now
+            self.pending = []
+        if self.crashed or step != self.crash_step:
+            return eng
+        self.crash(eng, now)
+        return None
+
+    def crash(self, eng, now: float) -> None:
+        from repro_torch.core import PipelineError, StagingError, Tier
+        self.crashed = True
+        rec = self.record
+        self.device = eng.device
+        rec["memory_before"] = _allocated(eng.device)
+        rec["arena_bytes"] = eng.pool.arena_bytes
+        t0 = time.perf_counter()
+        with self.inj.paused():
+            check(eng.pipeline.drain(timeout=600), "16: no drain")
+            check(eng.io.drain(timeout=600), "16: no I/O drain")
+            for st in eng.windows.values():
+                for blk in list(st.blocks):
+                    if blk.tier == Tier.DEVICE:
+                        eng.io.destage_block_sync(blk)
+            eng.io.spill_blocks_sync(
+                [b for st in eng.windows.values() for b in st.blocks
+                 if b.tier == Tier.HOST and b.fill > 0])
+        rec["spill_s"] = time.perf_counter() - t0
+        self.inj.poison(("get",))
+        try:
+            eng.advance_watermark(now + self.late_horizon, now)
+            eng.poll(now)
+            eng.close(drain_timeout=600)
+        except (PipelineError, StagingError) as e:
+            rec["poisoned"] = f"{type(e).__name__}: {str(e)[:200]}"
+            log(f"  control rejected, as it must be: the poisoned engine "
+                f"raised {rec['poisoned']}")
+        else:
+            raise SmokeFailure("16: the engine with every get poisoned "
+                               "closed clean")
+        self.inj.heal()
+        eng.pipeline.close()
+        check(eng.io.drain(timeout=600), "16: the dead engine's I/O did "
+                                         "not drain")
+        eng.io.shutdown()
+        self.store.crash(torn_tail_bytes=TORN_TAIL_BYTES)
+        # what must die with the engine: its arena (weak references only)
+        self._dead = [weakref.ref(eng.pool.keys),
+                      weakref.ref(eng.pool.values)]
+
+    def restore(self, now: float):
+        """Rebuild after ``crash`` (the run holds no reference to the dead
+        engine any more): returns the restored engine, the batches after
+        the checkpoint replayed into it and polled once."""
+        import torch
+        rec = self.record
+        gc.collect()
+        check(all(r() is None for r in self._dead),
+              "16: the dead engine's arena is still reachable")
+        rec["memory_after_teardown"] = _allocated(self.device)
+        t0 = time.perf_counter()
+        try:
+            with self.inj.paused():
+                eng, (ck_step, ck_now, _) = self.recovery.restore()
+        except KeyError as e:
+            raise SmokeFailure(f"16: the reopened store lost a record the "
+                               f"checkpoint references: {e}") from e
+        rec["restore_s"] = time.perf_counter() - t0
+        store = eng.io.store
+        rec["truncated_bytes"] = store.stats["recovery_truncated_bytes"]
+        rec["recovered_records"] = store.stats["recovered_records"]
+        t0 = time.perf_counter()
+        replayed = 0
+        now = max(now, ck_now)
+        for _, batch in self.pending:
+            eng.ingest(batch, now)
+            replayed += len(batch)
+        eng.poll(now)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        rec["replay_s"] = time.perf_counter() - t0
+        rec.update(replayed_events=replayed, checkpoint_step=ck_step,
+                   restarts=self.recovery.restarts,
+                   device=str(eng.device),
+                   pool_device=str(eng.pool.device),
+                   memory_after_restore=_allocated(eng.device),
+                   launches_at_restore=_launches())
+        self.pending = []
+        return eng
+
+
+def _allocated(device):
+    """``torch.cuda.memory_allocated`` on a CUDA device (None elsewhere)."""
+    if device.type != "cuda":
+        return None
+    import torch
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _launches() -> dict:
+    """K1-K3's launch counts as their wrappers hold them now."""
+    sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
+    return {k: fn.launches for k, fn in zip(KERNELS, sa.KERNEL_WRAPPERS)}
+
+
+def crash_recovery(device, *, windows: float, **run) -> dict:
+    """Phase 16: ``run_stream`` pipelined with learned prefetch and
+    ``RECOVERY_AION`` under a ``CrashDrill`` crashing at the stream's
+    half; the record's ``drill`` holds its readings."""
+    from repro_torch.configs.workloads import STOCK_MARKET
+    steps = int(round(windows * STOCK_MARKET.window_duration
+                      / run.get("step_seconds", 1.0)))
+    drill = CrashDrill(crash_step=steps // 2,
+                       late_horizon=run.get("late_horizon", 300.0))
+    rec = run_stream(device, windows=windows, pipelined=True,
+                     prefetch_backend="learned", aion_kw=RECOVERY_AION,
+                     store_wrap=drill.wrap, drill=drill, **run)
+    rec["injected"] = dict(drill.inj.stats)
+    return rec
+
+
+def _threads_line(recorder) -> str:
+    streams = {k: sorted(map(str, v)) for k, v in recorder.streams.items()}
+    return (f"launches by thread {json.dumps(recorder.threads)}, streams "
+            f"{streams}")
+
+
+def chaos_checks(tag: str, rec: dict, recorder, main: dict = None) -> None:
+    """Phase 15 beyond the checks every streaming phase takes (each
+    exact, as the JAX chaos soak's): every event ingested, no retry given
+    up, at least 100 faults injected and retried, the ladder engaged with
+    ``(0, 1)`` first and one rung at a time, every deferred event
+    readmitted, the pool's books balanced, every K1-K3 launch on the
+    arena's stream. Prints the numbers, and, pipelined, the threads the
+    fold launches came from once rung 3 demoted rounds to the main
+    thread."""
+    c, io, inj, tr = rec["counts"], rec["io"], rec["injected"], \
+        [tuple(t) for t in rec["transitions"]]
+    top = max((to for _, to in tr), default=0)
+    vs = "" if main is None else (
+        f" against phase 1's {main['events_per_s']:.1f} in this run "
+        f"({rec['events_per_s'] / main['events_per_s']:.3f}x)")
+    log(f"  {tag}: {rec['events_per_s']:.1f} events/s{vs}; injected "
+        f"{json.dumps(inj)}; I/O {json.dumps(io)}; shed readahead drives "
+        f"{c['shed_readahead_drives']}, shed prefetch rounds "
+        f"{c['shed_prefetch_rounds']}, demoted_sync_rounds "
+        f"{c['demoted_sync_rounds']}, deferred {c['deferred_events']} / "
+        f"readmitted {c['readmitted_events']} events; pipeline "
+        f"{json.dumps(rec['pipeline'])}")
+    log(f"  {tag}: ladder {len(tr)} transitions, highest rung {top}, first "
+        f"{tr[:12]}; pool books {json.dumps(rec['books'])}")
+    log(f"  {tag}: {_threads_line(recorder)}")
+    check(c["ingested"] == rec["events"],
+          f"{tag}: ingested {c['ingested']} of {rec['events']} events")
+    check(io["gave_up"] == 0, f"{tag}: {io['gave_up']} retries given up")
+    check(inj["injected"] >= 100 and io["retries"] > 0,
+          f"{tag}: {inj['injected']} faults injected, {io['retries']} "
+          "retries: the chaos did not happen")
+    check(bool(tr) and tr[0] == (0, 1),
+          f"{tag}: the ladder's first transitions {tr[:3]}, not (0, 1)")
+    check(all(abs(b - a) == 1 for a, b in tr),
+          f"{tag}: the ladder skipped a rung: {tr}")
+    check(c["deferred_events"] == c["readmitted_events"],
+          f"{tag}: {c['deferred_events']} events deferred, "
+          f"{c['readmitted_events']} readmitted")
+    check_books(tag, rec["books"])
+    for k in KERNELS:
+        check(recorder.streams[k] <= {rec["pool_stream"]},
+              f"{tag}: {k} launched on streams {recorder.streams[k]}, not "
+              f"the arena's ({rec['pool_stream']})")
+    if rec["pipeline"]:
+        # a demoted round of one window folds per window, with no K1-K3
+        # launch; one of several windows launches from the main thread
+        threads = sorted({t for k in KERNELS for t in recorder.threads[k]})
+        log(f"  {tag}: rung 3 {'reached' if top >= 3 else 'never reached'}"
+            f", {c['demoted_sync_rounds']} rounds demoted to the main "
+            f"thread; K1-K3 launched from {threads}")
+
+
+def recovery_checks(tag: str, rec: dict, recorder) -> None:
+    """Phase 16 beyond the checks every streaming phase takes: the
+    poisoned engine raised, one restart, a torn tail truncated, no retry
+    given up after the restore, the restored engine on the run's device,
+    the dead engine's arena gone (``CrashDrill.restore``) and, on the
+    card, device memory after the teardown one arena below the reading
+    before the crash and after the restore back at it, each within
+    ``MEMORY_SLACK``; the pool's books balanced. Prints the readings."""
+    d = rec["drill"]
+    gib = 2.0 ** 30
+    mem = {k: (None if d[k] is None else round(d[k] / gib, 3)) for k in (
+        "memory_before", "memory_after_teardown", "memory_after_restore")}
+    log(f"  {tag}: recovery: restore() {d['restore_s']:.3f} s (store "
+        f"reopen, {d['recovered_records']} records, and the manifest "
+        f"restore), replay of {d['replayed_events']} events to the first "
+        f"poll {d['replay_s']:.3f} s; the reopen truncated "
+        f"{d['truncated_bytes']} bytes; checkpoint at step "
+        f"{d['checkpoint_step']}; {d['checkpoints']} checkpoints in "
+        f"{d['checkpoint_s']:.2f} s; the spill before the crash "
+        f"{d['spill_s']:.2f} s")
+    log(f"  {tag}: device GiB before the crash / after the teardown / after "
+        f"the restore {json.dumps(mem)} (arena "
+        f"{d['arena_bytes'] / gib:.3f} GiB); injected "
+        f"{json.dumps(rec['injected'])}; I/O after the restore "
+        f"{json.dumps(rec['io_final'])}; pool books "
+        f"{json.dumps(rec['books'])}")
+    log(f"  {tag}: {_threads_line(recorder)}")
+    check("poisoned" in d, f"{tag}: the poisoned engine did not raise")
+    check(d["restarts"] == 1, f"{tag}: {d['restarts']} restarts")
+    check(d["truncated_bytes"] > 0, f"{tag}: the reopen truncated nothing")
+    check(rec["io_final"]["gave_up"] == 0,
+          f"{tag}: {rec['io_final']['gave_up']} retries given up after the "
+          "restore")
+    check(d["pool_device"] == d["device"],
+          f"{tag}: the restored pool is on {d['pool_device']}, the engine "
+          f"on {d['device']}")
+    if d["memory_before"] is not None:
+        check(d["memory_after_teardown"] <= d["memory_before"]
+              - d["arena_bytes"] + MEMORY_SLACK,
+              f"{tag}: the teardown freed "
+              f"{d['memory_before'] - d['memory_after_teardown']} bytes, "
+              f"not the dead engine's arena of {d['arena_bytes']}")
+        check(d["memory_after_restore"] <= d["memory_before"]
+              + MEMORY_SLACK,
+              f"{tag}: {d['memory_after_restore']} bytes after the restore "
+              f"against {d['memory_before']} before the crash")
+    check_books(tag, rec["books"])
 
 
 #: phase 14's tenants (``configs/workloads.py: TENANT_PROFILES``): three
@@ -3205,9 +3663,7 @@ def pipelined_checks(tag: str, rec: dict, recorder, main: dict) -> None:
         f"demand_pool_fills {c['demand_pool_fills']}"
         + (f", batch_stall_seconds {c['batch_stall_seconds']:.3f}"
            if "batch_stall_seconds" in c else ""))
-    log(f"  {tag}: launches by thread "
-        f"{json.dumps(recorder.threads)}, streams "
-        f"{ {k: sorted(map(str, v)) for k, v in recorder.streams.items()} }")
+    log(f"  {tag}: {_threads_line(recorder)}")
     check(c["pipeline_rounds"] > 0, f"{tag}: no round went through the "
                                     "pipeline")
     check(pl["round_retries"] == 0, f"{tag}: {pl['round_retries']} fold "
@@ -3291,6 +3747,11 @@ def main(argv=None) -> int:
                     "failure control of phase 13b")
     ap.add_argument("--tenant-seconds", type=float, default=60.0,
                     help="seconds of processing time streamed in phase 14")
+    ap.add_argument("--chaos-windows", type=float, default=3.0,
+                    help="windows of processing time streamed by each run of "
+                    "phase 15")
+    ap.add_argument("--recovery-windows", type=float, default=3.0,
+                    help="windows of processing time streamed in phase 16")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every number of the run to this JSON file")
     args = ap.parse_args(argv)
@@ -3349,7 +3810,17 @@ def main(argv=None) -> int:
                       splitk=0, pipelined=True, prefetch_backend="learned",
                       profile=True), ("K2",)),
                 (14, "tenants", SEED + 14, run_tenants,
-                 dict(seconds=args.tenant_seconds), ("K2",))):
+                 dict(seconds=args.tenant_seconds), ("K2",)),
+                # phase 1's deployment and seed over a failing store
+                ("15a", "chaos_sync", SEED + 2, chaos_stream,
+                 dict(windows=args.chaos_windows, pool_slots=3072,
+                      splitk=0, pipelined=False), ("K2",)),
+                ("15b", "chaos_pipelined", SEED + 2, chaos_stream,
+                 dict(windows=args.chaos_windows, pool_slots=3072,
+                      splitk=0, pipelined=True), ("K2",)),
+                (16, "recovery", SEED + 2, crash_recovery,
+                 dict(windows=args.recovery_windows, pool_slots=3072,
+                      splitk=0), ("K2",))):
             zero_counts(wrappers.values())
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -3413,6 +3884,15 @@ def main(argv=None) -> int:
                     "launch missed the shared-memory design")
             if tag in ("pipelined", "tenants"):
                 pipelined_checks(tag, rec, recorder, runs["main"])
+            if tag.startswith("chaos"):
+                chaos_checks(tag, rec, recorder, runs["main"])
+            if tag == "recovery":
+                recovery_checks(tag, rec, recorder)
+                at = rec["drill"]["launches_at_restore"]
+                rec["restored_launches"] = {
+                    k: rec["launches"][k] - at[k] for k in KERNELS}
+                log(f"  {tag}: K1-K3 launches of the restored engine "
+                    f"{rec['restored_launches']}")
         report["failure_controls"] = failure_controls(
             dev, spill_root, args.failure_windows)
     finally:

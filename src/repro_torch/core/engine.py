@@ -979,15 +979,26 @@ class StreamEngine:
                 blk.persisted = bool(b.get(
                     "persisted", b.get("tier") != Tier.DEVICE.value))
                 if stored and not data:
-                    # manifest block: the record IS the data — verify it
-                    # survived (WAL recovery guarantees acknowledged
-                    # commits did) and restore cold
-                    if store is None or store.current_fill(
-                            blk.window_key, blk.block_id) != fill:
+                    held = None if store is None else store.current_fill(
+                        blk.window_key, blk.block_id)
+                    if held is None or held < fill:
                         raise KeyError(
                             f"checkpoint references store record "
                             f"{blk.window_key}/{blk.block_id} (fill "
                             f"{fill}) that the store does not hold")
+                    if held > fill:
+                        # the block grew after the checkpoint (a partial
+                        # block back on the host takes appends) and its
+                        # record was rewritten at the longer fill: blocks
+                        # are append-only, so the record's first ``fill``
+                        # events are the checkpoint's. They restore
+                        # inline, and the reconcile below drops the
+                        # longer record (ROADMAP Queue 3, item 20)
+                        data = store.get(blk.window_key, blk.block_id)
+                if stored and not data:
+                    # manifest block: the record IS the data — verify it
+                    # survived (WAL recovery guarantees acknowledged
+                    # commits did) and restore cold
                     blk.store = store
                     blk.storage_ref = store.locate(blk.window_key,
                                                    blk.block_id)

@@ -1,5 +1,7 @@
 from repro_torch.distributed.fault import (
-    BackupExecutor, BackupStats, RestartManager,
+    BackupExecutor, BackupStats, EngineRecovery, HeartbeatMonitor,
+    RestartManager,
 )
 
-__all__ = ["BackupExecutor", "BackupStats", "RestartManager"]
+__all__ = ["BackupExecutor", "BackupStats", "EngineRecovery",
+           "HeartbeatMonitor", "RestartManager"]

@@ -97,6 +97,11 @@ def _run(pkg, spill_dir, pooled):
         if adv is not None:
             eng.advance_watermark(adv, now)
         eng.poll(now)
+        if pkg == "jax":
+            # the reference steps with its I/O thread idle: the JAX engine
+            # loses events that ingest appends while that thread spills or
+            # stages the same block (ROADMAP Queue 3, item 18)
+            assert eng.io.drain()
     # close out: expire everything, then re-execute every window once
     eng.advance_watermark(END + MAX_LATE, END)
     for t in np.linspace(END, END + 70.0, 6):

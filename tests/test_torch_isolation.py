@@ -36,6 +36,17 @@ SLICE_MODULES = [
     "repro_torch.kernels.flash_limits", "repro_torch.core.pipeline",
     "repro_torch.prefetch", "repro_torch.prefetch.model",
     "repro_torch.prefetch.planner", "repro_torch.prefetch.scheduler",
+    "repro_torch.testing", "repro_torch.testing.faults",
+]
+
+#: classes each slice added to a module the walk imports: (module, name)
+SLICE_CLASSES = [
+    ("repro_torch.distributed", "HeartbeatMonitor"),
+    ("repro_torch.distributed", "EngineRecovery"),
+    ("repro_torch.distributed", "BackupExecutor"),
+    ("repro_torch.distributed", "RestartManager"),
+    ("repro_torch.testing", "FaultInjector"),
+    ("repro_torch.testing", "FaultyBlockStore"),
 ]
 
 
@@ -86,3 +97,14 @@ def test_slice_modules_are_checked(name):
     """Every module of the ported slices is among those the two checks
     above import and parse."""
     assert name in _modules()
+
+
+@pytest.mark.parametrize("module,name", SLICE_CLASSES,
+                         ids=lambda x: x if isinstance(x, str) else "")
+def test_slice_classes_are_exported(module, name):
+    """The classes of the ported slices are exported where the walk above
+    imports them with JAX blocked, and defined in the port."""
+    import importlib
+    assert module in _modules()
+    obj = getattr(importlib.import_module(module), name)
+    assert obj.__module__.startswith("repro_torch.")
