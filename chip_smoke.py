@@ -256,6 +256,47 @@ Phases (the first failed check exits non-zero, with no result line):
    ``restore()`` and of the replay to its first poll, the events replayed,
    the bytes truncated, the device memory at the three readings and the
    restored engine's K1-K3 launches.
+17. MoE serving at qwen3-moe-30b's full width and depth
+   (``configs/qwen3_moe_30b.py``: 48 layers, d_model 2,048, 32 heads and 4
+   KV heads of 128, 128 experts of d_ff 768, top-8, vocab 151,936) with
+   bf16 parameters through the config's ``param_dtype`` (the router
+   float32): 30.5 B parameters, 61 GB, from a seeded generator, after the
+   earlier phases' tensors are released. 17a: ``make_prefill_step`` on 4 x
+   2,048 tokens (8,192 routed: an expert keeps 640, so experts overflow),
+   K5 once per layer, every launch on wgmma, then 32 greedy
+   ``make_decode_step`` steps (each reads every weight); then one prefill
+   under ``torch.profiler`` (the device's busy share, the largest device
+   operations), and one decode step so profiled. 17b: the prefill's last
+   logits and the first decode step's with K5 against the same model,
+   weights and tokens with K5's plain version, routed as K5's run routed
+   (``RoutingPin``), each row within MOE_LOGITS_RTOL of its norm; the
+   plain version routing freely is read beside, not held. 17c: a
+   prefill of 2 x 31 tokens and one decode step against ``train_logits``
+   of 2 x 32 (the capacity clamps to T: no token can be dropped), the
+   argmaxes equal and each row within MOE_TF_RTOL. The 4 x 2,048 decode is
+   not held against a prefill of one more token: a prefill drops the
+   tokens past an expert's capacity, a one-token decode drops none.
+18. MoE training at qwen3-moe-30b's full width with 2 of its 48 layers
+   (fp32 parameters, bf16 compute, ``remat="full"``; 1.87 B parameters,
+   30 GB of state with AdamW's moments): phase 6a's gradient check on 1 x
+   1,024 tokens (the loss within LOSS_TOL, every gradient, the router's
+   and the experts' included, within GRAD_RTOL of its norm, and its
+   zeroed-dq control; the plain and control runs routed as the kernels'
+   run, the free run's loss read beside), then six ``make_train_step`` steps on
+   ``token_batches`` of 2 x 4,096 through ``PrefetchPipeline``: every loss
+   finite and every aux positive, K5 launched 2 x 2 times a step and K6
+   twice, all on wgmma.
+19. The four examples, each in its own process with ``PYTHONPATH=src``
+   (``EXAMPLE_BOOT`` sets the kernels' counters to 0, runs the script as
+   ``__main__`` and prints the counts) at their defaults,
+   ``torch_train_lm.py`` with ``--steps 40``: each must exit 0 and print
+   its closing lines (the quickstart's executions with late > 0, the
+   serving example's ``completed 8/8``, the training example's ``loss: a
+   -> b`` with b < a, the demos' last line), and launch the kernels
+   EXAMPLES names: K2 for the two engine examples (K1 may launch, through
+   the stacked fallback), K4 on its CUDA-core design for the serving
+   example (float32 pages), K5 and K6 on wgmma for the training example;
+   no other.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -264,11 +305,13 @@ design (bf16 at head dims 64 and 128) within the limits that
 readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16, 4,
-6b, 7, 9a, 9c and 10 and read just after; every bf16 launch of K5 and
-K6 in phases 4, 6b and 10 must have gone through the wgmma design. A segment kernel's
+6b, 7, 9a, 9c, 10, 17a, 18 and each example of 19 and read just after;
+every bf16 launch of K5 and K6 in phases 4, 6b, 10, 17a, 18 and 19 must
+have gone through the wgmma design. A segment kernel's
 ``launches`` is its count in the run whose launch it replays (K1 the
 Linear Road run, K2 the main run, K3 the split-K run;
-``launches_by_run`` gives every run's count); K4's and K5's are their counts in
+``launches_by_run`` gives every run's count, and every kernel's counts
+in phases 17a, 18 and 19); K4's and K5's are their counts in
 phase 4, K6's in phase 6b, K7's in phase 9a. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
@@ -278,6 +321,7 @@ them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -2436,13 +2480,108 @@ def build_train(device, cfg, *, small: bool = False):
     return model, params, run
 
 
+class RoutingPin:
+    """The MoE layers' routing choices (each call of ``models.moe.top_k``:
+    a layer's top-k experts for every token, an expert's kept tokens),
+    recorded in call order over one run and replayed in another: the
+    replaying run takes the recorded indices and gathers its own values
+    there (the routing weights and gates, differentiable as before). Two
+    runs of one model then route alike and differ only by what else
+    differs between them: the rounding of K5 and K6 against their plain
+    versions, which alone can turn a near tie in the router. A model
+    without MoE layers records nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _patch(self, fn):
+        moe = importlib.import_module("repro_torch.models.moe")
+        real = moe.top_k
+        moe.top_k = fn
+        return moe, real
+
+    @contextlib.contextmanager
+    def record(self):
+        self.calls.clear()
+
+        def top_k(x, k):
+            vals, idx = real(x, k)
+            self.calls.append(idx)
+            return vals, idx
+
+        moe, real = self._patch(top_k)
+        try:
+            yield self
+        finally:
+            moe.top_k = real
+
+    @contextlib.contextmanager
+    def replay(self):
+        pending = iter(self.calls)
+        used = []
+
+        def top_k(x, k):
+            idx = next(pending, None)
+            check(idx is not None and tuple(idx.shape) == (*x.shape[:-1], k),
+                  "routing replay: the run's calls differ from the record")
+            used.append(idx)
+            return x.gather(-1, idx), idx
+
+        moe, real = self._patch(top_k)
+        try:
+            yield self
+        finally:
+            moe.top_k = real
+        check(len(used) == len(self.calls), f"routing replay: {len(used)} "
+              f"of {len(self.calls)} recorded calls used")
+
+    def turned(self, other: "RoutingPin") -> tuple:
+        """(router rows whose set of experts differs between the two
+        records, router rows in all): tokens routed otherwise, summed
+        over the layers. The router's calls are those over [B, S, E]."""
+        import torch
+        diff = total = 0
+        for a, b in zip(self.calls, other.calls):
+            if a.dim() == 3:
+                diff += int((a.sort(-1).values != b.sort(-1).values)
+                            .any(-1).sum())
+                total += a.shape[0] * a.shape[1]
+        return diff, total
+
+
+@contextlib.contextmanager
+def fixed_order():
+    """PyTorch's deterministic algorithms for the duration (warnings only
+    where an operation has none): ``index_add_`` on the card, the MoE
+    layer's scatter-add, then sums in a fixed order where it otherwise
+    adds its bf16 contributions by atomics in any order. Two runs that
+    compare K5/K6 with their plain versions take it, so that they differ
+    by the kernels alone and not by the order of those sums. New tensors
+    stay unfilled, as outside it."""
+    import torch
+    import torch.utils.deterministic as det
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
+
+
 def grad_check(model, params, run: dict) -> dict:
     """6a: one loss and backward on 1 x grad_seq tokens through K5/K6, the
     same with the attention's plain versions, held together by
     ``grads_close``; then, as a control that must read at least
     CONTROL_FACTOR times GRAD_RTOL, the kernels' path with K6's dq of its
     first launch's first query tile zeroed (the last layer's, whose
-    backward runs first)."""
+    backward runs first). An MoE model's plain and control runs take the
+    kernels' run's routing (``RoutingPin``); the loss of the plain
+    versions routing freely, and the tokens it routes otherwise, are
+    read beside. Every run sums in a fixed order (``fixed_order``)."""
     import torch
     from repro_torch.data.generators import token_batches
     from repro_torch.kernels import ops
@@ -2456,17 +2595,6 @@ def grad_check(model, params, run: dict) -> dict:
         g = torch.autograd.grad(loss, list(params.values()))
         return float(loss.detach()), dict(zip(params, g))
 
-    t0 = time.perf_counter()
-    kernel = grads()
-    real_vjp, real_bwd = ops.flash_attention_vjp, fa.flash_attention_bwd_cuda
-    ops.flash_attention_vjp = functools.partial(real_vjp, backend="ref")
-    try:
-        plain = grads()
-    finally:
-        ops.flash_attention_vjp = real_vjp
-    rec = grads_close(kernel, plain)
-    zeroed = []
-
     def zero_first_tile(*args, **kw):
         dq, dk, dv = real_bwd(*args, **kw)
         if not zeroed:
@@ -2474,11 +2602,37 @@ def grad_check(model, params, run: dict) -> dict:
             zeroed.append(True)
         return dq, dk, dv
 
-    fa.flash_attention_bwd_cuda = zero_first_tile
-    try:
-        bad = grads()
-    finally:
-        fa.flash_attention_bwd_cuda = real_bwd
+    t0 = time.perf_counter()
+    pin, free, zeroed = RoutingPin(), RoutingPin(), []
+    real_vjp, real_bwd = ops.flash_attention_vjp, fa.flash_attention_bwd_cuda
+    with fixed_order():
+        with pin.record():
+            kernel = grads()
+        ops.flash_attention_vjp = functools.partial(real_vjp, backend="ref")
+        try:
+            with pin.replay():
+                plain = grads()
+            if pin.calls:
+                with free.record(), torch.no_grad():
+                    free_loss = float(model.loss(params, batch)[0])
+        finally:
+            ops.flash_attention_vjp = real_vjp
+        fa.flash_attention_bwd_cuda = zero_first_tile
+        try:
+            with pin.replay():
+                bad = grads()
+        finally:
+            fa.flash_attention_bwd_cuda = real_bwd
+    rec = grads_close(kernel, plain)
+    if pin.calls:
+        # the forward's calls come first in both records (the remat
+        # recompute's follow in the kernels' run)
+        rec["free_loss_err"] = abs(free_loss - kernel[0])
+        rec["turned"] = pin.turned(free)
+        log(f"  routing pinned to the kernels' run; routing freely, the "
+            f"plain versions' loss is off by {rec['free_loss_err']:.3g} and "
+            f"route {rec['turned'][0]} of {rec['turned'][1]} (layer, token) "
+            "rows otherwise")
     worst, name = grads_rel(bad, plain)
     rec["control_ratio"] = control_reads(
         f"K6's dq of the last layer's first query tile zeroed ({name})",
@@ -2544,13 +2698,14 @@ def train_run(model, params, run: dict) -> dict:
                             depth=2, device=dev)
     model.loss, ts_mod.adamw_update = timed_loss, timed_update
     fa.flash_attention_bwd_cuda = keep_first
-    losses, wall, parts = [], [], []
+    losses, auxes, wall, parts = [], [], [], []
     try:
         for _ in range(run["steps"]):
             marks.clear()
             t0 = time.perf_counter()
             state, metrics = step_fn(state, next(data))
             losses.append(float(metrics["loss"]))
+            auxes.append(float(metrics["aux"]))
             if cuda:
                 torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
@@ -2565,7 +2720,7 @@ def train_run(model, params, run: dict) -> dict:
         data.close()
     tokens = run["batch"] * run["seq"]
     timed = wall[1:] or wall
-    return {"losses": losses, "step_s": wall,
+    return {"losses": losses, "aux": auxes, "step_s": wall,
             "tokens_per_s": tokens * len(timed) / sum(timed),
             "forward_s": [p[0] for p in parts],
             "backward_s": [p[1] for p in parts],
@@ -3450,16 +3605,22 @@ def profile_prefill(model, params, b: int, s: int, seed: int) -> None:
     prints the device time by kernel (the ten largest) and the share of
     the wall time the device was busy by the sum of the kernels' times."""
     toks = _prompt(model.cfg, b, s, seed, model.device)
-    wall, rows = device_profile(lambda: model.prefill(
-        params, {"tokens": toks}, max_len=s + 1))
+    log_profile(f"prefill {b} x {s}", *device_profile(lambda: model.prefill(
+        params, {"tokens": toks}, max_len=s + 1)), top=12)
+
+
+def log_profile(what: str, wall: float, rows, top: int) -> None:
+    """Prints ``device_profile``'s reading of ``what``: the share of the
+    wall time the device was busy by the sum of the kernels' times, and
+    the ``top`` largest kernels."""
     if not rows:
         log("  profile: the profiler recorded no device time")
         return
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"  profile: prefill {b} x {s} in {wall:.3f} s (profiled), device "
-        f"busy {busy:.3f} s ({100 * busy / wall:.1f}%) by the kernels' "
+    log(f"  profile: {what} in {wall * 1e3:.2f} ms (profiled), device busy "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) by the kernels' "
         "summed self time")
-    for us, count, key in rows[:12]:
+    for us, count, key in rows[:top]:
         log(f"    {us / 1e3:10.2f} ms  x{count:<5d} {key[:90]}")
 
 
@@ -3641,6 +3802,409 @@ def serve_ssm(dev, every: dict) -> dict:
     return dict(kernel=kernel, shape=r["shape"], runs=runs,
                 k7_replays=k7_replays, k7_fp32=k7_fp32)
 
+
+
+# ------------------------------------------------------------ phases 17-19
+MOE_ARCH = "qwen3-moe-30b-a3b"
+#: phase 17: MOE_ARCH at full width and depth with bf16 parameters (the
+#: router float32, as ``moe_init`` draws it whatever the type): 4 prompts
+#: of 2,048 tokens (8,192 routed: each expert keeps 640, so experts
+#: overflow and tokens are dropped), 32 greedy decode steps; 17b on the
+#: same prompts; 17c teacher forcing on 2 x 32 tokens, where the capacity
+#: clamps to T and no token can be dropped
+MOE_SERVE_RUN = dict(batch=4, seq=2048, decode=32, tf_batch=2, tf_seq=32)
+#: phase 18: MOE_ARCH at full width with 2 of its 48 layers (fp32
+#: parameters, bf16 compute, ``remat="full"``): phase 6a's gradient check
+#: on 1 x 1,024, then six AdamW steps of 2 x 4,096
+MOE_TRAIN_RUN = dict(layers=2, batch=2, seq=4096, steps=6, grad_seq=1024)
+#: 17b: the prefill's last logits and the first decode step's, K5 against
+#: its plain version in the same bf16 model routed alike, each row within
+#: MOE_LOGITS_RTOL of its norm (over the vocabulary). K5's bf16 output is
+#: held within FWD_ROW_RTOL (8e-3) of its fp32 oracle per row; 48 layers
+#: carry that rounding into the logits, where in two runs of this script
+#: on an H100 it read 0.0135 and 0.0125 (prefill), 0.0138 and 0.0140
+#: (decode), and the limit is about 3x that, as phase 9b's limits are.
+#: Routing freely, the plain version routed 34% of the (layer, token) rows
+#: otherwise and the rows read 0.078-0.095: a turned near tie among 128
+#: experts moves a token's FFN output wholesale, so that reading is
+#: printed, not held. 17c: the decode after a prefill of 31 tokens
+#: against the teacher-forced logits of the 32nd (its attention the plain
+#: decode product against K5; both routing freely, the scatter-add's bf16
+#: atomics in no fixed order), the argmaxes equal and each row within
+#: MOE_TF_RTOL of its norm: it read 0.0485 and 0.0573 in the same two
+#: runs; the limit is about 3x that.
+MOE_LOGITS_RTOL = 0.04
+MOE_TF_RTOL = 0.15
+#: phase 19: each example, the arguments it gets, and the kernels it must
+#: launch (any other kernel but K1 must not launch: the engine examples
+#: reach K1 only through the stacked fallback)
+EXAMPLES = {
+    "torch_quickstart.py": ((), ("K2",)),
+    "torch_late_event_stream.py": ((), ("K2",)),
+    "torch_serve_lm.py": ((), ("K4",)),
+    "torch_train_lm.py": (("--steps", "40"), ("K5", "K6")),
+}
+#: an example's process: its kernels' counters set to 0, the script run as
+#: ``__main__`` with its arguments, and the counters printed on a last
+#: line after LAUNCH_TAG
+LAUNCH_TAG = "chip_smoke launches: "
+EXAMPLE_BOOT = """\
+import json, runpy, sys
+import chip_smoke
+fns = chip_smoke.all_wrappers()
+chip_smoke.zero_counts(fns.values())
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print(chip_smoke.LAUNCH_TAG + json.dumps(dict(
+    launches={k: f.launches for k, f in fns.items()},
+    by_design=chip_smoke.by_design(fns))))
+"""
+
+
+def all_wrappers() -> dict:
+    """The seven kernels' counting wrappers by key."""
+    sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
+    return {**dict(zip(KERNELS, sa.KERNEL_WRAPPERS)),
+            **{k: attn_wrapper(k) for k in ATTN_KERNELS},
+            "K6": k6_wrapper(), "K7": k7_wrapper()}
+
+
+def rows_rel(got, want, vocab: int) -> float:
+    """The worst row's distance between two logits tensors [..., V] over
+    the vocabulary, in units of the row's norm."""
+    import torch
+    a = got[..., :vocab].float().reshape(-1, vocab)
+    b = want[..., :vocab].float().reshape(-1, vocab)
+    check(bool(torch.isfinite(a).all()), "logits not finite")
+    return float((torch.linalg.vector_norm(a - b, dim=-1)
+                  / torch.linalg.vector_norm(b, dim=-1)).max())
+
+
+def moe_serve(model, params, run: dict, seed: int) -> dict:
+    """17a: ``make_prefill_step`` on run's batch x seq tokens, then its
+    decode steps through ``make_decode_step``, each timed on the host
+    clock around a synchronised run."""
+    import torch
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    cfg, dev = model.cfg, model.device
+    b, s, n = run["batch"], run["seq"], run["decode"]
+    toks = _prompt(cfg, b, s, seed, dev)
+    prefill = make_prefill_step(model, max_len=s + n)
+    _sync(dev)
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, {"tokens": toks})
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, cache = decode_loop(make_decode_step(model), params, tok, cache, n)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    ids = torch.cat([tok, *out], dim=1)
+    check(tuple(ids.shape) == (b, n + 1) and bool((ids >= 0).all())
+          and bool((ids < cfg.vocab_size).all()),
+          "17a: generated ids outside the vocabulary")
+    check(int(cache["pos"]) == s + n, "17a: the cache's position is off")
+    check(all(bool(torch.isfinite(cache["layers"][k][:, :, :s + n]).all())
+              for k in ("k", "v")), "17a: non-finite K/V in the cache")
+    return dict(prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
+                decode_s=decode_s, decode_tokens_per_s=b * n / decode_s,
+                sample=ids[0, :16].tolist())
+
+
+def profile_decode(model, params, b: int, s: int, seed: int) -> None:
+    """One decode step after a prefill of b x s tokens, under
+    ``torch.profiler``: the device's busy share and the largest device
+    operations."""
+    import torch
+    toks = _prompt(model.cfg, b, s, seed, model.device)
+    logits, cache = model.prefill(params, {"tokens": toks}, max_len=s + 1)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    log_profile(f"one decode step at batch {b}", *device_profile(
+        lambda: model.decode_step(params, nxt, cache)), top=8)
+
+
+def moe_plain_check(model, params, run: dict, seed: int) -> dict:
+    """17b: the prefill's last logits and the first decode step's (fed
+    the prefill's greedy token) with K5 in place, against the same model,
+    weights and tokens with the attention through K5's plain version,
+    routed as the kernel's run routed (``RoutingPin``), all three runs
+    summing in a fixed order (``fixed_order``): each row within
+    MOE_LOGITS_RTOL of its norm. The plain version routing freely is read
+    beside (its rows, argmaxes and the tokens it routes otherwise), not
+    held: one rounding that turns a near tie in a router moves a token's
+    FFN output wholesale."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg, dev = model.cfg, model.device
+    b, s = run["batch"], run["seq"]
+    toks = _prompt(cfg, b, s, seed, dev)
+
+    def prefill_decode(nxt=None):
+        logits, cache = model.prefill(params, {"tokens": toks},
+                                      max_len=s + 1)
+        if nxt is None:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        step, _ = model.decode_step(params, nxt, cache)
+        return logits, step, nxt
+
+    pin, free = RoutingPin(), RoutingPin()
+    real = ops.flash_attention_vjp
+    with fixed_order():
+        with pin.record():
+            kernel = prefill_decode()
+        ops.flash_attention_vjp = functools.partial(real, backend="ref")
+        try:
+            with pin.replay():
+                plain = prefill_decode(kernel[2])
+            with free.record():
+                loose = prefill_decode(kernel[2])
+        finally:
+            ops.flash_attention_vjp = real
+    v = cfg.vocab_size
+    rec = {"turned": pin.turned(free)}
+    for i, what in ((0, "prefill"), (1, "decode")):
+        a = kernel[i][..., :v].float()
+        r = rec[what] = {}
+        for how, other in (("pinned", plain), ("free", loose)):
+            p = other[i][..., :v].float()
+            r[how] = dict(
+                rel=rows_rel(a, p, v), max_abs_err=float((a - p).abs().max()),
+                argmax_agree=float((a.argmax(-1) == p.argmax(-1)).float()
+                                   .mean()))
+        log(f"  17b: {what} logits, K5 against its plain version routed "
+            f"alike: worst row {r['pinned']['rel']:.4g} of its norm (limit "
+            f"{MOE_LOGITS_RTOL}), max |diff| {r['pinned']['max_abs_err']:.4g}"
+            f" of |logits| up to {float(a.abs().max()):.3g}, argmax agreeing"
+            f" on {r['pinned']['argmax_agree']:.3f}; routing freely "
+            f"{r['free']['rel']:.4g}, {r['free']['max_abs_err']:.4g}, "
+            f"{r['free']['argmax_agree']:.3f}")
+        check(r["pinned"]["rel"] <= MOE_LOGITS_RTOL,
+              f"17b: {what} logits off by {r['pinned']['rel']:.4g} of their "
+              "norm")
+    log(f"  17b: routing freely, the plain version routes "
+        f"{rec['turned'][0]} of {rec['turned'][1]} (layer, token) rows "
+        "otherwise than K5's run")
+    return rec
+
+
+def moe_teacher_forcing(model, params, run: dict, seed: int) -> dict:
+    """17c: prefill of tf_batch x (tf_seq - 1) tokens and one decode step
+    against ``train_logits`` of all tf_seq at the last position. The
+    capacity clamps to T in both (no token can be dropped), so the
+    argmaxes must be equal."""
+    import torch
+    from repro_torch.models.moe import _capacity
+    cfg, dev = model.cfg, model.device
+    b, s = run["tf_batch"], run["tf_seq"]
+    for t in (b * (s - 1), b * s):
+        check(_capacity(t, cfg) == t, f"17c: capacity {_capacity(t, cfg)} "
+                                      f"of {t} tokens drops some")
+    toks = _prompt(cfg, b, s, seed, dev)
+    with torch.no_grad():
+        full, _ = model.train_logits(params, {"tokens": toks})
+    _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, max_len=s)
+    step, cache = model.decode_step(params, toks[:, -1:], cache)
+    v = cfg.vocab_size
+    want = full[:, -1:, :v]
+    same = bool(torch.equal(step[..., :v].argmax(-1), want.argmax(-1)))
+    rec = dict(rel=rows_rel(step, want, v), argmax_equal=same,
+               max_abs_err=float((step[..., :v] - want).abs().max()))
+    log(f"  17c: prefill {b} x {s - 1} + one decode against train_logits of "
+        f"{b} x {s}: argmax equal {same}, worst row {rec['rel']:.4g} of its "
+        f"norm (limit {MOE_TF_RTOL}), max |diff| {rec['max_abs_err']:.4g}")
+    check(same and rec["rel"] <= MOE_TF_RTOL and int(cache["pos"]) == s,
+          "17c: the decode misses teacher forcing")
+    return rec
+
+
+def moe_phases(dev, every: dict) -> dict:
+    """Phases 17-18 on the card: MOE_ARCH served at full width and depth,
+    then trained at full width with MOE_TRAIN_RUN's depth. ``every``
+    holds the seven kernels' wrappers. Returns the runs' records."""
+    import torch
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    runs = {}
+    # phase 17: serving at full width and depth
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 17: device memory allocated before the build "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    model, params = build_serve(dev, dataclasses.replace(
+        cfg, param_dtype="bfloat16"), SEED + 17)
+    n_params = sum(p.numel() for p in params.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"phase 17: {model.cfg.name} at full width and depth "
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads and {cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+        f"{cfg.moe.num_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}; bf16 parameters, the "
+        f"router float32): {n_params / 1e9:.3f} B parameters, "
+        f"{param_bytes / 1e9:.2f} GB, built in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    zero_counts(every.values())
+    serve = moe_serve(model, params, MOE_SERVE_RUN, SEED + 18)
+    torch.cuda.synchronize()
+    serve["launches"] = {k: fn.launches for k, fn in every.items()}
+    serve["by_design"] = by_design(every)
+    serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    run = MOE_SERVE_RUN
+    log(f"phase 17a: prefill {run['batch']} x {run['seq']} in "
+        f"{serve['prefill_s']:.3f} s ({serve['prefill_tokens_per_s']:.1f} "
+        f"tokens/s), {run['decode']} decode steps in {serve['decode_s']:.3f}"
+        f" s ({serve['decode_tokens_per_s']:.1f} tokens/s); launches "
+        f"{serve['launches']} (K5 by design {serve['by_design']['K5']}); "
+        f"max_memory_allocated {serve['max_memory_allocated'] / 1e9:.2f} GB"
+        f"; sample ids {serve['sample']}")
+    for k, n in serve["launches"].items():
+        want = cfg.num_layers if k == "K5" else 0
+        check(n == want, f"17a: {k} launched {n} times, the path implies "
+                         f"{want}")
+    check(serve["by_design"]["K5"] == {"wgmma": cfg.num_layers,
+                                       "cuda_core": 0},
+          f"17a: K5 by design {serve['by_design']['K5']}: a bf16 launch "
+          "missed the wgmma design")
+    profile_prefill(model, params, run["batch"], run["seq"], SEED + 18)
+    profile_decode(model, params, run["batch"], run["seq"], SEED + 18)
+    t0 = time.perf_counter()
+    serve["plain_check"] = moe_plain_check(model, params, run, SEED + 18)
+    serve["teacher_forcing"] = moe_teacher_forcing(model, params, run,
+                                                   SEED + 19)
+    serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"phase 17b-c: {time.perf_counter() - t0:.1f} s; "
+        f"max_memory_allocated since the build "
+        f"{serve['max_memory_allocated'] / 1e9:.2f} GB")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {serve['wall_s']:.1f} s")
+    runs["moe_serve"] = serve
+
+    # phase 18: training at full width
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = MOE_TRAIN_RUN
+    model, params = build_serve(dev, dataclasses.replace(
+        cfg, num_layers=run["layers"]), SEED + 20)
+    n_params = sum(p.numel() for p in params.values())
+    log(f"phase 18: {model.cfg.name} at full width with "
+        f"{run['layers']} of {cfg.num_layers} layers (fp32 parameters, "
+        f"bf16 compute, remat {model.cfg.remat!r}): {n_params / 1e9:.3f} B "
+        f"parameters, built in {time.perf_counter() - t_phase:.1f} s")
+    grad = grad_check(model, params, run)
+    log(f"phase 18: gradient check on 1 x {run['grad_seq']} tokens, K5/K6 "
+        f"against their plain versions: loss {grad['loss']:.6f} (off by "
+        f"{grad['loss_err']:.3g}, limit {LOSS_TOL}), the worst gradient "
+        f"{grad['worst_param']} off by {grad['grad_rel_err']:.3g} of its "
+        f"norm (limit {GRAD_RTOL}), {grad['seconds']:.1f} s")
+    zero_counts(every.values())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train = train_run(model, params, run)
+    torch.cuda.synchronize()
+    train["launches"] = {k: fn.launches for k, fn in every.items()}
+    train["by_design"] = by_design(every)
+    train["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    train["wall_s"] = time.perf_counter() - t0
+    train.pop("largest_k6")
+    train["grad_check"] = grad
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18: {run['steps']} steps of {run['batch']} x {run['seq']} "
+        f"tokens in {train['wall_s']:.1f} s: losses "
+        f"{[round(x, 4) for x in train['losses']]}, aux "
+        f"{[round(x, 5) for x in train['aux']]}, "
+        f"{train['tokens_per_s']:.1f} tokens/s over steps 2-{run['steps']}"
+        f", launches {train['launches']} (by design {train['by_design']}), "
+        f"max_memory_allocated {train['max_memory_allocated'] / 1e9:.2f} GB")
+    log("  step seconds (wall / forward / backward / optimizer): " + "; ".join(
+        f"{w:.3f} / {f:.3f} / {b:.3f} / {o:.3f}" for w, f, b, o in zip(
+            train["step_s"], train["forward_s"], train["backward_s"],
+            train["optimizer_s"])))
+    check(all(a > 0 for a in train["aux"]), f"18: aux {train['aux']}")
+    per_step = {"K5": 2 * run["layers"], "K6": run["layers"]}
+    for k, n in train["launches"].items():
+        want = per_step.get(k, 0) * run["steps"]
+        check(n == want, f"18: {k} launched {n} times, the path implies "
+                         f"{want}")
+    for k in ("K5", "K6"):
+        check(train["by_design"][k] == {"wgmma": train["launches"][k],
+                                        "cuda_core": 0},
+              f"18: {k} by design {train['by_design'][k]}: a bf16 launch "
+              "missed the wgmma design")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    runs["moe_train"] = train
+    return runs
+
+
+def run_example(name: str, args) -> dict:
+    """One example in its own process (``PYTHONPATH=src``) through
+    EXAMPLE_BOOT; it must exit 0. Returns its output, seconds and launch
+    counts."""
+    import os
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_BOOT,
+         str(ROOT / "examples" / name), *args],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": "src"},
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"19: {name} exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    out, _, tail = proc.stdout.rpartition(LAUNCH_TAG)
+    check(bool(out), f"19: {name} printed no launch counts")
+    return dict(json.loads(tail), out=out, seconds=seconds)
+
+
+def example_lines(name: str, out: str) -> str:
+    """Each example's closing lines, checked; returns the line read."""
+    import re
+    if name == "torch_quickstart.py":
+        m = re.search(r"^executions: live=(\d+) late=(\d+) purged=(\d+)$",
+                      out, re.M)
+        check(bool(m) and int(m.group(2)) > 0 and "\nwindow [" in out,
+              f"19: {name}: no executions line with late > 0")
+    elif name == "torch_late_event_stream.py":
+        m = re.search(r"^  no-pre-stgng\s+fetch_stall=.*$", out, re.M)
+        check(bool(m) and "aion-full" in out and "bound 0.01" in out,
+              f"19: {name}: its demos did not all print")
+    elif name == "torch_serve_lm.py":
+        m = re.search(r"^completed 8/8 requests.*$", out, re.M)
+        check(bool(m) and "\ntiering: " in out,
+              f"19: {name}: not every request completed")
+    else:
+        m = re.search(r"^loss: ([\d.]+) -> ([\d.]+) .*$", out, re.M)
+        check(bool(m) and float(m.group(2)) < float(m.group(1)),
+              f"19: {name}: the loss did not fall")
+    return m.group(0)
+
+
+def examples_phase() -> dict:
+    """Phase 19: the four examples on the card, each with the kernels
+    EXAMPLES names launched (K5 and K6 on wgmma, K4 on the CUDA-core
+    design its float32 pages take) and no other but K1."""
+    runs = {}
+    for name, (args, need) in EXAMPLES.items():
+        r = run_example(name, args)
+        line = example_lines(name, r.pop("out"))
+        n = r["launches"]
+        log(f"phase 19: {name} {' '.join(args)} in {r['seconds']:.1f} s: "
+            f"{line.strip()} | launches {n} (by design {r['by_design']})")
+        for k, count in n.items():
+            check(count > 0 if k in need else (count == 0 or k == "K1"),
+                  f"19: {name} launched {k} {count} times")
+        for k in set(need) & {"K5", "K6"}:
+            check(r["by_design"][k]["wgmma"] == n[k],
+                  f"19: {name}: {k} by design {r['by_design'][k]}")
+        if "K4" in need:
+            check(r["by_design"]["K4"]["cuda_core"] == n["K4"],
+                  f"19: {name}: K4 by design {r['by_design']['K4']}")
+        runs[name] = dict(r, line=line.strip())
+    return runs
 
 
 # ------------------------------------------------------------ phases 13-14
@@ -4224,6 +4788,22 @@ def main(argv=None) -> int:
     runs.update(ssm_out["runs"])
     report["k7_replays"] = ssm_out["k7_replays"]
     report["k7_fp32"] = ssm_out["k7_fp32"]
+
+    # phases 17-19: the MoE family served and trained at qwen3-moe-30b's
+    # width, then the four examples, each in its own process
+    every = all_wrappers()
+    runs.update(moe_phases(dev, every))
+    t0 = time.perf_counter()
+    runs["examples"] = examples_phase()
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    new_runs = {"moe_serve": runs["moe_serve"]["launches"],
+                "moe_train": runs["moe_train"]["launches"],
+                **{name: r["launches"]
+                   for name, r in runs["examples"].items()}}
+    for entry in kernels:
+        key = entry["name"].split("(")[1].split(",")[0]
+        entry.setdefault("launches_by_run", {}).update(
+            {run: n[key] for run, n in new_runs.items()})
 
     if args.out is not None:
         report["kernels"] = [dict(x, shape=s)

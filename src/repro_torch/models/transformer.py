@@ -1,9 +1,10 @@
-"""Model assembly for the dense, SSM and hybrid families: the JAX package's
-``models/transformer.py`` for ``FAMILY_DENSE``, ``FAMILY_SSM`` (the
-mamba2 SSD block only) and ``FAMILY_HYBRID`` (hymba: 0.5 * (attention +
-SSD) in parallel, then the MLP), with its train forward and loss and its
-serving half (``init_cache``, ``prefill``, ``prefill_streaming``,
-``decode_step``).
+"""Model assembly for the dense, MoE, SSM and hybrid families: the JAX
+package's ``models/transformer.py`` for ``FAMILY_DENSE``, ``FAMILY_MOE``
+(attention, then the mixture-of-experts FFN of ``models/moe.py`` in place
+of the MLP), ``FAMILY_SSM`` (the mamba2 SSD block only) and
+``FAMILY_HYBRID`` (hymba: 0.5 * (attention + SSD) in parallel, then the
+MLP), with its train forward and loss and its serving half
+(``init_cache``, ``prefill``, ``prefill_streaming``, ``decode_step``).
 
 Layers are an ``nn.ModuleList`` driven by a Python loop, in place of the
 ``lax.scan`` over stacked parameters; each layer's parameters are a module
@@ -12,11 +13,15 @@ tree named as the JAX tree (``layers.3.attn.q.w`` is layer 3 of the JAX
 take the parameters as a mapping of those names to tensors, as the JAX
 functions take their tree (``None`` means the model's own).
 
+Each layer returns its aux loss (the MoE router's; 0 for the other
+families), and ``train_logits`` sums it over the layers as the JAX scan
+carries it; ``prefill`` and ``decode_step`` discard it.
+
 ``remat="full"`` wraps each layer in ``torch.utils.checkpoint``
 (non-reentrant): the backward recomputes the layer, so K5 runs twice per
 layer and step, and K6 once. ``"none"`` runs plain. ``"dots"`` and
 ``remat_group > 1`` raise, as do ``kv_repeat != 1`` and the other families
-(MoE, VLM, audio, enc-dec). The SSD scan (K7) is forward-only, as the
+(VLM, audio, enc-dec). The SSD scan (K7) is forward-only, as the
 Pallas kernel is, so the SSM and hybrid families run ``train_logits``
 and ``loss`` but take no gradient; ``make_train_step`` refuses them.
 
@@ -46,25 +51,29 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import (
-    FAMILY_DENSE, FAMILY_HYBRID, FAMILY_SSM, ModelConfig,
+    FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE, FAMILY_SSM, ModelConfig,
 )
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as lyr
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 
 REMAT = ("none", "full")
-FAMILIES = (FAMILY_DENSE, FAMILY_SSM, FAMILY_HYBRID)
+FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID)
 
 
 def _layer_init(generator: torch.Generator, cfg: ModelConfig,
                 dtype: torch.dtype, device) -> dict:
     """One decoder layer's parameters for cfg.family."""
     params = {"ln1": lyr.rmsnorm_init(cfg.d_model, dtype, device)}
-    if cfg.family in (FAMILY_DENSE, FAMILY_HYBRID):
+    if cfg.family in (FAMILY_DENSE, FAMILY_MOE, FAMILY_HYBRID):
         params["attn"] = attn_mod.attn_init(generator, cfg, dtype, device)
     if cfg.family in (FAMILY_SSM, FAMILY_HYBRID):
         params["ssd"] = ssm_mod.ssd_init(generator, cfg, dtype, device)
-    if cfg.d_ff > 0:
+    if cfg.family == FAMILY_MOE:
+        params["ln2"] = lyr.rmsnorm_init(cfg.d_model, dtype, device)
+        params["moe"] = moe_mod.moe_init(generator, cfg, dtype, device)
+    elif cfg.d_ff > 0:
         params["ln2"] = lyr.rmsnorm_init(cfg.d_model, dtype, device)
         params["mlp"] = lyr.mlp_init(generator, cfg, dtype, device)
     return params
@@ -73,12 +82,14 @@ def _layer_init(generator: torch.Generator, cfg: ModelConfig,
 def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
                    positions: torch.Tensor, window: int,
                    collect_kv: bool = False, collect_state: bool = False
-                   ) -> Tuple[torch.Tensor, dict]:
+                   ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """One layer over the full sequence: attention and/or the SSD block on
     the RMS-normed input (their mean for the hybrid), added to the
-    residual, then the MLP. Returns (x, collected): the post-RoPE K/V and
-    the SSM state and conv tail, as asked."""
+    residual, then the MoE FFN or the MLP. Returns (x, aux, collected):
+    the MoE aux loss (a float32 0 for the other families), and the
+    post-RoPE K/V and the SSM state and conv tail, as asked."""
     cd = x.dtype
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collected: dict = {}
     h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
     delta = None
@@ -100,14 +111,20 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
     if "attn" in lp and "ssd" in lp:
         delta = delta * 0.5                 # hymba: mean of parallel heads
     x = x + delta
-    if "mlp" in lp:
+    if "moe" in lp:
+        h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
+        m_out, m_aux = moe_mod.moe_forward(lp["moe"], h2, cfg)
+        x = x + m_out
+        aux = aux + m_aux
+    elif "mlp" in lp:
         h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
         x = x + lyr.mlp_apply(lp["mlp"], h2, cfg, cd)
-    return x, collected
+    return x, aux, collected
 
 
-def _layer_x(lp, x, **kw) -> torch.Tensor:
-    return _layer_forward(lp, x, **kw)[0]
+def _layer_train(lp, x, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, aux) of one layer: what the checkpointed layer returns."""
+    return _layer_forward(lp, x, **kw)[:2]
 
 
 def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
@@ -140,7 +157,11 @@ def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
     if "attn" in lp and "ssd" in lp:
         delta = delta * 0.5
     x = x + delta
-    if "mlp" in lp:
+    if "moe" in lp:
+        # capacity from the B tokens of this step: none is dropped
+        h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
+        x = x + moe_mod.moe_forward(lp["moe"], h2, cfg)[0]
+    elif "mlp" in lp:
         h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
         x = x + lyr.mlp_apply(lp["mlp"], h2, cfg, cd)
     return x
@@ -160,7 +181,7 @@ class _Params(nn.Module):
 
 
 class Model(nn.Module):
-    """The dense, SSM or hybrid model of one config, on one device.
+    """The dense, MoE, SSM or hybrid model of one config, on one device.
 
     ``causal_skip`` is accepted and has nothing to switch: K5 and K6
     always skip the tiles that the causal mask empties; nor has
@@ -245,19 +266,22 @@ class Model(nn.Module):
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-        fn = functools.partial(_layer_x, cfg=cfg, positions=positions,
+        fn = functools.partial(_layer_train, cfg=cfg, positions=positions,
                                window=cfg.attn_window)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in layers:
             if cfg.remat == "full":
-                x = checkpoint(fn, lp, x, use_reentrant=False)
+                x, a = checkpoint(fn, lp, x, use_reentrant=False)
             else:
-                x = fn(lp, x)
+                x, a = fn(lp, x)
+            aux = aux + a
         logits = self._head(embed, final, x, cd)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
 
     def loss(self, params: Optional[Mapping[str, torch.Tensor]],
              batch) -> tuple:
-        """Mean CE over targets >= 0 (+ aux). Returns (loss, metrics)."""
+        """Mean CE over targets >= 0 (+ the MoE aux). Returns (loss,
+        metrics)."""
         logits, aux = self.train_logits(params, batch)
         targets = batch["targets"].long()
         mask = (targets >= 0).float()
@@ -330,7 +354,7 @@ class Model(nn.Module):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         for i, lp in enumerate(layers):
-            x, coll = _layer_forward(
+            x, _, coll = _layer_forward(
                 lp, x, cfg=cfg, positions=positions, window=cfg.attn_window,
                 collect_kv=cfg.has_attention, collect_state=cfg.ssm.enabled)
             if cfg.has_attention:

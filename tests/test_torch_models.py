@@ -205,14 +205,16 @@ def test_model_matches_jax_bfloat16():
 
 
 def test_model_refuses_what_is_not_ported():
-    """The families other than dense, SSM and hybrid, ``remat="dots"``,
-    two-level remat and the K/V repeat raise at construction; the serving
-    half is held to the JAX package in ``test_torch_serve_model.py``."""
+    """The families other than dense, MoE, SSM and hybrid (VLM, audio,
+    enc-dec), ``remat="dots"``, two-level remat and the K/V repeat raise
+    at construction, and both MoE configs build; the serving half is held
+    to the JAX package in ``test_torch_serve_model.py``."""
     cfg = reduced(get_config("starcoder2-7b"))
-    for arch in ("qwen3-moe-30b-a3b", "internvl2-76b",
-                 "seamless-m4t-medium"):
+    for arch in ("internvl2-76b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError):
             build_model(reduced(get_config(arch)), device="cpu")
+    for arch in ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"):
+        build_model(reduced(get_config(arch)), device="cpu")
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, remat="dots"), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -224,6 +226,45 @@ def test_model_refuses_what_is_not_ported():
     for arch in ("mamba2-780m", "hymba-1.5b"):
         build_model(reduced(get_config(arch)), kv_cache_bits=8,
                     kv_dus_write=True, device="cpu")
+
+
+@pytest.mark.parametrize("arch,remat", [("qwen3-moe-30b-a3b", "full"),
+                                        ("phi3.5-moe-42b-a6.6b", "none")])
+def test_moe_model_matches_jax_float32(arch, remat):
+    """The reduced MoE configs (8 experts, top-2; 2 x 64 tokens, so the
+    capacity, 64, drops tokens): train_logits, the aux summed over the
+    layers, the loss and every parameter's gradient (the router's and the
+    experts' included) against jax.value_and_grad(model.loss), with the
+    fp32 tolerances of the dense model. Under ``remat="full"`` the
+    checkpointed layer returns (x, aux)."""
+    jcfg = dataclasses.replace(j_reduced(j_get_config(arch)),
+                               compute_dtype="float32", remat=remat)
+    tcfg = dataclasses.replace(reduced(get_config(arch)),
+                               compute_dtype="float32", remat=remat)
+    jm = j_build_model(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(tcfg, device="cpu")
+    tparams = {n: t.requires_grad_(True) for n, t in
+               convert.model_params_from_jax(
+                   jax.tree.map(np.asarray, jparams)).items()}
+    assert any(n.endswith("moe.router.w") for n in tparams)
+    batch = next(token_batches(tcfg.vocab_size, 2, 64, seed=3))
+    jlog, jaux = jm.train_logits(jparams, {k: jnp.asarray(v)
+                                           for k, v in batch.items()})
+    tlog, taux = tm.train_logits(tparams, {k: _t(v)
+                                           for k, v in batch.items()})
+    np.testing.assert_allclose(_np(tlog), _np(jlog), rtol=0, atol=1e-4)
+    assert float(jaux) > 0
+    np.testing.assert_allclose(float(taux.detach()), float(jaux), rtol=1e-6)
+    (jl, jmet), (tl, tmet), jg, tg = _grads(jm, jparams, tm, tparams, batch)
+    assert abs(jl - tl) <= 1e-5
+    np.testing.assert_allclose(float(tmet["aux"]), float(jmet["aux"]),
+                               rtol=1e-6)
+    for name in jg:
+        scale = float(jg[name].abs().max())
+        np.testing.assert_allclose(_np(tg[name]), _np(jg[name]), rtol=1e-3,
+                                   atol=1e-5 * max(scale, 1e-3),
+                                   err_msg=name)
 
 
 def test_model_init_draws_the_jax_shapes():

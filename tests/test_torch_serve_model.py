@@ -40,7 +40,8 @@ from repro_torch.models import build_model
 from repro_torch.models.transformer import Model
 from repro_torch.serve import make_decode_step, make_prefill_step
 
-ARCHS = ["mamba2-780m", "hymba-1.5b", "starcoder2-7b"]
+ARCHS = ["mamba2-780m", "hymba-1.5b", "starcoder2-7b", "qwen3-moe-30b-a3b",
+         "phi3.5-moe-42b-a6.6b"]
 
 
 def _np(x):
@@ -371,3 +372,46 @@ def test_convert_round_trips_ssm_and_hybrid_trees(arch):
     params = tm.init(torch.Generator().manual_seed(0))
     assert {n: tuple(p.shape) for n, p in params.items()} == \
         {n: tuple(t.shape) for n, t in tp.items()}
+
+
+def test_launch_serve_moe_matches_the_jax_entry_point(monkeypatch, capsys):
+    """``launch.serve.main(["--arch", "qwen3-moe-30b-a3b"])`` (the reduced
+    config: 8 experts, top-2; 4 prompts of 64 tokens, 32 new) prints the
+    JAX entry point's sample continuation ids from the JAX weights. The
+    prefill's 256 tokens pass the capacity (128), so tokens are dropped;
+    each decode step's 4 are not. Both entry points serve the reduced
+    config in float32 compute here: in its own bf16 the greedy ids part at
+    the fifth token (a near tie that one rounding turns), as any two bf16
+    implementations may."""
+    import repro.launch.serve as JSV
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import moe as TM
+    arch = "qwen3-moe-30b-a3b"
+    cfg = reduced(get_config(arch))
+    assert TM._capacity(4 * 64, cfg) == 128 and TM._capacity(4, cfg) == 4
+    monkeypatch.setattr(JSV, "reduced", lambda c: dataclasses.replace(
+        j_reduced(c), compute_dtype="float32"))
+    monkeypatch.setattr(LS, "reduced", lambda c: dataclasses.replace(
+        reduced(c), compute_dtype="float32"))
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch])
+    JSV.main()
+    jids = capsys.readouterr().out.split("sample continuation ids: ")[1]
+    jparams = j_build_model(j_reduced(j_get_config(arch))).init(
+        jax.random.PRNGKey(0))
+    want = convert.model_params_from_jax(jax.tree.map(np.asarray, jparams))
+    orig = Model.init
+
+    def init_from_jax(self, generator):
+        params = orig(self, generator)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(want[name])
+        return params
+
+    monkeypatch.setattr(Model, "init", init_from_jax)
+    ids = LS.main(["--arch", arch], device="cpu")
+    tout = capsys.readouterr().out
+    assert ids.shape == (4, 32)
+    assert f"{arch}-smoke: prefill 4x64" in tout
+    assert tout.split("sample continuation ids: ")[1].strip() == \
+        jids.strip()

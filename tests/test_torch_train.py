@@ -60,16 +60,15 @@ def _np(x):
     return np.asarray(x)
 
 
-def _cfgs(**kw):
-    return (dataclasses.replace(j_reduced(j_get_config("starcoder2-7b")),
-                                **kw),
-            dataclasses.replace(reduced(get_config("starcoder2-7b")), **kw))
+def _cfgs(arch="starcoder2-7b", **kw):
+    return (dataclasses.replace(j_reduced(j_get_config(arch)), **kw),
+            dataclasses.replace(reduced(get_config(arch)), **kw))
 
 
-def _state_pair(**kw):
-    """A JAX train state of the reduced starcoder2-7b (PRNGKey(0)) and the
+def _state_pair(arch="starcoder2-7b", **kw):
+    """A JAX train state of the reduced ``arch`` (PRNGKey(0)) and the
     port's copy of it, with the port's model."""
-    jcfg, tcfg = _cfgs(**kw)
+    jcfg, tcfg = _cfgs(arch, **kw)
     jm = j_build_model(jcfg)
     jstate = j_init_train_state(jm, jax.random.PRNGKey(0))
     tm = build_model(tcfg, device="cpu")
@@ -180,6 +179,32 @@ def test_train_step_matches_jax(mu):
                                    rtol=1e-5, err_msg=k)
     _assert_update(tstate.params, jstate.params, before)
     assert int(tstate.opt["step"]) == int(jstate.opt["step"]) == 1
+
+
+@pytest.mark.parametrize("arch,mu", [("qwen3-moe-30b-a3b", 1),
+                                     ("qwen3-moe-30b-a3b", 2),
+                                     ("phi3.5-moe-42b-a6.6b", 1)])
+def test_moe_train_step_matches_jax(arch, mu):
+    """One step of make_train_step for a reduced MoE config (fp32
+    compute; 4 x 32 tokens, capacity 64 of 128, so tokens are dropped;
+    each of two micro-batches routes its 64 alone, as in JAX): the loss,
+    its aux and the update of every parameter, the router's and the
+    experts' included, with the tolerances of the dense step."""
+    jm, jstate, tm, tstate = _state_pair(arch, compute_dtype="float32")
+    before = {n: p.detach().clone() for n, p in tstate.params.items()}
+    batch = next(token_batches(512, 4, 32, seed=1))
+    jstep = jax.jit(j_make_train_step(jm, JOptConfig(warmup_steps=1),
+                                      num_microbatches=mu))
+    jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
+                                  for k, v in batch.items()})
+    tstep = make_train_step(tm, OptConfig(warmup_steps=1),
+                            num_microbatches=mu)
+    tstate, tmet = tstep(tstate, {k: _t(v) for k, v in batch.items()})
+    assert float(tmet["aux"]) > 0
+    for k in ("loss", "ce", "aux", "ntok", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=1e-5, err_msg=k)
+    _assert_update(tstate.params, jstate.params, before)
 
 
 def test_microbatched_step_matches_flat():
@@ -416,6 +441,60 @@ def test_convert_round_trips_the_jax_tree():
         np.testing.assert_array_equal(a, b)
     assert isinstance(tstate, TrainState)
     assert all(p.requires_grad for p in tstate.params.values())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_convert_round_trips_the_moe_tree(arch):
+    """A JAX MoE train state into the port and its parameters back, bit
+    for bit: ``moe.router.w`` (float32), ``moe.wg``, ``moe.wu`` and
+    ``moe.wd`` of every layer, in ``init``'s names and shapes."""
+    jm, jstate, tm, tstate = _state_pair(arch)
+    names = {n for n in tstate.params if ".moe." in n}
+    assert names == {f"layers.{i}.moe.{leaf}" for i in range(2)
+                     for leaf in ("router.w", "wg", "wu", "wd")}
+    back = convert.model_params_to_jax(tstate.params)
+    want = jax.tree.map(np.asarray, jstate.params)
+    assert jax.tree.structure(back) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    assert set(tstate.opt["m"]) == set(tstate.params)
+    params = tm.init(torch.Generator().manual_seed(0))
+    assert {n: tuple(p.shape) for n, p in params.items()} == \
+        {n: tuple(t.shape) for n, t in tstate.params.items()}
+
+
+def test_launch_loop_moe_matches_jax(tmp_path, monkeypatch, capsys):
+    """``launch.train`` of phi3.5-moe-42b-a6.6b (its reduced config in
+    fp32 compute) against the JAX entry point's three steps on the same
+    token_batches from one step-0 checkpoint, as the dense loop above."""
+    import repro.launch.train as JT
+    from repro_torch.launch.train import train
+    arch = "phi3.5-moe-42b-a6.6b"
+    jcfg, tcfg = _cfgs(arch, compute_dtype="float32")
+    monkeypatch.setattr(JT, "reduced", lambda c: jcfg)
+    init = j_init_train_state(j_build_model(jcfg), jax.random.PRNGKey(0))
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    for d in (jdir, tdir):
+        JC.save_checkpoint(d, init, step=0)
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--arch", arch, "--steps", "3", "--batch", "2", "--seq",
+        "32", "--ckpt-dir", str(jdir), "--save-every", "3", "--log-every",
+        "1"])
+    JT.main()
+    out = capsys.readouterr().out
+    jlosses = [float(line.split("loss=")[1].split()[0])
+               for line in out.splitlines() if "loss=" in line]
+    rec = train(tcfg, steps=3, batch=2, seq=32, ckpt_dir=tdir,
+                save_every=3, log_every=1, device="cpu")
+    assert rec["resumed_from"] == 0 and rec["restarts"] == 0
+    assert len(jlosses) == 3
+    np.testing.assert_allclose(rec["losses"], jlosses, rtol=0, atol=1e-4)
+    jfinal = JC.restore_checkpoint(JC.latest_checkpoint(jdir),
+                                   jax.eval_shape(lambda: init))
+    before = convert.model_params_from_jax(jax.tree.map(np.asarray,
+                                                        init.params))
+    _assert_update(rec["state"].params, jfinal.params, before)
 
 
 def test_launch_command_line_always_trains_the_reduced_config(monkeypatch):
