@@ -104,6 +104,8 @@ Phases (the first failed check exits non-zero, with no result line):
    with the saved parameters bit for bit, and ``RestartManager`` may
    restart nothing (it restarts on any exception, which would hide a
    kernel fault).
+   7b: the same with ``--arch mamba2-780m`` (``reduced``: K7 on its
+   CUDA-core design at head dim 32, and no other kernel).
 8. K6 replays: its training launch of phase 6 and a sliding-window case at
    hymba-1.5b's width (25 heads, 5 KV heads of 64, window 1,024, 4,096
    tokens), dq, dk and dv each held against the fp32 plain version on the
@@ -272,8 +274,9 @@ Phases (the first failed check exits non-zero, with no result line):
    (``RoutingPin``), each row within MOE_LOGITS_RTOL of its norm; the
    plain version routing freely is read beside, not held. 17c: a
    prefill of 2 x 31 tokens and one decode step against ``train_logits``
-   of 2 x 32 (the capacity clamps to T: no token can be dropped), the
-   argmaxes equal and each row within MOE_TF_RTOL. The 4 x 2,048 decode is
+   of 2 x 32 (the capacity clamps to T: no token can be dropped), both
+   in a fixed summing order (``fixed_order``), the argmaxes equal and
+   each row within MOE_TF_RTOL. The 4 x 2,048 decode is
    not held against a prefill of one more token: a prefill drops the
    tokens past an expert's capacity, a one-token decode drops none.
 18. MoE training at qwen3-moe-30b's full width with 2 of its 48 layers
@@ -297,6 +300,40 @@ Phases (the first failed check exits non-zero, with no result line):
    the stacked fallback), K4 on its CUDA-core design for the serving
    example (float32 pages), K5 and K6 on wgmma for the training example;
    no other.
+20. SSM training at mamba2-780m's full width and depth (48 layers, fp32
+   parameters, bf16 compute, ``remat="full"``): 20a, phase 6a's gradient
+   check on 1 x 4,096 tokens through 4 of the layers, K7 forward and
+   ``ssd_scan_bwd`` against ``ssd_scan_plain`` differentiated by autograd
+   (``plain_versions``), the loss within SSM_LOSS_TOL (6a's LOSS_TOL is
+   passed by K7's bf16 rounding alone here) and every gradient within
+   GRAD_RTOL of its norm; the last layer's state adjoint dropped at
+   the middle chunk boundary is read beside (``dropped_state_adjoint``:
+   a parameter's gradient moves by a few percent of its norm, which
+   GRAD_RTOL cannot hold), and held instead on the last layer's own scan
+   (``scan_grad_check``): dxdt, da, dB and dC within SCAN_GRAD_RTOL of
+   the plain version's, the same dropped adjoint at least CONTROL_FACTOR
+   times that limit. 20b: six ``make_train_step`` steps of 2 x 4,096
+   tokens through ``PrefetchPipeline``, every loss finite, K7 launched
+   twice a layer and step on its tensor design and no other kernel;
+   tokens/s over steps 2-6, forward, backward, AdamW and
+   ``ssd_scan_bwd`` on CUDA events (the backward's share of the step),
+   then one more step under ``torch.profiler`` (busy share, K7's time).
+21. The same for hybrid training at hymba-1.5b's full width and depth (32
+   layers, window 1,024, 25 heads with 5 KV heads of 64, 50 SSD heads,
+   state 16): K5, K6 (window, GQA) and K7 against their plain versions
+   in 21a with 6a's zeroed-dq control too (over K6's first dq block of
+   128 rows), and in 21b K5 launched twice,
+   K6 once and K7 twice a layer and step, K5 and K6 on wgmma, K7 on
+   tensor.
+22. The training switches at mamba2-780m's full width with 4 layers on
+   1 x 4,096 tokens: the loss and gradients under ``remat`` ``full``,
+   ``dots`` and ``remat_group=2`` against ``none`` within REMAT_RTOL of
+   each norm (bit-for-bit equality printed) and each mode's peak of
+   allocated memory; then two steps each of ``compress_grads`` in
+   ``int8`` and ``topk`` (1%) with error feedback as the train step's
+   ``grad_transform``: every sent int8 element within INT8_STEPS of its
+   target, the new error feedback target - sent, top-k keeping at least
+   k elements at or above the threshold and zero elsewhere.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -305,13 +342,14 @@ design (bf16 at head dims 64 and 128) within the limits that
 readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16, 4,
-6b, 7, 9a, 9c, 10, 17a, 18 and each example of 19 and read just after;
-every bf16 launch of K5 and K6 in phases 4, 6b, 10, 17a, 18 and 19 must
-have gone through the wgmma design. A segment kernel's
+6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b and 21b and read
+just after; every bf16 launch of K5 and K6 in phases 4, 6b, 10, 17a, 18,
+19 and 21b must have gone through the wgmma design, and every K7 launch
+of 20b and 21b through the tensor design. A segment kernel's
 ``launches`` is its count in the run whose launch it replays (K1 the
 Linear Road run, K2 the main run, K3 the split-K run;
 ``launches_by_run`` gives every run's count, and every kernel's counts
-in phases 17a, 18 and 19); K4's and K5's are their counts in
+in phases 17a, 18, 19, 7b, 20b and 21b); K4's and K5's are their counts in
 phase 4, K6's in phase 6b, K7's in phase 9a. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
@@ -2426,6 +2464,17 @@ ENTRY_RUN = dict(first=4, second=8, save_every=2)
 #: query tile of 64 rows' dq zeroed) moves layers.7.attn.q.w by 50.005%.
 GRAD_RTOL = 0.05
 LOSS_TOL = 1e-4
+#: phases 20a and 21a hold the loss within SSM_LOSS_TOL: on an H100 the
+#: bf16 rounding of K7 (and in 21a of K5/K6) against the plain versions
+#: moved the loss by 1.56e-4 of 17.50 (mamba2-780m, 4 layers, 1 x 4,096)
+#: and 1.34e-4 of 10.88 (hymba-1.5b), past LOSS_TOL; about 3 x those
+SSM_LOSS_TOL = 5e-4
+#: phases 20a and 21a hold the SSD scan's gradient on the last layer's
+#: own inputs (``scan_grad_check``): both sides compute in float32 from the
+#: same inputs and round the gradients of bf16 inputs once to bf16, so
+#: each within 1e-3 of its norm (a quarter of a bf16 ulp); on an H100
+#: they read 8.0e-5 (mamba2-780m) and 5.0e-5 (hymba-1.5b)
+SCAN_GRAD_RTOL = 1e-3
 #: K6's elementwise check counts magnitudes below GRAD_ULP_FLOOR x the
 #: tensor's largest |value| as that floor (gradients of a mean loss are
 #: small, so the floor is relative where ATTN_ULP_FLOOR is absolute)
@@ -2452,14 +2501,14 @@ def grads_rel(got, want) -> tuple:
     return worst, name
 
 
-def grads_close(got, want) -> dict:
+def grads_close(got, want, loss_tol: float = LOSS_TOL) -> dict:
     """(loss, grads) of the kernels' path against the plain versions':
-    the loss within LOSS_TOL, each gradient within GRAD_RTOL of its norm.
-    Returns the readings."""
+    the loss within ``loss_tol`` (LOSS_TOL), each gradient within
+    GRAD_RTOL of its norm. Returns the readings."""
     (lk, _), (lp, _) = got, want
     loss_err = abs(lk - lp)
-    check(math.isfinite(lk) and loss_err <= LOSS_TOL,
-          f"loss {lk} against {lp}: beyond {LOSS_TOL}")
+    check(math.isfinite(lk) and loss_err <= loss_tol,
+          f"loss {lk} against {lp}: beyond {loss_tol}")
     worst, name = grads_rel(got, want)
     check(worst <= GRAD_RTOL, f"the gradient of {name} is off by "
                               f"{worst:.3g} of its norm, beyond {GRAD_RTOL}")
@@ -2572,23 +2621,139 @@ def fixed_order():
         det.fill_uninitialized_memory = was[2]
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """While entered, the model's kernels take their plain versions,
+    differentiated by autograd: K5/K6 through ``ops.flash_attention_vjp``'s
+    ``ref`` backend, K7 through ``ssd_scan_plain`` tiled as its design
+    tiles (``kernel_chunk``; the model's chunk on the CPU)."""
+    from repro_torch.kernels import ops
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    real_vjp = ops.flash_attention_vjp
+
+    def plain_k7(i, fn, xdt, a, B, C, chunk=256, init_state=None,
+                 design=None):
+        q = ss.kernel_chunk(xdt.dtype, xdt.shape[-1], B.shape[-1]) \
+            if xdt.is_cuda else chunk
+        return ss.ssd_scan_plain(xdt, a, B, C, chunk=q,
+                                 init_state=init_state)
+
+    ops.flash_attention_vjp = functools.partial(real_vjp, backend="ref")
+    try:
+        with K7Tap(plain_k7):
+            yield
+    finally:
+        ops.flash_attention_vjp = real_vjp
+
+
+@contextlib.contextmanager
+def dropped_state_adjoint(at: int):
+    """While entered, the first ``ssd_scan_bwd`` to run (the last
+    layer's: its backward runs first) loses the state's adjoint at one
+    chunk boundary: call ``at`` of its reverse walk (chunk nc - 1 - at)
+    passes zero to the chunk before instead of its state's gradient."""
+    import torch
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    real, calls = ss._chunk_vjp, []
+
+    def drop(*args):
+        out = real(*args)
+        if len(calls) == at:
+            out = (*out[:4], torch.zeros_like(out[4]))
+        calls.append(1)
+        return out
+
+    ss._chunk_vjp = drop
+    try:
+        yield calls
+    finally:
+        ss._chunk_vjp = real
+
+
+def state_drop_at(cfg, seq: int) -> tuple:
+    """(the reverse walk's call, the boundary's chunks) of the state
+    adjoint that ``grad_check`` drops: the boundary in the middle of
+    ``seq`` tokens in the model's chunks."""
+    nc = -(-seq // cfg.ssm.chunk_size)
+    mid = max(nc // 2, 1)
+    return nc - 1 - mid, (mid - 1, mid)
+
+
+def scan_grad_check(model, params, batch) -> dict:
+    """The SSD scan's gradient on the last layer's own scan inputs (K7's
+    call of the model's forward on ``batch``, kept by ``kept_launch``),
+    for seeded random cotangents on y and on the final state: each of
+    dxdt, da, dB, dC through K7 and ``ssd_scan_bwd`` within SCAN_GRAD_RTOL
+    of its norm of the same through ``ssd_scan_plain`` (tiled as K7 tiles)
+    differentiated by autograd; as a control that must read at least
+    CONTROL_FACTOR times that limit, the state's adjoint dropped at the
+    middle chunk boundary (``dropped_state_adjoint``)."""
+    import torch
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    cfg, dev = model.cfg, model.device
+    with torch.no_grad():
+        args = kept_launch(lambda: model.loss(params, batch),
+                           keep=cfg.num_layers - 1)
+    xdt, a, B, C = (args[k] for k in ("xdt", "a", "B", "C"))
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    chunk = args["chunk"]
+    q = ss.kernel_chunk(xdt.dtype, p, n) if xdt.is_cuda else chunk
+    g = torch.Generator(dev).manual_seed(SEED + 20)
+    dy = torch.randn(xdt.shape, generator=g, device=dev).to(xdt.dtype)
+    dst = torch.randn((b, h, p, n), generator=g, device=dev)
+
+    def vjp(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (xdt, a, B, C)]
+        y, st = fn(*leaves)
+        return 0.0, dict(zip(("xdt", "a", "B", "C"), torch.autograd.grad(
+            (y, st), leaves, (dy, dst))))
+
+    def kernel_fn(*t):
+        return ss.ssd_scan_cuda(*t, chunk=chunk)
+
+    kernel = vjp(kernel_fn)
+    plain = vjp(lambda *t: ss.ssd_scan_plain(*t, chunk=q))
+    worst, name = grads_rel(kernel, plain)
+    check(worst <= SCAN_GRAD_RTOL, f"the scan's gradient d{name} is off by "
+          f"{worst:.3g} of its norm, beyond {SCAN_GRAD_RTOL}")
+    at, (c0, c1) = state_drop_at(cfg, s)
+    with dropped_state_adjoint(at):
+        bad = vjp(kernel_fn)
+    bad_worst, bad_name = grads_rel(bad, plain)
+    log(f"  the last layer's scan (xdt {tuple(xdt.shape)} "
+        f"{str(xdt.dtype)[6:]}, chunk {chunk} against the plain version's "
+        f"{q}): the worst gradient d{name} off by {worst:.3g} of its norm "
+        f"(limit {SCAN_GRAD_RTOL})")
+    ratio = control_reads(f"the state adjoint between chunks {c0} and "
+                          f"{c1} dropped (d{bad_name})", bad_worst,
+                          SCAN_GRAD_RTOL)
+    return {"grad_rel_err": worst, "worst": name, "control_ratio": ratio,
+            "shape": tuple(xdt.shape)}
+
+
 def grad_check(model, params, run: dict) -> dict:
-    """6a: one loss and backward on 1 x grad_seq tokens through K5/K6, the
-    same with the attention's plain versions, held together by
-    ``grads_close``; then, as a control that must read at least
-    CONTROL_FACTOR times GRAD_RTOL, the kernels' path with K6's dq of its
-    first launch's first query tile zeroed (the last layer's, whose
-    backward runs first). An MoE model's plain and control runs take the
-    kernels' run's routing (``RoutingPin``); the loss of the plain
-    versions routing freely, and the tokens it routes otherwise, are
-    read beside. Every run sums in a fixed order (``fixed_order``)."""
+    """6a: one loss and backward on 1 x grad_seq tokens through the
+    kernels (K5/K6 where the model has attention, K7 forward and
+    ``ssd_scan_bwd`` where it has SSD layers), the same through their
+    plain versions (``plain_versions``), held together by ``grads_close``;
+    then, as controls that must each read at least CONTROL_FACTOR times
+    GRAD_RTOL, the kernels' path with K6's dq of its first launch's first
+    query tile zeroed (the last layer's, whose backward runs first) and
+    with the state's adjoint of the last layer dropped at the boundary in
+    the middle of the sequence (``dropped_state_adjoint``). An MoE model's
+    plain and control runs take the kernels' run's routing
+    (``RoutingPin``); the loss of the plain versions routing freely, and
+    the tokens it routes otherwise, are read beside. Every run sums in a
+    fixed order (``fixed_order``)."""
     import torch
     from repro_torch.data.generators import token_batches
-    from repro_torch.kernels import ops
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     dev = model.device
+    cfg = model.cfg
     batch = {k: torch.from_numpy(v).to(dev) for k, v in next(token_batches(
-        model.cfg.vocab_size, 1, run["grad_seq"], seed=SEED + 6)).items()}
+        cfg.vocab_size, 1, run["grad_seq"], seed=SEED + 6)).items()}
 
     def grads():
         loss, _ = model.loss(params, batch)
@@ -2598,32 +2763,45 @@ def grad_check(model, params, run: dict) -> dict:
     def zero_first_tile(*args, **kw):
         dq, dk, dv = real_bwd(*args, **kw)
         if not zeroed:
-            dq[:, :64] = 0
+            dq[:, :rows] = 0
             zeroed.append(True)
         return dq, dk, dv
 
     t0 = time.perf_counter()
     pin, free, zeroed = RoutingPin(), RoutingPin(), []
-    real_vjp, real_bwd = ops.flash_attention_vjp, fa.flash_attention_bwd_cuda
+    rows = run.get("dq_rows", 64)
+    real_bwd = fa.flash_attention_bwd_cuda
+    controls = {}
     with fixed_order():
         with pin.record():
             kernel = grads()
-        ops.flash_attention_vjp = functools.partial(real_vjp, backend="ref")
-        try:
+        with plain_versions():
             with pin.replay():
                 plain = grads()
             if pin.calls:
                 with free.record(), torch.no_grad():
                     free_loss = float(model.loss(params, batch)[0])
-        finally:
-            ops.flash_attention_vjp = real_vjp
-        fa.flash_attention_bwd_cuda = zero_first_tile
-        try:
-            with pin.replay():
-                bad = grads()
-        finally:
-            fa.flash_attention_bwd_cuda = real_bwd
-    rec = grads_close(kernel, plain)
+        if cfg.has_attention:
+            fa.flash_attention_bwd_cuda = zero_first_tile
+            try:
+                with pin.replay():
+                    controls["control_ratio"] = (
+                        f"K6's dq of the last layer's first {rows} query "
+                        "rows zeroed", grads())
+            finally:
+                fa.flash_attention_bwd_cuda = real_bwd
+        if cfg.ssm.enabled:
+            at, (c0, c1) = state_drop_at(cfg, run["grad_seq"])
+            with dropped_state_adjoint(at), pin.replay():
+                dropped = grads()
+    rec = grads_close(kernel, plain, run.get("loss_tol", LOSS_TOL))
+    if cfg.ssm.enabled:
+        worst, name = grads_rel(dropped, plain)
+        rec["state_drop_read"] = worst
+        log(f"  read, not held: the last layer's state adjoint between "
+            f"chunks {c0} and {c1} dropped moves {name} by {worst:.3g} of "
+            f"its norm ({worst / GRAD_RTOL:.1f} x GRAD_RTOL)")
+        rec["scan"] = scan_grad_check(model, params, batch)
     if pin.calls:
         # the forward's calls come first in both records (the remat
         # recompute's follow in the kernels' run)
@@ -2633,21 +2811,23 @@ def grad_check(model, params, run: dict) -> dict:
             f"plain versions' loss is off by {rec['free_loss_err']:.3g} and "
             f"route {rec['turned'][0]} of {rec['turned'][1]} (layer, token) "
             "rows otherwise")
-    worst, name = grads_rel(bad, plain)
-    rec["control_ratio"] = control_reads(
-        f"K6's dq of the last layer's first query tile zeroed ({name})",
-        worst, GRAD_RTOL)
+    for key, (what, bad) in controls.items():
+        worst, name = grads_rel(bad, plain)
+        rec[key] = control_reads(f"{what} ({name})", worst, GRAD_RTOL)
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
 
-def train_run(model, params, run: dict) -> dict:
+def train_run(model, params, run: dict, after=None) -> dict:
     """6b: ``make_train_step`` for run["steps"] steps on ``token_batches``
     through ``PrefetchPipeline``; the loss must be finite at every step.
     Each step's forward (``model.loss``), backward (to the optimizer) and
     optimizer (``adamw_update``) are timed on the device's clock (CUDA
-    events; the host's on the CPU). K6's first launch is kept for
-    phase 8."""
+    events; the host's on the CPU), and so is every ``ssd_scan_bwd`` of
+    the step (``ssd_bwd_s``: the SSD scan's gradient, summed). K6's first
+    launch is kept for phase 8. ``after(one_step)``, where given, runs
+    after the steps with a function that makes one more step, and its
+    result is kept as ``after``."""
     import torch
     from repro_torch.data.generators import token_batches
     from repro_torch.data.pipeline import PrefetchPipeline
@@ -2655,6 +2835,7 @@ def train_run(model, params, run: dict) -> dict:
     from repro_torch.train import train_step as ts_mod
     from repro_torch.train.optimizer import adamw_init
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
     dev = model.device
     cuda = dev.type == "cuda"
 
@@ -2668,9 +2849,16 @@ def train_run(model, params, run: dict) -> dict:
     def span(a, b) -> float:
         return (b - a) if not cuda else a.elapsed_time(b) / 1e3
 
-    marks, kept = [], {}
+    marks, kept, ssd_marks = [], {}, []
     real_loss, real_update, real_bwd = (model.loss, ts_mod.adamw_update,
                                         fa.flash_attention_bwd_cuda)
+    real_ssd_bwd = ss.ssd_scan_bwd
+
+    def timed_ssd_bwd(*a, **kw):
+        ssd_marks.append(stamp())
+        out = real_ssd_bwd(*a, **kw)
+        ssd_marks.append(stamp())
+        return out
 
     def timed_loss(*a, **kw):
         marks.append(stamp())
@@ -2698,10 +2886,13 @@ def train_run(model, params, run: dict) -> dict:
                             depth=2, device=dev)
     model.loss, ts_mod.adamw_update = timed_loss, timed_update
     fa.flash_attention_bwd_cuda = keep_first
-    losses, auxes, wall, parts = [], [], [], []
+    ss.ssd_scan_bwd = timed_ssd_bwd
+    losses, auxes, wall, parts, ssd_bwd = [], [], [], [], []
+    extra = None
     try:
         for _ in range(run["steps"]):
             marks.clear()
+            ssd_marks.clear()
             t0 = time.perf_counter()
             state, metrics = step_fn(state, next(data))
             losses.append(float(metrics["loss"]))
@@ -2711,12 +2902,17 @@ def train_run(model, params, run: dict) -> dict:
             wall.append(time.perf_counter() - t0)
             f0, f1, u0, u1 = marks
             parts.append((span(f0, f1), span(f1, u0), span(u0, u1)))
+            ssd_bwd.append(sum(span(ssd_marks[i], ssd_marks[i + 1])
+                               for i in range(0, len(ssd_marks), 2)))
             check(math.isfinite(losses[-1]),
                   f"step {len(losses)}: loss {losses[-1]} is not finite")
+        if after is not None:
+            extra = after(lambda: step_fn(state, next(data)))
     finally:
         model.loss = real_loss
         ts_mod.adamw_update = real_update
         fa.flash_attention_bwd_cuda = real_bwd
+        ss.ssd_scan_bwd = real_ssd_bwd
         data.close()
     tokens = run["batch"] * run["seq"]
     timed = wall[1:] or wall
@@ -2724,13 +2920,15 @@ def train_run(model, params, run: dict) -> dict:
             "tokens_per_s": tokens * len(timed) / sum(timed),
             "forward_s": [p[0] for p in parts],
             "backward_s": [p[1] for p in parts],
-            "optimizer_s": [p[2] for p in parts],
-            "grad_norm": float(metrics["grad_norm"]), "largest_k6": kept}
+            "optimizer_s": [p[2] for p in parts], "ssd_bwd_s": ssd_bwd,
+            "grad_norm": float(metrics["grad_norm"]), "largest_k6": kept,
+            "after": extra}
 
 
-def run_entry(device, tmp_root: Path) -> dict:
-    """Phase 7: ``launch.train`` at its default config (reduced
-    TRAIN_ARCH, as the CLI always trains) to ENTRY_RUN["first"] steps with
+def run_entry(device, tmp_root: Path, arch: str = TRAIN_ARCH) -> dict:
+    """Phase 7: ``launch.train`` at its default config (reduced ``arch``,
+    TRAIN_ARCH's by default; phase 7b SSM_ARCH's, as the CLI always
+    trains) to ENTRY_RUN["first"] steps with
     checkpoints, then asked for ENTRY_RUN["second"]: it must resume from
     LATEST with the first run's final parameters bit for bit, and neither
     run may restart (``RestartManager`` restarts on any exception, which
@@ -2738,7 +2936,7 @@ def run_entry(device, tmp_root: Path) -> dict:
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import train as LT
-    cfg = reduced(get_config(TRAIN_ARCH))
+    cfg = reduced(get_config(arch))
     ckpt = Path(tempfile.mkdtemp(prefix="ckpt_", dir=tmp_root))
     kw = dict(ckpt_dir=ckpt, save_every=ENTRY_RUN["save_every"],
               log_every=1, device=device)
@@ -3575,17 +3773,21 @@ def k7_fp32_record(args: dict, iters: int) -> dict:
                     xdt, a, B, C, init_state=h0), iters))
 
 
-def device_profile(fn):
+def device_profile(fn, host: bool = True):
     """``fn`` once under ``torch.profiler``: its wall seconds and
     [(device us, calls, kernel)] by the kernels' self time, largest
-    first (empty where the profiler saw no device time)."""
+    first (empty where the profiler saw no device time). ``host=False``
+    traces the device alone, which costs far less over a step of tens of
+    thousands of launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync = torch.cuda.synchronize if torch.cuda.is_available() \
         else (lambda: None)               # the CPU rehearsal
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the CPU rehearsal traces the host: the profiler takes no empty list
+    host = host or not torch.cuda.is_available()
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -3991,7 +4193,10 @@ def moe_teacher_forcing(model, params, run: dict, seed: int) -> dict:
     """17c: prefill of tf_batch x (tf_seq - 1) tokens and one decode step
     against ``train_logits`` of all tf_seq at the last position. The
     capacity clamps to T in both (no token can be dropped), so the
-    argmaxes must be equal."""
+    argmaxes must be equal. Both sum in a fixed order (``fixed_order``):
+    in no fixed order the scatter's bf16 sums moved the logits by more
+    than one row's two largest logits lie apart, and turned that row's
+    argmax in one run on an H100."""
     import torch
     from repro_torch.models.moe import _capacity
     cfg, dev = model.cfg, model.device
@@ -4000,10 +4205,11 @@ def moe_teacher_forcing(model, params, run: dict, seed: int) -> dict:
         check(_capacity(t, cfg) == t, f"17c: capacity {_capacity(t, cfg)} "
                                       f"of {t} tokens drops some")
     toks = _prompt(cfg, b, s, seed, dev)
-    with torch.no_grad():
+    with fixed_order(), torch.no_grad():
         full, _ = model.train_logits(params, {"tokens": toks})
-    _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, max_len=s)
-    step, cache = model.decode_step(params, toks[:, -1:], cache)
+        _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                                 max_len=s)
+        step, cache = model.decode_step(params, toks[:, -1:], cache)
     v = cfg.vocab_size
     want = full[:, -1:, :v]
     same = bool(torch.equal(step[..., :v].argmax(-1), want.argmax(-1)))
@@ -4292,6 +4498,335 @@ def failure_controls(dev, spill_root: Path, windows: float) -> dict:
     return {"retry": {k: rec[k] for k in (
         "events", "windows", "events_per_s", "max_mean_abs_err",
         "pipeline", "store_failures", "counts")}}
+
+
+# ------------------------------------------------------------ phases 20-22
+#: phases 20 and 21: SSM_ARCH and HYBRID_ARCH trained at full width and
+#: depth (fp32 parameters, bf16 compute, ``remat="full"``): the gradient
+#: check (a) on 1 x grad_seq tokens through grad_layers of the layers,
+#: then (b) six steps of 2 x 4,096 tokens and one more step profiled
+SSM_TRAIN_RUN = dict(batch=2, seq=4096, steps=6, grad_seq=4096,
+                     grad_layers=4, loss_tol=SSM_LOSS_TOL)
+#: 21a's zeroed-dq control drops K6's first dq block of the wgmma design
+#: (DQ_TILES: 128 query rows): 6a's 64 rows read below CONTROL_FACTOR at
+#: hymba-1.5b's 4,096 tokens on an H100
+HYBRID_TRAIN_RUN = dict(SSM_TRAIN_RUN, dq_rows=128)
+#: phase 22: SSM_ARCH at full width with 4 layers on 1 x 4,096 tokens:
+#: each remat mode against "none", then two compressed steps of each kind
+SWITCH_RUN = dict(layers=4, seq=4096, steps=2, topk_frac=0.01)
+#: each remat mode's gradients against "none"'s, in units of their norm
+REMAT_RTOL = 1e-3
+REMAT_MODES = {"none": ("none", 0), "full": ("full", 0),
+               "dots": ("dots", 0), "remat_group=2": ("full", 2)}
+#: an int8 element sent against its target, in quantization steps: half
+#: a step, and the float32 rounding of q x scale (up to half an ulp of
+#: 127 steps, below 2**-17 of a step)
+INT8_STEPS = 0.5 + 2.0 ** -16
+#: their CPU rehearsal (reduced widths: chunk 32)
+SMALL_SSM_TRAIN = dict(batch=2, seq=96, steps=3, grad_seq=96,
+                       grad_layers=2, loss_tol=SSM_LOSS_TOL)
+SMALL_SWITCH = dict(layers=4, seq=96, steps=2, topk_frac=0.01)
+#: K7's kernels by name (the tensor design's three, the CUDA-core one)
+K7_KERNEL_NAMES = ("chunk_state_kernel", "state_pass_kernel",
+                   "output_kernel", "ssd_scan_kernel")
+
+
+def ssm_profile(one_step) -> dict:
+    """One more training step under ``torch.profiler``: the wall, the
+    device busy share by the kernels' summed self time, K7's device time
+    and the ten largest kernels; the device alone is traced."""
+    t0 = time.perf_counter()
+    wall, rows = device_profile(one_step, host=False)
+    log(f"  profiled one step in {time.perf_counter() - t0:.1f} s, the "
+        "trace's reading included")
+    busy = sum(r[0] for r in rows) / 1e6
+    k7 = sum(r[0] for r in rows if any(k in r[2] for k in K7_KERNEL_NAMES))
+    return {"wall_s": wall, "busy_s": busy,
+            "busy_share": busy / wall if rows else None,
+            "k7_ms": k7 / 1e3, "top": rows[:10]}
+
+
+def ssm_train(device, cfg, run: dict, seed: int, every: dict,
+              phase: int) -> dict:
+    """Phase 20 (21): ``cfg`` trained at full width. (a) ``grad_check``
+    at grad_layers layers; (b) at full depth, ``train_run``'s steps with
+    every kernel's launches counted (K7 on the tensor design twice a
+    layer and step under ``remat="full"``, K5 twice and K6 once on wgmma
+    where the model has attention), then one step profiled; the
+    backward's share of a step is ``ssd_scan_bwd``'s device time over
+    the step's wall, in steps 2-6."""
+    import torch
+    t_phase = time.perf_counter()
+    model, params = build_serve(device, dataclasses.replace(
+        cfg, num_layers=run["grad_layers"]), seed)
+    grad = grad_check(model, params, run)
+    log(f"phase {phase}a: gradient check on 1 x {run['grad_seq']} tokens "
+        f"through {run['grad_layers']} layers, the kernels against their "
+        f"plain versions: loss {grad['loss']:.6f} (off by "
+        f"{grad['loss_err']:.3g}, limit {run['loss_tol']}), the worst "
+        f"gradient {grad['worst_param']} off by {grad['grad_rel_err']:.3g} "
+        f"of its norm (limit {GRAD_RTOL}), {grad['seconds']:.1f} s")
+    del model, params
+    gc.collect()
+    _empty(device)
+    t0 = time.perf_counter()
+    model, params = build_serve(device, cfg, seed + 1)
+    n_params = sum(p.numel() for p in params.values())
+    log(f"phase {phase}: {cfg.name} at full width and depth "
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSD heads of "
+        f"{cfg.ssm.head_dim}, state "
+        f"{cfg.ssm.state_size}"
+        + (f", {cfg.num_heads} heads with {cfg.num_kv_heads} KV heads of "
+           f"{cfg.resolved_head_dim}, window {cfg.attn_window}"
+           if cfg.has_attention else "")
+        + f"; fp32 parameters, bf16 compute, remat {cfg.remat!r}): "
+        f"{n_params / 1e9:.3f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    zero_counts(every.values())
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    seen = {}
+
+    def after(one_step):
+        seen["launches"] = {k: fn.launches for k, fn in every.items()}
+        seen["by_design"] = by_design(every)
+        seen["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+            if device.type == "cuda" else 0
+        return ssm_profile(one_step)
+
+    t0 = time.perf_counter()
+    train = train_run(model, params, run, after=after)
+    train.update(seen)
+    train["wall_s"] = time.perf_counter() - t0
+    train.pop("largest_k6")
+    train["grad_check"] = grad
+    del model, params
+    gc.collect()
+    _empty(device)
+    timed = slice(1, None) if len(train["step_s"]) > 1 else slice(None)
+    train["ssd_bwd_share"] = sum(train["ssd_bwd_s"][timed]) \
+        / sum(train["step_s"][timed])
+    log(f"phase {phase}b: {run['steps']} steps of {run['batch']} x "
+        f"{run['seq']} tokens: losses "
+        f"{[round(x, 4) for x in train['losses']]}, "
+        f"{train['tokens_per_s']:.1f} tokens/s over steps 2-{run['steps']}"
+        f", launches {train['launches']} (by design {train['by_design']}), "
+        f"max_memory_allocated {train['max_memory_allocated'] / 1e9:.2f} GB")
+    log("  step seconds (wall / forward / backward / optimizer / "
+        "ssd_scan_bwd): " + "; ".join(
+            f"{w:.3f} / {f:.3f} / {b:.3f} / {o:.3f} / {d:.3f}"
+            for w, f, b, o, d in zip(
+                train["step_s"], train["forward_s"], train["backward_s"],
+                train["optimizer_s"], train["ssd_bwd_s"])))
+    log(f"  ssd_scan_bwd's share of a step (steps 2-{run['steps']}, device "
+        f"time over the step's wall): {100 * train['ssd_bwd_share']:.1f}%")
+    pr = train["after"]
+    if pr["busy_share"] is None:
+        log("  profile: the profiler recorded no device time")
+    else:
+        log(f"  profile of one more step: {pr['wall_s']:.3f} s wall, device "
+            f"busy {pr['busy_s']:.3f} s ({100 * pr['busy_share']:.1f}%), K7 "
+            f"{pr['k7_ms']:.2f} ms")
+        for us, count, key in pr["top"]:
+            log(f"    {us / 1e3:10.2f} ms  x{count:<6d} {key[:90]}")
+    layers = cfg.num_layers
+    per_step = {"K7": 2 * layers}
+    if cfg.has_attention:
+        per_step.update(K5=2 * layers, K6=layers)
+    if device.type == "cuda":             # on the CPU nothing launches
+        for k, n in train["launches"].items():
+            want = per_step.get(k, 0) * run["steps"]
+            check(n == want, f"{phase}b: {k} launched {n} times, the path "
+                             f"implies {want}")
+        for k in per_step:
+            design = "tensor" if k == "K7" else "wgmma"
+            check(train["by_design"][k].get(design) == train["launches"][k],
+                  f"{phase}b: {k} by design {train['by_design'][k]}: a "
+                  f"launch missed the {design} design")
+    train["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase {phase}: {train['phase_s']:.1f} s")
+    return train
+
+
+def _empty(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def remat_modes(device, cfg, run: dict, seed: int) -> dict:
+    """22a: the loss and every gradient on 1 x seq tokens under each of
+    REMAT_MODES, the same weights, against ``"none"``'s: each gradient
+    within REMAT_RTOL of its norm, and whether they are bit for bit
+    equal. Each mode's peak of allocated device memory above what was
+    allocated before it (the parameters, and ``"none"``'s gradients for
+    the later modes) is read: ``dots`` should lie between ``none`` and
+    ``full``."""
+    import torch
+    from repro_torch.data.generators import token_batches
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(cfg, num_layers=run["layers"])
+    _, params = build_serve(device, cfg, seed)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in next(
+        token_batches(cfg.vocab_size, 1, run["seq"], seed=seed)).items()}
+    out, ref = {}, None
+    for mode, (remat, group) in REMAT_MODES.items():
+        gc.collect()
+        _empty(device)
+        base = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        model = build_model(dataclasses.replace(cfg, remat=remat),
+                            remat_group=group, device=device)
+        t0 = time.perf_counter()
+        loss, _ = model.loss(params, batch)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        _sync(device)
+        peak = torch.cuda.max_memory_allocated() - base \
+            if device.type == "cuda" else 0
+        r = {"loss": float(loss.detach()), "seconds":
+             time.perf_counter() - t0, "peak": peak}
+        check(math.isfinite(r["loss"]), f"22a: {mode}: loss {r['loss']}")
+        if ref is None:
+            ref = (r["loss"], grads)
+        else:
+            worst, name = grads_rel((r["loss"], grads), ref)
+            r.update(grad_rel_err=worst, worst_param=name,
+                     loss_err=abs(r["loss"] - ref[0]),
+                     bit_equal=r["loss"] == ref[0] and all(
+                         torch.equal(grads[k], ref[1][k]) for k in grads))
+            check(worst <= REMAT_RTOL, f"22a: {mode}: the gradient of {name} "
+                  f"is off by {worst:.3g} of its norm from remat 'none''s, "
+                  f"beyond {REMAT_RTOL}")
+        del loss, grads, model
+        out[mode] = r
+        log(f"phase 22a: {mode}: loss {r['loss']:.6f}, peak allocated "
+            f"above the parameters {r['peak'] / 1e9:.3f} GB, "
+            f"{r['seconds']:.2f} s"
+            + ("" if mode == "none" else
+               f"; against 'none': the worst gradient {r['worst_param']} "
+               f"off by {r['grad_rel_err']:.3g} of its norm (limit "
+               f"{REMAT_RTOL}), bit for bit equal {r['bit_equal']}"))
+    del ref, params
+    held = out["none"]["peak"] >= out["dots"]["peak"] >= out["full"]["peak"]
+    log(f"phase 22a: the prediction, dots' peak between none's and full's: "
+        f"{'held' if held else 'missed'}")
+    out["dots_between"] = held
+    return out
+
+
+def compressed_steps(device, cfg, run: dict, seed: int) -> dict:
+    """22b: ``make_train_step`` with ``compress_grads`` (error feedback
+    on) as its ``grad_transform``, run["steps"] steps of 1 x seq tokens
+    for each of ``int8`` and ``topk`` (run["topk_frac"]) on fresh weights.
+    Every step: the loss finite; every sent int8 element within half a
+    quantization step (the tensor's largest |target| / 127) of its target
+    (gradient + error feedback); the new error feedback equal to target -
+    sent; the top-k output keeping at least k elements, each equal to its
+    target and at or above the k-th largest |target|, and zero
+    elsewhere."""
+    import torch
+    from repro_torch.data.generators import token_batches
+    from repro_torch.data.pipeline import PrefetchPipeline
+    from repro_torch.train import (
+        CompressorConfig, OptConfig, compress_grads, init_error_feedback,
+        make_train_step,
+    )
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainState
+    cfg = dataclasses.replace(cfg, num_layers=run["layers"])
+    out = {}
+    for kind in ("int8", "topk"):
+        ccfg = CompressorConfig(kind=kind, topk_frac=run["topk_frac"])
+        model, params = build_serve(device, cfg, seed)
+        ef = [init_error_feedback(params)]
+        seen = {"int8_steps": 0.0, "kept": 0, "k": 0, "tensors": 0}
+
+        def transform(grads):
+            targets = {k: g.float() + ef[0][k] for k, g in grads.items()}
+            sent, new_ef = compress_grads(ccfg, grads, ef[0])
+            for k, t in targets.items():
+                sk, ek = sent[k], new_ef[k]
+                check(torch.equal(ek, t - sk), f"22b: {kind}: {k}: the "
+                      "new error feedback is not target - sent")
+                if kind == "int8":
+                    step = float(t.abs().max()) / 127.0 + 1e-12
+                    err = float((sk - t).abs().max()) / step
+                    check(err <= INT8_STEPS, f"22b: int8: {k}: an element "
+                          f"{err:.6f} steps from its target")
+                    seen["int8_steps"] = max(seen["int8_steps"], err)
+                else:
+                    n_k = max(int(t.numel() * ccfg.topk_frac), 1)
+                    thresh = torch.topk(t.abs().reshape(-1), n_k).values[-1]
+                    kept = (sk == t) & (t.abs() >= thresh)
+                    check(int(kept.sum()) >= n_k and not bool(
+                        sk[~kept].any()), f"22b: topk: {k}: "
+                        f"{int(kept.sum())} kept of k = {n_k}, or a "
+                        "value sent below the threshold")
+                    seen["kept"] += int(kept.sum())
+                    seen["k"] += n_k
+                seen["tensors"] += 1
+            ef[0] = new_ef
+            return sent
+
+        step_fn = make_train_step(model, OptConfig(warmup_steps=1),
+                                  grad_transform=transform)
+        state = TrainState(params=params, opt=adamw_init(params))
+        data = PrefetchPipeline(token_batches(cfg.vocab_size, 1, run["seq"],
+                                              seed=seed), depth=1,
+                                device=device)
+        losses = []
+        try:
+            for _ in range(run["steps"]):
+                state, metrics = step_fn(state, next(data))
+                losses.append(float(metrics["loss"]))
+                check(math.isfinite(losses[-1]),
+                      f"22b: {kind}: loss {losses[-1]}")
+        finally:
+            data.close()
+        ef_norm = math.sqrt(sum(float(e.square().sum())
+                                for e in ef[0].values()))
+        out[kind] = dict(seen, losses=losses, ef_norm=ef_norm)
+        del model, params, state, ef
+        gc.collect()
+        _empty(device)
+        log(f"phase 22b: {kind}: {run['steps']} steps, losses "
+            f"{[round(x, 4) for x in losses]}, error feedback's norm after "
+            f"them {ef_norm:.4g}; "
+            + (f"every sent element within {seen['int8_steps']:.6f} of a "
+               f"quantization step of its target (limit {INT8_STEPS:.6f})"
+               if kind == "int8" else
+               f"{seen['kept']} elements kept of k = {seen['k']} over "
+               f"{seen['tensors']} tensors, all at or above their "
+               "threshold"))
+    return out
+
+
+def ssm_train_phases(device, every: dict, small: bool = False) -> dict:
+    """Phases 20-22 (``small``: their CPU rehearsal, reduced configs and
+    SMALL_SSM_TRAIN's sizes). ``every`` holds the kernels' counting
+    wrappers. Returns the runs' records."""
+    from repro_torch.configs import get_config, reduced
+    runs = {}
+    for phase, arch, run, seed in (
+            (20, SSM_ARCH, SSM_TRAIN_RUN, SEED + 21),
+            (21, HYBRID_ARCH, HYBRID_TRAIN_RUN, SEED + 23)):
+        cfg = get_config(arch)
+        if small:
+            cfg, run = reduced(cfg), SMALL_SSM_TRAIN
+        runs[f"{arch}_train"] = ssm_train(device, cfg, run, seed, every,
+                                          phase)
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    run = SWITCH_RUN
+    if small:
+        cfg, run = reduced(cfg), SMALL_SWITCH
+    runs["remat_modes"] = remat_modes(device, cfg, run, SEED + 25)
+    runs["compression"] = compressed_steps(device, cfg, run, SEED + 26)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 # --------------------------------------------------------------------- main
@@ -4731,6 +5266,37 @@ def main(argv=None) -> int:
         check(entry["launches"][k] > 0, f"entry point: {k} never launched")
     runs["entry"] = entry
 
+    # phase 7b: the entry point with --arch SSM_ARCH (reduced: K7 on its
+    # CUDA-core design at p 32), resumed
+    every_k7 = all_wrappers()
+    zero_counts(every_k7.values())
+    t0 = time.perf_counter()
+    entry_root.mkdir(parents=True, exist_ok=True)
+    try:
+        entry = run_entry(dev, entry_root, arch=SSM_ARCH)
+    finally:
+        shutil.rmtree(entry_root, ignore_errors=True)
+    torch.cuda.synchronize()
+    entry["launches"] = {k: fn.launches for k, fn in every_k7.items()}
+    entry["by_design"] = by_design(every_k7)["K7"]
+    entry["wall_s"] = time.perf_counter() - t0
+    log(f"phase 7b: launch.train --arch {SSM_ARCH} ({entry['config']}, "
+        f"{entry['params']} parameters) to step {ENTRY_RUN['first']}, then "
+        f"resumed from step {entry['resumed_from']} to "
+        f"{ENTRY_RUN['second']} with the saved parameters bit for bit, "
+        f"restarts {entry['restarts']}, in {entry['wall_s']:.1f} s; losses "
+        f"{[round(x, 4) for x in entry['losses']]}; launches "
+        f"{entry['launches']} (K7 by design {entry['by_design']})")
+    check(entry["launches"]["K7"] > 0, "entry point 7b: K7 never launched")
+    check(entry["by_design"] == {"tensor": 0,
+                                 "cuda_core": entry["launches"]["K7"]},
+          f"entry point 7b: K7 by design {entry['by_design']}: the reduced "
+          "config (p 32) must take the CUDA-core design")
+    for k, n in entry["launches"].items():
+        check(k == "K7" or n == 0, f"entry point 7b: {k} launched {n} "
+                                   "times on an attention-free model")
+    runs["entry_ssm"] = entry
+
     # phase 8: K6 replays: the training launch and hymba-1.5b's window
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -4796,10 +5362,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     runs["examples"] = examples_phase()
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    # phases 20-22: the SSM and hybrid families trained at full width and
+    # depth, then the training switches
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(ssm_train_phases(dev, every))
     new_runs = {"moe_serve": runs["moe_serve"]["launches"],
                 "moe_train": runs["moe_train"]["launches"],
                 **{name: r["launches"]
-                   for name, r in runs["examples"].items()}}
+                   for name, r in runs["examples"].items()},
+                "entry_ssm": runs["entry_ssm"]["launches"],
+                "ssm_train": runs[f"{SSM_ARCH}_train"]["launches"],
+                "hybrid_train": runs[f"{HYBRID_ARCH}_train"]["launches"]}
     for entry in kernels:
         key = entry["name"].split("(")[1].split(",")[0]
         entry.setdefault("launches_by_run", {}).update(

@@ -28,12 +28,15 @@ tail.
 works in both, and only the rounding differs with the chunking, so a
 check tiles the plain version as the design tiles (``kernel_chunk``).
 
-The scan is forward-only, as ``ssd_scan_pallas`` has no VJP: it runs
-inside a ``torch.autograd.Function`` whose backward raises
-``NotImplementedError`` on every device, so that the CPU and the card
-refuse a gradient alike. The wrapper counts its launches in
-``ssd_scan_cuda.launches`` and by design in
-``ssd_scan_cuda.launches_by_design``.
+The scan is differentiable, as the JAX package's ``models/ssm.ssd_scan``
+is under ``jax.value_and_grad``: it runs inside a
+``torch.autograd.Function`` whose backward is ``ssd_scan_bwd``, the port
+of that function's reverse scan over ``jax.checkpoint(step)``, in plain
+torch on every device (the JAX training path reaches no Pallas kernel
+for this gradient either). K7 stays the forward on the card. The final
+state takes a cotangent, and ``init_state`` a gradient. The wrapper
+counts its launches (forward only) in ``ssd_scan_cuda.launches`` and by
+design in ``ssd_scan_cuda.launches_by_design``.
 """
 from __future__ import annotations
 
@@ -254,8 +257,93 @@ def tensor_scan(xdt, a, B, C, init_state=None,
     return y, final
 
 
+def _chunk_state(state, xc, ac, Bc):
+    """The state after one float32 chunk: the entering ``state`` decayed
+    over the chunk plus the chunk's own inputs, each decayed from its
+    token to the chunk's end."""
+    cum = torch.cumsum(ac, dim=1)                              # [b,q,h]
+    total = cum[:, -1]                                         # [b,h]
+    w = torch.exp(total[:, None, :] - cum)                     # [b,q,h]
+    return torch.exp(total)[:, :, None, None] * state \
+        + torch.einsum("bjn,bjhp->bhpn", Bc, xc * w[..., None])
+
+
+def _chunk_step(state, xc, ac, Bc, Cc, mask):
+    """One float32 chunk of the JAX ``ssd_scan``'s ``step``: (y [b, q, h,
+    p], the state after the chunk). The decay tile's upper triangle is
+    exp(-inf) = 0, whose gradient is 0 too."""
+    cum = torch.cumsum(ac, dim=1)
+    scores = torch.einsum("bin,bjn->bij", Cc, Bc)              # [b,q,q]
+    ldecay = cum[:, :, None, :] - cum[:, None, :, :]           # [b,qi,qj,h]
+    decay = torch.exp(torch.where(mask[None, :, :, None], ldecay,
+                                  float("-inf")))
+    y = torch.einsum("bijh,bjhp->bihp", scores[..., None] * decay, xc) \
+        + torch.einsum("bin,bhpn->bihp", Cc, state) \
+        * torch.exp(cum)[..., None]
+    return y, _chunk_state(state, xc, ac, Bc)
+
+
+def _chunk_vjp(state, xc, ac, Bc, Cc, mask, dyc, dnew):
+    """The chunk's step run again under autograd, and its VJP: the
+    gradients of (xc, ac, Bc, Cc, the entering state) for the cotangents
+    ``dyc`` of y and ``dnew`` of the state after the chunk."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (xc, ac, Bc, Cc, state)]
+        y, new = _chunk_step(leaves[4], *leaves[:4], mask)
+        return torch.autograd.grad((y, new), leaves, (dyc, dnew))
+
+
+def ssd_scan_bwd(xdt, a, B, C, init_state, dy, dstate, chunk: int = 256):
+    """The SSD scan's gradient: (dxdt, da, dB, dC, dinit_state) for the
+    cotangents ``dy`` of y and ``dstate`` of the final state (either may
+    be None: zero), in the inputs' types (None for an absent init_state).
+
+    The JAX reverse scan over ``jax.checkpoint(step)``: the float32 states
+    at the chunk boundaries are recomputed first, one chunk after another
+    ([nc, b, h, p, n]); then the chunks are walked in reverse, each step
+    run again and differentiated (``_chunk_vjp``), the state's adjoint
+    carried backwards. Chunks of ``chunk`` tokens, a ragged tail padded
+    with a = 0 and zero xdt, B and C. Plain torch on every device; it
+    shares no code with ``ssd_scan_plain``, K7's oracle, which tests
+    differentiate directly to check this function."""
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    dev = xdt.device
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev) \
+        if init_state is None else init_state.float()
+    g_state = torch.zeros_like(state) if dstate is None else dstate.float()
+    q = max(min(chunk, s), 1)
+    pad = -s % q
+
+    def padded(t):
+        return F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+
+    xf, af, Bf, Cf = map(padded, (xdt, a, B, C))
+    dyf = torch.zeros_like(xf) if dy is None else padded(dy)
+    starts = []
+    with torch.no_grad():
+        for c0 in range(0, s + pad, q):
+            starts.append(state)
+            state = _chunk_state(state, xf[:, c0:c0 + q], af[:, c0:c0 + q],
+                                 Bf[:, c0:c0 + q])
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    grads = [torch.empty_like(t) for t in (xf, af, Bf, Cf)]
+    for i in reversed(range(len(starts))):
+        c = slice(i * q, (i + 1) * q)
+        *parts, g_state = _chunk_vjp(starts[i], xf[:, c], af[:, c],
+                                     Bf[:, c], Cf[:, c], mask, dyf[:, c],
+                                     g_state)
+        for g, part in zip(grads, parts):
+            g[:, c] = part
+    dx, da, dB, dC = (g[:, :s].to(t.dtype)
+                      for g, t in zip(grads, (xdt, a, B, C)))
+    return dx, da, dB, dC, None if init_state is None else g_state
+
+
 class _SSDScan(torch.autograd.Function):
-    """K7 (or, for CPU tensors, its plain version) with no gradient."""
+    """K7 (or, for CPU tensors, its plain version) forward, and
+    ``ssd_scan_bwd`` backward."""
 
     @staticmethod
     def forward(ctx, xdt, a, B, C, init_state, chunk, design):
@@ -273,14 +361,15 @@ class _SSDScan(torch.autograd.Function):
         else:
             y, final = ssd_scan_plain(xdt, a, B, C, chunk=chunk,
                                       init_state=init_state)
-        ctx.mark_non_differentiable(final)
+        ctx.save_for_backward(xdt, a, B, C, init_state)
+        ctx.chunk = chunk
         return y, final
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        raise NotImplementedError(
-            "the SSD chunk scan is forward-only (ssd_scan_pallas has no "
-            "VJP): training the SSM and hybrid families is not ported")
+        grads = ssd_scan_bwd(*ctx.saved_tensors, dy, dstate,
+                             chunk=ctx.chunk)
+        return (*grads, None, None)
 
 
 def ssd_scan_cuda(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
@@ -294,8 +383,8 @@ def ssd_scan_cuda(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     xdt's type, final state [b, h, p, n] float32), on the current stream.
     ``design`` None takes ``ssd_design``'s choice; a name forces that
     design (for measurements) and raises where it does not take the
-    inputs. A CPU tensor takes ``ssd_scan_plain`` (by ``chunk``). No
-    gradient: a backward raises."""
+    inputs. A CPU tensor takes ``ssd_scan_plain`` (by ``chunk``). The
+    gradient is ``ssd_scan_bwd``'s, by ``chunk``, on every device."""
     return _SSDScan.apply(xdt, a, B, C, init_state, int(chunk), design)
 
 

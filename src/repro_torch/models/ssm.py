@@ -10,7 +10,10 @@ with A a negative scalar per head and B/C shared across heads
 The JAX package runs the chunked SSD as ``jnp`` under ``lax.scan``; here
 ``ssd_scan`` is K7 (``kernels/ssd_scan.py``) for a CUDA tensor and its
 plain version, the same chunked algorithm in plain torch, for a CPU
-tensor. ``ssd_decode`` is the single-token step in plain torch, as the
+tensor. Both are differentiable through ``ssd_scan_bwd``, the JAX reverse
+scan over checkpointed chunks, so ``ssd_forward`` trains as the JAX block
+does under ``jax.value_and_grad``; the serving path calls it under
+``torch.no_grad`` and builds no graph. ``ssd_decode`` is the single-token step in plain torch, as the
 JAX package has no kernel there either. Parameters keep the JAX layout
 and names: ``z``/``x`` [d, nh, p], ``B``/``C`` [d, n], ``dt`` [d, nh],
 ``o`` [nh, p, d], ``A_log``, ``D``, ``dt_bias`` [nh], ``conv_x``
@@ -96,8 +99,9 @@ def ssd_scan(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 
     xdt: [b, s, h, p] (x pre-multiplied by dt); a: [b, s, h] (dt*A,
     negative); B, C: [b, s, n]. Returns (y [b, s, h, p] in xdt's type,
-    final_state [b, h, p, n] float32). No gradient: the scan is
-    forward-only."""
+    final_state [b, h, p, n] float32). Differentiable in every input and
+    output: the backward is ``ssd_scan_bwd``, by ``chunk``, on every
+    device."""
     return ssd_scan_cuda(
         xdt.contiguous(), a.float().contiguous(),
         B.to(xdt.dtype).contiguous(), C.to(xdt.dtype).contiguous(),

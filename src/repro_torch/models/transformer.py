@@ -18,12 +18,19 @@ families), and ``train_logits`` sums it over the layers as the JAX scan
 carries it; ``prefill`` and ``decode_step`` discard it.
 
 ``remat="full"`` wraps each layer in ``torch.utils.checkpoint``
-(non-reentrant): the backward recomputes the layer, so K5 runs twice per
-layer and step, and K6 once. ``"none"`` runs plain. ``"dots"`` and
-``remat_group > 1`` raise, as do ``kv_repeat != 1`` and the other families
-(VLM, audio, enc-dec). The SSD scan (K7) is forward-only, as the
-Pallas kernel is, so the SSM and hybrid families run ``train_logits``
-and ``loss`` but take no gradient; ``make_train_step`` refuses them.
+(non-reentrant): the backward recomputes the layer, so K5 and K7 run
+twice per layer and step, and K6 once. ``"dots"`` is JAX's
+``checkpoint_dots``: the same checkpoint with a selective policy that
+saves the outputs of the matrix products (``aten.mm``, ``bmm``,
+``addmm``, ``baddbmm``, which an ``einsum`` lowers to) and recomputes
+the rest, K5 and K7 included (they run inside ``autograd.Function``s, as
+a Pallas call reruns under JAX's policy). ``"none"`` runs plain.
+``remat_group > 1`` that divides the layers adds JAX's two-level remat:
+each group of that many layers runs in one outer checkpoint, every layer
+inside it wrapped as ``remat`` says; a group that does not divide the
+layers falls back to the flat loop, as in JAX. ``kv_repeat != 1`` and
+the other families (VLM, audio, enc-dec) raise. Every family here
+trains: the SSD scan's gradient is ``kernels/ssd_scan.ssd_scan_bwd``.
 
 The decode cache holds the JAX names, stacked on a leading layers axis:
 ``k``/``v`` [L, B, S_cache, Hkv, dh] (int8 with ``k_scale``/``v_scale``
@@ -47,7 +54,9 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import (
@@ -58,7 +67,10 @@ from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 
-REMAT = ("none", "full")
+REMAT = ("none", "full", "dots")
+#: the operations whose outputs ``remat="dots"`` saves
+DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+        torch.ops.aten.baddbmm)
 FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID)
 
 
@@ -125,6 +137,25 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
 def _layer_train(lp, x, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, aux) of one layer: what the checkpointed layer returns."""
     return _layer_forward(lp, x, **kw)[:2]
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``'s policy: keep what a matrix product returns,
+    recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op.overloadpacket in DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, policy: str):
+    """``fn`` under ``policy``: plain, checkpointed, or checkpointed
+    saving the matrix products."""
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
@@ -198,9 +229,6 @@ class Model(nn.Module):
         if cfg.remat not in REMAT:
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
                                       f"(one of {REMAT})")
-        if remat_group > 1:
-            raise NotImplementedError("two-level remat (remat_group > 1) "
-                                      "is not ported")
         if kv_repeat != 1:
             raise NotImplementedError("kv_repeat != 1 (tensor-parallel K/V "
                                       "repeat) is not ported")
@@ -208,6 +236,7 @@ class Model(nn.Module):
             raise ValueError(f"kv_cache_bits must be 8 or 16, got "
                              f"{kv_cache_bits}")
         self.cfg = cfg
+        self.remat_group = remat_group
         self.causal_skip = causal_skip
         self.kv_cache_bits = kv_cache_bits
         self.kv_dus_write = kv_dus_write
@@ -266,15 +295,24 @@ class Model(nn.Module):
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-        fn = functools.partial(_layer_train, cfg=cfg, positions=positions,
-                               window=cfg.attn_window)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp in layers:
-            if cfg.remat == "full":
-                x, a = checkpoint(fn, lp, x, use_reentrant=False)
-            else:
+        fn = _remat_wrap(functools.partial(
+            _layer_train, cfg=cfg, positions=positions,
+            window=cfg.attn_window), cfg.remat)
+
+        def run(lps, x, aux):
+            for lp in lps:
                 x, a = fn(lp, x)
-            aux = aux + a
+                aux = aux + a
+            return x, aux
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        g = self.remat_group
+        if g > 1 and cfg.num_layers % g == 0:
+            for i in range(0, cfg.num_layers, g):
+                x, aux = checkpoint(run, layers[i:i + g], x, aux,
+                                    use_reentrant=False)
+        else:
+            x, aux = run(layers, x, aux)
         logits = self._head(embed, final, x, cd)
         return logits, aux
 

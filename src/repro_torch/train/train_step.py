@@ -3,7 +3,8 @@ the JAX package's ``train/train_step.py``.
 
 ``TrainState`` holds the parameters (a dict of tensors by name, as
 ``Model.init`` returns them) and the optimizer state; ``train_step``
-updates both in place and returns the state. The JAX ``choose_microbatches``
+updates both in place and returns the state. Every family the port
+builds trains here (dense, MoE, SSM, hybrid). The JAX ``choose_microbatches``
 and ``choose_remat_group`` read multi-device mesh profiles and come with the
 multi-device work; ``make_train_state_specs`` belongs to sharding.
 """
@@ -14,7 +15,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import FAMILY_HYBRID, FAMILY_SSM
 from repro_torch.models.transformer import Model
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
@@ -41,15 +41,8 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
     the gradients are accumulated in fp32 over the micro-batches, then
     averaged, for one optimizer step per call.
 
-    ``grad_transform(grads) -> grads`` is where gradient compression would
-    plug in.
-
-    The SSM and hybrid families are refused: their SSD scan (K7) is
-    forward-only, and their training path is not ported yet."""
-    if model.cfg.family in (FAMILY_SSM, FAMILY_HYBRID):
-        raise NotImplementedError(
-            f"training the {model.cfg.family} family is not ported (the SSD "
-            "scan, K7, has no backward yet)")
+    ``grad_transform(grads) -> grads`` is where gradient compression
+    plugs in (``train/compression.py``)."""
     opt_cfg = opt_cfg or OptConfig()
 
     def grads_and_metrics(params, batch):

@@ -37,7 +37,7 @@ SLICE_MODULES = [
     "repro_torch.prefetch", "repro_torch.prefetch.model",
     "repro_torch.prefetch.planner", "repro_torch.prefetch.scheduler",
     "repro_torch.testing", "repro_torch.testing.faults",
-    "repro_torch.models.moe",
+    "repro_torch.models.moe", "repro_torch.train.compression",
 ]
 
 #: classes each slice added to a module the walk imports: (module, name)

@@ -339,25 +339,6 @@ def test_launch_serve_matches_the_jax_entry_point(monkeypatch, capsys):
     assert seen == ["hymba-1.5b-smoke"] * 2
 
 
-# ------------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
-def test_training_the_ssm_families_is_refused(arch, tmp_path):
-    """K7 is forward-only: the train step and the entry point refuse the
-    SSM and hybrid families at construction; the forward runs."""
-    from repro_torch.launch.train import train
-    from repro_torch.train import make_train_step
-    cfg = reduced(get_config(arch))
-    m = build_model(cfg, device="cpu")
-    params = m.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(m)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train(cfg, steps=1, ckpt_dir=tmp_path, device="cpu")
-    toks = torch.from_numpy(_tokens(cfg, 2, 16))
-    loss, _ = m.loss(params, {"tokens": toks, "targets": toks})
-    assert bool(torch.isfinite(loss))
-
-
 @pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
 def test_convert_round_trips_ssm_and_hybrid_trees(arch):
     """``model_params_from_jax`` / ``model_params_to_jax`` over an SSM and

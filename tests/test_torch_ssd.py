@@ -28,7 +28,7 @@ from repro.models import ssm as JS
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import ssm as TS
 
 
@@ -129,19 +129,6 @@ def test_ops_scan_masks_a_tail_the_jax_kernel_refuses():
     yr, _ = JR.ref_ssd_chunk_scan(*map(jnp.asarray, (xdt, a, B, C)), 64)
     got = ops.ssd_chunk_scan(xdt, a, B, C, chunk=64, device="cpu")
     np.testing.assert_allclose(_np(got), _np(yr), rtol=1e-5, atol=1e-5)
-
-
-def test_scan_is_forward_only_on_every_device():
-    """K7 has no backward, as ``ssd_scan_pallas`` has no VJP: a gradient
-    through it raises, here on the CPU as on the card."""
-    xdt, a, B, C, _ = _inputs(1, 32, 2, 16, 8)
-    x = _t(xdt).requires_grad_(True)
-    y, _ = ssd_scan_cuda(x, _t(a), _t(B), _t(C), chunk=16)
-    assert y.requires_grad
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        y.sum().backward()
-    with pytest.raises(NotImplementedError):
-        TS.ssd_scan(x, _t(a), _t(B), _t(C), 16)[0].sum().backward()
 
 
 # ------------------------------------------------------------ the block

@@ -251,3 +251,41 @@ def test_tensor_design_refuses_a_misaligned_state(dev):
         init_state=h0)
     _close(y, want_y, torch.bfloat16)
     _close(st, want_st, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES[:3],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_scan_gradient_on_the_card(dev, dtype, case):
+    """K7 forward and ``ssd_scan_bwd`` (plain torch on the card) against
+    autograd straight through the plain version tiled as K7 tiles, for
+    cotangents on y and on the final state: every gradient within 1e-3
+    of its norm (both sides compute in float32 from the same inputs and
+    round the gradients of bf16 inputs once), and one K7 launch, the
+    forward's."""
+    xdt, a, B, C, h0 = _case(dev, dtype, *case, seed=sum(case[:5]) + 1)
+    g = torch.Generator(dev).manual_seed(3)
+    dy = torch.randn(xdt.shape, generator=g, device=dev).to(dtype)
+    dst = torch.randn((xdt.shape[0], *xdt.shape[2:], B.shape[-1]),
+                      generator=g, device=dev)
+    q = ss.kernel_chunk(dtype, xdt.shape[-1], B.shape[-1])
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (xdt, a, B, C)]
+        if h0 is not None:
+            leaves.append(h0.clone().requires_grad_(True))
+        y, st = fn(*leaves[:4], leaves[4] if h0 is not None else None)
+        return torch.autograd.grad((y, st), leaves, (dy, dst))
+
+    before = ss.ssd_scan_cuda.launches
+    got = grads(lambda *t: ss.ssd_scan_cuda(*t[:4], init_state=t[4]))
+    assert ss.ssd_scan_cuda.launches == before + 1
+    want = grads(lambda *t: ss.ssd_scan_plain(*t[:4], chunk=q,
+                                              init_state=t[4]))
+    for u, w in zip(got, want):
+        assert u.dtype == w.dtype
+        assert bool(torch.isfinite(u).all())
+        err = torch.linalg.vector_norm((u - w).float())
+        assert float(err) <= 1e-3 * float(torch.linalg.vector_norm(
+            w.float())), float(err)

@@ -519,3 +519,107 @@ def test_launch_command_line_always_trains_the_reduced_config(monkeypatch):
         with pytest.raises(SystemExit):
             JT.main()
     assert seen == jseen == ["starcoder2-7b-smoke"] * 2
+
+
+# ------------------------------------------------- SSM and hybrid training
+@pytest.mark.parametrize("arch,mu", [("mamba2-780m", 1), ("mamba2-780m", 2),
+                                     ("hymba-1.5b", 1), ("hymba-1.5b", 2)])
+def test_ssm_train_step_matches_jax(arch, mu):
+    """One step of make_train_step for reduced mamba2-780m and hymba-1.5b
+    (fp32 compute, 4 x 48 tokens: a length their chunk of 32 does not
+    divide) in both packages from the same state and batch: the metrics
+    and the update of every parameter, with the dense step's
+    tolerances."""
+    jm, jstate, tm, tstate = _state_pair(arch, compute_dtype="float32")
+    before = {n: p.detach().clone() for n, p in tstate.params.items()}
+    batch = next(token_batches(512, 4, 48, seed=1))
+    jstep = jax.jit(j_make_train_step(jm, JOptConfig(warmup_steps=1),
+                                      num_microbatches=mu))
+    jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
+                                  for k, v in batch.items()})
+    tstep = make_train_step(tm, OptConfig(warmup_steps=1),
+                            num_microbatches=mu)
+    tstate, tmet = tstep(tstate, {k: _t(v) for k, v in batch.items()})
+    for k in ("loss", "ce", "ntok", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=1e-5, err_msg=k)
+    _assert_update(tstate.params, jstate.params, before)
+    assert int(tstate.opt["step"]) == int(jstate.opt["step"]) == 1
+
+
+def test_launch_loop_ssm_matches_jax(tmp_path, monkeypatch, capsys):
+    """``launch.train`` with ``--arch mamba2-780m`` (its reduced config in
+    fp32 compute) against the JAX entry point's three steps on the same
+    token_batches from one step-0 checkpoint, as the dense loop above."""
+    import repro.launch.train as JT
+    from repro_torch.launch import train as LT
+    arch = "mamba2-780m"
+    jcfg, tcfg = _cfgs(arch, compute_dtype="float32")
+    monkeypatch.setattr(JT, "reduced", lambda c: jcfg)
+    init = j_init_train_state(j_build_model(jcfg), jax.random.PRNGKey(0))
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    for d in (jdir, tdir):
+        JC.save_checkpoint(d, init, step=0)
+    argv = ["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "32",
+            "--save-every", "3", "--log-every", "1"]
+    monkeypatch.setattr(sys, "argv", ["train", *argv, "--ckpt-dir",
+                                      str(jdir)])
+    JT.main()
+    out = capsys.readouterr().out
+    jlosses = [float(line.split("loss=")[1].split()[0])
+               for line in out.splitlines() if "loss=" in line]
+    seen = {}
+    real = LT.train
+
+    def keep(cfg, **kw):
+        seen.update(real(tcfg if cfg.name == tcfg.name else cfg,
+                         device="cpu", **kw))
+
+    monkeypatch.setattr(LT, "train", keep)
+    LT.main([*argv, "--ckpt-dir", str(tdir)])
+    assert seen["resumed_from"] == 0 and seen["restarts"] == 0
+    assert len(jlosses) == 3
+    np.testing.assert_allclose(seen["losses"], jlosses, rtol=0, atol=1e-4)
+    jfinal = JC.restore_checkpoint(JC.latest_checkpoint(jdir),
+                                   jax.eval_shape(lambda: init))
+    before = convert.model_params_from_jax(jax.tree.map(np.asarray,
+                                                        init.params))
+    _assert_update(seen["state"].params, jfinal.params, before)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_checkpoints_cross_both_ways(tmp_path, arch):
+    """The SSM tree (``A_log``, ``D``, ``dt_bias``, ``conv_*``, the
+    [nh, p, d] ``o``; hymba's attention beside it) through the
+    checkpoints: a JAX train state after one step restores into the
+    port, and the port's state after one more step restores into JAX,
+    parameters and both moments bit for bit."""
+    jm, jstate, tm, _ = _state_pair(arch, compute_dtype="float32")
+    batch = next(token_batches(512, 2, 32, seed=2))
+    jstate, _ = jax.jit(j_make_train_step(jm, JOptConfig(warmup_steps=1)))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    JC.save_checkpoint(tmp_path / "jax", jstate, step=1)
+    like = init_train_state(tm, torch.Generator().manual_seed(5))
+    got = TC.restore_checkpoint(TC.latest_checkpoint(tmp_path / "jax"), like)
+    want = convert.train_state_from_jax(
+        jax.tree.map(np.asarray, {"params": jstate.params,
+                                  "opt": jstate.opt}), device="cpu")
+    names = {n.rsplit(".", 1)[-1] for n in got.params if ".ssd." in n}
+    assert {"A_log", "D", "dt_bias", "conv_x", "conv_b", "conv_c"} <= names
+    assert got.params["layers.0.ssd.o.w"].dim() == 3
+    for n, t in want.params.items():
+        assert torch.equal(got.params[n].detach(), t.detach()), n
+        for part in ("m", "v"):
+            assert torch.equal(got.opt[part][n], want.opt[part][n]), n
+    state, _ = make_train_step(tm, OptConfig(warmup_steps=1))(
+        got, {k: _t(v) for k, v in batch.items()})
+    TC.save_checkpoint(tmp_path / "torch", state, step=2)
+    back = JC.restore_checkpoint(JC.latest_checkpoint(tmp_path / "torch"),
+                                 _jax_state_like(jm))
+    assert int(back.opt["step"]) == 2
+    for part, tree in (("params", state.params), ("m", state.opt["m"]),
+                       ("v", state.opt["v"])):
+        jtree = back.params if part == "params" else back.opt[part]
+        for a, b in zip(jax.tree.leaves(convert.model_params_to_jax(tree)),
+                        jax.tree.leaves(jtree)):
+            np.testing.assert_array_equal(a, np.asarray(b))
