@@ -334,6 +334,48 @@ Phases (the first failed check exits non-zero, with no result line):
    ``grad_transform``: every sent int8 element within INT8_STEPS of its
    target, the new error feedback target - sent, top-k keeping at least
    k elements at or above the threshold and zero elsewhere.
+23. Enc-dec (audio) serving at seamless-m4t-medium's full width and depth
+   (``configs/seamless_m4t_medium.py``: 12 encoder and 12 decoder layers,
+   d_model 1,024, 16 heads of 64, d_ff 4,096, vocab 256,206; bf16
+   parameters, 0.978 B): 23a, ``make_prefill_step`` on 16 prompts of 128
+   tokens, each over 1,024 stub audio frames (``stub_inputs``: normal x
+   0.02 from a seeded generator, as the JAX entry point draws them), K5
+   once for every attention (12 encoder, non-causal at 1,024 x 1,024; 12
+   decoder self; 12 cross, non-causal at 128 x 1,024), all on wgmma,
+   then 128 greedy steps; a profiled prefill and decode step (busy
+   share). 23b: a prefill of 2 x 127 tokens and one decode against
+   ``train_logits`` of 2 x 128 (``teacher_forcing``: argmax equal, rows
+   within TF_RTOL in bf16 and TF_F32_RTOL in float32 compute), the
+   control a decode whose layer 0 reads layer 1's cross K/V (rejected in
+   float32); the int8 cache against the 16-bit one by phase 10's rule,
+   the cross K/V staying 16-bit and bit for bit.
+24. Enc-dec training at seamless-m4t-medium's full width and depth (fp32
+   parameters, bf16 compute, ``remat="full"``; 15.6 GB with AdamW's
+   moments): 24a, phase 6a's gradient check on 1 x (1,024 frames, 1,024
+   tokens) through 4 encoder and 4 decoder layers, in float32 compute
+   (K5/K6 on their CUDA-core design) and in bf16, each with its control:
+   K6's dK and dV of every decoder layer's cross-attention zeroed, read
+   on the encoder's gradients, which reach the encoder only through those
+   K/V (the last decoder layer's alone is read beside, not held: it
+   carries a third of them); 24b, six
+   ``make_train_step`` steps of 2 x (1,024 frames, 2,048 tokens), the
+   frames drawn on the card for each step (the entry point gives none):
+   every loss finite, K5 2 x 36 times and K6 36 times a step, all on
+   wgmma; tokens/s and the forward / backward / AdamW split on CUDA
+   events.
+25. VLM serving at internvl2-76b's full width with 24 of its 80 layers
+   (``configs/internvl2_76b.py``: d_model 8,192, 64 heads with 8 KV
+   heads of 128, d_ff 28,672, vocab 128,256; bf16 parameters, 45.3 GB):
+   4 x (256 stub patch embeddings + 1,792 tokens), K5 once a layer on
+   wgmma at G 8, D 128, 32 greedy steps, a profiled prefill and decode
+   step; 25b as 23b on 2 x (256 + 1,791) + one decode, ``pos`` counting
+   the patches, the control the decode at ``pos`` = the text's length.
+26. K5 and K6 on the largest non-causal launches of phases 23-24 (16
+   heads of 64, seeded bf16 inputs): the encoder's 1,024 x 1,024 (K5 at
+   batch 16, K6 at 2) and the cross-attention's 2,048 x 1,024 (batch 2),
+   each against the fp32 plain version within ``kernels/flash_limits.py``
+   with its last key tile dropped as a control, timed beside the plain
+   version, SDPA (a yardstick) and its bound.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -342,15 +384,17 @@ design (bf16 at head dims 64 and 128) within the limits that
 readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16, 4,
-6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b and 21b and read
-just after; every bf16 launch of K5 and K6 in phases 4, 6b, 10, 17a, 18,
-19 and 21b must have gone through the wgmma design, and every K7 launch
-of 20b and 21b through the tensor design. A segment kernel's
+6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
+and 25a and read just after; every bf16 launch of K5 and K6 in phases 4,
+6b, 10, 17a, 18, 19, 21b, 23a, 24b and 25a must have gone through the
+wgmma design, and every K7 launch of 20b and 21b through the tensor
+design. A segment kernel's
 ``launches`` is its count in the run whose launch it replays (K1 the
 Linear Road run, K2 the main run, K3 the split-K run;
 ``launches_by_run`` gives every run's count, and every kernel's counts
-in phases 17a, 18, 19, 7b, 20b and 21b); K4's and K5's are their counts in
-phase 4, K6's in phase 6b, K7's in phase 9a. The
+in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a); K4's and K5's
+are their counts in phase 4, K6's in phase 6b, K7's in phase 9a; K5's
+and K6's ``non_causal`` hold phase 26's replays. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -2734,13 +2778,17 @@ def scan_grad_check(model, params, batch) -> dict:
 
 
 def grad_check(model, params, run: dict) -> dict:
-    """6a: one loss and backward on 1 x grad_seq tokens through the
-    kernels (K5/K6 where the model has attention, K7 forward and
-    ``ssd_scan_bwd`` where it has SSD layers), the same through their
-    plain versions (``plain_versions``), held together by ``grads_close``;
-    then, as controls that must each read at least CONTROL_FACTOR times
-    GRAD_RTOL, the kernels' path with K6's dq of its first launch's first
-    query tile zeroed (the last layer's, whose backward runs first) and
+    """6a: one loss and backward on 1 x grad_seq tokens (with the family's
+    stub embeddings, ``stub_inputs``) through the kernels (K5/K6 where the
+    model has attention, K7 forward and ``ssd_scan_bwd`` where it has SSD
+    layers), the same through their plain versions (``plain_versions``),
+    held together by ``grads_close``; then, as controls that must each
+    read at least CONTROL_FACTOR times GRAD_RTOL, the kernels' path with
+    K6's dq of its first launch's first query tile zeroed (the last
+    layer's, whose backward runs first; with ``run["control"] ==
+    "cross_dkv"`` instead the dK and dV of every decoder layer's
+    cross-attention zeroed, read on the encoder's gradients, and those of
+    the last decoder layer alone, read and not held: ``cut_cross``) and
     with the state's adjoint of the last layer dropped at the boundary in
     the middle of the sequence (``dropped_state_adjoint``). An MoE model's
     plain and control runs take the kernels' run's routing
@@ -2754,6 +2802,7 @@ def grad_check(model, params, run: dict) -> dict:
     cfg = model.cfg
     batch = {k: torch.from_numpy(v).to(dev) for k, v in next(token_batches(
         cfg.vocab_size, 1, run["grad_seq"], seed=SEED + 6)).items()}
+    batch.update(stub_inputs(cfg, 1, SEED + 6, dev))
 
     def grads():
         loss, _ = model.loss(params, batch)
@@ -2767,9 +2816,29 @@ def grad_check(model, params, run: dict) -> dict:
             zeroed.append(True)
         return dq, dk, dv
 
+    def cut_cross(every_layer: bool):
+        """K6 with the dK and dV of the last decoder layer's
+        cross-attention zeroed (``every_layer``: of every decoder
+        layer's). The backward meets each decoder layer's
+        cross-attention (non-causal), then its self-attention (causal),
+        the last layer first, and the encoder's layers after them."""
+        def bwd(*args, **kw):
+            dq, dk, dv = real_bwd(*args, **kw)
+            n = len(zeroed)
+            zeroed.append(True)
+            if n < 2 * cfg.num_layers:
+                check(kw["causal"] == bool(n % 2), f"K6 launch {n} of the "
+                      "backward is not the decoder's in the order above")
+                if not kw["causal"] and (every_layer or n == 0):
+                    dk.zero_()
+                    dv.zero_()
+            return dq, dk, dv
+        return bwd
+
     t0 = time.perf_counter()
     pin, free, zeroed = RoutingPin(), RoutingPin(), []
     rows = run.get("dq_rows", 64)
+    cross = run.get("control") == "cross_dkv"
     real_bwd = fa.flash_attention_bwd_cuda
     controls = {}
     with fixed_order():
@@ -2781,13 +2850,23 @@ def grad_check(model, params, run: dict) -> dict:
             if pin.calls:
                 with free.record(), torch.no_grad():
                     free_loss = float(model.loss(params, batch)[0])
-        if cfg.has_attention:
-            fa.flash_attention_bwd_cuda = zero_first_tile
+        if cfg.has_attention and not cross:
+            controls["control_ratio"] = (
+                f"K6's dq of the last layer's first {rows} query rows "
+                "zeroed", zero_first_tile)
+        if cross:
+            controls["last_cross_read"] = (
+                "K6's dK and dV of the last decoder layer's cross-attention "
+                "zeroed", cut_cross(False))
+            controls["control_ratio"] = (
+                "K6's dK and dV of every decoder layer's cross-attention "
+                "zeroed", cut_cross(True))
+        for key, (what, fn) in controls.items():
+            zeroed.clear()
+            fa.flash_attention_bwd_cuda = fn
             try:
                 with pin.replay():
-                    controls["control_ratio"] = (
-                        f"K6's dq of the last layer's first {rows} query "
-                        "rows zeroed", grads())
+                    controls[key] = (what, grads())
             finally:
                 fa.flash_attention_bwd_cuda = real_bwd
         if cfg.ssm.enabled:
@@ -2812,15 +2891,32 @@ def grad_check(model, params, run: dict) -> dict:
             f"route {rec['turned'][0]} of {rec['turned'][1]} (layer, token) "
             "rows otherwise")
     for key, (what, bad) in controls.items():
-        worst, name = grads_rel(bad, plain)
-        rec[key] = control_reads(f"{what} ({name})", worst, GRAD_RTOL)
+        ref = plain
+        if cross:
+            # read on the encoder's gradients: they reach the encoder
+            # through those dK and dV alone
+            what += ", read on the encoder's gradients"
+            bad, ref = ((x[0], {n: g for n, g in x[1].items()
+                                if n.startswith(("encoder.", "enc_norm."))})
+                        for x in (bad, plain))
+        worst, name = grads_rel(bad, ref)
+        if key == "last_cross_read":
+            rec[key] = worst / GRAD_RTOL
+            log(f"  read, not held: {what} ({name}) moves it by {worst:.3g} "
+                f"of its norm ({rec[key]:.1f} x GRAD_RTOL): the other "
+                "decoder layers' cross K/V carry the rest of the encoder's "
+                "gradient")
+        else:
+            rec[key] = control_reads(f"{what} ({name})", worst, GRAD_RTOL)
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
 
 def train_run(model, params, run: dict, after=None) -> dict:
     """6b: ``make_train_step`` for run["steps"] steps on ``token_batches``
-    through ``PrefetchPipeline``; the loss must be finite at every step.
+    through ``PrefetchPipeline`` (with the family's stub embeddings drawn
+    on the device for each step, ``stub_inputs``: the entry point gives
+    none); the loss must be finite at every step.
     Each step's forward (``model.loss``), backward (to the optimizer) and
     optimizer (``adamw_update``) are timed on the device's clock (CUDA
     events; the host's on the CPU), and so is every ``ssd_scan_bwd`` of
@@ -2881,9 +2977,15 @@ def train_run(model, params, run: dict, after=None) -> dict:
     state = ts_mod.TrainState(params=params, opt=adamw_init(params))
     step_fn = make_train_step(model, OptConfig(
         warmup_steps=1, total_steps=run["steps"]))
-    data = PrefetchPipeline(token_batches(model.cfg.vocab_size, run["batch"],
-                                          run["seq"], seed=SEED + 7),
-                            depth=2, device=dev)
+    tokens = PrefetchPipeline(token_batches(
+        model.cfg.vocab_size, run["batch"], run["seq"], seed=SEED + 7),
+        depth=2, device=dev)
+    stubs = iter(range(SEED + 8, SEED + 8 + 10 ** 6))
+
+    def data_next():
+        return {**next(tokens), **stub_inputs(model.cfg, run["batch"],
+                                              next(stubs), dev)}
+
     model.loss, ts_mod.adamw_update = timed_loss, timed_update
     fa.flash_attention_bwd_cuda = keep_first
     ss.ssd_scan_bwd = timed_ssd_bwd
@@ -2894,7 +2996,7 @@ def train_run(model, params, run: dict, after=None) -> dict:
             marks.clear()
             ssd_marks.clear()
             t0 = time.perf_counter()
-            state, metrics = step_fn(state, next(data))
+            state, metrics = step_fn(state, data_next())
             losses.append(float(metrics["loss"]))
             auxes.append(float(metrics["aux"]))
             if cuda:
@@ -2907,13 +3009,13 @@ def train_run(model, params, run: dict, after=None) -> dict:
             check(math.isfinite(losses[-1]),
                   f"step {len(losses)}: loss {losses[-1]} is not finite")
         if after is not None:
-            extra = after(lambda: step_fn(state, next(data)))
+            extra = after(lambda: step_fn(state, data_next()))
     finally:
         model.loss = real_loss
         ts_mod.adamw_update = real_update
         fa.flash_attention_bwd_cuda = real_bwd
         ss.ssd_scan_bwd = real_ssd_bwd
-        data.close()
+        tokens.close()
     tokens = run["batch"] * run["seq"]
     timed = wall[1:] or wall
     return {"losses": losses, "aux": auxes, "step_s": wall,
@@ -3272,6 +3374,32 @@ def _prompt(cfg, b: int, s: int, seed: int, device):
         0, cfg.vocab_size, (b, s)), dtype=torch.int32, device=device)
 
 
+def stub_inputs(cfg, b: int, seed: int, device) -> dict:
+    """The family's stub frontend embeddings for b rows (the audio and
+    enc-dec frames, the VLM's patches; none for the other families):
+    [b, frontend_tokens, d_model] normal x 0.02 in bf16 from a generator
+    seeded with ``seed`` on ``device``, as the JAX entry point draws
+    them."""
+    import torch
+    from repro_torch.models.transformer import STUB_INPUTS
+    key = STUB_INPUTS.get(cfg.family)
+    if key is None:
+        return {}
+    g = torch.Generator(device).manual_seed(seed)
+    return {key: (torch.randn((b, cfg.frontend_tokens, cfg.d_model),
+                              generator=g, device=device) * 0.02)
+            .to(torch.bfloat16)}
+
+
+def serve_inputs(cfg, b: int, s: int, seed: int, device) -> tuple:
+    """(the prompt batch of b x s tokens from ``_prompt`` with the
+    family's stub embeddings from ``stub_inputs``, the positions ahead of
+    the tokens: the VLM's patches, 0 otherwise)."""
+    batch = {"tokens": _prompt(cfg, b, s, seed, device),
+             **stub_inputs(cfg, b, seed + 1, device)}
+    return batch, cfg.frontend_tokens if "patch_embeds" in batch else 0
+
+
 def build_serve(device, cfg, seed: int, **kw):
     """``cfg``'s model on ``device`` with fp32 parameters from a generator
     seeded with ``seed``."""
@@ -3509,6 +3637,29 @@ def int8_ring_close(c8: dict, ref: dict, what: str) -> float:
     return worst
 
 
+def decode_against(gen, logits, tag: str, ref: str, prefix: str) -> dict:
+    """Run ``tag``'s decode steps against run ``ref``'s (``gen``: each
+    run's tokens, the prefill's first; ``logits``: each step's [B, V]):
+    the share of argmaxes that agree, the largest logit difference, and
+    the logits outside the JAX int8 test's rule (INT8_ATOL + INT8_RTOL x
+    |logit|); printed after ``prefix``."""
+    import torch
+    want = torch.stack(logits[ref])
+    diff = (torch.stack(logits[tag]) - want).abs()
+    r = dict(against=ref,
+             agree=float((torch.cat(gen[tag][1:], dim=1)
+                          == torch.cat(gen[ref][1:], dim=1)).float().mean()),
+             max_logit_diff=float(diff.max()),
+             outside_jax_rule=int((diff > INT8_ATOL + INT8_RTOL
+                                   * want.abs()).sum()))
+    b, n = want.shape[1], want.shape[0]
+    log(f"  {prefix}{tag} against {ref} over {b} x {n} decode logits: "
+        f"argmaxes agree on {r['agree']:.4f}, max logit difference "
+        f"{r['max_logit_diff']:.4g}, {r['outside_jax_rule']} logits outside "
+        f"{INT8_ATOL} + {INT8_RTOL} x |logit|")
+    return r
+
+
 def hybrid_serve(device, cfg, run: dict, seed: int) -> dict:
     """Phase 10: prefill (``make_prefill_step``) of batch x seq tokens and
     greedy decode steps (``Model.decode_step``, its logits kept) with the
@@ -3603,19 +3754,7 @@ def hybrid_serve(device, cfg, run: dict, seed: int) -> dict:
               "one's (its prefill attends the unquantized K/V)")
     pairs = {"int8": "bf16", "fp32": "bf16", "fp32_int8": "fp32"}
     for tag, ref in pairs.items():
-        want = torch.stack(logits[ref])
-        diff = (torch.stack(logits[tag]) - want).abs()
-        r[tag].update(
-            against=ref,
-            agree=float((torch.cat(gen[tag][1:], dim=1)
-                         == torch.cat(gen[ref][1:], dim=1)).float().mean()),
-            max_logit_diff=float(diff.max()),
-            outside_jax_rule=int((diff > INT8_ATOL + INT8_RTOL
-                                  * want.abs()).sum()))
-        log(f"  {tag} against {ref} over {b} x {n} decode logits: argmaxes "
-            f"agree on {r[tag]['agree']:.4f}, max logit difference "
-            f"{r[tag]['max_logit_diff']:.4g}, {r[tag]['outside_jax_rule']} "
-            f"logits outside {INT8_ATOL} + {INT8_RTOL} x |logit|")
+        r[tag].update(decode_against(gen, logits, tag, ref, ""))
     log(f"  the float32 int8 ring within {ring['int8_prefill']:.4g} "
         f"quantization steps after the prefill (all layers) and "
         f"{ring['int8_decode']:.4g} after decoding (layer 0); limit "
@@ -3802,28 +3941,33 @@ def device_profile(fn, host: bool = True):
     return wall, sorted(rows, reverse=True)
 
 
-def profile_prefill(model, params, b: int, s: int, seed: int) -> None:
-    """One prefill of b x s tokens under ``torch.profiler``;
-    prints the device time by kernel (the ten largest) and the share of
-    the wall time the device was busy by the sum of the kernels' times."""
-    toks = _prompt(model.cfg, b, s, seed, model.device)
-    log_profile(f"prefill {b} x {s}", *device_profile(lambda: model.prefill(
-        params, {"tokens": toks}, max_len=s + 1)), top=12)
+def profile_prefill(model, params, b: int, s: int, seed: int):
+    """One prefill of b x s tokens (behind or beside the family's stub
+    embeddings, ``serve_inputs``) under ``torch.profiler``; prints the
+    device time by kernel (the ten largest) and the share of the wall
+    time the device was busy by the sum of the kernels' times, and
+    returns that share (None where the profiler saw no device time)."""
+    batch, prefix = serve_inputs(model.cfg, b, s, seed, model.device)
+    return log_profile(f"prefill {b} x {s}", *device_profile(
+        lambda: model.prefill(params, batch, max_len=prefix + s + 1)),
+        top=12)
 
 
-def log_profile(what: str, wall: float, rows, top: int) -> None:
+def log_profile(what: str, wall: float, rows, top: int):
     """Prints ``device_profile``'s reading of ``what``: the share of the
     wall time the device was busy by the sum of the kernels' times, and
-    the ``top`` largest kernels."""
+    the ``top`` largest kernels. Returns that share, or None where the
+    profiler saw no device time."""
     if not rows:
         log("  profile: the profiler recorded no device time")
-        return
+        return None
     busy = sum(r[0] for r in rows) / 1e6
     log(f"  profile: {what} in {wall * 1e3:.2f} ms (profiled), device busy "
         f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) by the kernels' "
         "summed self time")
     for us, count, key in rows[:top]:
         log(f"    {us / 1e3:10.2f} ms  x{count:<5d} {key[:90]}")
+    return busy / wall
 
 
 def serve_ssm(dev, every: dict) -> dict:
@@ -4082,19 +4226,36 @@ def rows_rel(got, want, vocab: int) -> float:
                   / torch.linalg.vector_norm(b, dim=-1)).max())
 
 
-def moe_serve(model, params, run: dict, seed: int) -> dict:
-    """17a: ``make_prefill_step`` on run's batch x seq tokens, then its
-    decode steps through ``make_decode_step``, each timed on the host
-    clock around a synchronised run."""
+def tf_close(got, want, vocab: int, limit: float) -> dict:
+    """A decode step's logits [B, 1, V] against the teacher-forced ones:
+    the argmaxes equal and each row within ``limit`` of its norm."""
+    import torch
+    same = bool(torch.equal(got[..., :vocab].argmax(-1),
+                            want[..., :vocab].argmax(-1)))
+    rel = rows_rel(got, want, vocab)
+    check(same and rel <= limit, f"the decode misses teacher forcing: "
+                                 f"argmax equal {same}, worst row {rel:.4g}"
+                                 f" of its norm (limit {limit})")
+    return dict(rel=rel, argmax_equal=same, max_abs_err=float(
+        (got[..., :vocab] - want[..., :vocab]).float().abs().max()))
+
+
+def model_serve(model, params, run: dict, seed: int, tag: str) -> dict:
+    """17a (23a, 25a): ``make_prefill_step`` on run's batch x seq tokens
+    (with the family's stub embeddings, ``serve_inputs``), then its decode
+    steps through ``make_decode_step``, each timed on the host clock
+    around a synchronised run. The prefill's tokens/s count the text's
+    tokens; ``prefill_positions_per_s`` counts the VLM's patches too."""
     import torch
     from repro_torch.serve import make_decode_step, make_prefill_step
     cfg, dev = model.cfg, model.device
     b, s, n = run["batch"], run["seq"], run["decode"]
-    toks = _prompt(cfg, b, s, seed, dev)
-    prefill = make_prefill_step(model, max_len=s + n)
+    batch, prefix = serve_inputs(cfg, b, s, seed, dev)
+    end = prefix + s + n
+    prefill = make_prefill_step(model, max_len=end)
     _sync(dev)
     t0 = time.perf_counter()
-    tok, cache = prefill(params, {"tokens": toks})
+    tok, cache = prefill(params, batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4104,24 +4265,33 @@ def moe_serve(model, params, run: dict, seed: int) -> dict:
     ids = torch.cat([tok, *out], dim=1)
     check(tuple(ids.shape) == (b, n + 1) and bool((ids >= 0).all())
           and bool((ids < cfg.vocab_size).all()),
-          "17a: generated ids outside the vocabulary")
-    check(int(cache["pos"]) == s + n, "17a: the cache's position is off")
-    check(all(bool(torch.isfinite(cache["layers"][k][:, :, :s + n]).all())
-              for k in ("k", "v")), "17a: non-finite K/V in the cache")
+          f"{tag}: generated ids outside the vocabulary")
+    check(int(cache["pos"]) == end, f"{tag}: the cache's position is off")
+    cl = cache["layers"]
+    check(all(bool(torch.isfinite(cl[k][:, :, :end]).all())
+              for k in ("k", "v")), f"{tag}: non-finite K/V in the cache")
+    if "cross_k" in cl:
+        check(tuple(cl["cross_k"].shape)[:3] == (
+            cfg.num_layers, b, cfg.frontend_tokens)
+              and all(bool(torch.isfinite(cl[k]).all())
+                      for k in ("cross_k", "cross_v")),
+              f"{tag}: the cross K/V are not every layer's over every "
+              "frame, or not finite")
     return dict(prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
+                prefill_positions_per_s=b * (prefix + s) / prefill_s,
                 decode_s=decode_s, decode_tokens_per_s=b * n / decode_s,
                 sample=ids[0, :16].tolist())
 
 
-def profile_decode(model, params, b: int, s: int, seed: int) -> None:
-    """One decode step after a prefill of b x s tokens, under
-    ``torch.profiler``: the device's busy share and the largest device
-    operations."""
+def profile_decode(model, params, b: int, s: int, seed: int):
+    """One decode step after a prefill of b x s tokens (``serve_inputs``),
+    under ``torch.profiler``: the device's busy share (returned) and the
+    largest device operations."""
     import torch
-    toks = _prompt(model.cfg, b, s, seed, model.device)
-    logits, cache = model.prefill(params, {"tokens": toks}, max_len=s + 1)
+    batch, prefix = serve_inputs(model.cfg, b, s, seed, model.device)
+    logits, cache = model.prefill(params, batch, max_len=prefix + s + 1)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-    log_profile(f"one decode step at batch {b}", *device_profile(
+    return log_profile(f"one decode step at batch {b}", *device_profile(
         lambda: model.decode_step(params, nxt, cache)), top=8)
 
 
@@ -4210,16 +4380,11 @@ def moe_teacher_forcing(model, params, run: dict, seed: int) -> dict:
         _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
                                  max_len=s)
         step, cache = model.decode_step(params, toks[:, -1:], cache)
-    v = cfg.vocab_size
-    want = full[:, -1:, :v]
-    same = bool(torch.equal(step[..., :v].argmax(-1), want.argmax(-1)))
-    rec = dict(rel=rows_rel(step, want, v), argmax_equal=same,
-               max_abs_err=float((step[..., :v] - want).abs().max()))
+    rec = tf_close(step, full[:, -1:], cfg.vocab_size, MOE_TF_RTOL)
     log(f"  17c: prefill {b} x {s - 1} + one decode against train_logits of "
-        f"{b} x {s}: argmax equal {same}, worst row {rec['rel']:.4g} of its "
-        f"norm (limit {MOE_TF_RTOL}), max |diff| {rec['max_abs_err']:.4g}")
-    check(same and rec["rel"] <= MOE_TF_RTOL and int(cache["pos"]) == s,
-          "17c: the decode misses teacher forcing")
+        f"{b} x {s}: argmax equal, worst row {rec['rel']:.4g} of its norm "
+        f"(limit {MOE_TF_RTOL}), max |diff| {rec['max_abs_err']:.4g}")
+    check(int(cache["pos"]) == s, "17c: the cache's position is off")
     return rec
 
 
@@ -4251,7 +4416,7 @@ def moe_phases(dev, every: dict) -> dict:
         f"{param_bytes / 1e9:.2f} GB, built in "
         f"{time.perf_counter() - t_phase:.1f} s")
     zero_counts(every.values())
-    serve = moe_serve(model, params, MOE_SERVE_RUN, SEED + 18)
+    serve = model_serve(model, params, MOE_SERVE_RUN, SEED + 18, "17a")
     torch.cuda.synchronize()
     serve["launches"] = {k: fn.launches for k, fn in every.items()}
     serve["by_design"] = by_design(every)
@@ -4829,6 +4994,406 @@ def ssm_train_phases(device, every: dict, small: bool = False) -> dict:
     return runs
 
 
+# ------------------------------------------------------------ phases 23-26
+ENCDEC_ARCH = "seamless-m4t-medium"
+VLM_ARCH = "internvl2-76b"
+#: phase 23: ENCDEC_ARCH at full width and depth (12 encoder and 12
+#: decoder layers) with bf16 parameters: 16 prompts of 128 tokens, each
+#: over 1,024 stub audio frames, and 128 greedy decode steps; 23b's
+#: teacher forcing on check_batch x check_seq, and the int8 cache against
+#: the 16-bit one over int8_decode steps
+ENCDEC_SERVE_RUN = dict(batch=16, seq=128, decode=128, check_batch=2,
+                        check_seq=128, int8_decode=8)
+#: phase 24: ENCDEC_ARCH trained at full width and depth (fp32
+#: parameters, bf16 compute, ``remat="full"``): 24a the gradient check on
+#: 1 x (1,024 frames, grad_seq tokens) through grad_layers encoder and
+#: decoder layers, its control K6's dK/dV of the decoder's
+#: cross-attention zeroed (read on the encoder's gradients); 24b six steps
+#: of 2 x (1,024 frames, 2,048 tokens). 24a holds its bf16 loss within
+#: SSM_LOSS_TOL, 20a's limit: on an H100 K5's and K6's bf16 rounding moved
+#: it by 1.774e-4 of 12.95, past LOSS_TOL, where the same check in float32
+#: compute (K5/K6 on their CUDA-core design) read 0 (PERF.md, PR 23); the
+#: float32 check holds LOSS_TOL
+ENCDEC_TRAIN_RUN = dict(batch=2, seq=2048, steps=6, grad_seq=1024,
+                        grad_layers=4, control="cross_dkv",
+                        loss_tol=SSM_LOSS_TOL)
+#: phase 25: VLM_ARCH at full width with 24 of its 80 layers (bf16
+#: parameters: 24 x 1.711 GB of layers and 4.20 GB of embeddings, 45.3
+#: GB): 4 x (256 patches + 1,792 tokens), 32 greedy decode steps; 25b's
+#: teacher forcing on check_batch x (256 + check_seq)
+VLM_SERVE_RUN = dict(layers=24, batch=4, seq=1792, decode=32,
+                     check_batch=2, check_seq=1792)
+#: their CPU rehearsals (the reduced configs)
+SMALL_ENCDEC_SERVE = dict(batch=2, seq=24, decode=3, check_batch=2,
+                          check_seq=24, int8_decode=2)
+SMALL_ENCDEC_TRAIN = dict(batch=2, seq=32, steps=2, grad_seq=32,
+                          grad_layers=2, control="cross_dkv",
+                          loss_tol=SSM_LOSS_TOL)
+SMALL_VLM_SERVE = dict(layers=2, batch=2, seq=24, decode=3, check_batch=2,
+                       check_seq=24)
+#: 23b and 25b: a prefill of check_seq - 1 tokens and one decode step
+#: against ``train_logits`` of check_seq at the last position, as 17c: in
+#: the model's bf16 the argmaxes equal and each row within TF_RTOL of its
+#: norm (17c's limit, set from 48 MoE layers' readings; these are
+#: dense); in float32 compute (the same bf16 parameters; K5 on its
+#: CUDA-core design, the decode's products in float32) each row within
+#: TF_F32_RTOL, where only the order of float32 sums differs, and where
+#: each phase's control must be rejected
+TF_RTOL = MOE_TF_RTOL
+TF_F32_RTOL = 1e-3
+#: phase 26: K5 and K6 on the largest non-causal launches of phases 23
+#: and 24 (16 heads of 64): the encoder's 1,024 x 1,024 (K5 at phase 23's
+#: batch of 16, K6 at phase 24's 2) and the cross-attention's 2,048 x
+#: 1,024 at phase 24's batch of 2; the rehearsal's shapes on the CPU
+NONCAUSAL = {"encoder": dict(k5_batch=16, k6_batch=2, sq=1024, sk=1024),
+             "cross": dict(k5_batch=2, k6_batch=2, sq=2048, sk=1024)}
+SMALL_NONCAUSAL = {"encoder": dict(k5_batch=2, k6_batch=1, sq=256, sk=256),
+                   "cross": dict(k5_batch=1, k6_batch=1, sq=192, sk=256)}
+
+
+def teacher_forcing(model, params, run: dict, seed: int, tag: str,
+                    control, what: str) -> dict:
+    """23b / 25b: a prefill of check_batch x (check_seq - 1) tokens (with
+    the family's stub embeddings) and one decode step of the last token
+    against ``train_logits`` of all check_seq at the last position
+    (``tf_close``), in the model's bf16 within TF_RTOL and in float32
+    compute within TF_F32_RTOL; ``pos`` after the decode counts the VLM's
+    patches. Then, in float32, ``control(cache)`` applied to the prefill's
+    cache before the decode must be rejected. Returns the readings."""
+    import torch
+    b, s = run["check_batch"], run["check_seq"]
+    v = model.cfg.vocab_size
+    rec = {}
+    for m, limit in ((model, TF_RTOL), (float32_twin(model), TF_F32_RTOL)):
+        dt = m.cfg.compute_dtype
+        batch, prefix = serve_inputs(m.cfg, b, s, seed, m.device)
+        head = dict(batch, tokens=batch["tokens"][:, :-1])
+
+        def decode(planted=None):
+            _, cache = m.prefill(params, head, max_len=prefix + s)
+            if planted is not None:
+                planted(cache)
+            return m.decode_step(params, batch["tokens"][:, -1:], cache)
+
+        with torch.no_grad():
+            want = m.train_logits(params, batch)[0][:, -1:].clone()
+        got, cache = decode()
+        check(int(cache["pos"]) == prefix + s,
+              f"{tag}: pos {int(cache['pos'])} after the decode, not "
+              f"{prefix + s}")
+        del cache
+        rec[dt] = tf_close(got, want, v, limit)
+        log(f"  {tag}: prefill {b} x {s - 1} + one decode against "
+            f"train_logits of {b} x {s} ({dt}): argmax equal, worst row "
+            f"{rec[dt]['rel']:.4g} of its norm (limit {limit}), max |diff| "
+            f"{rec[dt]['max_abs_err']:.4g}")
+        if dt == "float32":
+            must_fail(what, lambda: tf_close(decode(control)[0], want, v,
+                                             limit))
+        del got, want
+    return rec
+
+
+def int8_against_16bit(model, params, run: dict, seed: int) -> dict:
+    """23b: the int8 cache against the 16-bit one, by phase 10's rule: the
+    same prompts (check_batch x check_seq over the frames) prefilled into
+    each, then int8_decode steps each fed the 16-bit bf16 run's token, in
+    bf16 and in float32 compute (the same parameters). The int8 runs'
+    logits within INT8_ATOL + INT8_RTOL x |logit| of their compute type's
+    16-bit run's, and in float32 their argmaxes equal on INT8_AGREE of
+    the positions; the cross K/V stay in the compute type, bit for bit
+    the 16-bit cache's."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill_step
+    cfg, dev = model.cfg, model.device
+    b, s, n = run["check_batch"], run["check_seq"], run["int8_decode"]
+    v = cfg.vocab_size
+    batch, prefix = serve_inputs(cfg, b, s, seed, dev)
+    gen, logits, cross = {}, {}, {}
+    for tag, m in (("bf16", model),
+                   ("int8", build_model(cfg, kv_cache_bits=8, device=dev)),
+                   ("fp32", float32_twin(model)),
+                   ("fp32_int8", float32_twin(model, kv_cache_bits=8))):
+        tok, cache = make_prefill_step(m, max_len=prefix + s + n)(params,
+                                                                  batch)
+        cl = cache["layers"]
+        check(cl["k"].dtype == (torch.int8 if "int8" in tag
+                                else cl["cross_k"].dtype)
+              and cl["cross_k"].dtype == getattr(torch, m.cfg.compute_dtype),
+              f"23b: the {tag} cache's types")
+        cross[tag] = (cl["cross_k"], cl["cross_v"])
+        gen[tag], logits[tag] = [tok], []
+        for i in range(n):
+            out, cache = m.decode_step(
+                params, tok if tag == "bf16" else gen["bf16"][i], cache)
+            tok = torch.argmax(out, dim=-1).to(torch.int32)
+            gen[tag].append(tok)
+            logits[tag].append(out[:, 0, :v].float())
+        del cache, cl
+    rec = {}
+    for tag, ref in (("int8", "bf16"), ("fp32_int8", "fp32")):
+        check(all(torch.equal(a, r) for a, r in zip(cross[tag], cross[ref])),
+              f"23b: the {tag} cache's cross K/V differ from the {ref} "
+              "cache's")
+        rec[tag] = decode_against(gen, logits, tag, ref, "23b: ")
+        check(rec[tag]["outside_jax_rule"] == 0,
+              f"23b: {tag} logits outside the JAX int8 test's rule")
+    check(rec["fp32_int8"]["agree"] >= INT8_AGREE,
+          f"23b: the float32 int8 run's argmaxes agree on "
+          f"{rec['fp32_int8']['agree']:.4f} (limit {INT8_AGREE})")
+    return rec
+
+
+def serve_counts(tag: str, serve: dict, every: dict, k5: int) -> None:
+    """A serving run's launches: K5 ``k5`` times, every one on wgmma, and
+    no other kernel (the decode's attention is plain torch, as in JAX)."""
+    for k, n in serve["launches"].items():
+        want = k5 if k == "K5" else 0
+        check(n == want, f"{tag}: {k} launched {n} times, the path implies "
+                         f"{want}")
+    check(serve["by_design"]["K5"] == {"wgmma": k5, "cuda_core": 0},
+          f"{tag}: K5 by design {serve['by_design']['K5']}: a bf16 launch "
+          "missed the wgmma design")
+
+
+def frontend_serve(device, cfg, run: dict, seed: int, every: dict,
+                   phase: int, control, what: str) -> dict:
+    """Phase 23 (25): ``cfg`` served with bf16 parameters. (a) after one
+    untimed prefill of the same prompts, ``model_serve`` with every
+    kernel's launches counted (K5 once a
+    layer's attention: the encoder's, the decoder's self- and
+    cross-attention), then one prefill and one decode step profiled; (b)
+    ``teacher_forcing`` with its control, and for an enc-dec model the
+    int8 cache (``int8_against_16bit``). Returns the run's record."""
+    import torch
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model, params = build_serve(device, dataclasses.replace(
+        cfg, param_dtype="bfloat16"), seed)
+    c = model.cfg
+    n_params = sum(p.numel() for p in params.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    stub = importlib.import_module(
+        "repro_torch.models.transformer").STUB_INPUTS[c.family]
+    log(f"phase {phase}: {c.name} ({c.family}: "
+        + (f"{c.encoder_layers} encoder and " if c.encoder_layers else "")
+        + f"{c.num_layers} decoder layers, d_model {c.d_model}, "
+        f"{c.num_heads} heads and {c.num_kv_heads} KV heads of "
+        f"{c.resolved_head_dim}, d_ff {c.d_ff}, vocab {c.vocab_size}, "
+        f"{c.frontend_tokens} stub {stub.split('_')[0]} embeddings; bf16 "
+        f"parameters): {n_params / 1e9:.3f} B parameters, "
+        f"{param_bytes / 1e9:.2f} GB, built in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # one untimed, uncounted prefill first: the timed one then reads the
+    # steady state, not the first use of these shapes in the process
+    batch, prefix = serve_inputs(c, run["batch"], run["seq"], seed + 1,
+                                 device)
+    model.prefill(params, batch, max_len=prefix + run["seq"] + 1)
+    del batch
+    _sync(device)
+    zero_counts(every.values())
+    serve = model_serve(model, params, run, seed + 1, f"{phase}a")
+    _sync(device)
+    serve["launches"] = {k: fn.launches for k, fn in every.items()}
+    serve["by_design"] = by_design(every)
+    serve["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device.type == "cuda" else 0
+    log(f"phase {phase}a: prefill {run['batch']} x {run['seq']} in "
+        f"{serve['prefill_s']:.3f} s ({serve['prefill_tokens_per_s']:.1f} "
+        f"tokens/s; {serve['prefill_positions_per_s']:.1f} positions/s), "
+        f"{run['decode']} decode steps in {serve['decode_s']:.3f} s "
+        f"({serve['decode_tokens_per_s']:.1f} tokens/s); launches "
+        f"{serve['launches']} (K5 by design {serve['by_design']['K5']}); "
+        f"max_memory_allocated {serve['max_memory_allocated'] / 1e9:.2f} GB"
+        f"; sample ids {serve['sample']}")
+    if device.type == "cuda":             # on the CPU nothing launches
+        serve_counts(f"{phase}a", serve, every,
+                     c.encoder_layers + c.num_layers * (
+                         2 if c.encoder_layers else 1))
+    serve["busy_share"] = {
+        "prefill": profile_prefill(model, params, run["batch"], run["seq"],
+                                   seed + 1),
+        "decode": profile_decode(model, params, run["batch"], run["seq"],
+                                 seed + 1)}
+    t0 = time.perf_counter()
+    serve["teacher_forcing"] = teacher_forcing(model, params, run, seed + 2,
+                                               f"{phase}b", control, what)
+    if c.encoder_layers:
+        serve["int8"] = int8_against_16bit(model, params, run, seed + 3)
+    if device.type == "cuda":
+        serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"phase {phase}b: {time.perf_counter() - t0:.1f} s; "
+        f"max_memory_allocated since the build "
+        f"{serve['max_memory_allocated'] / 1e9:.2f} GB")
+    del model, params
+    gc.collect()
+    _empty(device)
+    serve["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase {phase}: {serve['wall_s']:.1f} s")
+    return serve
+
+
+def swap_cross_kv(cache) -> None:
+    """23b's control: layer 0's cross K/V replaced by layer 1's."""
+    for name in ("cross_k", "cross_v"):
+        cache["layers"][name][0].copy_(cache["layers"][name][1])
+
+
+def encdec_train(device, cfg, run: dict, seed: int, every: dict) -> dict:
+    """Phase 24: ``cfg`` trained at full width and depth. (a)
+    ``grad_check`` at grad_layers encoder and decoder layers, in float32
+    compute first (the same weights, K5/K6 on their CUDA-core design: the
+    loss's reading without bf16 rounding, held within LOSS_TOL) and then
+    in bf16 (within run["loss_tol"]); (b) at full
+    depth, ``train_run``'s steps with every kernel's launches counted:
+    under ``remat="full"`` K5 twice and K6 once a step for every
+    attention (the encoder's, the decoder's self- and cross-attention),
+    all on wgmma."""
+    import torch
+    t_phase = time.perf_counter()
+    n = run["grad_layers"]
+    model, params = build_serve(device, dataclasses.replace(
+        cfg, num_layers=n, encoder_layers=n), seed)
+    checks = {}
+    for tag, m, tol in (("float32", float32_twin(model), LOSS_TOL),
+                        ("bf16", model, run["loss_tol"])):
+        g = checks[tag] = grad_check(m, params, dict(run, loss_tol=tol))
+        log(f"phase 24a: gradient check ({tag} compute) on 1 x "
+            f"({cfg.frontend_tokens} frames, {run['grad_seq']} tokens) "
+            f"through {n} encoder and {n} decoder layers, K5/K6 against "
+            f"their plain versions: loss {g['loss']:.6f} (off by "
+            f"{g['loss_err']:.3g}, limit {tol}), "
+            f"the worst gradient {g['worst_param']} off by "
+            f"{g['grad_rel_err']:.3g} of its norm (limit {GRAD_RTOL}), "
+            f"{g['seconds']:.1f} s")
+    del model, params
+    gc.collect()
+    _empty(device)
+    t0 = time.perf_counter()
+    model, params = build_serve(device, cfg, seed + 1)
+    n_params = sum(p.numel() for p in params.values())
+    log(f"phase 24: {cfg.name} at full width and depth ({cfg.encoder_layers}"
+        f" encoder and {cfg.num_layers} decoder layers; fp32 parameters, "
+        f"bf16 compute, remat {cfg.remat!r}): {n_params / 1e9:.3f} B "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s")
+    zero_counts(every.values())
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train = train_run(model, params, run)
+    _sync(device)
+    train["launches"] = {k: fn.launches for k, fn in every.items()}
+    train["by_design"] = by_design(every)
+    train["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device.type == "cuda" else 0
+    train["wall_s"] = time.perf_counter() - t0
+    train.pop("largest_k6")
+    train["grad_check"] = checks
+    del model, params
+    gc.collect()
+    _empty(device)
+    log(f"phase 24b: {run['steps']} steps of {run['batch']} x "
+        f"({cfg.frontend_tokens} frames, {run['seq']} tokens): losses "
+        f"{[round(x, 4) for x in train['losses']]}, "
+        f"{train['tokens_per_s']:.1f} tokens/s over steps 2-{run['steps']}"
+        f", launches {train['launches']} (by design {train['by_design']}), "
+        f"max_memory_allocated {train['max_memory_allocated'] / 1e9:.2f} GB")
+    log("  step seconds (wall / forward / backward / optimizer): " + "; ".join(
+        f"{w:.3f} / {f:.3f} / {b:.3f} / {o:.3f}" for w, f, b, o in zip(
+            train["step_s"], train["forward_s"], train["backward_s"],
+            train["optimizer_s"])))
+    attns = cfg.encoder_layers + 2 * cfg.num_layers
+    per_step = {"K5": 2 * attns, "K6": attns}
+    if device.type == "cuda":             # on the CPU nothing launches
+        for k, got in train["launches"].items():
+            want = per_step.get(k, 0) * run["steps"]
+            check(got == want, f"24b: {k} launched {got} times, the path "
+                               f"implies {want}")
+        for k in per_step:
+            check(train["by_design"][k].get("wgmma") == train["launches"][k],
+                  f"24b: {k} by design {train['by_design'][k]}: a bf16 "
+                  "launch missed the wgmma design")
+    train["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 24: {train['phase_s']:.1f} s")
+    return train
+
+
+def noncausal_replays(device, shapes: dict) -> dict:
+    """Phase 26: K5 (``k5_record``) and K6 (``k6_record``) on seeded bf16
+    inputs at ``shapes``' non-causal launches (16 heads of 64), each held
+    against the fp32 plain version within ``kernels/flash_limits.py``'s
+    limits, its last key tile dropped as a control, and timed beside its
+    plain version, SDPA (a yardstick) and its bound. K6's o and lse are
+    K5's on the same q, k, v; its dO is seeded."""
+    import torch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    g = torch.Generator(device).manual_seed(SEED + 26)
+    h, d = 16, 64
+
+    def rand(b, s):
+        return torch.randn((b, s, h, d), generator=g, device=device,
+                           dtype=torch.bfloat16)
+
+    out = {"K5": {}, "K6": {}}
+    for name, sh in shapes.items():
+        b, sq, sk = sh["k5_batch"], sh["sq"], sh["sk"]
+        out["K5"][name] = k5_record(rand(b, sq), rand(b, sk), rand(b, sk),
+                                    False, 0, iters=10)
+        b = sh["k6_batch"]
+        q, k, v, do = rand(b, sq), rand(b, sk), rand(b, sk), rand(b, sq)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=False,
+                                         return_lse=True)
+        out["K6"][name] = k6_record(q, k, v, o, do, lse, False, 0, iters=5)
+        del q, k, v, do, o, lse
+    FL = flash_limits()
+    for key, recs in out.items():
+        for name, r in recs.items():
+            row = FL.FWD_ROW_RTOL if key == "K5" else FL.BWD_ROW_RTOL
+            log(f"phase 26: {key} {name}: worst row {r['row_err']:.3g} of "
+                f"its norm (limit {row}), {r['ulps']:.1f} ulps (limit "
+                f"{FL.ULP_LIMIT}), control {r['control_ratio']:.1f} x | "
+                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']}) | {r['shape']}")
+    return out
+
+
+def frontend_phases(device, every: dict, small: bool = False) -> dict:
+    """Phases 23-26 (``small``: their CPU rehearsal, the reduced configs
+    and the SMALL_* sizes): ENCDEC_ARCH served (23) and trained (24) at
+    full width and depth, VLM_ARCH served at full width with 24 of its
+    layers (25), then K5's and K6's non-causal replays (26). ``every``
+    holds the kernels' counting wrappers. Returns the runs' records and
+    the replays."""
+    from repro_torch.configs import get_config, reduced
+    enc, vlm = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
+    serve, train, vlm_run = ENCDEC_SERVE_RUN, ENCDEC_TRAIN_RUN, VLM_SERVE_RUN
+    shapes = NONCAUSAL
+    if small:
+        enc, vlm = reduced(enc), reduced(vlm)
+        serve, train, vlm_run = (SMALL_ENCDEC_SERVE, SMALL_ENCDEC_TRAIN,
+                                 SMALL_VLM_SERVE)
+        shapes = SMALL_NONCAUSAL
+    runs = {
+        "encdec_serve": frontend_serve(
+            device, enc, serve, SEED + 27, every, 23, swap_cross_kv,
+            "layer 0 reading layer 1's cross K/V"),
+        "encdec_train": encdec_train(device, enc, train, SEED + 30, every)}
+    s = vlm_run["check_seq"]
+    runs["vlm_serve"] = frontend_serve(
+        device, dataclasses.replace(vlm, num_layers=vlm_run["layers"]),
+        vlm_run, SEED + 32, every, 25,
+        lambda cache: cache["pos"].fill_(s - 1),
+        f"the decode at pos {s - 1}, the text's length: the patches not "
+        "counted")
+    t0 = time.perf_counter()
+    replays = noncausal_replays(device, shapes)
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "replays": replays}
+
+
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5367,13 +5932,32 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(ssm_train_phases(dev, every))
+    # phases 23-26: the enc-dec (audio) family served and trained at
+    # seamless-m4t-medium's full width and depth, the VLM served at
+    # internvl2-76b's full width, then K5's and K6's non-causal replays
+    gc.collect()
+    torch.cuda.empty_cache()
+    front = frontend_phases(dev, every)
+    runs.update(front["runs"])
+    report["noncausal_replays"] = front["replays"]
+    for entry in kernels:
+        key = entry["name"].split("(")[1].split(",")[0]
+        if key in front["replays"]:
+            entry["non_causal"] = {
+                name: {k: r[k] for k in (
+                    "max_abs_err", "row_err", "control_ratio", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "shape")}
+                for name, r in front["replays"][key].items()}
     new_runs = {"moe_serve": runs["moe_serve"]["launches"],
                 "moe_train": runs["moe_train"]["launches"],
                 **{name: r["launches"]
                    for name, r in runs["examples"].items()},
                 "entry_ssm": runs["entry_ssm"]["launches"],
                 "ssm_train": runs[f"{SSM_ARCH}_train"]["launches"],
-                "hybrid_train": runs[f"{HYBRID_ARCH}_train"]["launches"]}
+                "hybrid_train": runs[f"{HYBRID_ARCH}_train"]["launches"],
+                **{name: runs[name]["launches"] for name in (
+                    "encdec_serve", "encdec_train", "vlm_serve")}}
     for entry in kernels:
         key = entry["name"].split("(")[1].split(",")[0]
         entry.setdefault("launches_by_run", {}).update(

@@ -26,6 +26,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import STACKED
+
 #: bins of the port's ``LatenessHistogram`` (and of the JAX package's)
 HIST_BINS = 256
 
@@ -216,12 +218,15 @@ def tiered_kv_cache_from_jax(state: Dict[str, Any], *,
 
 
 # ------------------------------------------------------------- training
+
+
 def _jax_key(name: str) -> tuple:
     """A port parameter name -> (its JAX tree path, its layer or None):
-    ``layers.3.attn.q.w`` is layer 3 of ``layers/attn/q/w``."""
+    ``layers.3.attn.q.w`` is layer 3 of ``layers/attn/q/w``, and
+    ``encoder.1.mlp.up.w`` encoder layer 1 of ``encoder/mlp/up/w``."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return "/".join(["layers", *parts[2:]]), int(parts[1])
+    if parts[0] in STACKED:
+        return "/".join([parts[0], *parts[2:]]), int(parts[1])
     return "/".join(parts), None
 
 
@@ -237,17 +242,18 @@ def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def model_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX model's parameter tree (nested dicts of numpy arrays, as
-    ``np.asarray`` gives them; ``layers`` stacked on a leading axis) -> the
-    port's parameters by name (``Model.init``'s keys), as CPU tensors: the
-    stacked axis is split into ``layers.<i>.``, each array copied."""
+    ``np.asarray`` gives them; ``layers`` and ``encoder`` stacked on a
+    leading axis) -> the port's parameters by name (``Model.init``'s
+    keys), as CPU tensors: the stacked axis is split into ``layers.<i>.``
+    (``encoder.<i>.``), each array copied."""
     out: Dict[str, torch.Tensor] = {}
     for key, arr in _flat(params).items():
         arr = np.asarray(arr)
         parts = key.split("/")
-        if parts[0] == "layers":
+        if parts[0] in STACKED:
             rest = ".".join(parts[1:])
             for i in range(arr.shape[0]):
-                out[f"layers.{i}.{rest}"] = _host_tensor(arr[i])
+                out[f"{parts[0]}.{i}.{rest}"] = _host_tensor(arr[i])
         else:
             out[".".join(parts)] = _host_tensor(arr)
     return out
@@ -255,7 +261,8 @@ def model_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def model_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The reverse: the port's parameters by name -> the JAX tree of numpy
-    arrays, each layer's leaf stacked on a leading ``layers`` axis."""
+    arrays, each layer's leaf stacked on a leading ``layers`` (or
+    ``encoder``) axis."""
     flat: Dict[str, Any] = {}
     layered: Dict[str, Dict[int, np.ndarray]] = {}
     for name, t in params.items():

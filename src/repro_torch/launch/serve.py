@@ -5,8 +5,11 @@ output, on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --smoke --batch 4 --prompt-len 64 --new-tokens 32
 
-Runs greedy decoding for a batch of synthetic prompts (``default_rng(0)``)
-and reports tokens/sec. ``--smoke`` is a ``store_true`` flag whose default
+Runs greedy decoding for a batch of synthetic prompts (``default_rng(0)``;
+the audio and enc-dec families' stub frame embeddings and the VLM's stub
+patch embeddings are drawn after the tokens from the same generator,
+normal x 0.02 in bf16, as the JAX entry point draws them) and reports
+tokens/sec. ``--smoke`` is a ``store_true`` flag whose default
 is True, as in the JAX entry point, so the command line always serves the
 reduced same-family config (``reduced(cfg)``). The tiered paged-KV path
 is ``serve.ContinuousBatcher``; this entry point is the plain model-level
@@ -26,6 +29,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
+from repro_torch.models.transformer import STUB_INPUTS
 from repro_torch.serve import make_decode_step
 
 
@@ -39,15 +43,19 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(dev).manual_seed(0))
     rng = np.random.default_rng(0)
-    tokens = torch.as_tensor(
+    inputs = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
-        dtype=torch.int32, device=dev)
+        dtype=torch.int32, device=dev)}
+    stub = STUB_INPUTS.get(cfg.family)
+    if stub is not None:
+        inputs[stub] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.frontend_tokens, cfg.d_model))
+            * 0.02, device=dev).to(torch.bfloat16)
     max_len = prompt_len + new_tokens + cfg.frontend_tokens
     decode = make_decode_step(model)
 
     t0 = time.time()
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  max_len=max_len)
+    logits, cache = model.prefill(params, inputs, max_len=max_len)
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     generated = [next_tok.cpu().numpy()]
     prefill_s = time.time() - t0

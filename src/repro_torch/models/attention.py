@@ -17,11 +17,21 @@ of ``window`` slots (position ``pos`` at slot ``pos % window``), and an
 int8 cache keeps a scale per vector, quantized on write and dequantized
 for the two products.
 
-Not ported here: ``kv_repeat != 1`` (K/V repeated for tensor-parallel
-sharding) and ``xattn_kv`` / ``kv_valid_len`` (the encoder-decoder
-family) raise. ``dus_write`` (the JAX per-shard write into a
-sequence-sharded cache) is accepted and has nothing to switch on one
-card.
+Cross-attention (the encoder-decoder and audio families): ``xattn_kv``
+hands ``attn_forward`` the decoder layer's K/V of the encoder output
+(RoPE'd at the encoder's positions by the caller, the model's
+``_cross_kv``); q is RoPE'd at the decoder's positions and attends every
+frame, non-causal, through the same K5/K6 call (Sq != Sk). Decode
+attends them with ``decode_attention`` under ``xattn_len``'s mask of the
+valid frames. ``kv_repeat`` (K/V heads repeated so that a
+tensor-parallel head axis shards evenly) is ``_repeat_kv``, a
+``repeat_interleave`` on the head axis, as ``jnp.repeat``.
+
+Not ported here: ``kv_valid_len`` of ``attn_forward`` (a per-row key
+length, which no caller of the JAX package passes and the Pallas flash
+kernel has no argument for) raises. ``dus_write`` (the JAX per-shard
+write into a sequence-sharded cache) is accepted and has nothing to
+switch on one card.
 """
 from __future__ import annotations
 
@@ -53,6 +63,14 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
     return out
 
 
+def _repeat_kv(kv: torch.Tensor, repeat: int) -> torch.Tensor:
+    """[B, S, Hkv, D] -> [B, S, Hkv * repeat, D], each head repeated in
+    place (``jnp.repeat`` on the head axis), so groups stay contiguous."""
+    if repeat == 1:
+        return kv
+    return torch.repeat_interleave(kv, repeat, dim=2)
+
+
 def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor, kv_repeat: int = 1,
                  causal: bool = True, window: int = 0,
@@ -61,27 +79,34 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                  kv_valid_len=None, causal_skip: bool = False):
     """Train/prefill attention. x: [B, S, D]. positions: [B, S].
 
-    Returns (out, (k, v)): (k, v) are the post-RoPE heads when
-    ``return_kv``, else None. ``causal_skip`` is accepted and has nothing
-    to switch: K5 and K6 always skip the tiles that the mask empties."""
-    if kv_repeat != 1:
-        raise NotImplementedError("kv_repeat != 1 (K/V repeated for "
-                                  "tensor-parallel sharding) is not ported")
-    if xattn_kv is not None or kv_valid_len is not None:
-        raise NotImplementedError("cross-attention (xattn_kv, "
-                                  "kv_valid_len) is not ported")
+    ``xattn_kv``: the precomputed (k, v) [B, F, Hs, dh] of
+    cross-attention, attended as they come (no K/V of x is computed).
+    Returns (out, (k, v)): (k, v) are the stored heads (post-RoPE,
+    repeated by ``kv_repeat``) when ``return_kv`` or for
+    cross-attention, else None. ``causal_skip`` is accepted and has
+    nothing to switch: K5 and K6 always skip the tiles that the mask
+    empties."""
+    if kv_valid_len is not None:
+        raise NotImplementedError("kv_valid_len (a per-row key length in "
+                                  "K5/K6) is not ported")
     cd = x.dtype
     q = dense_apply(params["q"], x, cd)                      # [B,S,H,dh]
-    k = dense_apply(params["k"], x, cd)
-    v = dense_apply(params["v"], x, cd)
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if xattn_kv is None:
+        k = dense_apply(params["k"], x, cd)
+        v = dense_apply(params["v"], x, cd)
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        k, v = _repeat_kv(k, kv_repeat), _repeat_kv(v, kv_repeat)
+    else:
+        k, v = xattn_kv
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, positions, cfg.rope_theta)
     out = ops.flash_attention_vjp(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
                                   window=window)
     y = dense_apply(params["o"], out, cd, contract_dims=2)
-    return y, ((k, v) if return_kv else None)
+    return y, ((k, v) if return_kv or xattn_kv is not None else None)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -125,6 +150,11 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
     """Decode one token. x: [B, 1, D]; caches [B, S_cache, Hs, dh];
     ``cache_pos``: the new token's absolute position (an int).
 
+    Cross-attention: ``xattn_kv`` (k, v) [B, F, Hs, dh] are attended
+    under the mask of the first ``xattn_len`` [B] frames (all where
+    None), q RoPE'd at ``cache_pos``; the caches are not read and are
+    returned as given.
+
     Window archs use a ring of S_cache == window slots: the token goes to
     slot ``cache_pos % S_cache``. ``kv_scales``: (k_scale, v_scale)
     [B, S_cache, Hs] of an int8 cache: the new K/V are quantized on
@@ -135,21 +165,27 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
     The caches (and scales) are written in place at the slot, where the
     JAX function returns updated copies; they are returned all the same.
     Returns (out, cache_k, cache_v, scales_or_None)."""
-    if kv_repeat != 1:
-        raise NotImplementedError("kv_repeat != 1 (tensor-parallel K/V "
-                                  "repeat) is not ported")
-    if xattn_kv is not None or xattn_len is not None:
-        raise NotImplementedError("cross-attention decode (xattn_kv) is "
-                                  "not ported")
     cd = x.dtype
     b = x.shape[0]
     pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
     q = dense_apply(params["q"], x, cd)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos, cfg.rope_theta)
+    if xattn_kv is not None:
+        k_all, v_all = xattn_kv
+        f = k_all.shape[1]
+        lens = torch.full((b,), f, device=x.device) if xattn_len is None \
+            else torch.as_tensor(xattn_len, device=x.device)
+        valid = torch.arange(f, device=x.device)[None, :] < lens[:, None]
+        out = decode_attention(q, k_all, v_all, valid)
+        y = dense_apply(params["o"], out, cd, contract_dims=2)
+        return y, cache_k, cache_v, None
+
     k_new = dense_apply(params["k"], x, cd)
     v_new = dense_apply(params["v"], x, cd)
     if cfg.rope_theta > 0:
-        q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    k_new, v_new = _repeat_kv(k_new, kv_repeat), _repeat_kv(v_new, kv_repeat)
     s_cache = cache_k.shape[1]
     # past the last slot, a full-attention cache overwrites that slot, as
     # the JAX dynamic_update_slice clamps its index

@@ -1,17 +1,35 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families: the JAX
-package's ``models/transformer.py`` for ``FAMILY_DENSE``, ``FAMILY_MOE``
-(attention, then the mixture-of-experts FFN of ``models/moe.py`` in place
-of the MLP), ``FAMILY_SSM`` (the mamba2 SSD block only) and
-``FAMILY_HYBRID`` (hymba: 0.5 * (attention + SSD) in parallel, then the
-MLP), with its train forward and loss and its serving half
-(``init_cache``, ``prefill``, ``prefill_streaming``, ``decode_step``).
+"""Model assembly for every family of the JAX package's
+``models/transformer.py``: ``FAMILY_DENSE``, ``FAMILY_MOE`` (attention,
+then the mixture-of-experts FFN of ``models/moe.py`` in place of the
+MLP), ``FAMILY_SSM`` (the mamba2 SSD block only), ``FAMILY_HYBRID``
+(hymba: 0.5 * (attention + SSD) in parallel, then the MLP),
+``FAMILY_VLM`` (the dense decoder behind a prefix of stub patch
+embeddings, ``batch["patch_embeds"]``, at positions 0..F-1) and
+``FAMILY_ENCDEC`` / ``FAMILY_AUDIO`` (a bidirectional encoder over stub
+frame embeddings, ``batch["frame_embeds"]``, then a causal decoder whose
+layers add a cross-attention block after self-attention), with its train
+forward and loss and its serving half (``init_cache``, ``prefill``,
+``prefill_streaming``, ``decode_step``).
 
 Layers are an ``nn.ModuleList`` driven by a Python loop, in place of the
 ``lax.scan`` over stacked parameters; each layer's parameters are a module
 tree named as the JAX tree (``layers.3.attn.q.w`` is layer 3 of the JAX
-``layers/attn/q/w``). ``train_logits``, ``loss`` and the serving methods
+``layers/attn/q/w``, ``encoder.1.mlp.up.w`` encoder layer 1 of
+``encoder/mlp/up/w``). ``train_logits``, ``loss`` and the serving methods
 take the parameters as a mapping of those names to tensors, as the JAX
-functions take their tree (``None`` means the model's own).
+functions take their tree (``None`` means the model's own); a name under
+no head of the tree raises.
+
+The encoder runs ``encoder_layers`` layers of the family's block
+(attention non-causal and unwindowed, then the MLP) over the frames at
+positions 0..F-1, each under ``remat`` as a decoder layer is (never
+regrouped by ``remat_group``), then ``enc_norm``. ``_cross_kv`` projects
+its output once into every decoder layer's cross K/V (K RoPE'd at the
+encoder's positions, both repeated by ``kv_repeat``); the decoder's
+cross-attention attends them through K5/K6 from q at the decoder's
+positions, and their gradient reaches the encoder through K6's dK/dV.
+The VLM's ``loss`` scores the text tail only: its logits cover the patch
+positions too.
 
 Each layer returns its aux loss (the MoE router's; 0 for the other
 families), and ``train_logits`` sums it over the layers as the JAX scan
@@ -26,17 +44,22 @@ saves the outputs of the matrix products (``aten.mm``, ``bmm``,
 the rest, K5 and K7 included (they run inside ``autograd.Function``s, as
 a Pallas call reruns under JAX's policy). ``"none"`` runs plain.
 ``remat_group > 1`` that divides the layers adds JAX's two-level remat:
-each group of that many layers runs in one outer checkpoint, every layer
-inside it wrapped as ``remat`` says; a group that does not divide the
-layers falls back to the flat loop, as in JAX. ``kv_repeat != 1`` and
-the other families (VLM, audio, enc-dec) raise. Every family here
-trains: the SSD scan's gradient is ``kernels/ssd_scan.ssd_scan_bwd``.
+each group of that many decoder layers, with their cross K/V, runs in
+one outer checkpoint, every layer inside it wrapped as ``remat`` says; a
+group that does not divide the layers falls back to the flat loop, as in
+JAX. Every family trains: the SSD scan's gradient is
+``kernels/ssd_scan.ssd_scan_bwd``. ``kv_repeat`` repeats each K/V head
+(``attention._repeat_kv``) before K5 and in the cache, whose head axis
+holds ``num_kv_heads * kv_repeat`` heads.
 
 The decode cache holds the JAX names, stacked on a leading layers axis:
-``k``/``v`` [L, B, S_cache, Hkv, dh] (int8 with ``k_scale``/``v_scale``
-[L, B, S_cache, Hkv] when ``kv_cache_bits=8``), ``ssm`` [L, B, H, P, N]
-float32 and ``conv_x``/``conv_b``/``conv_c``, with ``pos`` a 0-dim int32
-tensor. ``decode_step`` writes the new token's entries into the cache in
+``k``/``v`` [L, B, S_cache, Hs, dh] (Hs = Hkv * kv_repeat; int8 with
+``k_scale``/``v_scale`` [L, B, S_cache, Hs] when ``kv_cache_bits=8``),
+``ssm`` [L, B, H, P, N] float32 and ``conv_x``/``conv_b``/``conv_c``,
+``cross_k``/``cross_v`` [L, B, F, Hs, dh] in the compute type (16-bit
+under ``kv_cache_bits=8`` too), with ``pos`` a 0-dim int32 tensor; the
+VLM's positions count the patches, so after a prefill of F patches and S
+tokens ``pos`` is F + S. ``decode_step`` writes the new token's entries into the cache in
 place and returns it with ``pos + 1`` (the JAX function returns a new
 cache); clone a cache to keep it. ``kv_dus_write`` (the JAX per-shard
 cache write) has nothing to switch on one card. The JAX ``cache_specs``
@@ -50,7 +73,7 @@ is a multiple of the window (ROADMAP Queue 3).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -60,7 +83,8 @@ from torch.utils.checkpoint import (
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import (
-    FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE, FAMILY_SSM, ModelConfig,
+    FAMILY_AUDIO, FAMILY_DENSE, FAMILY_ENCDEC, FAMILY_HYBRID, FAMILY_MOE,
+    FAMILY_SSM, FAMILY_VLM, ModelConfig,
 )
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as lyr
@@ -71,17 +95,33 @@ REMAT = ("none", "full", "dots")
 #: the operations whose outputs ``remat="dots"`` saves
 DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
         torch.ops.aten.baddbmm)
-FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID)
+FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID,
+            FAMILY_VLM, FAMILY_AUDIO, FAMILY_ENCDEC)
+#: the families whose decoder layers cross-attend an encoder
+CROSS = (FAMILY_ENCDEC, FAMILY_AUDIO)
+#: the batch key of each frontend family's stub embeddings [B, F, D]:
+#: the encoder's frames, the VLM's patches
+STUB_INPUTS = {FAMILY_AUDIO: "frame_embeds", FAMILY_ENCDEC: "frame_embeds",
+               FAMILY_VLM: "patch_embeds"}
+#: the heads of the parameter tree, in the JAX tree's order, and those
+#: stacked over the layers there (``layers.<i>.`` and ``encoder.<i>.`` here)
+HEADS = ("embed", "layers", "encoder", "enc_norm", "final_norm")
+STACKED = ("layers", "encoder")
 
 
 def _layer_init(generator: torch.Generator, cfg: ModelConfig,
-                dtype: torch.dtype, device) -> dict:
-    """One decoder layer's parameters for cfg.family."""
+                dtype: torch.dtype, device, cross: bool = False) -> dict:
+    """One layer's parameters for cfg.family; ``cross`` adds the
+    cross-attention block (``ln_x``, ``xattn``) of an enc-dec decoder
+    layer."""
     params = {"ln1": lyr.rmsnorm_init(cfg.d_model, dtype, device)}
-    if cfg.family in (FAMILY_DENSE, FAMILY_MOE, FAMILY_HYBRID):
+    if cfg.family != FAMILY_SSM:
         params["attn"] = attn_mod.attn_init(generator, cfg, dtype, device)
     if cfg.family in (FAMILY_SSM, FAMILY_HYBRID):
         params["ssd"] = ssm_mod.ssd_init(generator, cfg, dtype, device)
+    if cross:
+        params["ln_x"] = lyr.rmsnorm_init(cfg.d_model, dtype, device)
+        params["xattn"] = attn_mod.attn_init(generator, cfg, dtype, device)
     if cfg.family == FAMILY_MOE:
         params["ln2"] = lyr.rmsnorm_init(cfg.d_model, dtype, device)
         params["moe"] = moe_mod.moe_init(generator, cfg, dtype, device)
@@ -93,13 +133,18 @@ def _layer_init(generator: torch.Generator, cfg: ModelConfig,
 
 def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
                    positions: torch.Tensor, window: int,
-                   collect_kv: bool = False, collect_state: bool = False
+                   causal: bool = True, kv_repeat: int = 1,
+                   cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                   = None, collect_kv: bool = False,
+                   collect_state: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """One layer over the full sequence: attention and/or the SSD block on
     the RMS-normed input (their mean for the hybrid), added to the
-    residual, then the MoE FFN or the MLP. Returns (x, aux, collected):
-    the MoE aux loss (a float32 0 for the other families), and the
-    post-RoPE K/V and the SSM state and conv tail, as asked."""
+    residual; where ``cross_kv`` is given, cross-attention from the
+    ``ln_x``-normed x to those K/V (q at ``positions``, non-causal), added
+    to the residual; then the MoE FFN or the MLP. Returns (x, aux,
+    collected): the MoE aux loss (a float32 0 for the other families), and
+    the post-RoPE K/V and the SSM state and conv tail, as asked."""
     cd = x.dtype
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collected: dict = {}
@@ -107,8 +152,8 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
     delta = None
     if "attn" in lp:
         delta, kv = attn_mod.attn_forward(
-            lp["attn"], h, cfg, positions=positions, causal=True,
-            window=window, return_kv=collect_kv)
+            lp["attn"], h, cfg, positions=positions, kv_repeat=kv_repeat,
+            causal=causal, window=window, return_kv=collect_kv)
         if collect_kv:
             collected["k"], collected["v"] = kv
     if "ssd" in lp:
@@ -123,6 +168,11 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
     if "attn" in lp and "ssd" in lp:
         delta = delta * 0.5                 # hymba: mean of parallel heads
     x = x + delta
+    if cross_kv is not None:
+        hx = lyr.rmsnorm_apply(lp["ln_x"], x, cfg.norm_eps, cd)
+        x = x + attn_mod.attn_forward(
+            lp["xattn"], hx, cfg, positions=positions, causal=False,
+            xattn_kv=cross_kv)[0]
     if "moe" in lp:
         h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
         m_out, m_aux = moe_mod.moe_forward(lp["moe"], h2, cfg)
@@ -134,9 +184,10 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
     return x, aux, collected
 
 
-def _layer_train(lp, x, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+def _layer_train(lp, x, cross_kv=None, **kw
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, aux) of one layer: what the checkpointed layer returns."""
-    return _layer_forward(lp, x, **kw)[:2]
+    return _layer_forward(lp, x, cross_kv=cross_kv, **kw)[:2]
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -159,10 +210,11 @@ def _remat_wrap(fn, policy: str):
 
 
 def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
-                  cache_layer: dict, cache_pos: int,
-                  window: int) -> torch.Tensor:
+                  cache_layer: dict, cache_pos: int, window: int,
+                  kv_repeat: int = 1) -> torch.Tensor:
     """Single-token layer step. ``cache_layer`` holds this layer's views
-    of the stacked cache, which are updated in place."""
+    of the stacked cache, which are updated in place (the cross K/V are
+    only read)."""
     cd = x.dtype
     h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
     delta = None
@@ -172,8 +224,8 @@ def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
             scales = (cache_layer["k_scale"], cache_layer["v_scale"])
         delta, _, _, _ = attn_mod.attn_decode(
             lp["attn"], h, cfg, cache_k=cache_layer["k"],
-            cache_v=cache_layer["v"], cache_pos=cache_pos, window=window,
-            kv_scales=scales)
+            cache_v=cache_layer["v"], cache_pos=cache_pos,
+            kv_repeat=kv_repeat, window=window, kv_scales=scales)
     if "ssd" in lp:
         state = {"ssm": cache_layer["ssm"],
                  "conv": {"x": cache_layer["conv_x"],
@@ -188,6 +240,12 @@ def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
     if "attn" in lp and "ssd" in lp:
         delta = delta * 0.5
     x = x + delta
+    if "xattn" in lp:
+        hx = lyr.rmsnorm_apply(lp["ln_x"], x, cfg.norm_eps, cd)
+        x = x + attn_mod.attn_decode(
+            lp["xattn"], hx, cfg, cache_k=None, cache_v=None,
+            cache_pos=cache_pos,
+            xattn_kv=(cache_layer["cross_k"], cache_layer["cross_v"]))[0]
     if "moe" in lp:
         # capacity from the B tokens of this step: none is dropped
         h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
@@ -212,7 +270,7 @@ class _Params(nn.Module):
 
 
 class Model(nn.Module):
-    """The dense, MoE, SSM or hybrid model of one config, on one device.
+    """The model of one config, of any family, on one device.
 
     ``causal_skip`` is accepted and has nothing to switch: K5 and K6
     always skip the tiles that the causal mask empties; nor has
@@ -229,13 +287,11 @@ class Model(nn.Module):
         if cfg.remat not in REMAT:
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
                                       f"(one of {REMAT})")
-        if kv_repeat != 1:
-            raise NotImplementedError("kv_repeat != 1 (tensor-parallel K/V "
-                                      "repeat) is not ported")
         if kv_cache_bits not in (8, 16):
             raise ValueError(f"kv_cache_bits must be 8 or 16, got "
                              f"{kv_cache_bits}")
         self.cfg = cfg
+        self.kv_repeat = kv_repeat
         self.remat_group = remat_group
         self.causal_skip = causal_skip
         self.kv_cache_bits = kv_cache_bits
@@ -243,6 +299,8 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.embed = nn.ParameterDict()
         self.layers = nn.ModuleList()
+        self.encoder = nn.ModuleList()
+        self.enc_norm = nn.ParameterDict()
         self.final_norm = nn.ParameterDict()
 
     # -------------------------------------------------- init
@@ -253,75 +311,145 @@ class Model(nn.Module):
         weights across with ``convert.model_params_from_jax``."""
         cfg, dev = self.cfg, self.device
         dtype = lyr.dtype_of(cfg.param_dtype)
+        cross = cfg.family in CROSS
         self.embed = _Params(lyr.embed_init(generator, cfg, dtype, dev))
         self.layers = nn.ModuleList(
-            _Params(_layer_init(generator, cfg, dtype, dev))
+            _Params(_layer_init(generator, cfg, dtype, dev, cross=cross))
             for _ in range(cfg.num_layers))
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(
+                _Params(_layer_init(generator, cfg, dtype, dev))
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = _Params(lyr.rmsnorm_init(cfg.d_model, dtype,
+                                                     dev))
         self.final_norm = _Params(lyr.rmsnorm_init(cfg.d_model, dtype, dev))
         return dict(self.named_parameters())
 
-    def _split(self, params: Optional[Mapping[str, torch.Tensor]]
-               ) -> Tuple[dict, List[dict], dict]:
-        """(embed, one nested tree per layer, final_norm) of ``params``
-        (``None``: the model's own)."""
+    def _split(self, params: Optional[Mapping[str, torch.Tensor]]) -> dict:
+        """``params`` (``None``: the model's own) by head of the tree:
+        ``embed``, ``enc_norm`` and ``final_norm`` as nested trees,
+        ``layers`` and ``encoder`` as one nested tree per layer. A name
+        under no head raises: it would otherwise get no gradient and no
+        update."""
         p = dict(self.named_parameters()) if params is None else params
-        embed, final = {}, {}
-        layers: List[dict] = [{} for _ in range(self.cfg.num_layers)]
+        cfg = self.cfg
+        flat: dict = {"embed": {}, "enc_norm": {}, "final_norm": {},
+                      "layers": [{} for _ in range(cfg.num_layers)],
+                      "encoder": [{} for _ in range(cfg.encoder_layers)]}
         for name, t in p.items():
             head, _, rest = name.partition(".")
-            if head == "layers":
+            if head not in HEADS:
+                raise KeyError(f"parameter {name!r} is under no head of "
+                               f"the model's tree ({HEADS})")
+            if head in STACKED:
                 i, _, leaf = rest.partition(".")
-                layers[int(i)][leaf] = t
-            elif head == "embed":
-                embed[rest] = t
-            elif head == "final_norm":
-                final[rest] = t
-        return embed, [lyr.nest(lp) for lp in layers], final
+                flat[head][int(i)][leaf] = t
+            else:
+                flat[head][rest] = t
+        return {k: [lyr.nest(lp) for lp in v] if isinstance(v, list)
+                else lyr.nest(v) for k, v in flat.items()}
 
     def _head(self, embed: dict, final: dict, x: torch.Tensor,
               cd: torch.dtype) -> torch.Tensor:
         x = lyr.rmsnorm_apply(final, x, self.cfg.norm_eps, cd)
         return lyr.unembed_apply(embed, x, self.cfg)
 
+    # -------------------------------------------------- embedding helpers
+    def _embed_inputs(self, embed: dict, batch) -> tuple:
+        """(embeds [B, S, D], positions [B, S]): the tokens' embeddings,
+        behind the VLM's patch embeddings where the batch has them."""
+        cd = lyr.dtype_of(self.cfg.compute_dtype)
+        emb = lyr.embed_apply(embed, batch["tokens"], cd)
+        if self.cfg.family == FAMILY_VLM and "patch_embeds" in batch:
+            emb = torch.cat([batch["patch_embeds"].to(cd), emb], dim=1)
+        b, s = emb.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=emb.device).expand(b, s)
+        return emb, positions
+
+    def _encode(self, tree: dict, batch) -> torch.Tensor:
+        """The encoder stack over ``batch["frame_embeds"]`` [B, F, D]:
+        bidirectional, unwindowed, each layer under ``remat``; then
+        ``enc_norm``."""
+        cfg = self.cfg
+        cd = lyr.dtype_of(cfg.compute_dtype)
+        x = batch["frame_embeds"].to(cd)
+        b, f = x.shape[:2]
+        positions = torch.arange(f, dtype=torch.int32,
+                                 device=x.device).expand(b, f)
+        fn = _remat_wrap(functools.partial(
+            _layer_train, cfg=cfg, positions=positions, window=0,
+            causal=False, kv_repeat=self.kv_repeat), cfg.remat)
+        for lp in tree["encoder"]:
+            x, _ = fn(lp, x)
+        return lyr.rmsnorm_apply(tree["enc_norm"], x, cfg.norm_eps, cd)
+
+    def _cross_kv(self, tree: dict, enc_out: torch.Tensor) -> list:
+        """Every decoder layer's cross (k, v) [B, F, Hs, dh] from the
+        encoder output: K RoPE'd at the encoder's positions, both
+        repeated by ``kv_repeat``."""
+        cfg = self.cfg
+        cd = enc_out.dtype
+        b, f = enc_out.shape[:2]
+        positions = torch.arange(f, dtype=torch.int32,
+                                 device=enc_out.device).expand(b, f)
+        out = []
+        for lp in tree["layers"]:
+            k = lyr.dense_apply(lp["xattn"]["k"], enc_out, cd)
+            v = lyr.dense_apply(lp["xattn"]["v"], enc_out, cd)
+            if cfg.rope_theta > 0:
+                k = lyr.apply_rope(k, positions, cfg.rope_theta)
+            out.append((attn_mod._repeat_kv(k, self.kv_repeat),
+                        attn_mod._repeat_kv(v, self.kv_repeat)))
+        return out
+
+    def _decoder_inputs(self, tree: dict, batch) -> tuple:
+        """(embeds, positions, each decoder layer's cross K/V or None)."""
+        emb, positions = self._embed_inputs(tree["embed"], batch)
+        cross = [None] * self.cfg.num_layers
+        if self.cfg.encoder_layers:
+            cross = self._cross_kv(tree, self._encode(tree, batch))
+        return emb, positions, cross
+
     # -------------------------------------------------- train forward
     def train_logits(self, params: Optional[Mapping[str, torch.Tensor]],
                      batch) -> tuple:
-        """Teacher-forced forward. Returns (logits fp32 [B,S,Vp], aux)."""
+        """Teacher-forced forward. Returns (logits fp32 [B,S,Vp], aux);
+        the VLM's S counts the patches."""
         cfg = self.cfg
-        embed, layers, final = self._split(params)
+        tree = self._split(params)
         cd = lyr.dtype_of(cfg.compute_dtype)
-        tokens = batch["tokens"]
-        x = lyr.embed_apply(embed, tokens, cd)
-        b, s = tokens.shape
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
+        x, positions, cross = self._decoder_inputs(tree, batch)
         fn = _remat_wrap(functools.partial(
             _layer_train, cfg=cfg, positions=positions,
-            window=cfg.attn_window), cfg.remat)
+            window=cfg.attn_window, kv_repeat=self.kv_repeat), cfg.remat)
 
-        def run(lps, x, aux):
-            for lp in lps:
-                x, a = fn(lp, x)
+        def run(lps, ckvs, x, aux):
+            for lp, ckv in zip(lps, ckvs):
+                x, a = fn(lp, x, ckv)
                 aux = aux + a
             return x, aux
 
+        layers = tree["layers"]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         g = self.remat_group
         if g > 1 and cfg.num_layers % g == 0:
             for i in range(0, cfg.num_layers, g):
-                x, aux = checkpoint(run, layers[i:i + g], x, aux,
-                                    use_reentrant=False)
+                x, aux = checkpoint(run, layers[i:i + g], cross[i:i + g], x,
+                                    aux, use_reentrant=False)
         else:
-            x, aux = run(layers, x, aux)
-        logits = self._head(embed, final, x, cd)
+            x, aux = run(layers, cross, x, aux)
+        logits = self._head(tree["embed"], tree["final_norm"], x, cd)
         return logits, aux
 
     def loss(self, params: Optional[Mapping[str, torch.Tensor]],
              batch) -> tuple:
-        """Mean CE over targets >= 0 (+ the MoE aux). Returns (loss,
-        metrics)."""
+        """Mean CE over targets >= 0 (+ the MoE aux); the VLM's logits
+        are scored on the text tail only. Returns (loss, metrics)."""
         logits, aux = self.train_logits(params, batch)
         targets = batch["targets"].long()
+        if logits.shape[1] != targets.shape[1]:
+            logits = logits[:, logits.shape[1] - targets.shape[1]:]
         mask = (targets >= 0).float()
         tgt = targets.clamp(min=0)
         logz = torch.logsumexp(logits, dim=-1)
@@ -342,9 +470,9 @@ class Model(nn.Module):
         cfg, dev = self.cfg, self.device
         cd = lyr.dtype_of(cfg.compute_dtype)
         L, b = cfg.num_layers, batch_size
+        hs, dh = cfg.num_kv_heads * self.kv_repeat, cfg.resolved_head_dim
         layers: Dict[str, torch.Tensor] = {}
         if cfg.has_attention:
-            hs, dh = cfg.num_kv_heads, cfg.resolved_head_dim
             s_c = self.cache_len_for(cache_len)
             kv_dtype = torch.int8 if self.kv_cache_bits == 8 else cd
             for name in ("k", "v"):
@@ -364,6 +492,11 @@ class Model(nn.Module):
             for name in ("conv_b", "conv_c"):
                 layers[name] = torch.zeros((L, b, cw - 1, n), dtype=cd,
                                            device=dev)
+        if cfg.encoder_layers:
+            for name in ("cross_k", "cross_v"):
+                layers[name] = torch.zeros(
+                    (L, b, cfg.frontend_tokens, hs, dh), dtype=cd,
+                    device=dev)
         return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
                 "layers": layers}
 
@@ -373,27 +506,27 @@ class Model(nn.Module):
         """Process a prompt, return (last-token logits [B,1,Vp] fp32,
         filled cache).
 
-        ``max_len``: cache capacity to allocate (>= prompt length) so
-        subsequent ``decode_step`` calls have room; defaults to prompt
-        length + 1. A window arch keeps the last ``window`` keys of a
-        longer prompt in slots ``0..window-1``."""
+        ``max_len``: cache capacity to allocate (>= the prompt's embedding
+        length, the VLM's patches included) so subsequent ``decode_step``
+        calls have room; defaults to that length + 1. A window arch keeps
+        the last ``window`` keys of a longer prompt in slots
+        ``0..window-1``. The cross K/V of every frame of the batch fill
+        ``cross_k``/``cross_v``."""
         cfg = self.cfg
         cd = lyr.dtype_of(cfg.compute_dtype)
-        embed, layers, final = self._split(params)
-        tokens = batch["tokens"]
-        x = lyr.embed_apply(embed, tokens, cd)
-        b, s = tokens.shape
+        tree = self._split(params)
+        x, positions, cross = self._decoder_inputs(tree, batch)
+        b, s = x.shape[:2]
         cap = max_len if max_len is not None else s + 1
         if cap < s and not cfg.attn_window:
             raise ValueError(f"prefill cache capacity {cap} < prompt "
                              f"embedding length {s}")
         cache = self.init_cache(b, cap)
         cl = cache["layers"]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
-        for i, lp in enumerate(layers):
+        for i, (lp, ckv) in enumerate(zip(tree["layers"], cross)):
             x, _, coll = _layer_forward(
                 lp, x, cfg=cfg, positions=positions, window=cfg.attn_window,
+                kv_repeat=self.kv_repeat, cross_kv=ckv,
                 collect_kv=cfg.has_attention, collect_state=cfg.ssm.enabled)
             if cfg.has_attention:
                 self._fill_kv(cl, i, coll["k"], coll["v"], s)
@@ -401,13 +534,17 @@ class Model(nn.Module):
                 cl["ssm"][i] = coll["ssm"]
                 for name in ("conv_x", "conv_b", "conv_c"):
                     cl[name][i] = coll[name].to(cd)
-        logits = self._head(embed, final, x[:, -1:], cd)
+        if cfg.encoder_layers:
+            # as the JAX prefill, the cache holds the frames the batch has
+            for j, name in enumerate(("cross_k", "cross_v")):
+                cl[name] = torch.stack([ckv[j] for ckv in cross]).to(cd)
+        logits = self._head(tree["embed"], tree["final_norm"], x[:, -1:], cd)
         cache["pos"].fill_(s)
         return logits, cache
 
     def _fill_kv(self, cl: dict, i: int, k: torch.Tensor, v: torch.Tensor,
                  s: int) -> None:
-        """Layer ``i``'s prompt K/V [B, S, Hkv, dh] into the cache: all of
+        """Layer ``i``'s prompt K/V [B, S, Hs, dh] into the cache: all of
         them, or the last S_cache of a window arch's longer prompt."""
         s_c = cl["k"].shape[2]
         lo = s - s_c if s_c < s else 0
@@ -431,7 +568,7 @@ class Model(nn.Module):
         if cfg.family != FAMILY_SSM:
             raise ValueError("streaming prefill is SSM-only")
         cd = lyr.dtype_of(cfg.compute_dtype)
-        embed, layers, final = self._split(params)
+        tree = self._split(params)
         tokens = batch["tokens"]
         b, s = tokens.shape
         if s % chunk and s >= chunk:
@@ -441,8 +578,8 @@ class Model(nn.Module):
         cl = cache["layers"]
         x = None
         for c0 in range(0, s, chunk):
-            x = lyr.embed_apply(embed, tokens[:, c0:c0 + chunk], cd)
-            for i, lp in enumerate(layers):
+            x = lyr.embed_apply(tree["embed"], tokens[:, c0:c0 + chunk], cd)
+            for i, lp in enumerate(tree["layers"]):
                 h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
                 out, st = ssm_mod.ssd_forward(
                     lp["ssd"], h, cfg, init_state=cl["ssm"][i],
@@ -454,7 +591,7 @@ class Model(nn.Module):
                 cl["conv_x"][i] = st["conv"]["x"].to(cd)
                 cl["conv_b"][i] = st["conv"]["B"].to(cd)
                 cl["conv_c"][i] = st["conv"]["C"].to(cd)
-        logits = self._head(embed, final, x[:, -1:], cd)
+        logits = self._head(tree["embed"], tree["final_norm"], x[:, -1:], cd)
         cache["pos"].fill_(s)
         return logits, cache
 
@@ -465,15 +602,16 @@ class Model(nn.Module):
         token written in place and ``pos + 1``)."""
         cfg = self.cfg
         cd = lyr.dtype_of(cfg.compute_dtype)
-        embed, layers, final = self._split(params)
-        x = lyr.embed_apply(embed, tokens, cd)
+        tree = self._split(params)
+        x = lyr.embed_apply(tree["embed"], tokens, cd)
         pos = int(cache["pos"])
         cl = cache["layers"]
-        for i, lp in enumerate(layers):
+        for i, lp in enumerate(tree["layers"]):
             x = _layer_decode(lp, x, cfg,
                               cache_layer={k: t[i] for k, t in cl.items()},
-                              cache_pos=pos, window=cfg.attn_window)
-        logits = self._head(embed, final, x, cd)
+                              cache_pos=pos, window=cfg.attn_window,
+                              kv_repeat=self.kv_repeat)
+        logits = self._head(tree["embed"], tree["final_norm"], x, cd)
         cache["pos"] = torch.full((), pos + 1, dtype=torch.int32,
                                   device=cache["pos"].device)
         return logits, cache

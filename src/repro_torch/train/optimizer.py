@@ -4,11 +4,12 @@ global norm of all gradients, decoupled weight decay on matrices only
 (``p.ndim >= 2``), moments in fp32.
 
 The rule "matrices only" is the JAX one as the JAX tree meets it: there
-each layer's leaf is stacked over the layers, so a layer's norm scale or
-bias has rank 2 and decays; only the unstacked vectors (the final norm's
-scale) do not. A port parameter named ``layers.<i>.*`` is one slice of
-such a leaf, so its rank counts that axis (``jax_rank``), and the two
-packages decay the same parameters.
+each layer's leaf is stacked over the layers (the decoder's and the
+encoder's), so a layer's norm scale or bias has rank 2 and decays; only
+the unstacked vectors (the final norm's and ``enc_norm``'s scales) do
+not. A port parameter named ``layers.<i>.*`` or ``encoder.<i>.*`` is one
+slice of such a leaf, so its rank counts that axis (``jax_rank``), and
+the two packages decay the same parameters.
 
 Parameters and moments are dicts of tensors by name. ``adamw_update``
 updates them in place (the JAX function returns new trees): at
@@ -24,6 +25,9 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Tuple
 
 import torch
+
+from repro_torch.models.transformer import STACKED
+
 
 
 @dataclass(frozen=True)
@@ -65,8 +69,9 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 def jax_rank(name: str, p: torch.Tensor) -> int:
     """The rank of the JAX leaf that parameter ``name`` is (a slice of):
-    ``layers.<i>.*`` leaves are stacked over the layers there."""
-    return p.ndim + (1 if name.startswith("layers.") else 0)
+    ``layers.<i>.*`` and ``encoder.<i>.*`` leaves are stacked over the
+    layers there."""
+    return p.ndim + (1 if name.split(".")[0] in STACKED else 0)
 
 
 @torch.no_grad()

@@ -340,3 +340,115 @@ def test_attention_library_build_raises_without_nvcc(monkeypatch):
         _build.build("attention.cu")
     with pytest.raises(ValueError, match="unknown kernel source"):
         _build.library("moe.cu")
+
+
+# ------------------------------------ the model's attention block (models/)
+def _attn_pair(hkv: int):
+    """The attention block's parameters drawn by the JAX ``attn_init`` at
+    the reduced seamless-m4t-medium's width (d 256, 4 heads of 64) with
+    ``hkv`` KV heads, for both packages, and its configs."""
+    import dataclasses
+    import jax
+    from repro.configs import get_config as j_get_config
+    from repro.configs import reduced as j_reduced
+    from repro.models import attention as JA
+    from repro_torch.configs import reduced
+    kw = dict(num_kv_heads=hkv, compute_dtype="float32")
+    jcfg = dataclasses.replace(j_reduced(j_get_config(
+        "seamless-m4t-medium")), **kw)
+    tcfg = dataclasses.replace(reduced(get_config("seamless-m4t-medium")),
+                               **kw)
+    jp, _ = JA.attn_init(jax.random.PRNGKey(3), jcfg, jnp.float32)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("kv_repeat,hkv", [(1, 4), (2, 2), (2, 1)])
+def test_attn_forward_self_and_cross_match_jax(kv_repeat, hkv):
+    """``models/attention.attn_forward`` against the JAX function in
+    float32: causal self-attention with ``kv_repeat`` (the stored K/V
+    repeated on the head axis, as ``jnp.repeat``), and cross-attention of
+    24 decoder positions onto 16 frames' K/V (q RoPE'd at the decoder's
+    positions, K/V taken as they come, non-causal: Sq != Sk through K5's
+    plain version). ``kv_valid_len`` raises."""
+    from repro.models import attention as JA
+    from repro_torch.models import attention as TA
+    jcfg, tcfg, jp, tp = _attn_pair(hkv)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 24, 256)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24))
+    hs = hkv * kv_repeat
+    ck = rng.normal(size=(2, 16, hs, 64)).astype(np.float32)
+    cv = rng.normal(size=(2, 16, hs, 64)).astype(np.float32)
+    jy, (jk, jv) = JA.attn_forward(jp, jnp.asarray(x), jcfg,
+                                   positions=jnp.asarray(pos),
+                                   kv_repeat=kv_repeat, return_kv=True)
+    ty, (tk, tv) = TA.attn_forward(tp, _t(x), tcfg, positions=_t(pos),
+                                   kv_repeat=kv_repeat, return_kv=True)
+    assert tuple(tk.shape) == jk.shape == (2, 24, hs, 64)
+    for a, b in ((ty, jy), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=F32, atol=F32)
+    jy, jkv = JA.attn_forward(jp, jnp.asarray(x), jcfg,
+                              positions=jnp.asarray(pos), causal=False,
+                              xattn_kv=(jnp.asarray(ck), jnp.asarray(cv)))
+    ty, tkv = TA.attn_forward(tp, _t(x), tcfg, positions=_t(pos),
+                              causal=False, xattn_kv=(_t(ck), _t(cv)))
+    np.testing.assert_allclose(_np(ty), _np(jy), rtol=F32, atol=F32)
+    assert tkv[0] is not None and jkv is not None
+    # q at other positions gives another result: the RoPE is applied
+    moved, _ = TA.attn_forward(tp, _t(x), tcfg, positions=_t(pos + 7),
+                               causal=False, xattn_kv=(_t(ck), _t(cv)))
+    assert float((moved - ty).abs().max()) > 1e-3
+    with pytest.raises(NotImplementedError, match="kv_valid_len"):
+        TA.attn_forward(tp, _t(x), tcfg, positions=_t(pos), causal=False,
+                        xattn_kv=(_t(ck), _t(cv)),
+                        kv_valid_len=torch.full((2,), 8))
+
+
+@pytest.mark.parametrize("kv_repeat,hkv", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("xattn_len", [None, (16, 9)])
+def test_attn_decode_self_and_cross_match_jax(kv_repeat, hkv, xattn_len):
+    """``attn_decode`` against the JAX function in float32: a cache
+    decode at position 11 with ``kv_repeat`` (the new K/V repeated before
+    the write; the written cache against JAX's), and a cross-attention
+    decode against 16 frames masked to ``xattn_len`` valid frames a row
+    (q RoPE'd at the position; the caches neither read nor written). A
+    frame past a row's length changes nothing there."""
+    from repro.models import attention as JA
+    from repro_torch.models import attention as TA
+    jcfg, tcfg, jp, tp = _attn_pair(hkv)
+    rng = np.random.default_rng(6)
+    hs = hkv * kv_repeat
+    x = rng.normal(size=(2, 1, 256)).astype(np.float32)
+    kc = rng.normal(size=(2, 20, hs, 64)).astype(np.float32)
+    vc = rng.normal(size=(2, 20, hs, 64)).astype(np.float32)
+    jy, jk, jv, _ = JA.attn_decode(jp, jnp.asarray(x), jcfg,
+                                   cache_k=jnp.asarray(kc),
+                                   cache_v=jnp.asarray(vc), cache_pos=11,
+                                   kv_repeat=kv_repeat)
+    tk, tv = _t(kc.copy()), _t(vc.copy())
+    ty, tk, tv, _ = TA.attn_decode(tp, _t(x), tcfg, cache_k=tk, cache_v=tv,
+                                   cache_pos=11, kv_repeat=kv_repeat)
+    for a, b in ((ty, jy), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=F32, atol=F32)
+    jlen = None if xattn_len is None else jnp.asarray(xattn_len, jnp.int32)
+    tlen = None if xattn_len is None else torch.tensor(xattn_len)
+    ck, cv = kc[:, :16], vc[:, :16]
+    jy, *_ = JA.attn_decode(jp, jnp.asarray(x), jcfg, cache_k=None,
+                            cache_v=None, cache_pos=11,
+                            xattn_kv=(jnp.asarray(ck), jnp.asarray(cv)),
+                            xattn_len=jlen)
+    ty, tk, tv, sc = TA.attn_decode(tp, _t(x), tcfg, cache_k=None,
+                                    cache_v=None, cache_pos=11,
+                                    xattn_kv=(_t(ck), _t(cv)),
+                                    xattn_len=tlen)
+    assert tk is None and tv is None and sc is None
+    np.testing.assert_allclose(_np(ty), _np(jy), rtol=F32, atol=F32)
+    if xattn_len is not None:
+        cv2 = cv.copy()
+        cv2[:, 9:] += 1.0
+        ty2, *_ = TA.attn_decode(tp, _t(x), tcfg, cache_k=None,
+                                 cache_v=None, cache_pos=11,
+                                 xattn_kv=(_t(ck), _t(cv2)), xattn_len=tlen)
+        assert torch.equal(ty2[1], ty[1])
+        assert not torch.equal(ty2[0], ty[0])

@@ -275,6 +275,9 @@ def test_flash_kernel_row_with_nothing_to_attend_is_nan(dev):
     (1, 1024, 1024, 36, 4, 128, True, 0),  # starcoder2-7b: G = 9
     (1, 2048, 2048, 25, 5, 64, True, 1024),  # hymba-1.5b: G = 5, window
     (2, 384, 384, 4, 2, 64, False, 100),   # a window without causal
+    (2, 2048, 1024, 16, 16, 64, False, 0),  # seamless cross-attention
+    (1, 16, 1024, 16, 16, 64, False, 0),   # Sq below one tile
+    (1, 1024, 1024, 16, 16, 64, False, 0),  # seamless encoder
 ])
 def test_flash_wgmma_matches_plain(dev, b, sq, sk, h, hkv, d, causal,
                                    window):

@@ -207,18 +207,42 @@ def test_model_matches_jax_bfloat16():
 
 
 def test_model_refuses_what_is_not_ported():
-    """The families other than dense, MoE, SSM and hybrid (VLM, audio,
-    enc-dec) and the K/V repeat raise at construction, and both MoE
-    configs build; the serving half is held to the JAX package in
-    ``test_torch_serve_model.py``."""
+    """Every family of ``configs/base.py`` builds, the K/V repeat too
+    (every reduced arch, and enc-dec, VLM and audio configs with
+    ``kv_repeat`` 1 and 2), and runs a loss; what stays refused is
+    ``attn_forward``'s ``kv_valid_len`` (a per-row key length in K5/K6)
+    and a cache of other than 8 or 16 bits. The serving half is held to
+    the JAX package in ``test_torch_serve_model.py``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ALL_FAMILIES
+    from repro_torch.models import attention as TA
     cfg = reduced(get_config("starcoder2-7b"))
-    for arch in ("internvl2-76b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError):
-            build_model(reduced(get_config(arch)), device="cpu")
-    for arch in ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"):
-        build_model(reduced(get_config(arch)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, kv_repeat=2, device="cpu")
+    built = set()
+    for arch in sorted(ARCHS):
+        for r in (1, 2):
+            c = reduced(get_config(arch))
+            if c.has_attention and c.num_heads % (c.num_kv_heads * r):
+                continue
+            build_model(c, kv_repeat=r, kv_cache_bits=8, device="cpu")
+            built.add(c.family)
+    enc = dataclasses.replace(reduced(get_config("seamless-m4t-medium")),
+                              family="encdec", num_kv_heads=2,
+                              compute_dtype="float32")
+    m = build_model(enc, kv_repeat=2, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    batch = {k: _t(v) for k, v in next(token_batches(
+        enc.vocab_size, 2, 16, seed=1)).items()}
+    batch["frame_embeds"] = torch.zeros((2, enc.frontend_tokens,
+                                         enc.d_model))
+    assert torch.isfinite(m.loss(params, batch)[0])
+    built.add(enc.family)
+    assert built == set(ALL_FAMILIES)
+    lp = {k[len("layers.0.attn."):]: v for k, v in params.items()
+          if k.startswith("layers.0.attn.")}
+    with pytest.raises(NotImplementedError, match="kv_valid_len"):
+        TA.attn_forward(TL.nest(lp), torch.zeros((2, 4, enc.d_model)), enc,
+                        positions=torch.zeros((2, 4), dtype=torch.int32),
+                        kv_valid_len=torch.full((2,), 3))
     with pytest.raises(ValueError):
         build_model(cfg, kv_cache_bits=4, device="cpu")
     for arch in ("mamba2-780m", "hymba-1.5b"):

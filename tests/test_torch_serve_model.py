@@ -1,9 +1,12 @@
 """The serving half of the port's ``Model`` (``init_cache``, ``prefill``,
 ``prefill_streaming``, ``decode_step``, ``attn_decode`` with its window
 ring and int8 cache), ``serve/serve_step.py`` and ``launch/serve.py``
-against the JAX package, for the SSM (mamba2-780m), hybrid (hymba-1.5b)
-and dense (starcoder2-7b, command-r-35b for int8) families at their
-reduced configs, with the JAX weights carried across by
+against the JAX package, for the SSM (mamba2-780m), hybrid (hymba-1.5b),
+dense (starcoder2-7b, command-r-35b for int8), MoE, audio
+(seamless-m4t-medium: its stub frame embeddings beside the tokens) and
+VLM (internvl2-76b: its stub patch embeddings ahead of them, so the
+capacities and positions count F more) families at their reduced
+configs, with the JAX weights carried across by
 ``convert.model_params_from_jax`` and JAX caches by
 ``convert.model_cache_from_jax``.
 
@@ -41,7 +44,10 @@ from repro_torch.models.transformer import Model
 from repro_torch.serve import make_decode_step, make_prefill_step
 
 ARCHS = ["mamba2-780m", "hymba-1.5b", "starcoder2-7b", "qwen3-moe-30b-a3b",
-         "phi3.5-moe-42b-a6.6b"]
+         "phi3.5-moe-42b-a6.6b", "seamless-m4t-medium", "internvl2-76b"]
+#: the batch key of each frontend family's stub embeddings
+STUBS = {"audio": "frame_embeds", "encdec": "frame_embeds",
+         "vlm": "patch_embeds"}
 
 
 def _np(x):
@@ -68,6 +74,25 @@ def _pair(arch, dtype="float32", **build):
 def _tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _inputs(cfg, toks, seed=0):
+    """The prompt batch of ``toks`` [B, S] for both packages: the family's
+    stub embeddings beside them (normal x 0.02 from ``default_rng(seed +
+    100)``), none for the families without a frontend."""
+    batch = {"tokens": toks}
+    key = STUBS.get(cfg.family)
+    if key is not None:
+        batch[key] = (np.random.default_rng(seed + 100).normal(
+            size=(toks.shape[0], cfg.frontend_tokens, cfg.d_model))
+            * 0.02).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+def _prefix(cfg):
+    """The positions ahead of the tokens: the VLM's patches."""
+    return cfg.frontend_tokens if cfg.family == "vlm" else 0
 
 
 def _close(got, want, dtype):
@@ -100,7 +125,8 @@ def _logits_close(got, want, vocab, dtype):
 # ------------------------------------------------------------ the cache
 @pytest.mark.parametrize("arch,bits", [
     ("mamba2-780m", 16), ("hymba-1.5b", 16), ("hymba-1.5b", 8),
-    ("starcoder2-7b", 16), ("command-r-35b", 8)])
+    ("starcoder2-7b", 16), ("command-r-35b", 8), ("seamless-m4t-medium", 8),
+    ("internvl2-76b", 16)])
 @pytest.mark.parametrize("cache_len", [24, 100])
 def test_init_cache_matches_the_jax_cache(arch, bits, cache_len):
     """Every leaf of ``init_cache`` in the JAX name, shape and dtype, all
@@ -128,14 +154,16 @@ def test_init_cache_matches_the_jax_cache(arch, bits, cache_len):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_matches_jax(arch, dtype):
     """The last token's logits and every cache leaf after a prefill of
-    2 x 64 tokens (hymba keeps the last 32 keys of its window)."""
+    2 x 64 tokens (hymba keeps the last 32 keys of its window; the VLM's
+    16 patches come first)."""
     jcfg, jm, jp, tm, tp = _pair(arch, dtype)
-    toks = _tokens(jcfg, 2, 64)
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, max_len=65)
-    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, max_len=65)
+    f = _prefix(jcfg)
+    jb, tb = _inputs(jcfg, _tokens(jcfg, 2, 64))
+    jl, jc = jm.prefill(jp, jb, max_len=65 + f)
+    tl, tc = tm.prefill(tp, tb, max_len=65 + f)
     assert tl.dtype == torch.float32 and tuple(tl.shape) == jl.shape
     _logits_close(tl, jl, jcfg.vocab_size, dtype)
-    assert int(tc["pos"]) == int(jc["pos"]) == 64
+    assert int(tc["pos"]) == int(jc["pos"]) == 64 + f
     assert set(tc["layers"]) == set(jc["layers"])
     for k, v in jc["layers"].items():
         _close(tc["layers"][k], v, dtype)
@@ -148,9 +176,10 @@ def test_decode_step_continues_a_jax_prefill(arch, dtype):
     then two decode steps in each package: the logits and every cache
     leaf after them."""
     jcfg, jm, jp, tm, tp = _pair(arch, dtype)
+    f = _prefix(jcfg)
     toks = _tokens(jcfg, 2, 34, seed=1)
-    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :32])},
-                       max_len=40)
+    _, jc = jm.prefill(jp, _inputs(jcfg, toks[:, :32], seed=1)[0],
+                       max_len=40 + f)
     tc = convert.model_cache_from_jax(jax.tree.map(np.asarray, jc),
                                       device="cpu")
     for k, v in jc["layers"].items():
@@ -159,7 +188,7 @@ def test_decode_step_continues_a_jax_prefill(arch, dtype):
         jl, jc = jm.decode_step(jp, jnp.asarray(toks[:, t:t + 1]), jc)
         tl, tc = tm.decode_step(tp, torch.from_numpy(toks[:, t:t + 1]), tc)
         _logits_close(tl, jl, jcfg.vocab_size, dtype)
-    assert int(tc["pos"]) == int(jc["pos"]) == 34
+    assert int(tc["pos"]) == int(jc["pos"]) == 34 + f
     for k, v in jc["layers"].items():
         _close(tc["layers"][k], v, dtype)
 
@@ -199,14 +228,17 @@ def test_decode_matches_teacher_forcing(arch):
     forced logits at the last position."""
     _, _, _, tm, tp = _pair(arch, "bfloat16")
     cfg = tm.cfg
-    toks = torch.from_numpy(_tokens(cfg, 2, 32))
-    full, _ = tm.train_logits(tp, {"tokens": toks})
-    _, cache = tm.prefill(tp, {"tokens": toks[:, :-1]}, max_len=32)
+    f = _prefix(cfg)
+    batch = _inputs(cfg, _tokens(cfg, 2, 32))[1]
+    toks = batch["tokens"]
+    full, _ = tm.train_logits(tp, batch)
+    _, cache = tm.prefill(tp, dict(batch, tokens=toks[:, :-1]),
+                          max_len=32 + f)
     dl, cache2 = tm.decode_step(tp, toks[:, -1:], cache)
     a = _np(full[:, -1, :cfg.vocab_size])
     d = _np(dl[:, 0, :cfg.vocab_size])
     assert (a.argmax(-1) == d.argmax(-1)).all()
-    assert int(cache2["pos"]) == 32
+    assert int(cache2["pos"]) == 32 + f
 
 
 @pytest.mark.parametrize("s,aligned", [(40, False), (64, True)])
@@ -286,11 +318,12 @@ def test_serve_steps_match_jax(arch):
     """``make_prefill_step`` then three ``make_decode_step`` steps, greedy,
     tokens in and tokens out, against the JAX factories (fp32)."""
     jcfg, jm, jp, tm, tp = _pair(arch)
-    toks = _tokens(jcfg, 2, 32, seed=4)
-    jpre, jdec = j_make_prefill_step(jm, max_len=40), j_make_decode_step(jm)
-    tpre, tdec = make_prefill_step(tm, max_len=40), make_decode_step(tm)
-    jt, jc = jpre(jp, {"tokens": jnp.asarray(toks)})
-    tt, tc = tpre(tp, {"tokens": torch.from_numpy(toks)})
+    cap = 40 + _prefix(jcfg)
+    jb, tb = _inputs(jcfg, _tokens(jcfg, 2, 32, seed=4), seed=4)
+    jpre, jdec = j_make_prefill_step(jm, max_len=cap), j_make_decode_step(jm)
+    tpre, tdec = make_prefill_step(tm, max_len=cap), make_decode_step(tm)
+    jt, jc = jpre(jp, jb)
+    tt, tc = tpre(tp, tb)
     assert tt.dtype == torch.int32 and tuple(tt.shape) == (2, 1)
     got, want = [tt.numpy()], [np.asarray(jt)]
     for _ in range(3):
@@ -392,6 +425,67 @@ def test_launch_serve_moe_matches_the_jax_entry_point(monkeypatch, capsys):
     monkeypatch.setattr(Model, "init", init_from_jax)
     ids = LS.main(["--arch", arch], device="cpu")
     tout = capsys.readouterr().out
+    assert ids.shape == (4, 32)
+    assert f"{arch}-smoke: prefill 4x64" in tout
+    assert tout.split("sample continuation ids: ")[1].strip() == \
+        jids.strip()
+
+
+@pytest.mark.parametrize("arch,dtype", [("seamless-m4t-medium", "bfloat16"),
+                                        ("internvl2-76b", "float32")])
+def test_launch_serve_frontends_match_the_jax_entry_point(arch, dtype,
+                                                          monkeypatch,
+                                                          capsys):
+    """``launch.serve.main(["--arch", arch])`` for the audio and VLM
+    families (reduced; 4 prompts of 64 tokens, 32 new): the stub frame or
+    patch embeddings it draws after the tokens from ``default_rng(0)``
+    (normal x 0.02 in bf16) equal the JAX entry point's draw bit for bit,
+    and it prints the JAX entry point's sample continuation ids from the
+    JAX weights. The audio config serves in its own bf16; the VLM in
+    float32 compute in both entry points, because in bf16 the greedy ids
+    part at the twelfth token (a near tie that one rounding turns, as the
+    MoE case above), while its bf16 logits are held to JAX's in
+    ``test_prefill_matches_jax`` and ``test_torch_vlm.py``."""
+    import repro.launch.serve as JSV
+    from repro_torch.launch import serve as LS
+    monkeypatch.setattr(JSV, "reduced", lambda c: dataclasses.replace(
+        j_reduced(c), compute_dtype=dtype))
+    monkeypatch.setattr(LS, "reduced", lambda c: dataclasses.replace(
+        reduced(c), compute_dtype=dtype))
+    cfg = reduced(get_config(arch))
+    key = STUBS[cfg.family]
+    # the JAX entry point's draw (``launch/serve.py``): tokens, then these
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, (4, 64))
+    seen = {"jax": np.asarray(jnp.asarray(jnp.asarray(
+        rng.normal(size=(4, cfg.frontend_tokens, cfg.d_model)) * 0.02,
+        jnp.bfloat16), jnp.float32))}
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch])
+    JSV.main()
+    jids = capsys.readouterr().out.split("sample continuation ids: ")[1]
+    jparams = j_build_model(j_reduced(j_get_config(arch))).init(
+        jax.random.PRNGKey(0))
+    want = convert.model_params_from_jax(jax.tree.map(np.asarray, jparams))
+    orig_init, orig_prefill = Model.init, Model.prefill
+
+    def init_from_jax(self, generator):
+        params = orig_init(self, generator)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(want[name])
+        return params
+
+    def prefill(self, params, batch, **kw):
+        assert batch[key].dtype == torch.bfloat16
+        seen["torch"] = batch[key].float().numpy()
+        return orig_prefill(self, params, batch, **kw)
+
+    monkeypatch.setattr(Model, "init", init_from_jax)
+    monkeypatch.setattr(Model, "prefill", prefill)
+    ids = LS.main(["--arch", arch], device="cpu")
+    tout = capsys.readouterr().out
+    assert seen["torch"].shape == (4, 16, 256)
+    np.testing.assert_array_equal(seen["torch"], seen["jax"])
     assert ids.shape == (4, 32)
     assert f"{arch}-smoke: prefill 4x64" in tout
     assert tout.split("sample continuation ids: ")[1].strip() == \

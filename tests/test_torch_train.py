@@ -623,3 +623,200 @@ def test_ssm_checkpoints_cross_both_ways(tmp_path, arch):
         for a, b in zip(jax.tree.leaves(convert.model_params_to_jax(tree)),
                         jax.tree.leaves(jtree)):
             np.testing.assert_array_equal(a, np.asarray(b))
+
+
+# ------------------------------------------- the audio and VLM families
+FRONTENDS = ["seamless-m4t-medium", "internvl2-76b"]
+
+
+def _frontend_batch(cfg, b, s, seed):
+    """token_batches' tokens and targets and the family's stub embeddings
+    (normal x 0.02 from ``default_rng(seed)``)."""
+    batch = dict(next(token_batches(cfg.vocab_size, b, s, seed=seed)))
+    key = "patch_embeds" if cfg.family == "vlm" else "frame_embeds"
+    batch[key] = (np.random.default_rng(seed).normal(
+        size=(b, cfg.frontend_tokens, cfg.d_model)) * 0.02).astype(
+            np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch,mu", [("seamless-m4t-medium", 1),
+                                     ("seamless-m4t-medium", 2),
+                                     ("internvl2-76b", 1)])
+def test_frontend_train_step_matches_jax(arch, mu):
+    """One step of make_train_step for the reduced seamless-m4t-medium
+    (frames through the encoder) and internvl2-76b (patches ahead of the
+    text) in fp32 compute, from the same state and batch (micro-batches
+    split the stub embeddings with the tokens): the metrics and the
+    update of every parameter, the encoder's included, with the dense
+    step's tolerances."""
+    jm, jstate, tm, tstate = _state_pair(arch, compute_dtype="float32")
+    before = {n: p.detach().clone() for n, p in tstate.params.items()}
+    batch = _frontend_batch(tm.cfg, 4, 32, seed=1)
+    jstep = jax.jit(j_make_train_step(jm, JOptConfig(warmup_steps=1),
+                                      num_microbatches=mu))
+    jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
+                                  for k, v in batch.items()})
+    tstep = make_train_step(tm, OptConfig(warmup_steps=1),
+                            num_microbatches=mu)
+    tstate, tmet = tstep(tstate, {k: _t(v) for k, v in batch.items()})
+    for k in ("loss", "ce", "ntok", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=1e-5, err_msg=k)
+    _assert_update(tstate.params, jstate.params, before)
+
+
+def test_adamw_decays_the_jax_set_of_the_encoder_tree():
+    """One AdamW step with zero gradients moves exactly the parameters
+    that decay: in both packages the same set, every stacked leaf of the
+    decoder and the encoder (their norm scales included, rank 2 in the
+    JAX tree) and the embedding, and not ``enc_norm`` or ``final_norm``
+    (rank 1)."""
+    jm, jstate, tm, tstate = _state_pair("seamless-m4t-medium")
+    cfg = OptConfig(lr=1e-2, warmup_steps=1, weight_decay=0.5)
+    zeros = {n: torch.zeros_like(p) for n, p in tstate.params.items()}
+    before = {n: p.detach().clone() for n, p in tstate.params.items()}
+    with torch.no_grad():
+        params, _, _ = adamw_update(cfg, tstate.params, zeros, tstate.opt)
+    moved = {n for n, p in params.items() if not torch.equal(p, before[n])}
+    jparams, _, _ = jax.jit(j_adamw_update, static_argnums=0)(
+        JOptConfig(lr=1e-2, warmup_steps=1, weight_decay=0.5),
+        jstate.params, jax.tree.map(jnp.zeros_like, jstate.params),
+        jstate.opt)
+    jafter = convert.model_params_from_jax(jax.tree.map(np.asarray,
+                                                        jparams))
+    jmoved = {n for n, t in jafter.items() if not torch.equal(t, before[n])}
+    assert moved == jmoved
+    assert set(params) - moved == {"enc_norm.scale", "final_norm.scale"}
+    assert "encoder.0.ln1.scale" in moved and "layers.1.ln_x.scale" in moved
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_convert_round_trips_the_frontend_trees(arch):
+    """A JAX train state of the reduced audio and VLM configs into the
+    port and its parameters back, bit for bit: the encoder stacked as
+    ``encoder/...`` there and split into ``encoder.<i>.`` here, with
+    ``enc_norm`` and each decoder layer's ``xattn`` and ``ln_x``; the
+    moments too; in ``init``'s names and shapes."""
+    jm, jstate, tm, tstate = _state_pair(arch)
+    names = set(tstate.params)
+    if arch.startswith("seamless"):
+        assert {"enc_norm.scale", "encoder.1.mlp.down.w",
+                "layers.0.xattn.o.w"} <= names
+    for tree, want in ((tstate.params, jstate.params),
+                       (tstate.opt["m"], jstate.opt["m"])):
+        back = convert.model_params_to_jax(tree)
+        want = jax.tree.map(np.asarray, want)
+        assert jax.tree.structure(back) == jax.tree.structure(want)
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(a, b)
+    params = tm.init(torch.Generator().manual_seed(0))
+    assert {n: tuple(p.shape) for n, p in params.items()} == \
+        {n: tuple(t.shape) for n, t in tstate.params.items()}
+
+
+def test_frontend_checkpoints_cross_both_ways(tmp_path):
+    """The audio tree (the encoder stacked in the JAX layout) through the
+    checkpoints: a JAX train state after one step restores into the port,
+    and the port's state after one more step restores into JAX,
+    parameters and both moments bit for bit."""
+    jm, jstate, tm, _ = _state_pair("seamless-m4t-medium",
+                                    compute_dtype="float32")
+    batch = _frontend_batch(tm.cfg, 2, 32, seed=2)
+    jstate, _ = jax.jit(j_make_train_step(jm, JOptConfig(warmup_steps=1)))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    JC.save_checkpoint(tmp_path / "jax", jstate, step=1)
+    like = init_train_state(tm, torch.Generator().manual_seed(5))
+    got = TC.restore_checkpoint(TC.latest_checkpoint(tmp_path / "jax"), like)
+    want = convert.train_state_from_jax(
+        jax.tree.map(np.asarray, {"params": jstate.params,
+                                  "opt": jstate.opt}), device="cpu")
+    assert any(n.startswith("encoder.") for n in got.params)
+    for n, t in want.params.items():
+        assert torch.equal(got.params[n].detach(), t.detach()), n
+        for part in ("m", "v"):
+            assert torch.equal(got.opt[part][n], want.opt[part][n]), n
+    state, _ = make_train_step(tm, OptConfig(warmup_steps=1))(
+        got, {k: _t(v) for k, v in batch.items()})
+    TC.save_checkpoint(tmp_path / "torch", state, step=2)
+    back = JC.restore_checkpoint(JC.latest_checkpoint(tmp_path / "torch"),
+                                 _jax_state_like(jm))
+    assert int(back.opt["step"]) == 2
+    for part, tree in (("params", state.params), ("m", state.opt["m"]),
+                       ("v", state.opt["v"])):
+        jtree = back.params if part == "params" else back.opt[part]
+        for a, b in zip(jax.tree.leaves(convert.model_params_to_jax(tree)),
+                        jax.tree.leaves(jtree)):
+            np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_launch_loop_audio_raises_as_jax(tmp_path, monkeypatch):
+    """A JAX fault the port reproduces (ROADMAP Queue 3): the training
+    entry point feeds ``token_batches`` only, so for the audio family the
+    encoder's ``batch["frame_embeds"]`` raises ``KeyError`` at the first
+    step, every restart of ``RestartManager`` (10) meets it again, and
+    the error is re-raised: in both packages, with no checkpoint
+    written."""
+    import repro.launch.train as JT
+    from repro_torch.launch import train as LT
+    arch = "seamless-m4t-medium"
+    argv = ["--arch", arch, "--steps", "2", "--batch", "2", "--seq", "16"]
+    monkeypatch.setattr(sys, "argv", ["train", *argv, "--ckpt-dir",
+                                      str(tmp_path / "jax")])
+    with pytest.raises(KeyError, match="frame_embeds"):
+        JT.main()
+    seen = []
+    real = LT.train
+
+    def on_cpu(cfg, **kw):
+        seen.append(cfg.name)
+        return real(cfg, device="cpu", **kw)
+
+    monkeypatch.setattr(LT, "train", on_cpu)
+    with pytest.raises(KeyError, match="frame_embeds"):
+        LT.main([*argv, "--ckpt-dir", str(tmp_path / "torch")])
+    assert seen == [f"{arch}-smoke"]
+    assert TC.latest_checkpoint(tmp_path / "torch") is None
+    assert JC.latest_checkpoint(tmp_path / "jax") is None
+
+
+def test_launch_loop_vlm_trains_text_only_as_jax(tmp_path, monkeypatch,
+                                                 capsys):
+    """The same entry point for the VLM family: no ``patch_embeds``, so
+    both packages train the decoder on the text alone (the dense path);
+    three steps of each from one step-0 checkpoint (fp32 compute) give the
+    JAX losses and updates, as the dense loop above."""
+    import repro.launch.train as JT
+    from repro_torch.launch import train as LT
+    arch = "internvl2-76b"
+    jcfg, tcfg = _cfgs(arch, compute_dtype="float32")
+    monkeypatch.setattr(JT, "reduced", lambda c: jcfg)
+    init = j_init_train_state(j_build_model(jcfg), jax.random.PRNGKey(0))
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    for d in (jdir, tdir):
+        JC.save_checkpoint(d, init, step=0)
+    argv = ["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "32",
+            "--save-every", "3", "--log-every", "1"]
+    monkeypatch.setattr(sys, "argv", ["train", *argv, "--ckpt-dir",
+                                      str(jdir)])
+    JT.main()
+    out = capsys.readouterr().out
+    jlosses = [float(line.split("loss=")[1].split()[0])
+               for line in out.splitlines() if "loss=" in line]
+    seen = {}
+    real = LT.train
+
+    def keep(cfg, **kw):
+        seen.update(real(tcfg if cfg.name == tcfg.name else cfg,
+                         device="cpu", **kw))
+
+    monkeypatch.setattr(LT, "train", keep)
+    LT.main([*argv, "--ckpt-dir", str(tdir)])
+    assert seen["resumed_from"] == 0 and seen["restarts"] == 0
+    assert len(jlosses) == 3
+    np.testing.assert_allclose(seen["losses"], jlosses, rtol=0, atol=1e-4)
+    jfinal = JC.restore_checkpoint(JC.latest_checkpoint(jdir),
+                                   jax.eval_shape(lambda: init))
+    before = convert.model_params_from_jax(jax.tree.map(np.asarray,
+                                                        init.params))
+    _assert_update(seen["state"].params, jfinal.params, before)
