@@ -4,8 +4,11 @@
     python3 chip_smoke.py [--windows 6] [--splitk-windows 2]
                           [--lrb-windows 3] [--pipeline-windows 6]
                           [--failure-windows 2] [--tenant-seconds 60]
-                          [--chaos-windows 3] [--recovery-windows 3]
-                          [--out FILE]
+                          [--chaos-windows 3] [--recovery-windows 2]
+                          [--sharded-windows 3]
+                          [--sharded-splitk-windows 2]
+                          [--sharded-lrb-windows 1.5]
+                          [--sharded-stacked-windows 0.5] [--out FILE]
 
 Phases (the first failed check exits non-zero, with no result line):
 
@@ -240,7 +243,8 @@ Phases (the first failed check exits non-zero, with no result line):
    learned prefetch, the same pool and budgets) over ``--recovery-windows``
    windows, its store failing 5% of the data path (seed 5), an
    ``EngineRecovery`` manifest checkpoint every 10 s of processing time
-   (the injector paused). At the half, as
+   (the injector paused). Near the half (5 s past the checkpoint at or
+   before it, so that the batches after it are replayed), as
    ``tests/test_soak_differential.py::test_soak_differential_chaos_restart``:
    drain, destage every device block and spill every host block (paused),
    poison every ``get``: the next watermark, poll and close must raise
@@ -376,6 +380,33 @@ Phases (the first failed check exits non-zero, with no result line):
    each against the fp32 plain version within ``kernels/flash_limits.py``
    with its last key tile dropped as a control, timed beside the plain
    version, SDPA (a yardstick) and its bound.
+27. Slot sharding (run after phase 13b, before phase 3): ``StreamEngine``
+   with ``AionConfig(slot_sharding=True)`` over a 4-entry slot mesh (the
+   first four cards where there are four, else ``cuda:0`` named four
+   times, which checks the sharded placement, masking and per-shard
+   launches on one card and nothing of scaling). Each stream starts at
+   ``SHARDED_START`` (300 s stock, 420 s Linear Road), where its windows
+   hash onto every shard. 27a: phase 1's deployment, seed, 3,072-slot
+   pool (the arena split into one tile a shard) and budgets over
+   ``--sharded-windows`` windows, pipelined: K2 once a shard on its
+   tile, K1 on the unsharded stacked fallback. 27b: the same,
+   synchronous, with ``splitk_chunk_rows=64`` on a 1,024-slot pool over
+   ``--sharded-splitk-windows`` windows: K3 once a shard. 27c: phase
+   12's Linear Road deployment over ``--sharded-lrb-windows`` windows:
+   K1 once a shard through the pooled table. 27d and 27e: phase 1's
+   deployment with no block pool over ``--sharded-stacked-windows``
+   windows each: the stacked fold, K1 once a shard on the rows its slots
+   own (27d), and with ``splitk_chunk_rows=64`` the row-balanced K1 once
+   a shard (27e). Each: every window against the oracle, sharded rounds
+   counted, every shard's launches of its kernel by design
+   (``launches_by_shard``) and live rows (rows with a valid event:
+   none may fold padding alone), every arena tile on its mesh entry,
+   and each kernel's largest sharded call (``ShardRecorder``) replayed
+   through the sharded wrapper and against the plain unsharded fold on
+   the same inputs (count, min and max equal, sum within SHARD_SUM_RTOL
+   and SHARD_SUM_ATOL; pool slot 0 NaN and inert); printed beside phase
+   1's events/s, the rows and launches by shard, and the close-out's
+   device busy share.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -383,8 +414,8 @@ design (bf16 at head dims 64 and 128) within the limits that
 ``tests/test_torch_flash_rounding.py`` anchors on the Pallas kernels'
 readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
-set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16, 4,
-6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
+set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16,
+27a-27e, 4, 6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
 and 25a and read just after; every bf16 launch of K5 and K6 in phases 4,
 6b, 10, 17a, 18, 19, 21b, 23a, 24b and 25a must have gone through the
 wgmma design, and every K7 launch of 20b and 21b through the tensor
@@ -392,9 +423,10 @@ design. A segment kernel's
 ``launches`` is its count in the run whose launch it replays (K1 the
 Linear Road run, K2 the main run, K3 the split-K run;
 ``launches_by_run`` gives every run's count, and every kernel's counts
-in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a); K4's and K5's
-are their counts in phase 4, K6's in phase 6b, K7's in phase 9a; K5's
-and K6's ``non_causal`` hold phase 26's replays. The
+in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a), and
+``launches_by_shard`` each shard's launches in phase 27 by design); K4's
+and K5's are their counts in phase 4, K6's in phase 6b, K7's in phase
+9a; K5's and K6's ``non_causal`` hold phase 26's replays. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -1044,7 +1076,8 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                restore_at: float = None, profile: bool = False,
                pipelined: bool = False, prefetch_backend: str = "fixed",
                fold_round_retry: bool = True, store_wrap=None,
-               on_engine=None, aion_kw: dict = None, drill=None) -> dict:
+               on_engine=None, aion_kw: dict = None, drill=None,
+               slot_devices=None, start: float = 0.0) -> dict:
     """Drive the port's ``StreamEngine`` with the Table-1 deployment of
     ``operator`` (stock market or Linear Road, ``DEPLOYMENTS``) for
     ``windows`` windows of processing time, close out, and hold every
@@ -1061,6 +1094,11 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     ``aion_kw`` adds ``AionConfig`` fields (phase 15's retry and breaker
     settings). ``drill`` (a ``CrashDrill``, phase 16) sees every step
     and may crash the engine, which the run then restores through it.
+    ``slot_devices`` (with ``aion_kw={"slot_sharding": True}``) is the
+    engine's slot mesh (phase 27); the record then keeps the mesh and
+    where each arena tile lies. The stream starts at processing time
+    ``start`` (its events reach back before it, as the lateness model
+    draws them).
     The close-out readmits deferred ingest first, and the record keeps
     the ladder's transitions, the I/O retry counts and the pool's books
     (``pool_books``). Returns the run's record."""
@@ -1104,7 +1142,8 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                "pipeline_rounds", "epoch_demoted_rows",
                "demoted_sync_rounds", "batch_stall_seconds",
                "shed_readahead_drives", "shed_prefetch_rounds",
-               "deferred_events", "readmitted_events")
+               "deferred_events", "readmitted_events",
+               "sharded_batch_executions")
     counts = dict.fromkeys(counted, 0)
     io_counted = ("errors", "retries", "gave_up", "readahead_shed",
                   "staged_blocks")
@@ -1128,7 +1167,7 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
                             confidence=aion.cleanup_confidence),
             device_budget_bytes=device_budget,
             host_budget_bytes=host_budget, spill_dir=spill, store=store,
-            device=device)
+            device=device, slot_devices=slot_devices)
         if on_engine is not None:
             on_engine(eng)
         return eng
@@ -1148,7 +1187,7 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
             "ingest": 0.0, "advance_watermark": 0.0, "poll": 0.0}
     restore_step = -1 if restore_at is None else int(restore_at * steps)
     ledger_k, ledger_t, ledger_p = [], [], []
-    now = 0.0
+    now = start
     t_stream = time.perf_counter()
     for i in range(steps):
         t0 = time.perf_counter()
@@ -1226,6 +1265,7 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
     arena_bytes = eng.pool.arena_bytes if eng.pool is not None else 0
     prefetch = dict(eng.prestage.stats)
     stream = pool_stream(eng.pool)
+    placement = shard_placement(eng)
     # the books are read with the I/O thread idle (a destage or a
     # prefetch stage the sweep left queued moves a slot while they count)
     check(eng.io.drain(timeout=600), "I/O executor did not drain")
@@ -1257,6 +1297,7 @@ def run_stream(device, *, windows: float, pool_slots: int, splitk: int,
         "pool_stream": stream, "books": books, "io": io_counts,
         "io_final": io_final, "transitions": transitions,
         "drill": drill.record if drill is not None else None,
+        "placement": placement,
     }
 
 
@@ -1633,12 +1674,16 @@ def _launches() -> dict:
 
 def crash_recovery(device, *, windows: float, **run) -> dict:
     """Phase 16: ``run_stream`` pipelined with learned prefetch and
-    ``RECOVERY_AION`` under a ``CrashDrill`` crashing at the stream's
-    half; the record's ``drill`` holds its readings."""
+    ``RECOVERY_AION`` under a ``CrashDrill`` crashing near the stream's
+    half: half a checkpoint period past the last checkpoint at or before
+    it, so that the restore replays the batches after that checkpoint;
+    the record's ``drill`` holds its readings."""
     from repro_torch.configs.workloads import STOCK_MARKET
-    steps = int(round(windows * STOCK_MARKET.window_duration
-                      / run.get("step_seconds", 1.0)))
-    drill = CrashDrill(crash_step=steps // 2,
+    step_s = run.get("step_seconds", 1.0)
+    steps = int(round(windows * STOCK_MARKET.window_duration / step_s))
+    every = max(int(round(CHECKPOINT_EVERY / step_s)), 1)
+    drill = CrashDrill(crash_step=(steps // 2) // every * every
+                       + every // 2,
                        late_horizon=run.get("late_horizon", 300.0))
     rec = run_stream(device, windows=windows, pipelined=True,
                      prefetch_backend="learned", aion_kw=RECOVERY_AION,
@@ -1734,6 +1779,8 @@ def recovery_checks(tag: str, rec: dict, recorder) -> None:
     log(f"  {tag}: {_threads_line(recorder)}")
     check("poisoned" in d, f"{tag}: the poisoned engine did not raise")
     check(d["restarts"] == 1, f"{tag}: {d['restarts']} restarts")
+    check(d["replayed_events"] > 0,
+          f"{tag}: the crash fell on a checkpoint: nothing was replayed")
     check(d["truncated_bytes"] > 0, f"{tag}: the reopen truncated nothing")
     check(rec["io_final"]["gave_up"] == 0,
           f"{tag}: {rec['io_final']['gave_up']} retries given up after the "
@@ -2013,12 +2060,13 @@ def flash_limits():
 
 
 def zero_counts(fns) -> None:
-    """Each wrapper's launch counter, and its counts by design where it
-    keeps them (K5, K6), to 0."""
+    """Each wrapper's launch counter, and its counts by design and by
+    shard where it keeps them, to 0."""
     for fn in fns:
         fn.launches = 0
         for key in getattr(fn, "launches_by_design", {}):
             fn.launches_by_design[key] = 0
+        getattr(fn, "launches_by_shard", {}).clear()
 
 
 def by_design(fns: dict) -> dict:
@@ -4631,6 +4679,316 @@ def pipelined_checks(tag: str, rec: dict, recorder, main: dict) -> None:
               "Road take the unpooled path")
 
 
+# ------------------------------------------------------------------ phase 27
+#: the slot mesh of phase 27: four entries
+SHARDS = 4
+#: phase 27's sum tolerance against the plain unsharded fold (count, min
+#: and max must be equal)
+SHARD_SUM_RTOL, SHARD_SUM_ATOL = 1e-5, 1e-6
+#: the sharded folds of ``repro_torch.kernels.ops`` that the recorder
+#: wraps, and the kernel each launches once a shard
+SHARDED_FOLDS = {
+    "segment_aggregate_block_table_sharded": None,     # K2, or K3
+    "segment_aggregate_batched_sharded": "K1",
+    "segment_aggregate_batched_splitk_sharded": "K1 balanced",
+}
+
+
+def shard_placement(eng):
+    """The engine's slot mesh and where each arena tile lies (None
+    without a mesh)."""
+    mesh = eng.slot_mesh
+    if mesh is None:
+        return None
+    pool = eng.pool
+    return {"mesh": [str(d) for d in mesh.devices],
+            "tiles": None if pool is None else [
+                [str(k.device), str(v.device)]
+                for k, v in zip(pool.key_tiles, pool.value_tiles)],
+            "shards": None if pool is None else pool.num_shards}
+
+
+def slot_mesh_devices(count: int) -> list:
+    """Phase 27's mesh: the first SHARDS cards where there are that many,
+    else the one card named SHARDS times."""
+    if count >= SHARDS:
+        return [f"cuda:{i}" for i in range(SHARDS)]
+    return ["cuda:0"] * SHARDS
+
+
+class ShardRecorder:
+    """Wraps the slot-sharded folds of ``repro_torch.kernels.ops`` while
+    it is entered: keeps each kernel's largest sharded call (most rows),
+    as ``LaunchRecorder`` keeps an unsharded one, and the rows each shard
+    received (padded, and live: with a valid event), summed on the
+    device."""
+
+    def __init__(self):
+        self.largest = {}
+        self.rows = {}
+        self._live = {}
+        self._saved = {}
+
+    def __enter__(self):
+        ops = importlib.import_module("repro_torch.kernels.ops")
+        for name, key in SHARDED_FOLDS.items():
+            fn = getattr(ops, name)
+            self._saved[name] = fn
+            setattr(ops, name, self._wrap(key, fn))
+        return self
+
+    def __exit__(self, *exc):
+        ops = importlib.import_module("repro_torch.kernels.ops")
+        for name, fn in self._saved.items():
+            setattr(ops, name, fn)
+        return False
+
+    def live_rows(self) -> dict:
+        return {k: [int(x) for x in v.tolist()]
+                for k, v in self._live.items()}
+
+    def _wrap(self, key, fn):
+        def recorded(*args, **kw):
+            self._keep(key, args, kw)
+            return fn(*args, **kw)
+        return recorded
+
+    def _keep(self, key, args, kw) -> None:
+        import torch
+        ops = importlib.import_module("repro_torch.core.operators")
+        mesh = kw["mesh"]
+        table = args[2] if key is None else None
+        if key is None:
+            key = "K3" if kw.get("chunk_rows", 0) > 0 else "K2"
+        rows = (table if table is not None else args[0]).shape[0]
+        valid = kw["valid"]
+        per = rows // mesh.size
+        self.rows[key] = [n + per for n in self.rows.get(
+            key, [0] * mesh.size)]
+        live = valid.reshape(mesh.size, per, -1).any(2).sum(1)
+        self._live[key] = self._live[key] + live if key in self._live \
+            else live
+        if rows <= self.largest.get(key, {}).get("rows", 0):
+            return
+        rec = {"rows": rows, "mesh": mesh, "num_segments": args[3]
+               if table is not None else args[2],
+               "num_slots": kw["num_slots"], "stats": tuple(kw["stats"]),
+               "segment_ids": args[1].clone(), "valid": valid.clone(),
+               "slot_ids": kw["slot_ids"].clone()}
+        if table is None:
+            rec["values"] = args[0].clone()
+        else:
+            arena = args[0]
+            tiles = [arena] if isinstance(arena, torch.Tensor) else arena
+            cols = kw.get("num_cols") or tiles[0].shape[2]
+            rec.update(arena_shape=(sum(t.shape[0] for t in tiles),
+                                    *tiles[0].shape[1:]),
+                       num_cols=kw.get("num_cols"), table=table.clone(),
+                       chunk_rows=kw.get("chunk_rows", 0),
+                       values=ops._take_rows(
+                           arena if isinstance(arena, torch.Tensor)
+                           else tuple(arena), table)[:, :, :cols].clone())
+        self.largest[key] = rec
+
+
+def shard_replay(key: str, rec: dict, g) -> float:
+    """A recorded sharded call replayed on the card through the sharded
+    wrapper (the kernel once a shard) and unsharded through the plain
+    version on the same inputs: count, min and max equal, sum within
+    SHARD_SUM_RTOL x |ref| + SHARD_SUM_ATOL. K2/K3 get the recorded
+    arena with one more slot a shard, random in its unread columns, the
+    recorded columns in the slots the live rows name (each one slot up in
+    its shard's range), and NaN in every tile's first slot, which the
+    rows with no valid event (the padding) name: they must stay inert.
+    Returns the largest absolute error."""
+    import torch
+    sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
+    mesh, valid = rec["mesh"], rec["valid"]
+    dev = valid.device
+    kw = dict(valid=valid, slot_ids=rec["slot_ids"],
+              num_slots=rec["num_slots"], stats=rec["stats"])
+    if key in ("K1", "K1 balanced"):
+        fold = sa.segment_aggregate_batched_sharded if key == "K1" \
+            else sa.segment_aggregate_batched_splitk_sharded
+        args = (rec["values"], rec["segment_ids"], rec["num_segments"])
+        out = fold(*args, mesh=mesh, **kw)
+        ref = sa.segment_aggregate_batched_plain(*args, **kw)
+    else:
+        p, cap, w = rec["arena_shape"]
+        per = p // mesh.size
+        table = rec["table"].long()
+        live = valid.any(1)
+        shard = table // per
+        table = torch.where(live, shard * (per + 1) + table % per + 1,
+                            shard * (per + 1)).to(torch.int32)
+        arena = torch.rand((p + mesh.size, cap, w), generator=g,
+                           device=dev) * 490.0 + 10.0
+        cols = rec["values"].shape[2]
+        arena[table[live].long(), :, :cols] = rec["values"][live]
+        arena[::per + 1] = float("nan")
+        tiles = arena if len(set(mesh.devices)) == 1 else tuple(
+            t.to(d) for t, d in zip(arena.chunk(mesh.size), mesh.devices))
+        args = (rec["segment_ids"], table, rec["num_segments"])
+        out = sa.segment_aggregate_block_table_sharded(
+            tiles, *args, mesh=mesh, num_cols=rec["num_cols"],
+            chunk_rows=rec["chunk_rows"], **kw)
+        ref = sa.segment_aggregate_block_table_plain(
+            arena, *args, num_cols=rec["num_cols"], **kw)
+        check(not any(bool(torch.isnan(v).any()) for v in out.values()),
+              f"{key}: a padding row read a tile's NaN-poisoned first slot")
+    check(set(out) == set(ref), f"{key}: stats {sorted(out)}")
+    worst = 0.0
+    for k, b in ref.items():
+        a = out[k].to(b.device)
+        check(a.shape == b.shape, f"{key} {k}: shape {tuple(a.shape)} != "
+                                  f"{tuple(b.shape)}")
+        if k != "sum":
+            check(torch.equal(a, b), f"{key} {k}: the sharded fold is not "
+                                     "equal to the plain unsharded one")
+            continue
+        fin = torch.isfinite(b)
+        check(torch.equal(fin, torch.isfinite(a)),
+              f"{key} sum: finite entries differ")
+        diff = (a[fin] - b[fin]).abs()
+        check(bool((diff <= SHARD_SUM_RTOL * b[fin].abs()
+                    + SHARD_SUM_ATOL).all()),
+              f"{key} sum: max error {float(diff.max())} beyond rtol "
+              f"{SHARD_SUM_RTOL} + atol {SHARD_SUM_ATOL}")
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    return worst
+
+
+#: where phase 27's streams start, in processing time. A pooled window
+#: lands on the shard ``shard_of_window`` hashes it to, and a stream from
+#: 0 reaches too few windows to give every shard one (stock's first six
+#: hash to shards 1, 3, 2, 2, 2, 0). From 300 s, stock's live windows
+#: 10-12 hash to shards 0, 1 and 3 and its late window 7 to shard 2; from
+#: 420 s, Linear Road's live windows 7 and 8 hash to 2 and 1 and its late
+#: windows 5 and 6 to 3 and 0. Events still reach back to 0, so the
+#: unpooled rounds fold more windows than the mesh has entries.
+SHARDED_START = {"stock": 300.0, "lrb": 420.0}
+
+#: phase 27's sub-phases: tag, run tag, seed, run_stream's arguments
+#: (``aion_kw`` beside ``slot_sharding``), and the kernels that must
+#: launch, and fold live rows, on every shard
+SHARDED_RUNS = (
+    ("27a", "sharded_pooled", SEED + 2,
+     dict(pool_slots=3072, splitk=0, pipelined=True), ("K2",)),
+    ("27b", "sharded_splitk", SEED + 3,
+     dict(pool_slots=1024, splitk=64), ("K3",)),
+    ("27c", "sharded_lrb", SEED + 12,
+     dict(operator="lrb", pool_slots=4096, splitk=0), ("K1",)),
+    ("27d", "sharded_stacked", SEED + 2,
+     dict(pool_slots=3072, splitk=0, aion_kw={"block_pool": False}),
+     ("K1",)),
+    ("27e", "sharded_balanced", SEED + 3,
+     dict(pool_slots=1024, splitk=64, aion_kw={"block_pool": False}),
+     ("K1 balanced",)),
+)
+
+
+def sharded_phases(dev, spill_root: Path, windows: dict, main_rate: float,
+                   wrappers: dict, devices: list, runs=SHARDED_RUNS,
+                   **run) -> dict:
+    """Phase 27: phase 1's deployment (27a, 27b, 27d, 27e) and phase
+    12's (27c) with ``slot_sharding=True`` on the mesh ``devices``
+    (SHARDS entries), each stream from its ``SHARDED_START``: every
+    window against the oracle (``run_stream``), sharded rounds counted,
+    every shard's launches of the kernels the sub-phase shards and the
+    live rows each folded, every arena tile on its mesh entry, and the
+    largest sharded call of each kernel replayed against the plain
+    unsharded fold (``shard_replay``). ``runs`` replaces
+    ``SHARDED_RUNS`` and ``run`` goes to ``run_stream`` (a CPU
+    rehearsal's smaller pools, chunks, rate and width); on the CPU no
+    kernel launches, so the launch counts are read but not held."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    out = {}
+    for phase, tag, seed, kw, need in runs:
+        zero_counts(wrappers.values())
+        t0 = time.perf_counter()
+        aion_kw = {"slot_sharding": True, **kw.get("aion_kw", {})}
+        pooled = aion_kw.get("block_pool", True)
+        with ShardRecorder() as recorder:
+            rec = run_stream(
+                dev, seed=seed, spill_root=spill_root,
+                windows=windows[phase], profile=True,
+                start=SHARDED_START[kw.get("operator", "stock")],
+                slot_devices=devices,
+                **{**kw, "aion_kw": aion_kw}, **run)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+        rec["by_design"] = by_design(wrappers)
+        rec["by_shard"] = {k: {d: dict(n) for d, n in
+                               fn.launches_by_shard.items()}
+                           for k, fn in wrappers.items()}
+        rec["shard_rows"] = recorder.rows
+        rec["shard_live_rows"] = recorder.live_rows()
+        rec["profile"] = fold_profile(rec) if rec["profile"] else None
+        place = rec["placement"]
+        log(f"phase {phase}: {tag} run in {rec['wall_s']:.1f} s, "
+            f"{rec['events_per_s']:.1f} events/s (phase 1, unsharded, this "
+            f"run: {main_rate:.1f}), sharded rounds "
+            f"{rec['counts']['sharded_batch_executions']} of "
+            f"{rec['counts']['batch_executions']}; launches "
+            f"{rec['launches']} (by design {rec['by_design']})")
+        log(f"  {tag}: launches by shard and design "
+            + json.dumps(rec["by_shard"]) + "; rows by shard (padded) "
+            + json.dumps(rec["shard_rows"]) + ", live "
+            + json.dumps(rec["shard_live_rows"]))
+        log(f"  {tag}: mesh {place['mesh'] if place else None}, arena tiles "
+            f"{place['tiles'] if place else None}")
+        _print_run(tag, rec)
+        pr = rec["profile"]
+        log(f"  {tag}: the close-out's re-execution of every window: "
+            + ("the profiler recorded no device time" if pr is None else
+               f"{pr['wall_s']:.3f} s wall, device busy {pr['busy_s']:.4f} "
+               f"s ({100 * pr['busy_share']:.1f}%)"))
+        c = rec["counts"]
+        check(place is not None
+              and place["mesh"] == [str(torch.device(d)) for d in devices],
+              f"{tag}: no slot mesh of {devices}: {place}")
+        if pooled:
+            check(place["shards"] == SHARDS and all(
+                k == v == d for (k, v), d in zip(place["tiles"],
+                                                 place["mesh"])),
+                  f"{tag}: the arena is not {SHARDS} tiles, each on its "
+                  f"mesh entry: {place}")
+            check(c["pooled_rows"] > 0, f"{tag}: no pooled rows")
+        else:
+            check(place["tiles"] is None and c["pooled_rows"] == 0,
+                  f"{tag}: a block pool in an unpooled run: {place}")
+        check(c["sharded_batch_executions"] > 0, f"{tag}: no sharded round")
+        for key in need:
+            per = rec["by_shard"][key.split()[0]]
+            live = rec["shard_live_rows"].get(key, [])
+            check(key in recorder.largest,
+                  f"{tag}: {key} never ran sharded")
+            check(len(live) == SHARDS and min(live) > 0,
+                  f"{tag}: {key} folded live rows {live} by shard: a shard "
+                  "folded only padding")
+            check(dev.type != "cuda" or (
+                sorted(per) == list(range(SHARDS)) and all(
+                    sum(n.values()) > 0 for n in per.values())),
+                f"{tag}: {key} did not launch on every shard: {per}")
+        rec["replays"] = {}
+        for key, largest in recorder.largest.items():
+            err = shard_replay(key, largest, g)
+            rec["replays"][key] = {"rows": largest["rows"],
+                                   "max_abs_err": err}
+            log(f"  {tag}: {key}'s largest sharded call ({largest['rows']} "
+                f"rows, {largest['num_slots']} slots) replayed against the "
+                f"plain unsharded fold: count/min/max equal, sum max error "
+                f"{err:.3g} (rtol {SHARD_SUM_RTOL}, atol {SHARD_SUM_ATOL})")
+        del recorder
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[tag] = rec
+    return out
+
+
 def failure_controls(dev, spill_root: Path, windows: float) -> dict:
     """Phase 13b: phase 13's deployment over ``windows`` windows with one
     demand read failing once: with ``fold_round_retry`` the round must be
@@ -5414,8 +5772,17 @@ def main(argv=None) -> int:
     ap.add_argument("--chaos-windows", type=float, default=3.0,
                     help="windows of processing time streamed by each run of "
                     "phase 15")
-    ap.add_argument("--recovery-windows", type=float, default=3.0,
+    ap.add_argument("--recovery-windows", type=float, default=2.0,
                     help="windows of processing time streamed in phase 16")
+    ap.add_argument("--sharded-windows", type=float, default=3.0,
+                    help="windows of processing time streamed in phase 27a")
+    ap.add_argument("--sharded-splitk-windows", type=float, default=2.0,
+                    help="windows of processing time streamed in phase 27b")
+    ap.add_argument("--sharded-lrb-windows", type=float, default=1.5,
+                    help="windows of processing time streamed in phase 27c")
+    ap.add_argument("--sharded-stacked-windows", type=float, default=0.5,
+                    help="windows of processing time streamed in each of "
+                    "phases 27d and 27e")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every number of the run to this JSON file")
     args = ap.parse_args(argv)
@@ -5559,6 +5926,22 @@ def main(argv=None) -> int:
                     f"{rec['restored_launches']}")
         report["failure_controls"] = failure_controls(
             dev, spill_root, args.failure_windows)
+        # phase 27: phase 1's and phase 12's deployments slot-sharded
+        t0 = time.perf_counter()
+        devices = slot_mesh_devices(count)
+        log(f"phase 27: slot mesh {devices} ("
+            + ("one card per shard" if count >= SHARDS else
+               f"{count} card(s): cuda:0 named {SHARDS} times: the sharded "
+               "placement, masking and per-shard launches on one card, "
+               "nothing of scaling") + ")")
+        runs.update(sharded_phases(
+            dev, spill_root, {"27a": args.sharded_windows,
+                              "27b": args.sharded_splitk_windows,
+                              "27c": args.sharded_lrb_windows,
+                              "27d": args.sharded_stacked_windows,
+                              "27e": args.sharded_stacked_windows},
+            runs["main"]["events_per_s"], wrappers, devices))
+        log(f"phase 27: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(spill_root, ignore_errors=True)
     fallback = sum(r["counts"]["fallback_rows"] for r in runs.values())
@@ -5621,6 +6004,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         del rec
         torch.cuda.empty_cache()
+    sharded = [t for _, t, *_ in SHARDED_RUNS]
+    for entry, key in zip(kernels, ("K1", "K2", "K3")):
+        # each shard's launches in phase 27, by design
+        entry["launches_by_shard"] = {t: runs[t]["by_shard"][key]
+                                      for t in sharded}
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()

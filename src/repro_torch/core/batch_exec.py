@@ -42,9 +42,20 @@ live on the device are stacked with a device concat (``torch.stack`` —
 through ``IOScheduler.fetch_block_host`` (accounted,
 simulated-cost-charged). The stacked fold goes through the flat kernel.
 
-The port runs on one device: multi-device slot sharding
-(``AionConfig.slot_sharding``) is not ported (the engine refuses it at
-construction), so every round folds unsharded.
+Slot sharding (``AionConfig.slot_sharding``, a ``SlotMesh`` of two or
+more entries from ``distributed.sharding``): the unpooled placement
+round-robins due windows onto device-local slot ranges and packs rows
+shard-major, padded to a common power-of-two count
+(``pack_rows_shard_major``); each shard's rows fold on its own device
+(one kernel launch a shard) and the per-shard slot tiles concatenate,
+with no cross-device reduction. The POOLED placement is hash-based
+instead (``shard_of_window``, the map the staging shard hint uses),
+because pool slots are assigned at STAGING time, before any batch
+composition is known: placing a window on its hash shard is what keeps
+its block-table rows local to the device whose arena tile holds them.
+Rows whose pool slot lands outside their window's shard fall back to the
+stacked gather rather than being misfolded. Each sharded round counts in
+``metrics.sharded_batch_executions``.
 
 Pin strategy. The synchronous engine holds ONE pool pin across the whole
 round, the demand-fill wait included. Under the pipelined engine
@@ -92,7 +103,12 @@ size and decompose greedily into launch groups of {8, 4, 2, 1} chunks
 (fixed-shape per-chunk partials, merged on-device) and the cross-group
 partial accumulators merge via ``WindowOperator.merge_acc``. Every launch
 shape is drawn from a fixed repertoire of at most four, so batch-size
-changes across rounds keep the launch shapes fixed.
+changes across rounds keep the launch shapes fixed. Under slot sharding
+the pooled table keeps the ownership packing and chunks per shard inside
+K3, and the STACKED fold instead deals rows round-robin across the mesh
+(``pack_rows_shard_major(balance=True)``) and folds full per-slot
+partials per device: a skewed window's rows spread over every device
+instead of serializing on its owner.
 """
 from __future__ import annotations
 
@@ -106,7 +122,9 @@ import torch
 
 from repro_torch.core.buckets import Tier, WindowState
 from repro_torch.core.windows import WindowId
-from repro_torch.kernels.segment_aggregate import next_pow2
+from repro_torch.kernels.segment_aggregate import (
+    next_pow2, pack_rows_shard_major,
+)
 from repro_torch.obs import profiler_annotation
 
 
@@ -143,13 +161,47 @@ def snapshot_block_partition(state: WindowState):
     return m_snapshot, p_blocks
 
 
-def plan_slot_placement(num_windows: int) -> Tuple[List[int], int]:
-    """Window ``i`` of a batch folds into slot ``i``; the slot count pads
+def plan_slot_placement(num_windows: int, num_devices: int
+                        ) -> Tuple[List[int], int, int]:
+    """Round-robin due windows onto device-local slot ranges.
+
+    Device ``d`` owns the contiguous global slot range ``[d*slots_per,
+    (d+1)*slots_per)``; window ``i`` of the batch lands on device ``i %
+    num_devices`` at local slot ``i // num_devices``. ``slots_per`` pads
     to a power of two so the fold sees O(log) distinct launch shapes.
-    Returns ``(slot_of_window, num_slots)``. (The JAX package's
-    round-robin placement onto device-local slot ranges belongs to the
-    unported multi-device slice.)"""
-    return list(range(num_windows)), next_pow2(num_windows)
+    Returns ``(slot_of_window, num_slots, slots_per)``; ``num_devices <=
+    1`` is the unsharded identity placement."""
+    if num_devices <= 1:
+        ns = next_pow2(num_windows)
+        return list(range(num_windows)), ns, ns
+    slots_per = next_pow2(-(-num_windows // num_devices))
+    slot_of = [(i % num_devices) * slots_per + i // num_devices
+               for i in range(num_windows)]
+    return slot_of, num_devices * slots_per, slots_per
+
+
+def plan_slot_placement_pooled(wids: List[WindowId], num_devices: int
+                               ) -> Tuple[List[int], int, int]:
+    """Hash-based placement for the pooled sharded fold.
+
+    A window's pool slots were allocated at staging time in the arena
+    range of ``shard_of_window(...)``: placement must agree with that map
+    or every block-table row would be misplaced. Windows group by their
+    hash shard; each shard's windows take consecutive local slots, padded
+    to a common power-of-two ``slots_per``. The identity placement on one
+    device."""
+    if num_devices <= 1:
+        return plan_slot_placement(len(wids), 1)
+    from repro_torch.distributed.sharding import shard_of_window
+    shards = [shard_of_window(w.start, w.end, num_devices) for w in wids]
+    counts = [0] * num_devices
+    local = []
+    for s in shards:
+        local.append(counts[s])
+        counts[s] += 1
+    slots_per = next_pow2(max(counts + [1]))
+    slot_of = [s * slots_per + n for s, n in zip(shards, local)]
+    return slot_of, num_devices * slots_per, slots_per
 
 
 class BatchExecutor:
@@ -228,6 +280,9 @@ class BatchExecutor:
             plans = [(it, sum(snapshot_block_partition(it.state), []))
                      for it in items]
 
+            mesh = eng.slot_mesh
+            num_devices = mesh.size if mesh is not None else 1
+
             with profiler_annotation(
                     f"aion.fold_round[{len(items)}]",
                     enabled=getattr(eng.aion, "profiler_annotations",
@@ -235,11 +290,13 @@ class BatchExecutor:
                 if eng.pool is not None:
                     # every device op of the round on the arena's stream
                     with eng.pool.stream():
-                        results, slot_of, num_slots, dev_dt, gather_dt = \
-                            self._fold_pooled(plans)
+                        results, slot_of, num_slots, dev_dt, gather_dt, \
+                            ran_sharded = self._fold_pooled(
+                                plans, mesh, num_devices)
                 else:
-                    results, slot_of, num_slots, dev_dt, gather_dt = \
-                        self._fold_stacked(plans)
+                    results, slot_of, num_slots, dev_dt, gather_dt, \
+                        ran_sharded = self._fold_stacked(plans, mesh,
+                                                         num_devices)
 
             # per-window bookkeeping, identical to execute_window
             out: Dict[WindowId, Any] = {}
@@ -262,55 +319,59 @@ class BatchExecutor:
             eng.metrics.batch_gather_seconds += gather_dt
             eng.metrics.batch_occupancy_series.append(len(plans))
             eng.metrics.fold_seconds.observe(dev_dt)
+            if ran_sharded:
+                eng.metrics.sharded_batch_executions += 1
             if span.sampled:
                 span.set(
                     splitk_launches=eng.metrics.splitk_launches - sk0,
                     pooled_rows=eng.metrics.pooled_rows - pooled0,
                     fallback_rows=eng.metrics.fallback_rows - fallback0,
                     recompiled=bool(len(shapes) > shapes0),
+                    sharded=ran_sharded,
                     device_seconds=round(dev_dt, 6),
                     gather_seconds=round(gather_dt, 6))
                 span.event("emit", results=len(out))
         return out
 
     # ------------------------------------------------------ splitk planning
-    def _splitk_chunk(self, num_rows: int) -> int:
+    def _splitk_chunk(self, num_rows: int, num_devices: int) -> int:
         """Effective split-K chunk size for a round of ``num_rows`` rows,
         or 0 when disabled: the knob is off, the operator's accumulator
         cannot merge arbitrary row partials (``supports_splitk`` False),
-        or the round is no larger than one chunk (chunking it would only
-        add merge overhead)."""
+        or the round is no larger than one chunk per device (chunking it
+        would only add merge overhead)."""
         op = self.engine.operator
         chunk = getattr(self.engine.aion, "splitk_chunk_rows", 0)
         if chunk <= 0 or not getattr(op, "supports_splitk", False):
             return 0
-        return chunk if num_rows > chunk else 0
+        return chunk if num_rows > chunk * max(num_devices, 1) else 0
 
-    def _plan_table_groups(self, rows):
+    def _plan_table_groups(self, rows, num_devices: int, slots_per: int):
         """Launch groups ``[(table, fills, slots, splitk)]`` for pooled
         (block, window_slot, pool_slot) rows.
 
-        Split-K disabled: one group, rows padded to a power of two.
-        Split-K: rows pad to a chunk multiple (pool slot 0, fill 0 —
-        invalid everywhere, including the ±inf min/max identities) and
-        the chunk count decomposes greedily into groups of {8, 4, 2, 1}
-        chunks, so every launch shape is one of at most four
-        ``{1,2,4,8} * chunk_rows`` shapes regardless of batch size.
+        Split-K disabled, or sharded: one group packed shard-major, each
+        shard's rows padded to a common power of two (the sharded layout
+        keeps the ownership packing and chunks per shard inside K3).
+        Single-device split-K: rows pad to a chunk multiple (pool slot 0,
+        fill 0 — invalid everywhere, including the ±inf min/max
+        identities) and the chunk count decomposes greedily into groups
+        of {8, 4, 2, 1} chunks, so every launch shape is one of at most
+        four ``{1,2,4,8} * chunk_rows`` shapes regardless of batch size.
         Cross-group partials merge via ``op.merge_acc`` in the shared
         tail."""
-        chunk = self._splitk_chunk(len(rows))
+        chunk = self._splitk_chunk(len(rows), num_devices)
+        if chunk == 0 or num_devices > 1:
+            return [(*self._pack_table(rows, num_devices, slots_per),
+                     chunk)]
         dev = self.engine.device
         table = [ps for _, _, ps in rows]
         fills = [blk.fill for blk, _, _ in rows]
         slots = [ws for _, ws, _ in rows]
-        pad = (next_pow2(len(rows)) - len(rows) if chunk == 0
-               else (-len(rows)) % chunk)
+        pad = (-len(rows)) % chunk
         table += [0] * pad
         fills += [0] * pad
         slots += [0] * pad
-        if chunk == 0:
-            return [(_i32(table, dev), _i32(fills, dev), _i32(slots, dev),
-                     0)]
         groups = []
         off = 0
         remaining = len(table) // chunk
@@ -325,7 +386,8 @@ class BatchExecutor:
             remaining -= g
         return groups
 
-    def _fold_table_groups(self, groups, arena_data, num_slots, accs):
+    def _fold_table_groups(self, groups, arena_data, num_slots, use_mesh,
+                           accs):
         """Dispatch every launch group against one arena snapshot; the
         group accumulators append to ``accs`` (merged in the shared
         tail). Returns the host seconds spent enqueueing them."""
@@ -334,16 +396,26 @@ class BatchExecutor:
         d0 = _time.time()
         for table, fills, slots, sk in groups:
             accs.append(op.fold_batch(arena_data, fills, slots, num_slots,
-                                      table=table, splitk=sk))
+                                      mesh=use_mesh, table=table,
+                                      splitk=sk))
             if sk:
                 eng.metrics.splitk_launches += 1
         return _time.time() - d0
 
-    def _stack_rows(self, rows):
+    def _stack_rows(self, rows, num_devices: int, slots_per: int,
+                    balance: bool = False):
         """Stacked (data, fills, slots) tensors from (arrays, fill,
-        window_slot) rows, padded to a power-of-two row count with
-        invalid rows (fill 0, slot 0) so the fold sees O(log) distinct
-        shapes. The stack carries keys + values only: no batch fold is
+        window_slot) rows.
+
+        Shard-major via ``pack_rows_shard_major``: rows group by owning
+        shard and every shard pads to a common power-of-two row count
+        (invalid rows: fill 0, slot = the shard's base slot), so row
+        counts divide the mesh and the fold sees O(log) distinct shapes;
+        ``num_devices == 1`` is one group padded to a power of two.
+        ``balance`` deals rows round-robin across shards instead (the
+        split-K layout), for the row-balanced fold, which has no
+        ownership precondition; its padding rows take slot 0 with fill 0.
+        The stack carries keys + values only: no batch fold is
         time-dependent within a window, and stacking timestamps would
         force a D2H pull of every hot device-resident row (see the
         fold_batch contract).
@@ -351,13 +423,28 @@ class BatchExecutor:
         eng = self.engine
         cap = eng.aion.block_size
         w = eng.value_width
-        pad = next_pow2(len(rows)) - len(rows)
-        keys_rows = [arrs["keys"] for arrs, _, _ in rows] \
-            + [np.zeros((cap,), np.int32)] * pad
-        val_rows = [arrs["values"] for arrs, _, _ in rows] \
-            + [np.zeros((cap, w), np.float32)] * pad
-        fills = [fill for _, fill, _ in rows] + [0] * pad
-        slots = [slot for _, _, slot in rows] + [0] * pad
+        per_shard, rows_per_shard = pack_rows_shard_major(
+            [slot for _, _, slot in rows], num_devices, slots_per,
+            balance=balance)
+        pad_keys = np.zeros((cap,), np.int32)
+        pad_vals = np.zeros((cap, w), np.float32)
+        keys_rows, val_rows = [], []
+        fills: List[int] = []
+        slots: List[int] = []
+        for d, idxs in enumerate(per_shard):
+            base_slot = d * slots_per \
+                if num_devices > 1 and not balance else 0
+            for r in idxs:
+                arrs, fill, slot = rows[r]
+                keys_rows.append(arrs["keys"])
+                val_rows.append(arrs["values"])
+                fills.append(fill)
+                slots.append(slot)
+            pad = rows_per_shard - len(idxs)
+            keys_rows += [pad_keys] * pad
+            val_rows += [pad_vals] * pad
+            fills += [0] * pad
+            slots += [base_slot] * pad
         on_device = getattr(eng.aion, "device_stacking", True)
         data = {
             "keys": self._stack(keys_rows, on_device, np.int32),
@@ -380,30 +467,75 @@ class BatchExecutor:
         return rows
 
     # ----------------------------------------------------- stacked gather
-    def _fold_stacked(self, plans):
+    def _fold_stacked(self, plans, mesh, num_devices):
         """Legacy gather: re-materialize the batch as stacked tensors
-        (device concat of resident rows; host reads of cold p-blocks)."""
-        op = self.engine.operator
-        slot_of, num_slots = plan_slot_placement(len(plans))
+        (device concat of resident rows; host reads of cold p-blocks).
+
+        With split-K on under a mesh (operator permitting), the layout is
+        **row-balanced**: identity slot placement, rows dealt round-robin
+        across the shards, and the balanced sharded fold (full per-slot
+        partials per device, merged after), so a skewed window's rows
+        never serialize on one device."""
+        eng = self.engine
+        op = eng.operator
+        chunk = getattr(eng.aion, "splitk_chunk_rows", 0)
+        balanced = num_devices > 1 and chunk > 0 \
+            and getattr(op, "supports_splitk", False)
+        slot_of, num_slots, slots_per = plan_slot_placement(
+            len(plans), 1 if balanced else num_devices)
         g0 = _time.time()
         rows = self._gather_rows([(blk, slot_of[i])
                                   for i, (_, blocks) in enumerate(plans)
                                   for blk in blocks if blk.fill])
         dev_dt = 0.0
+        ran_sharded = False
         if rows:
-            data, fills, slots = self._stack_rows(rows)
+            data, fills, slots = self._stack_rows(rows, num_devices,
+                                                  slots_per,
+                                                  balance=balanced)
             gather_dt = _time.time() - g0
             dev_t0 = _time.time()
-            results = op.run_batch(data, fills, slots, num_slots)
+            results = op.run_batch(data, fills, slots, num_slots,
+                                   mesh=mesh,
+                                   splitk=chunk if balanced else 0)
             dev_dt = _time.time() - dev_t0
+            ran_sharded = mesh is not None
+            if balanced:
+                eng.metrics.splitk_launches += 1
         else:
             gather_dt = _time.time() - g0
             # every window empty: finalize the identity accumulator
             results = [op.finalize(op.init_acc()) for _ in range(num_slots)]
-        return results, slot_of, num_slots, dev_dt, gather_dt
+        return results, slot_of, num_slots, dev_dt, gather_dt, ran_sharded
 
     # ------------------------------------------------------- pooled gather
-    def _fold_pooled(self, plans):
+    def _pack_table(self, rows, num_devices: int, slots_per: int):
+        """Shard-major (table, fills, slots) tensors from (block,
+        window_slot, pool_slot) rows, each shard padded to a common
+        power-of-two row count (padding: the shard's base pool slot with
+        fill 0 — in range for the shard, invalid for the fold)."""
+        pool = self.engine.pool
+        dev = self.engine.device
+        per_shard, rows_per_shard = pack_rows_shard_major(
+            [ws for _, ws, _ in rows], num_devices, slots_per)
+        table: List[int] = []
+        fills: List[int] = []
+        slots: List[int] = []
+        for d, idxs in enumerate(per_shard):
+            base_slot = d * slots_per if num_devices > 1 else 0
+            base_pool = d * pool.slots_per_shard if num_devices > 1 else 0
+            for r in idxs:
+                blk, wslot, ps = rows[r]
+                table.append(ps)
+                fills.append(blk.fill)
+                slots.append(wslot)
+            pad = rows_per_shard - len(idxs)
+            table += [base_pool] * pad
+            fills += [0] * pad
+            slots += [base_slot] * pad
+        return _i32(table, dev), _i32(fills, dev), _i32(slots, dev)
+
+    def _fold_pooled(self, plans, mesh, num_devices):
         """Block-table gather over the persistent pool.
 
         Three row classes, folded as up to three partial accumulators and
@@ -412,8 +544,8 @@ class BatchExecutor:
           * cold p-blocks — demand pool-fills at PRIO_DEMAND_STAGE whose
             I/O overlaps the resident fold; filled slots fold as a second
             block table, the rest degrade to the stacked fallback;
-          * fallback rows — unpoolable (slot/budget exhaustion, legacy
-            device_data): the stacked gather.
+          * fallback rows — unpoolable (slot/budget exhaustion, misplaced
+            shard, legacy device_data): the stacked gather, unsharded.
 
         The synchronous engine runs the whole round under ONE pool pin: a
         slot released while a fold that names it may still be unlaunched
@@ -427,7 +559,9 @@ class BatchExecutor:
         """
         eng = self.engine
         pool = eng.pool
-        slot_of, num_slots = plan_slot_placement(len(plans))
+        use_mesh = mesh if num_devices > 1 else None
+        slot_of, num_slots, slots_per = plan_slot_placement_pooled(
+            [it.wid for it, _ in plans], num_devices)
 
         g0 = _time.time()
         gather_dt = 0.0
@@ -438,12 +572,17 @@ class BatchExecutor:
                 if blk.fill:
                     blocks.append((blk, i))
 
+        def well_placed(ps, i):
+            return num_devices <= 1 or \
+                pool.shard_of_slot(ps) == slot_of[i] // slots_per
+
+        layout = (slot_of, num_slots, slots_per, use_mesh, well_placed)
         if eng.pipeline is not None \
                 and getattr(eng.aion, "pool_slot_epochs", True):
-            return self._fold_pooled_epochs(plans, blocks, slot_of,
-                                            num_slots, g0)
+            return self._fold_pooled_epochs(plans, blocks, layout, g0)
 
         accs: List[Any] = []
+        ran_sharded = False
         cold: List[Tuple[Any, int]] = []          # (block, window index)
         fallback: List[Tuple[Any, int]] = []      # (block, wslot)
         with pool.pinned(), pool.deferred_fills():
@@ -453,9 +592,9 @@ class BatchExecutor:
 
             pooled: List[Tuple[Any, int, int]] = []  # (blk, wslot, pslot)
             for (blk, i), ps in zip(blocks, pslots):
-                if ps is not None:
+                if ps is not None and well_placed(ps, i):
                     pooled.append((blk, slot_of[i], ps))
-                elif blk.tier != Tier.DEVICE \
+                elif ps is None and blk.tier != Tier.DEVICE \
                         and eng.aion.pool_overlap_prefetch:
                     cold.append((blk, i))
                 else:
@@ -470,10 +609,12 @@ class BatchExecutor:
 
             if pooled:
                 g0 = _time.time()
-                groups = self._plan_table_groups(pooled)
+                groups = self._plan_table_groups(pooled, num_devices,
+                                                 slots_per)
                 gather_dt += _time.time() - g0
                 dev_dt += self._fold_table_groups(groups, arena_data,
-                                                  num_slots, accs)
+                                                  num_slots, use_mesh, accs)
+                ran_sharded = use_mesh is not None
                 eng.metrics.pooled_rows += len(pooled)
 
             if evs:
@@ -482,37 +623,45 @@ class BatchExecutor:
                 k2, v2, ps2 = pool.snapshot_for([b for b, _ in cold])
                 staged: List[Tuple[Any, int, int]] = []
                 for (blk, i), ps in zip(cold, ps2):
-                    if ps is not None:
+                    if ps is not None and well_placed(ps, i):
                         staged.append((blk, slot_of[i], ps))
                     else:
-                        # fill failed (budget/pool exhaustion): the
-                        # stacked fallback reads it (device-preferred,
-                        # host-accounted)
+                        # fill failed (budget/pool exhaustion) or landed
+                        # in a foreign range: the stacked fallback reads
+                        # it (device-preferred, host-accounted)
                         fallback.append((blk, slot_of[i]))
                 gather_dt += _time.time() - g0
                 if staged:
                     g0 = _time.time()
-                    groups = self._plan_table_groups(staged)
+                    groups = self._plan_table_groups(staged, num_devices,
+                                                     slots_per)
                     arena2 = {"keys": k2, "values": v2}
                     gather_dt += _time.time() - g0
                     dev_dt += self._fold_table_groups(groups, arena2,
-                                                      num_slots, accs)
+                                                      num_slots, use_mesh,
+                                                      accs)
+                    ran_sharded = ran_sharded or use_mesh is not None
                     eng.metrics.pooled_rows += len(staged)
 
         return self._fold_pooled_tail(accs, fallback, slot_of, num_slots,
-                                      dev_dt, gather_dt)
+                                      dev_dt, gather_dt, ran_sharded)
 
-    def _fold_pooled_epochs(self, plans, blocks, slot_of, num_slots, g0):
+    def _fold_pooled_epochs(self, plans, blocks, layout, g0):
         """The pipelined engine's pin strategy: classify every row from an
         unpinned ``(slot, epoch)`` read, issue and wait for the demand
         fills unpinned, then validate and dispatch under ONE short pin.
         Resident and freshly filled rows fold as one block table; rows
         whose pair moved since classification demote to the stacked
-        fallback (``metrics.epoch_demoted_rows``)."""
+        fallback (``metrics.epoch_demoted_rows``). ``layout`` is
+        ``_fold_pooled``'s placement: (slot_of, num_slots, slots_per,
+        the mesh or None, the well-placed test)."""
         eng = self.engine
         pool = eng.pool
+        slot_of, num_slots, slots_per, use_mesh, well_placed = layout
+        num_devices = use_mesh.size if use_mesh is not None else 1
         gather_dt = 0.0
         dev_dt = 0.0
+        ran_sharded = False
         accs: List[Any] = []
         cold: List[Tuple[Any, int]] = []          # (block, window index)
         fallback: List[Tuple[Any, int]] = []      # (block, wslot)
@@ -520,9 +669,10 @@ class BatchExecutor:
         classified: List[Tuple[Any, int, int, int]] = []
         for (blk, i), (ps, ep) in zip(blocks, pool.slot_epochs(
                 [b for b, _ in blocks])):
-            if ps is not None:
+            if ps is not None and well_placed(ps, i):
                 classified.append((blk, i, ps, ep))
-            elif blk.tier != Tier.DEVICE and eng.aion.pool_overlap_prefetch:
+            elif ps is None and blk.tier != Tier.DEVICE \
+                    and eng.aion.pool_overlap_prefetch:
                 cold.append((blk, i))
             else:
                 fallback.append((blk, slot_of[i]))
@@ -535,9 +685,9 @@ class BatchExecutor:
             self._wait_fills(self._request_fills(plans, cold))
             for (blk, i), (ps, ep) in zip(cold, pool.slot_epochs(
                     [b for b, _ in cold])):
-                if ps is not None:
+                if ps is not None and well_placed(ps, i):
                     classified.append((blk, i, ps, ep))
-                else:           # the fill could not take a slot
+                else:   # the fill could not take a slot, or a foreign one
                     fallback.append((blk, slot_of[i]))
         gather_dt += _time.time() - g0
 
@@ -560,16 +710,18 @@ class BatchExecutor:
                         eng.metrics.epoch_demoted_rows += 1
                         fallback.append((blk, slot_of[i]))
                 if pooled:
-                    groups = self._plan_table_groups(pooled)
+                    groups = self._plan_table_groups(pooled, num_devices,
+                                                     slots_per)
                     gather_dt += _time.time() - g0
                     dev_dt += self._fold_table_groups(
                         groups, {"keys": k_arena, "values": v_arena},
-                        num_slots, accs)
+                        num_slots, use_mesh, accs)
+                    ran_sharded = use_mesh is not None
                     eng.metrics.pooled_rows += len(pooled)
                 else:
                     gather_dt += _time.time() - g0
         return self._fold_pooled_tail(accs, fallback, slot_of, num_slots,
-                                      dev_dt, gather_dt)
+                                      dev_dt, gather_dt, ran_sharded)
 
     def _request_fills(self, plans, cold) -> List[Any]:
         """Demand pool-fills for cold ``(block, window index)`` rows, one
@@ -593,19 +745,22 @@ class BatchExecutor:
             ev.check()
 
     def _fold_pooled_tail(self, accs, fallback, slot_of, num_slots,
-                          dev_dt, gather_dt):
+                          dev_dt, gather_dt, ran_sharded):
         """Fold the fallback rows through the stacked gather, then merge
-        the partial accumulators into per-slot results."""
+        the partial accumulators into per-slot results. The fallback is
+        unsharded (any global slot is valid on one device), as in the
+        JAX package."""
         eng = self.engine
         op = eng.operator
         if fallback:
             g0 = _time.time()
             rows = self._gather_rows(fallback)
             if rows:
-                data, fills, slots = self._stack_rows(rows)
+                data, fills, slots = self._stack_rows(rows, 1, num_slots)
                 gather_dt += _time.time() - g0
                 d0 = _time.time()
-                accs.append(op.fold_batch(data, fills, slots, num_slots))
+                accs.append(op.fold_batch(data, fills, slots, num_slots,
+                                          mesh=None))
                 dev_dt += _time.time() - d0
                 eng.metrics.fallback_rows += len(rows)
             else:
@@ -621,4 +776,4 @@ class BatchExecutor:
                 acc = op.merge_acc(acc, a)
             results = op.finalize_batch(acc, num_slots)
             dev_dt += _time.time() - d0
-        return results, slot_of, num_slots, dev_dt, gather_dt
+        return results, slot_of, num_slots, dev_dt, gather_dt, ran_sharded

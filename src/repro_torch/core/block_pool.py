@@ -50,16 +50,21 @@ Concurrency contract (engine main thread + I/O executor thread):
 Slots partition into ``num_shards`` contiguous ranges for the slot-sharded
 fold: a window's blocks are allocated in the range of the shard that
 ``distributed.sharding.shard_of_window`` assigns the window to, so the
-block table a shard receives only ever references its own arena range
-(the shard_map passes each device its ``[pool_slots/D, ...]`` arena tile).
-The port runs one device; the shard ranges are kept for the bookkeeping.
+block table a shard receives only ever references its own arena range.
+Arena tile ``d`` holds slots ``[d * slots_per_shard, (d + 1) *
+slots_per_shard)`` on ``devices[d]`` (the slot mesh's entries). Where every
+entry is the same device the tiles are views of one ``keys``/``values``
+pair (one shard is the unsharded pool, exactly); across devices each tile
+is a tensor of its own, ``keys``/``values`` are None, and the snapshots
+hand the fold the sequence of tiles. Every device of the pool has its own
+stream, each current under ``stream()``.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,8 +80,11 @@ class DeviceBlockPool:
                  num_shards: int = 1,
                  max_arena_bytes: Optional[int] = None,
                  registry: Optional[MetricsRegistry] = None,
-                 device=None):
+                 device=None, devices: Optional[Sequence] = None):
         num_shards = max(int(num_shards), 1)
+        if devices is not None and len(devices) != num_shards:
+            raise ValueError(f"{len(devices)} devices for {num_shards} "
+                             "shards: give one for each")
         pool_slots = max(int(pool_slots), num_shards)
         # round up to a multiple of the shard count so the arena splits
         # evenly into the shard ranges
@@ -93,7 +101,11 @@ class DeviceBlockPool:
         self.pool_slots = pool_slots
         self.capacity = block_capacity
         self.width = width
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if devices is None \
+            else torch.device(devices[0])
+        #: the device of each shard's arena tile
+        self.devices = [self.device] * num_shards if devices is None \
+            else [torch.device(d) for d in devices]
         # physical device bytes the arenas occupy — charged ONCE against
         # the engine's device budget at construction; a pooled fill then
         # costs a slot, not a second per-block reservation (the legacy
@@ -123,13 +135,28 @@ class DeviceBlockPool:
         # the row was classified against.
         self._slot_epoch: List[int] = [0] * pool_slots
         self.seq = 0                       # global epoch counter
-        self.keys = torch.zeros((pool_slots, block_capacity),
-                                dtype=torch.int32, device=self.device)
-        self.values = torch.zeros((pool_slots, block_capacity, width),
-                                  dtype=torch.float32, device=self.device)
-        # every arena write and every fold over it runs on this stream
-        self._stream = (torch.cuda.current_stream(self.device)
-                        if self.device.type == "cuda" else None)
+        sps = self.slots_per_shard
+        if len(set(self.devices)) == 1:
+            self.keys = torch.zeros((pool_slots, block_capacity),
+                                    dtype=torch.int32, device=self.device)
+            self.values = torch.zeros((pool_slots, block_capacity, width),
+                                      dtype=torch.float32,
+                                      device=self.device)
+            self.key_tiles = list(self.keys.split(max(sps, 1)))
+            self.value_tiles = list(self.values.split(max(sps, 1)))
+        else:
+            self.keys = self.values = None
+            self.key_tiles = [torch.zeros((sps, block_capacity),
+                                          dtype=torch.int32, device=d)
+                              for d in self.devices]
+            self.value_tiles = [torch.zeros((sps, block_capacity, width),
+                                            dtype=torch.float32, device=d)
+                                for d in self.devices]
+        # every arena write and every fold over it runs on its device's
+        # stream: the one current when the pool was built
+        self._streams = [torch.cuda.current_stream(d)
+                         for d in dict.fromkeys(self.devices)
+                         if d.type == "cuda"]
         registry = registry if registry is not None else MetricsRegistry()
         self.registry = registry
         self.stats = StatsMap(registry, "aion_pool")
@@ -148,9 +175,15 @@ class DeviceBlockPool:
         """Context that makes the pool's CUDA stream current: arena writes
         run under it, and so must every fold that reads the arena (stream
         order is what keeps an enqueued fold ahead of a later write)."""
-        if self._stream is None:
+        if not self._streams:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+        if len(self._streams) == 1:
+            return torch.cuda.stream(self._streams[0])
+        ctx = contextlib.ExitStack()
+        # the first device's stream last: its device stays current
+        for st in reversed(self._streams):
+            ctx.enter_context(torch.cuda.stream(st))
+        return ctx
 
     def _bump_epoch_locked(self, slot: int) -> None:
         self._slot_epoch[slot] += 1
@@ -194,9 +227,20 @@ class DeviceBlockPool:
         the pool's stream (caller holds the pool lock)."""
         idx = torch.as_tensor(slots, dtype=torch.int64)
         with self.stream():
-            idx = idx.to(self.device, non_blocking=True)
-            self.keys.index_copy_(0, idx, keys.to(self.device))
-            self.values.index_copy_(0, idx, values.to(self.device))
+            if self.keys is not None:
+                idx = idx.to(self.device, non_blocking=True)
+                self.keys.index_copy_(0, idx, keys.to(self.device))
+                self.values.index_copy_(0, idx, values.to(self.device))
+                return
+            shard = idx // self.slots_per_shard
+            for d, dev in enumerate(self.devices):
+                sel = torch.nonzero(shard == d).flatten()
+                if sel.numel() == 0:
+                    continue
+                local = (idx[sel] - d * self.slots_per_shard).to(dev)
+                self.key_tiles[d].index_copy_(0, local, keys[sel].to(dev))
+                self.value_tiles[d].index_copy_(0, local,
+                                                values[sel].to(dev))
 
     def _flush_pending_locked(self) -> None:
         """One batched write for every buffered fill (caller holds the
@@ -232,6 +276,18 @@ class DeviceBlockPool:
     # ------------------------------------------------------------ slot mgmt
     def shard_of_slot(self, slot: int) -> int:
         return slot // self.slots_per_shard
+
+    def arena(self) -> Tuple[Any, Any]:
+        """(keys, values) as a fold reads them: the two arena tensors, or,
+        across devices, the tuples of per-shard tiles."""
+        if self.keys is not None:
+            return self.keys, self.values
+        return tuple(self.key_tiles), tuple(self.value_tiles)
+
+    def _row(self, slot: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One slot's (keys, values) rows, views into its tile."""
+        d, local = divmod(slot, self.slots_per_shard)
+        return self.key_tiles[d][local], self.value_tiles[d][local]
 
     def alloc(self, shard: Optional[int] = None) -> Optional[int]:
         """Take a free slot from ``shard``'s range (state: free -> filling).
@@ -325,7 +381,7 @@ class DeviceBlockPool:
             return out
 
     def snapshot_with_epochs(self, blocks) -> Tuple[
-            torch.Tensor, torch.Tensor, List[Optional[int]], List[int]]:
+            Any, Any, List[Optional[int]], List[int]]:
         """``snapshot_for`` + the epoch of each block's slot, one atomic
         read. Call inside a ``pinned()`` section."""
         with self._lock:
@@ -333,16 +389,15 @@ class DeviceBlockPool:
             slots = [b.pool_slot for b in blocks]
             epochs = [self._slot_epoch[s] if s is not None else -1
                       for s in slots]
-            return self.keys, self.values, slots, epochs
+            return (*self.arena(), slots, epochs)
 
-    def snapshot_for(self, blocks) -> Tuple[torch.Tensor, torch.Tensor,
-                                            List[Optional[int]]]:
+    def snapshot_for(self, blocks) -> Tuple[Any, Any, List[Optional[int]]]:
         """(keys_arena, values_arena, slot-per-block) — one consistent
         view. Call inside a ``pinned()`` section and launch the folds that
         read it before the pin ends."""
         with self._lock:
             self._flush_pending_locked()
-            return self.keys, self.values, [b.pool_slot for b in blocks]
+            return (*self.arena(), [b.pool_slot for b in blocks])
 
     def read_block(self, block) -> Optional[Dict[str, torch.Tensor]]:
         """Device copy of one resident block ({keys, values}), or None if
@@ -358,8 +413,7 @@ class DeviceBlockPool:
                 return None
             self._flush_pending_locked()
             with self.stream():
-                k = self.keys[slot].clone()
-                v = self.values[slot].clone()
+                k, v = (t.clone() for t in self._row(slot))
         return {"keys": k, "values": v}
 
     def read_host(self, block) -> Optional[Dict[str, np.ndarray]]:

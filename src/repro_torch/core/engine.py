@@ -25,9 +25,16 @@ thread (``core.pipeline.EnginePipeline``) while ingestion continues, and
 ``prefetch_backend="learned"`` swaps the fixed-margin pre-stage scheduler
 for the lateness-model-driven segment planner (``repro_torch.prefetch``).
 
-The engine runs on ``device`` (None: the card). The JAX package's
-multi-device slot sharding is not ported: asking for it raises
-``NotImplementedError`` at construction instead of being ignored.
+With ``AionConfig.slot_sharding`` on and a slot mesh of two or more
+entries (``slot_mesh``), that single pass additionally partitions window
+slots across the mesh — one kernel launch per shard on its own device
+and arena tile, the tiles concatenated along the slot axis, no
+cross-device reduction; see ``core.batch_exec`` for the placement step.
+
+The engine runs on ``device`` (None: the card). ``slot_devices`` lists
+the mesh's devices (one may repeat); without it the mesh takes the local
+CUDA devices, and an engine on the CPU stays unsharded (the JAX
+package's no-op on one device).
 """
 from __future__ import annotations
 
@@ -61,6 +68,29 @@ from repro_torch.core.windows import WindowAssigner, WindowId
 # shares it now); re-exported here so existing imports keep working.
 from repro_torch.obs import (BoundedSeries, MetricsRegistry, Tracer,  # noqa: E402
                        NULL_SPAN)
+
+
+def slot_mesh(aion: AionConfig, device, slot_devices=None):
+    """The slot mesh ``aion`` asks for on an engine running on
+    ``device``: None unless ``slot_sharding`` is on and the mesh has two
+    or more entries. ``slot_devices`` None takes the local CUDA devices
+    for an engine on the card, and the engine's own device otherwise
+    (one entry: no mesh). The first entry must be the engine's device:
+    the shards' outputs meet there."""
+    if not aion.slot_sharding:
+        return None
+    from repro_torch.distributed.sharding import make_slot_mesh
+    if slot_devices is None and device.type != "cuda":
+        slot_devices = [device]
+    mesh = make_slot_mesh(aion.slot_shard_devices, aion.slot_shard_axis,
+                          devices=slot_devices)
+    if mesh is not None:
+        first = mesh.devices[0]
+        if first.type != device.type or (
+                device.index is not None and first.index != device.index):
+            raise ValueError(f"the slot mesh starts on {first}, the engine "
+                             f"runs on {device}")
+    return mesh
 
 
 class EngineMetrics:
@@ -213,13 +243,13 @@ class StreamEngine:
                  store=None,
                  io: Optional[IOScheduler] = None,
                  pipeline=None,
-                 device=None):
+                 device=None,
+                 slot_devices=None):
         self.aion = aion or AionConfig()
-        if self.aion.slot_sharding:
-            raise NotImplementedError(
-                "not ported to repro_torch: slot_sharding=True")
         self.device = io.device if io is not None \
             else resolve_device(device)
+        #: the slot mesh of ``AionConfig.slot_sharding`` (None: unsharded)
+        self.slot_mesh = slot_mesh(self.aion, self.device, slot_devices)
         self.assigner = assigner
         self.operator = operator
         self.value_width = value_width
@@ -278,10 +308,14 @@ class StreamEngine:
                 # the full budget would pin utilization at 100% forever
                 # (destaging a pooled block frees a slot, not budget
                 # bytes)
+                mesh = self.slot_mesh
                 pool = DeviceBlockPool(
                     self.aion.pool_slots, self.aion.block_size,
-                    value_width, max_arena_bytes=device_budget_bytes // 2,
-                    registry=self.registry, device=self.device)
+                    value_width,
+                    num_shards=mesh.size if mesh is not None else 1,
+                    max_arena_bytes=device_budget_bytes // 2,
+                    registry=self.registry, device=self.device,
+                    devices=mesh.devices if mesh is not None else None)
                 if pool.pool_slots > 0 \
                         and self.budget.try_reserve(pool.arena_bytes):
                     self.pool = pool

@@ -33,8 +33,11 @@ whose accumulator is a per-slot sorted run merged by sorted-merge.
       fills  [B] i32   valid events per block (ragged fills)
       slots  [B] i32   block row -> window slot (several blocks of one
                        window share a slot)
-      mesh   the JAX package's slot-sharded execution; not ported, and
-             anything but None raises
+      mesh   optional ``SlotMesh`` (``distributed.sharding``): the fold
+             runs slot-sharded, one kernel launch per shard on its device
+             (rows shard-major, or with ``splitk`` on the stacked layout
+             row-balanced). With a sharded pool across devices the
+             arenas come as the tuples of per-shard tiles.
       table  optional [B] i32 pool-slot indices (the block-table path):
              the keyed folds read the event tiles straight out of the
              arena inside the CUDA kernel (zero per-batch copies)
@@ -54,7 +57,7 @@ whose accumulator is a per-slot sorted run merged by sorted-merge.
       adds. Percentile's sorted runs override it (concatenate + re-sort).
 
 Each ``fold_batch`` carries ``launch_shapes``, the set of distinct launch
-shapes it has run (rows, slots, split-K, table or stacked): PyTorch
+shapes it has run (rows, slots, split-K, table or stacked, shards): PyTorch
 compiles nothing per shape, so this count stands where the JAX package
 read its jit cache size.
 """
@@ -134,29 +137,30 @@ class WindowOperator:
 
 
 def _batch_fold(dev: torch.device):
-    """Decorator for a ``fold_batch``: rejects a mesh, records its launch
-    shapes, and hands the body the arrays as tensors on ``dev`` (or on the
-    device of the tensors it was given)."""
+    """Decorator for a ``fold_batch``: records its launch shapes, and hands
+    the body the arrays as tensors on ``dev`` (or on the device of the
+    tensors it was given; per-shard arena tiles stay where they are, the
+    rest goes to the first tile's device)."""
     def wrap(body):
         shapes = set()
 
         def fold_batch(data, fills, slots, num_slots, mesh=None,
                        table=None, splitk=0):
-            if mesh is not None:
-                raise NotImplementedError(
-                    "slot-sharded folds (mesh=) are not ported to "
-                    "repro_torch")
             vals = data["values"]
-            d = vals.device if isinstance(vals, torch.Tensor) else dev
-            data = {k: as_tensor(v, d) for k, v in data.items()}
+            if isinstance(vals, tuple):
+                d = vals[0].device
+            else:
+                d = vals.device if isinstance(vals, torch.Tensor) else dev
+                data = {k: as_tensor(v, d) for k, v in data.items()}
             fills = as_tensor(fills, d, torch.int32)
             slots = as_tensor(slots, d, torch.int32)
             if table is not None:
                 table = as_tensor(table, d, torch.int32)
             rows = len(fills)
-            shapes.add((rows, num_slots, splitk, table is None))
-            return body(data, fills, slots, num_slots, table=table,
-                        splitk=splitk)
+            shapes.add((rows, num_slots, splitk, table is None,
+                        mesh.size if mesh is not None else 1))
+            return body(data, fills, slots, num_slots, mesh=mesh,
+                        table=table, splitk=splitk)
 
         fold_batch.launch_shapes = shapes
         return fold_batch
@@ -172,8 +176,28 @@ def _batch_valid(cap: int, fills: torch.Tensor) -> torch.Tensor:
     return torch.arange(cap, device=fills.device)[None, :] < fills[:, None]
 
 
-def _take_rows(arena: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return arena.index_select(0, table.to(torch.int64))
+def _take_rows(arena, table: torch.Tensor) -> torch.Tensor:
+    """The arena rows ``table`` names, on the table's device. ``arena``
+    is one tensor, or a sharded pool's per-shard tiles: each row then
+    comes from the tile that holds it."""
+    idx = table.to(torch.int64)
+    if isinstance(arena, torch.Tensor):
+        return arena.index_select(0, idx)
+    per = arena[0].shape[0]
+    out = None
+    for d, tile in enumerate(arena):
+        local = idx - d * per
+        own = (local >= 0) & (local < per)
+        rows = tile.index_select(0, torch.where(own, local, 0).to(
+            tile.device)).to(table.device)
+        own = own.view(-1, *([1] * (rows.dim() - 1)))
+        out = rows if out is None else torch.where(own, rows, out)
+    return out
+
+
+def _cap(values) -> int:
+    """Events a block holds: the arena's (or a tile's) second axis."""
+    return (values[0] if isinstance(values, tuple) else values).shape[1]
 
 
 def _per_slot_finalize(finalize: Callable[[Any], Any]):
@@ -212,8 +236,9 @@ def make_average(block_capacity: int, width: int,
         return float(acc["sum"] / torch.clamp(acc["count"], min=1.0))
 
     @_batch_fold(dev)
-    def fold_batch(data, fills, slots, num_slots, table=None, splitk=0):
-        cap = data["values"].shape[1]
+    def fold_batch(data, fills, slots, num_slots, mesh=None, table=None,
+                   splitk=0):
+        cap = _cap(data["values"])
         valid = _batch_valid(cap, fills)
         zeros = torch.zeros((len(fills), cap), dtype=torch.int32,
                             device=valid.device)
@@ -225,16 +250,17 @@ def make_average(block_capacity: int, width: int,
                 out = segment_aggregate_block_table_splitk(
                     data["values"], zeros, table, 1, splitk, valid=valid,
                     slot_ids=slots, num_slots=num_slots,
-                    stats=("sum", "count"), num_cols=1)
+                    stats=("sum", "count"), mesh=mesh, num_cols=1)
             else:
                 out = segment_aggregate_block_table(
                     data["values"], zeros, table, 1, valid=valid,
                     slot_ids=slots, num_slots=num_slots,
-                    stats=("sum", "count"), num_cols=1)
+                    stats=("sum", "count"), mesh=mesh, num_cols=1)
         else:
             out = segment_aggregate_batched(
                 data["values"][:, :, :1], zeros, 1, valid=valid,
-                slot_ids=slots, num_slots=num_slots, stats=("sum", "count"))
+                slot_ids=slots, num_slots=num_slots, stats=("sum", "count"),
+                mesh=mesh, splitk=splitk)
         return {"sum": out["sum"][:, 0, 0], "count": out["count"][:, 0]}
 
     def finalize_batch(acc, num_slots):
@@ -252,21 +278,44 @@ def make_average(block_capacity: int, width: int,
 
 def _bigram_segment_count(ids: torch.Tensor, pval: torch.Tensor,
                           slots: torch.Tensor, num_slots: int,
-                          vocab: int) -> torch.Tensor:
+                          vocab: int, mesh=None) -> torch.Tensor:
     """Composite (window_slot, pair) segment COUNT via one ``index_add_``
     — the big-vocab bigram path, where a count through the kernels'
     [num_slots * vocab^2] segment axis would be mostly empty segments.
 
     ids [B, P] local pair ids (a * vocab + b), pval [B, P] pair validity,
-    slots [B] window slots -> [num_slots, vocab^2] counts."""
+    slots [B] window slots -> [num_slots, vocab^2] counts. With a mesh
+    the scatter shards as the stacked fold does: rows arrive shard-major,
+    each shard rewrites its slots to shard-local indices and scatters into
+    its own [slots_per * vocab^2] tile on its device, and the tiles
+    concatenate on the first. Rows or slots that do not divide the mesh
+    (callers outside the executor's packed layout) take the unsharded
+    scatter."""
     v2 = vocab * vocab
-    total = num_slots * v2
-    sid = (slots.to(torch.int64)[:, None] * v2 + ids).reshape(-1)
-    pv = pval.reshape(-1)
-    sid = torch.where(pv, sid, total)                      # park invalid
-    out = torch.zeros(total + 1, device=ids.device)
-    out.index_add_(0, sid, pv.to(torch.float32))
-    return out[:total].reshape(num_slots, v2)
+
+    def flat_count(ids_, pv_, sl_, ns):
+        total = ns * v2
+        sid = (sl_.to(torch.int64)[:, None] * v2 + ids_).reshape(-1)
+        pv = pv_.reshape(-1)
+        sid = torch.where(pv, sid, total)                  # park invalid
+        out = torch.zeros(total + 1, device=ids_.device)
+        out.index_add_(0, sid, pv.to(torch.float32))
+        return out[:total].reshape(ns, v2)
+
+    if mesh is None or mesh.size <= 1 or ids.shape[0] % mesh.size \
+            or num_slots % mesh.size:
+        return flat_count(ids, pval, slots, num_slots)
+    slots_per = num_slots // mesh.size
+    rows = ids.shape[0] // mesh.size
+    outs = []
+    for d, dev in enumerate(mesh.devices):
+        part = slice(d * rows, (d + 1) * rows)
+        local = slots[part].to(dev, torch.int64) - d * slots_per
+        own = (local >= 0) & (local < slots_per)
+        outs.append(flat_count(
+            ids[part].to(dev), pval[part].to(dev) & own[:, None],
+            torch.where(own, local, 0), slots_per).to(ids.device))
+    return torch.cat(outs)
 
 
 def make_bigrams(block_capacity: int, width: int, vocab: int = 256,
@@ -304,8 +353,11 @@ def make_bigrams(block_capacity: int, width: int, vocab: int = 256,
         return to_numpy(acc)
 
     @_batch_fold(dev)
-    def fold_batch(data, fills, slots, num_slots, table=None, splitk=0):
-        # splitk deliberately ignored (supports_splitk=False)
+    def fold_batch(data, fills, slots, num_slots, mesh=None, table=None,
+                   splitk=0):
+        # splitk deliberately ignored (supports_splitk=False): the sharded
+        # scatter masks rows by slot ownership, so balanced or chunk-padded
+        # rows would be dropped
         vals = data["values"]
         if table is not None:
             # pool gather: one index_select along the arena's pool axis
@@ -326,10 +378,12 @@ def make_bigrams(block_capacity: int, width: int, vocab: int = 256,
             ones = torch.ones((b, cap * (w - 1), 1), device=vals.device)
             out = segment_aggregate_batched(
                 ones, ids.to(torch.int32), vocab * vocab, valid=pval,
-                slot_ids=slots, num_slots=num_slots, stats=("count",))
+                slot_ids=slots, num_slots=num_slots, stats=("count",),
+                mesh=mesh)
             cnt = out["count"]
         else:
-            cnt = _bigram_segment_count(ids, pval, slots, num_slots, vocab)
+            cnt = _bigram_segment_count(ids, pval, slots, num_slots, vocab,
+                                        mesh)
         return {"pairs": cnt.reshape(num_slots, vocab, vocab)}
 
     def finalize_batch(acc, num_slots):
@@ -389,8 +443,9 @@ def make_stock(block_capacity: int, width: int,
         return {"mean": mean, "min": mn, "max": mx, "alerts": alerts}
 
     @_batch_fold(dev)
-    def fold_batch(data, fills, slots, num_slots, table=None, splitk=0):
-        cap = data["values"].shape[1]
+    def fold_batch(data, fills, slots, num_slots, mesh=None, table=None,
+                   splitk=0):
+        cap = _cap(data["values"])
         valid = _batch_valid(cap, fills)
         if table is not None:
             # keys gather cheaply via one index_select (int32, needed to
@@ -402,16 +457,18 @@ def make_stock(block_capacity: int, width: int,
                 out = segment_aggregate_block_table_splitk(
                     data["values"], keys, table, num_keys, splitk,
                     valid=valid, slot_ids=slots, num_slots=num_slots,
-                    num_cols=1)
+                    mesh=mesh, num_cols=1)
             else:
                 out = segment_aggregate_block_table(
                     data["values"], keys, table, num_keys, valid=valid,
-                    slot_ids=slots, num_slots=num_slots, num_cols=1)
+                    slot_ids=slots, num_slots=num_slots, mesh=mesh,
+                    num_cols=1)
         else:
             keys = data["keys"] % num_keys
             out = segment_aggregate_batched(
                 data["values"][:, :, :1], keys, num_keys, valid=valid,
-                slot_ids=slots, num_slots=num_slots)
+                slot_ids=slots, num_slots=num_slots, mesh=mesh,
+                splitk=splitk)
         return {"min": out["min"][:, :, 0], "max": out["max"][:, :, 0],
                 "sum": out["sum"][:, :, 0], "count": out["count"]}
 
@@ -463,13 +520,15 @@ def make_lrb(block_capacity: int, width: int,
                 "accident": accident, "toll": toll}
 
     @_batch_fold(dev)
-    def fold_batch(data, fills, slots, num_slots, table=None, splitk=0):
+    def fold_batch(data, fills, slots, num_slots, mesh=None, table=None,
+                   splitk=0):
         keys, values = data["keys"], data["values"]
         if table is not None:
             # the fold consumes DERIVED values ([speed, stopped]), so the
             # pool gather is one index_select along the pool axis per
             # tensor; split-K chunking happens at the executor
-            # (chunk-group launches merged via merge_acc)
+            # (chunk-group launches merged via merge_acc), while the
+            # stacked sharded fold below still takes the balanced layout
             keys = _take_rows(keys, table)
             values = _take_rows(values, table)
         cap = values.shape[1]
@@ -482,7 +541,8 @@ def make_lrb(block_capacity: int, width: int,
         vals = torch.stack([speed, stopped], dim=-1)
         out = segment_aggregate_batched(
             vals, seg, num_segments, valid=valid, slot_ids=slots,
-            num_slots=num_slots, stats=("sum", "count"))
+            num_slots=num_slots, stats=("sum", "count"), mesh=mesh,
+            splitk=splitk)
         return {"count": out["count"], "speed_sum": out["sum"][:, :, 0],
                 "stopped": out["sum"][:, :, 1]}
 
@@ -527,7 +587,10 @@ def make_percentile(block_capacity: int, width: int,
         return {q: float(torch.quantile(vals, q)) for q in qs}
 
     @_batch_fold(dev)
-    def fold_batch(data, fills, slots, num_slots, table=None, splitk=0):
+    def fold_batch(data, fills, slots, num_slots, mesh=None, table=None,
+                   splitk=0):
+        # mesh and splitk ignored: a sort has no per-slot reduction to
+        # shard, and the sorted-merge composes with chunk-group partials
         vals = data["values"]
         if table is not None:
             # pool gather: one index_select along the pool axis (the sort

@@ -348,6 +348,9 @@ class MultiTenantEngine:
 
     ``device`` is resolved as every entry point of the port resolves it:
     ``None`` is the card, and raises where CUDA is missing.
+    ``slot_devices`` goes to every tenant engine (``StreamEngine``'s): with
+    ``AionConfig.slot_sharding`` the shared arena is sharded over that
+    slot mesh, and each tenant's rounds fold across it.
     """
 
     def __init__(self, specs: List[TenantSpec], *,
@@ -356,11 +359,11 @@ class MultiTenantEngine:
                  aion=None,
                  sequential_io: bool = True,
                  simulated_seconds_per_byte: float = 0.0,
-                 device=None):
+                 device=None, slot_devices=None):
         from repro_torch._device import resolve_device
         from repro_torch.configs.base import AionConfig
         from repro_torch.core.buckets import MemoryBudget, TenantBudget
-        from repro_torch.core.engine import StreamEngine
+        from repro_torch.core.engine import StreamEngine, slot_mesh
         from repro_torch.core.staging import IOScheduler, TransferExecutor
         if not specs:
             raise ValueError("MultiTenantEngine needs at least one tenant")
@@ -369,6 +372,7 @@ class MultiTenantEngine:
             raise ValueError(f"duplicate tenant names: {names}")
         self.device = resolve_device(device)
         self.aion = aion or AionConfig()
+        mesh = slot_mesh(self.aion, self.device, slot_devices)
         # ONE registry + tracer for the whole multiplexed stack: per-
         # tenant series are label children, so observability() covers
         # every tenant, the shared executor, store, arena, and pipeline
@@ -400,8 +404,10 @@ class MultiTenantEngine:
                 width = max(set(widths), key=widths.count)
                 pool = DeviceBlockPool(
                     self.aion.pool_slots, self.aion.block_size, width,
+                    num_shards=mesh.size if mesh is not None else 1,
                     max_arena_bytes=device_budget_bytes // 2,
-                    registry=self.registry, device=self.device)
+                    registry=self.registry, device=self.device,
+                    devices=mesh.devices if mesh is not None else None)
                 if pool.pool_slots > 0 \
                         and self.budget.try_reserve(pool.arena_bytes):
                     self.pool = pool
@@ -427,7 +433,8 @@ class MultiTenantEngine:
                 aion=self.aion, value_width=spec.value_width,
                 policy=spec.policy, trigger=spec.trigger,
                 cleanup=spec.cleanup, io=io, pipeline=self.pipeline,
-                simulated_seconds_per_byte=simulated_seconds_per_byte)
+                simulated_seconds_per_byte=simulated_seconds_per_byte,
+                slot_devices=slot_devices)
 
     @classmethod
     def from_profiles(cls, profiles, *, device_budget_bytes: int = 1 << 30,

@@ -1041,8 +1041,9 @@ class IOScheduler:
         the range of the device that will fold its block-table rows."""
         if self.pool is None or self.pool.num_shards <= 1:
             return None
-        raise NotImplementedError(
-            "sharded block pools are not ported to repro_torch")
+        from repro_torch.distributed.sharding import shard_of_window
+        return shard_of_window(window.window_start, window.window_end,
+                               self.pool.num_shards)
 
     def request_stage(self, window: WindowState,
                       blocks: Optional[List[Block]] = None,

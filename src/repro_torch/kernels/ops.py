@@ -10,8 +10,10 @@
 Inputs may be tensors or array-likes. The folds run on the values'
 device, attention on the K/V's, the SSD scan on xdt's; array-likes go
 there, or to ``device``, which defaults to the card. The empty-batch guards return the fold identity
-without a launch. ``mesh`` (the JAX package's slot-sharded variants) is
-not ported and raises.
+without a launch. ``mesh`` (a ``SlotMesh`` of two or more entries) routes
+the folds through their slot-sharded variants (``*_sharded`` in
+``kernels/segment_aggregate.py``); the ``'ref'`` backend ignores it, as
+the unsharded oracle the sharded path is held against.
 """
 from __future__ import annotations
 
@@ -31,9 +33,11 @@ from repro_torch.kernels.segment_aggregate import (
     norm_stats as _norm_stats, segment_aggregate_batched_cuda,
     segment_aggregate_batched_plain, segment_aggregate_block_table_cuda,
     segment_aggregate_block_table_plain,
+    segment_aggregate_block_table_sharded,
     segment_aggregate_block_table_splitk_cuda,
     segment_aggregate_block_table_splitk_plain, segment_aggregate_cuda,
-    segment_aggregate_plain,
+    segment_aggregate_batched_sharded,
+    segment_aggregate_batched_splitk_sharded, segment_aggregate_plain,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
@@ -55,19 +59,22 @@ def _identity(ns: int, num_segments: int, w: int, dev, stats) -> dict:
     return {k: v for k, v in out.items() if k in stats}
 
 
-def _check(backend: str, mesh) -> None:
+def _check(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (of {BACKENDS})")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the slot-sharded (mesh) folds are not ported to repro_torch")
+
+
+def _sharded(backend: str, mesh) -> bool:
+    """Whether a fold takes its slot-sharded variant: a mesh of two or
+    more entries, and not the ``'ref'`` oracle, which ignores it."""
+    return mesh is not None and backend != "ref" and mesh.size > 1
 
 
 def segment_aggregate(values, segment_ids, num_segments: int, valid=None,
                       backend: str = "auto",
                       stats: tuple = ALL_STATS, device=None):
     """values [N, W], segment_ids [N] -> per-segment stats (K1)."""
-    _check(backend, None)
+    _check(backend)
     stats = _norm_stats(stats)
     dev = _device_of(values, device)
     values = as_tensor(values, dev, torch.float32)
@@ -85,11 +92,19 @@ def segment_aggregate_batched(values, segment_ids, num_segments: int,
                               num_slots: Optional[int] = None,
                               backend: str = "auto",
                               stats: tuple = ALL_STATS, mesh=None,
-                              device=None):
+                              device=None, splitk: int = 0):
     """Batched multi-window reduce-by-key: values [B, N, W], ids [B, N],
     slot_ids [B] -> aggregates [num_slots, num_segments, ...] in one K1
-    launch through composite ids."""
-    _check(backend, mesh)
+    launch through composite ids.
+
+    ``mesh`` shards the fold by slot (``segment_aggregate_batched_sharded``:
+    rows shard-major, one K1 launch per shard); with ``splitk > 0`` it
+    takes the row-balanced variant instead
+    (``segment_aggregate_batched_splitk_sharded``: rows dealt across the
+    shards, D full partials merged), which only operators with
+    ``supports_splitk`` may ask for. Without a mesh ``splitk`` is a no-op
+    here (single-device chunking lives on the block-table path)."""
+    _check(backend)
     stats = _norm_stats(stats)
     dev = _device_of(values, device)
     values = as_tensor(values, dev, torch.float32)
@@ -103,6 +118,12 @@ def segment_aggregate_batched(values, segment_ids, num_segments: int,
     segment_ids = as_tensor(segment_ids, dev, torch.int32)
     valid = _opt(valid, dev, torch.bool)
     slot_ids = _opt(slot_ids, dev, torch.int32)
+    if _sharded(backend, mesh):
+        fold = segment_aggregate_batched_splitk_sharded if splitk > 0 \
+            else segment_aggregate_batched_sharded
+        return fold(values, segment_ids, num_segments, valid=valid,
+                    slot_ids=slot_ids, num_slots=ns, mesh=mesh,
+                    stats=stats)
     if backend == "ref":
         return segment_aggregate_batched_plain(
             values, segment_ids, num_segments, valid=valid,
@@ -112,9 +133,26 @@ def segment_aggregate_batched(values, segment_ids, num_segments: int,
         num_slots=num_slots, stats=stats)
 
 
-def _table_args(values_arena, segment_ids, table, valid, slot_ids, device):
-    dev = _device_of(values_arena, device)
-    return (dev, as_tensor(values_arena, dev, torch.float32),
+def _arena_width(values_arena) -> int:
+    tile = values_arena[0] if isinstance(values_arena, tuple) \
+        else values_arena
+    return tile.shape[-1]
+
+
+def _table_args(values_arena, segment_ids, table, valid, slot_ids, device,
+                sharded: bool):
+    """The block-table folds' arguments as tensors on the arena's device.
+    A sharded pool's arena on several devices comes as the sequence of
+    its per-shard tiles: the sharded fold takes them as they are, any
+    other path concatenates them on the first tile's device."""
+    if isinstance(values_arena, (list, tuple)):
+        dev = values_arena[0].device
+        values_arena = tuple(values_arena) if sharded else torch.cat(
+            [t.to(dev) for t in values_arena])
+    else:
+        dev = _device_of(values_arena, device)
+        values_arena = as_tensor(values_arena, dev, torch.float32)
+    return (dev, values_arena,
             as_tensor(segment_ids, dev, torch.int32),
             as_tensor(table, dev, torch.int32),
             _opt(valid, dev, torch.bool), _opt(slot_ids, dev, torch.int32))
@@ -132,19 +170,29 @@ def segment_aggregate_block_table(values_arena, segment_ids, table,
     values_arena [pool_slots, cap, W], table [R] pool slots, segment_ids
     [R, cap], slot_ids [R] -> [num_slots, num_segments, ...]. Rows are
     read out of the arena inside the kernel; ``num_cols`` keeps the
-    leading value columns."""
-    _check(backend, mesh)
+    leading value columns. ``mesh`` shards the fold by slot: the arena
+    (or the sequence of its per-shard tiles) and the table partition
+    across the mesh, one K2 launch per shard on its own tile
+    (``segment_aggregate_block_table_sharded``)."""
+    _check(backend)
     stats = _norm_stats(stats)
     dev, values_arena, segment_ids, table, valid, slot_ids = _table_args(
-        values_arena, segment_ids, table, valid, slot_ids, device)
+        values_arena, segment_ids, table, valid, slot_ids, device,
+        _sharded(backend, mesh))
     r = table.shape[0]
     ns = num_slots if num_slots is not None else \
         (r if slot_ids is None else None)
     if ns is None:
         raise ValueError("num_slots is required when slot_ids is given")
     if r == 0 or ns == 0:
-        w_out = num_cols if num_cols is not None else values_arena.shape[2]
+        w_out = num_cols if num_cols is not None \
+            else _arena_width(values_arena)
         return _identity(ns, num_segments, w_out, dev, stats)
+    if _sharded(backend, mesh):
+        return segment_aggregate_block_table_sharded(
+            values_arena, segment_ids, table, num_segments, valid=valid,
+            slot_ids=slot_ids, num_slots=num_slots, mesh=mesh,
+            stats=stats, num_cols=num_cols)
     if backend == "ref":
         return segment_aggregate_block_table_plain(
             values_arena, segment_ids, table, num_segments, valid=valid,
@@ -167,21 +215,30 @@ def segment_aggregate_block_table_splitk(values_arena, segment_ids, table,
                                          device=None):
     """Split-K block-table fold (K3): the K2 gather with the rows cut
     into fixed chunks of ``chunk_rows``, one partial per chunk, merged on
-    the device. ``'ref'`` is the chunk-looped oracle."""
-    _check(backend, mesh)
+    the device. ``'ref'`` is the chunk-looped oracle. ``mesh`` shards the
+    fold as ``segment_aggregate_block_table`` does, each shard's rows
+    through K3."""
+    _check(backend)
     stats = _norm_stats(stats)
     if chunk_rows < 1:
         raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
     dev, values_arena, segment_ids, table, valid, slot_ids = _table_args(
-        values_arena, segment_ids, table, valid, slot_ids, device)
+        values_arena, segment_ids, table, valid, slot_ids, device,
+        _sharded(backend, mesh))
     r = table.shape[0]
     ns = num_slots if num_slots is not None else \
         (r if slot_ids is None else None)
     if ns is None:
         raise ValueError("num_slots is required when slot_ids is given")
     if r == 0 or ns == 0:
-        w_out = num_cols if num_cols is not None else values_arena.shape[2]
+        w_out = num_cols if num_cols is not None \
+            else _arena_width(values_arena)
         return _identity(ns, num_segments, w_out, dev, stats)
+    if _sharded(backend, mesh):
+        return segment_aggregate_block_table_sharded(
+            values_arena, segment_ids, table, num_segments, valid=valid,
+            slot_ids=slot_ids, num_slots=num_slots, mesh=mesh,
+            stats=stats, num_cols=num_cols, chunk_rows=chunk_rows)
     if backend == "ref":
         return segment_aggregate_block_table_splitk_plain(
             values_arena, segment_ids, table, num_segments, chunk_rows,
@@ -225,7 +282,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     point's Pallas tile sizes, accepted for signature parity and read by
     neither path here: the CUDA kernels tile by their own sizes
     (``kernels/flash_tiles.py``), and the plain version does not tile."""
-    _check(backend, None)
+    _check(backend)
     dev = _kv_device(k, device)
     k = _on(k, dev, "k")
     q, v = _on(q, dev, "q"), _on(v, dev, "v")
@@ -249,7 +306,7 @@ def flash_attention_vjp(q, k, v, causal: bool = True, window: int = 0,
     versions do not tile. The JAX ``interpret`` argument (run the Pallas
     kernels in the interpreter) has no counterpart: a CPU tensor takes the
     plain versions, and a CUDA tensor the kernels."""
-    _check(backend, None)
+    _check(backend)
     dev = _kv_device(k, device)
     k = _on(k, dev, "k")
     q, v = _on(q, dev, "q"), _on(v, dev, "v")
@@ -265,7 +322,7 @@ def decode_attention_paged(q, k_pages, v_pages, block_table, seq_lens,
     resident), seq_lens [B] -> [B, H, D], on the pool's device (``device``
     places array-likes; q, the table or the lengths on another device
     raise: the pool is never copied)."""
-    _check(backend, None)
+    _check(backend)
     dev = _kv_device(k_pages, device)
     k_pages = _on(k_pages, dev, "k_pages")
     q, v_pages = _on(q, dev, "q"), _on(v_pages, dev, "v_pages")
@@ -290,7 +347,7 @@ def ssd_chunk_scan(xdt, a, B, C, chunk: int = 256, head_block: int = 8,
     kernel asserts ``s % chunk == 0`` (for s above the chunk); here the
     kernel tiles by its own 64 tokens and the plain version by ``chunk``,
     and both mask a ragged tail, so any length works (ROADMAP Queue 3)."""
-    _check(backend, None)
+    _check(backend)
     dev = _device_of(xdt, device)
     xdt = as_tensor(xdt, dev)
     a = as_tensor(a, dev, torch.float32)

@@ -51,13 +51,25 @@ kernels.
 The plain versions (``*_plain``) compute the same function with
 ``index_add_`` / ``scatter_reduce``; the CPU tests hold them against the
 JAX package, and on the card they are the reference each kernel is held
-against. The multi-device wrappers of the JAX package, and their row
-placement (``pack_rows_shard_major``), are not ported.
+against.
+
+The slot-sharded wrappers (``*_sharded``, over a ``SlotMesh`` of
+``repro_torch.distributed.sharding``) split one fold across the mesh's
+devices: shard ``d`` takes its rows, rebases their window slots (and pool
+slots) to its own ranges, masks misplaced rows invalid, and launches the
+K1/K2/K3 wrapper on ``mesh.devices[d]`` over its arena tile; the tiles
+concatenate along the slot axis on ``mesh.devices[0]`` (the split-K
+variant merges D full partials instead). Each shard's launch is issued
+without a host sync before the next. Their row placement is
+``pack_rows_shard_major``. Each kernel wrapper also counts the launches
+a sharded call made, by shard and design, in ``launches_by_shard``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch._device import raw_stream, resolve_device
@@ -441,16 +453,23 @@ def _flat_global(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
     return out
 
 
-def _count_k1(design: str) -> None:
-    segment_aggregate_cuda.launches += 1
-    segment_aggregate_cuda.launches_by_design[design] += 1
+def _count(wrapper, design: str, shard: Optional[int]) -> None:
+    """One launch of ``wrapper``'s kernel on ``design``; a sharded call's
+    launch (``shard``, its index in the mesh) counts on
+    ``launches_by_shard`` too."""
+    wrapper.launches += 1
+    wrapper.launches_by_design[design] += 1
+    if shard is not None:
+        wrapper.launches_by_shard.setdefault(
+            shard, dict.fromkeys(SPLITK_DESIGNS, 0))[design] += 1
 
 
 def segment_aggregate_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
                            num_segments: int,
                            valid: Optional[torch.Tensor] = None,
                            stats: Tuple[str, ...] = ALL_STATS,
-                           design: Optional[str] = None) -> dict:
+                           design: Optional[str] = None,
+                           shard: Optional[int] = None) -> dict:
     """K1: flat reduce-by-key. values [N, W] float32 (rows may be strided,
     columns contiguous), segment_ids [N], valid [N] -> dict of [S, W] /
     [S] stats. Its design is ``splitk_design``'s: ``smem``
@@ -459,7 +478,8 @@ def segment_aggregate_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
     partial fits, else ``global`` (``seg_agg_flat``). ``design`` forces
     one (for measurements) and raises where it does not take the inputs.
     Launches count on this wrapper, by design in ``launches_by_design``,
-    whichever K1 wrapper launched. A CPU tensor takes
+    whichever K1 wrapper launched, and a sharded call's (``shard``) by
+    shard in ``launches_by_shard``. A CPU tensor takes
     ``segment_aggregate_plain``."""
     stats = norm_stats(stats)
     if not values.is_cuda:
@@ -476,7 +496,7 @@ def segment_aggregate_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
         _lib("segment_splitk.cu").call("seg_agg_flat_smem", *args)
     else:
         out = _flat_global(values, segment_ids, num_segments, valid, stats)
-    _count_k1(chosen)
+    _count(segment_aggregate_cuda, chosen, shard)
     return out
 
 
@@ -488,11 +508,13 @@ def segment_aggregate_batched_cuda(values, segment_ids, num_segments: int,
                                    valid=None, slot_ids=None,
                                    num_slots: Optional[int] = None,
                                    stats: Tuple[str, ...] = ALL_STATS,
-                                   design: Optional[str] = None) -> dict:
+                                   design: Optional[str] = None,
+                                   shard: Optional[int] = None) -> dict:
     """Many windows in ONE K1 launch: values [B, N, W], ids [B, N],
     slot_ids [B] -> [num_slots, S(, W)] through composite segment ids
     ``slot * S + key``: made inside the kernel on the smem design, here
-    on the global one. ``design`` as ``segment_aggregate_cuda``'s."""
+    on the global one. ``design`` and ``shard`` as
+    ``segment_aggregate_cuda``'s."""
     stats = norm_stats(stats)
     if not values.is_cuda:
         return segment_aggregate_batched_plain(
@@ -518,7 +540,7 @@ def segment_aggregate_batched_cuda(values, segment_ids, num_segments: int,
             flat, comp.reshape(b * n), num_slots * num_segments,
             None if valid is None else valid.reshape(b * n), stats),
             (num_slots, num_segments), w)
-    _count_k1(chosen)
+    _count(segment_aggregate_cuda, chosen, shard)
     return out
 
 
@@ -619,7 +641,8 @@ def segment_aggregate_block_table_cuda(values_arena, segment_ids, table,
                                        num_slots: Optional[int] = None,
                                        stats: Tuple[str, ...] = ALL_STATS,
                                        num_cols: Optional[int] = None,
-                                       design: Optional[str] = None
+                                       design: Optional[str] = None,
+                                       shard: Optional[int] = None
                                        ) -> dict:
     """K2: fold over the block pool, reading each row's tile from the
     arena inside the kernel. values_arena [P, cap, W] float32, table [R]
@@ -629,7 +652,8 @@ def segment_aggregate_block_table_cuda(values_arena, segment_ids, table,
     in shared memory, flushed into the output by atomics) where a block's
     partial fits, else ``global`` (``csrc/segment_aggregate.cu``: one
     thread an event, global atomics). ``design`` forces one (for
-    measurements) and raises where it does not take the inputs."""
+    measurements) and raises where it does not take the inputs. A
+    sharded call's launch (``shard``) counts in ``launches_by_shard``."""
     stats = norm_stats(stats)
     if not values_arena.is_cuda:
         return segment_aggregate_block_table_plain(
@@ -654,8 +678,7 @@ def segment_aggregate_block_table_cuda(values_arena, segment_ids, table,
             "seg_agg_block_table", values_arena, segment_ids, table,
             num_segments, valid, slot_ids, num_slots, stats, num_cols, 0, 1)
         out = _shape(out, (num_slots, num_segments), w_out)
-    segment_aggregate_block_table_cuda.launches += 1
-    segment_aggregate_block_table_cuda.launches_by_design[chosen] += 1
+    _count(segment_aggregate_block_table_cuda, chosen, shard)
     return out
 
 
@@ -706,12 +729,13 @@ def segment_aggregate_block_table_splitk_cuda(
         num_slots: Optional[int] = None,
         stats: Tuple[str, ...] = ALL_STATS,
         num_cols: Optional[int] = None, merge: bool = True,
-        design: Optional[str] = None) -> dict:
+        design: Optional[str] = None, shard: Optional[int] = None) -> dict:
     """K3: the K2 fold with the rows cut into chunks of ``chunk_rows``,
     chunk ``c`` folding into its own partial. ``merge=False`` returns the
     raw ``[k, num_slots, S(, W)]`` partials. ``design`` None takes
     ``splitk_design``'s choice; a name forces that design (for
-    measurements) and raises where it does not take the inputs."""
+    measurements) and raises where it does not take the inputs.
+    ``shard`` as ``segment_aggregate_block_table_cuda``'s."""
     stats = norm_stats(stats)
     if not values_arena.is_cuda:
         return segment_aggregate_block_table_splitk_plain(
@@ -745,8 +769,7 @@ def segment_aggregate_block_table_splitk_cuda(
         parts = _shape(out, (k, num_slots, num_segments), w_out)
         if merge:
             parts = merge_partials(parts)
-    segment_aggregate_block_table_splitk_cuda.launches += 1
-    segment_aggregate_block_table_splitk_cuda.launches_by_design[chosen] += 1
+    _count(segment_aggregate_block_table_splitk_cuda, chosen, shard)
     return parts
 
 
@@ -758,3 +781,229 @@ segment_aggregate_block_table_splitk_cuda.launches_by_design = \
 KERNEL_WRAPPERS = (segment_aggregate_cuda,
                    segment_aggregate_block_table_cuda,
                    segment_aggregate_block_table_splitk_cuda)
+for _fn in KERNEL_WRAPPERS:
+    # shard -> {design: launches} of the sharded wrappers' calls
+    _fn.launches_by_shard = {}
+
+
+# ------------------------------------------------------- slot-sharded folds
+def pack_rows_shard_major(slot_ids, num_devices: int, slots_per: int,
+                          balance: bool = False) -> Tuple[list, int]:
+    """Host-side row placement for the sharded fold.
+
+    Default (ownership) mode groups row indices by owning shard
+    (``slot // slots_per``) and picks the common power-of-two per-shard
+    row count every shard pads to, so the ``[num_devices *
+    rows_per_shard, ...]`` stack splits evenly over the mesh. Returns
+    ``(per_shard_row_indices, rows_per_shard)``.
+
+    ``balance=True`` ignores slot ownership and deals rows round-robin
+    across shards — the split-K layout: a hot window's rows spread over
+    every device instead of serializing on their owner. Only valid for
+    ``segment_aggregate_batched_splitk_sharded``; the ownership-masked
+    folds would drop balanced rows.
+    """
+    if balance:
+        idx = np.arange(len(np.asarray(slot_ids)), dtype=np.int64)
+        per = [idx[d::num_devices] for d in range(num_devices)]
+    else:
+        shard = np.asarray(slot_ids, np.int64) // max(slots_per, 1)
+        per = [np.flatnonzero(shard == d) for d in range(num_devices)]
+    rows_per_shard = next_pow2(max([len(p) for p in per] + [1]))
+    return per, rows_per_shard
+
+
+def _on_device(dev: torch.device):
+    """Makes ``dev`` the current CUDA device (a kernel launches on a
+    stream of the current device); nothing for a CPU device."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _shard_call(d: int, dev: torch.device, fn, *args, **kw):
+    """Shard ``d``'s call of a kernel wrapper on ``dev``: its launch
+    counts on the wrapper's ``launches_by_shard[d]``."""
+    with _on_device(dev):
+        return fn(*args, shard=d, **kw)
+
+
+def _shard_rows(x: torch.Tensor, d: int, per: int, dev) -> torch.Tensor:
+    """Rows ``[d * per, (d + 1) * per)`` of ``x`` on ``dev`` (no copy where
+    they are there; an asynchronous copy to another device)."""
+    return x[d * per:(d + 1) * per].to(dev, non_blocking=True)
+
+
+def _owned(slots: torch.Tensor, base: int, size: int):
+    """(local index, owned): ``slots - base`` where it falls in ``[0,
+    size)``, else 0, and whether it did."""
+    local = slots.to(torch.int32) - base
+    own = (local >= 0) & (local < size)
+    return torch.where(own, local, 0), own
+
+
+def _concat(outs: list, dev: torch.device) -> dict:
+    """The shards' outputs concatenated along the slot axis on ``dev``."""
+    return {s: torch.cat([o[s].to(dev, non_blocking=True) for o in outs])
+            for s in outs[0]}
+
+
+def _valid_rows(valid, shape, device) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch.bool, device=device) \
+        if valid is None else valid.to(torch.bool)
+
+
+def arena_tiles(values_arena, mesh) -> list:
+    """The arena's per-shard tiles: a tensor splits into ``mesh.size``
+    views along the pool axis, a sequence is taken as the tiles. Tile
+    ``d`` must lie on ``mesh.devices[d]``."""
+    tiles = list(values_arena.chunk(mesh.size)) \
+        if isinstance(values_arena, torch.Tensor) else list(values_arena)
+    if len(tiles) != mesh.size or len({t.shape for t in tiles}) != 1:
+        raise ValueError(f"the arena must split into {mesh.size} equal "
+                         "tiles, one for each mesh entry")
+    for d, (t, dev) in enumerate(zip(tiles, mesh.devices)):
+        if t.device.type != dev.type or None not in (
+                t.device.index, dev.index) and t.device.index != dev.index:
+            raise ValueError(f"arena tile {d} is on {t.device}, its mesh "
+                             f"entry is {dev}")
+    return tiles
+
+
+def segment_aggregate_block_table_sharded(
+        values_arena, segment_ids: torch.Tensor, table: torch.Tensor,
+        num_segments: int, valid: Optional[torch.Tensor] = None,
+        slot_ids: Optional[torch.Tensor] = None,
+        num_slots: Optional[int] = None, *, mesh,
+        stats: Tuple[str, ...] = ALL_STATS,
+        num_cols: Optional[int] = None, chunk_rows: int = 0) -> dict:
+    """Slot-sharded block-table fold over a 1-D ``SlotMesh``.
+
+    Both the pool arena (slot axis) and the table rows partition across
+    the mesh: shard ``d`` gets arena tile ``d`` (``values_arena`` is the
+    whole arena, split into views, or the sequence of tiles) and its
+    shard-major rows, and rewrites global pool slots / window slots to
+    shard-local indices — the block table stays local to each shard, so
+    the kernel never reads another device's tile and the output is a
+    slot-axis concatenation. A misplaced row (table entry or window slot
+    outside the shard's ranges) is masked invalid. K2 runs on each
+    shard, or K3 where ``chunk_rows > 0`` (per-shard chunks, merged on
+    the shard's device)."""
+    stats = norm_stats(stats)
+    num_devices = mesh.size
+    p = values_arena.shape[0] if isinstance(values_arena, torch.Tensor) \
+        else sum(t.shape[0] for t in values_arena)
+    r = table.shape[0]
+    slot_ids, num_slots = _slots(slot_ids, num_slots, r, table.device)
+    if r % num_devices or num_slots % num_devices or p % num_devices:
+        raise ValueError(
+            f"rows ({r}), slots ({num_slots}) and pool slots ({p}) must "
+            f"all divide the slot mesh ({num_devices} devices); pad with "
+            "invalid rows (pack_rows_shard_major) and size the pool to "
+            "the mesh")
+    tiles = arena_tiles(values_arena, mesh)
+    pool_per, cap = tiles[0].shape[0], tiles[0].shape[1]
+    slots_per = num_slots // num_devices
+    rows_per = r // num_devices
+    valid = _valid_rows(valid, (r, cap), table.device)
+    outs = []
+    for d, (tile, dev) in enumerate(zip(tiles, mesh.devices)):
+        local_tbl, own_t = _owned(_shard_rows(table, d, rows_per, dev),
+                                  d * pool_per, pool_per)
+        local_sl, own_s = _owned(_shard_rows(slot_ids, d, rows_per, dev),
+                                 d * slots_per, slots_per)
+        ok = _shard_rows(valid, d, rows_per, dev) & (own_t & own_s)[:, None]
+        ids = _shard_rows(segment_ids, d, rows_per, dev)
+        kw = dict(valid=ok, slot_ids=local_sl, num_slots=slots_per,
+                  stats=stats, num_cols=num_cols)
+        if chunk_rows > 0:
+            outs.append(_shard_call(
+                d, dev, segment_aggregate_block_table_splitk_cuda, tile, ids,
+                local_tbl, num_segments, chunk_rows, **kw))
+        else:
+            outs.append(_shard_call(
+                d, dev, segment_aggregate_block_table_cuda, tile, ids,
+                local_tbl, num_segments, **kw))
+    return _concat(outs, mesh.devices[0])
+
+
+def segment_aggregate_batched_sharded(
+        values: torch.Tensor, segment_ids: torch.Tensor,
+        num_segments: int, valid: Optional[torch.Tensor] = None,
+        slot_ids: Optional[torch.Tensor] = None,
+        num_slots: Optional[int] = None, *, mesh,
+        stats: Tuple[str, ...] = ALL_STATS) -> dict:
+    """Slot-sharded stacked fold (K1 on each shard) over a 1-D mesh.
+
+    Rows are **shard-major** — row ``r`` belongs to shard ``r // (B /
+    D)``, and its (global) slot must fall in that shard's range ``[d *
+    slots_per, (d + 1) * slots_per)`` (``pack_rows_shard_major`` produces
+    this layout). Each shard reduces its own rows into its own slot
+    tile; the tiles are disjoint, so the output is a concatenation along
+    the slot axis. Misplaced rows are masked invalid inside the shard
+    instead of aliasing into a resident slot."""
+    stats = norm_stats(stats)
+    b, n, _ = values.shape
+    num_devices = mesh.size
+    slot_ids, num_slots = _slots(slot_ids, num_slots, b, values.device)
+    if b % num_devices or num_slots % num_devices:
+        raise ValueError(
+            f"rows ({b}) and slots ({num_slots}) must both divide the slot "
+            f"mesh ({num_devices} devices); pad with invalid rows / unused "
+            "slots (pack_rows_shard_major)")
+    slots_per = num_slots // num_devices
+    rows_per = b // num_devices
+    valid = _valid_rows(valid, (b, n), values.device)
+    outs = []
+    for d, dev in enumerate(mesh.devices):
+        local, own = _owned(_shard_rows(slot_ids, d, rows_per, dev),
+                            d * slots_per, slots_per)
+        outs.append(_shard_call(
+            d, dev, segment_aggregate_batched_cuda,
+            _shard_rows(values, d, rows_per, dev),
+            _shard_rows(segment_ids, d, rows_per, dev), num_segments,
+            valid=_shard_rows(valid, d, rows_per, dev) & own[:, None],
+            slot_ids=local, num_slots=slots_per, stats=stats))
+    return _concat(outs, mesh.devices[0])
+
+
+def segment_aggregate_batched_splitk_sharded(
+        values: torch.Tensor, segment_ids: torch.Tensor,
+        num_segments: int, valid: Optional[torch.Tensor] = None,
+        slot_ids: Optional[torch.Tensor] = None,
+        num_slots: Optional[int] = None, *, mesh,
+        stats: Tuple[str, ...] = ALL_STATS) -> dict:
+    """Row-balanced (split-K) sharded fold over a 1-D mesh.
+
+    Rows are dealt across the mesh with no slot-ownership precondition
+    (``pack_rows_shard_major(..., balance=True)``), each shard folds its
+    rows (K1) into a **full** ``[num_slots, S, ...]`` partial, and the D
+    partials merge through each stat's identity on ``mesh.devices[0]``
+    (``merge_partials``). A Zipf-hot window's rows fold on every device
+    instead of serializing on its owner. ``num_slots`` need not divide
+    the mesh — only the row count must. Only safe for operators whose
+    batch fold reduces through plain per-slot accumulators."""
+    stats = norm_stats(stats)
+    b, n, _ = values.shape
+    num_devices = mesh.size
+    slot_ids, num_slots = _slots(slot_ids, num_slots, b, values.device)
+    if b % num_devices:
+        raise ValueError(
+            f"rows ({b}) must divide the slot mesh ({num_devices} "
+            "devices); pad with invalid rows "
+            "(pack_rows_shard_major(balance=True))")
+    rows_per = b // num_devices
+    valid = _valid_rows(valid, (b, n), values.device)
+    dev0 = mesh.devices[0]
+    parts = []
+    for d, dev in enumerate(mesh.devices):
+        part = _shard_call(
+            d, dev, segment_aggregate_batched_cuda,
+            _shard_rows(values, d, rows_per, dev),
+            _shard_rows(segment_ids, d, rows_per, dev), num_segments,
+            valid=_shard_rows(valid, d, rows_per, dev),
+            slot_ids=_shard_rows(slot_ids, d, rows_per, dev),
+            num_slots=num_slots, stats=stats)
+        parts.append({s: v.to(dev0, non_blocking=True)
+                      for s, v in part.items()})
+    return merge_partials({s: torch.stack([p[s] for p in parts])
+                           for s in stats})

@@ -237,6 +237,62 @@ def test_pool_exhaustion_falls_back_to_per_block_copy():
     io.shutdown()
 
 
+def test_tiles_on_one_device_are_views_of_one_arena():
+    """Every shard on one device: tile d is the view of slots [2d, 2d+2)
+    of the one keys/values pair, on its mesh entry, and a fill shows in
+    its shard's tile."""
+    pool = _pool(8, num_shards=4, devices=[CPU] * 4)
+    assert len(pool.key_tiles) == len(pool.value_tiles) == 4
+    for d, (k, v) in enumerate(zip(pool.key_tiles, pool.value_tiles)):
+        assert k.shape == (2, CAP) and v.shape == (2, CAP, W)
+        assert k.data_ptr() == pool.keys[2 * d].data_ptr()
+        assert v.data_ptr() == pool.values[2 * d].data_ptr()
+        assert k.device == v.device == pool.devices[d]
+    blk = _block(6)
+    slot = pool.alloc(shard=2)
+    with blk.lock:
+        pool.commit(blk, slot, blk.host_data)
+    assert int(pool.key_tiles[2][slot - 4][0]) == 6
+    keys, values = pool.arena()
+    assert keys is pool.keys and values is pool.values
+    assert pool.arena_bytes == 8 * CAP * (4 + 4 * W)
+
+
+def test_tiles_across_devices_hold_their_own_slots():
+    """Shards on distinct devices (``cpu`` and ``cpu:0`` name one CPU but
+    compare unequal, so the pool takes them for two devices): no shared
+    arena, one tile tensor a shard, fills (direct and deferred) land in
+    the tile of their slot's shard, and snapshots hand out the tiles."""
+    devices = [CPU, torch.device("cpu", 0)] * 2
+    pool = _pool(8, num_shards=4, devices=devices)
+    assert pool.keys is None and pool.values is None
+    ptrs = {t.data_ptr() for t in pool.key_tiles}
+    assert len(ptrs) == 4
+    blocks = {}
+    for d in range(4):
+        blk = _block(10 + d)
+        slot = pool.alloc(shard=d)
+        with blk.lock:
+            pool.commit(blk, slot, blk.host_data)
+        blocks[d] = (blk, slot)
+    with pool.deferred_fills():
+        late = _block(20)
+        slot = pool.alloc(shard=3)
+        with late.lock:
+            pool.commit(late, slot, late.host_data)
+    assert int(pool.key_tiles[3][slot - 6][0]) == 20
+    for d, (blk, slot) in blocks.items():
+        assert int(pool.key_tiles[d][slot - 2 * d][0]) == 10 + d
+        assert float(pool.value_tiles[d][slot - 2 * d][0, 0]) == 10 + d
+        np.testing.assert_array_equal(pool.read_block(blk)["keys"].numpy(),
+                                      blk.host_data["keys"])
+    with pool.pinned():
+        keys, values, slots = pool.snapshot_for([b for b, _ in
+                                                 blocks.values()])
+    assert isinstance(keys, tuple) and len(values) == 4
+    assert slots == [s for _, s in blocks.values()]
+
+
 def test_pool_defaults_to_the_card():
     if torch.cuda.is_available():
         assert DeviceBlockPool(2, CAP, W).values.is_cuda
@@ -246,7 +302,8 @@ def test_pool_defaults_to_the_card():
 
 
 # ------------------------------------------------------------ engine level
-def _run(pkg, pooled, pool_slots=256, overlap=True, budget=64 << 20):
+def _run(pkg, pooled, pool_slots=256, overlap=True, budget=64 << 20,
+         slot_devices=None, pipelined=False):
     if pkg == "jax":
         from repro.configs.base import AionConfig as A
         from repro.core import StreamEngine as E, TumblingWindows as T
@@ -259,8 +316,12 @@ def _run(pkg, pooled, pool_slots=256, overlap=True, budget=64 << 20):
                           EventBatch, DeltaTTrigger)
         op = make_operator("stock", 64, 1, num_keys=8, device=CPU)
         dev = {"device": CPU}
+        if slot_devices is not None:
+            dev["slot_devices"] = slot_devices
     aion = A(block_size=64, block_pool=pooled, pool_slots=pool_slots,
-             pool_overlap_prefetch=overlap)
+             pool_overlap_prefetch=overlap,
+             slot_sharding=slot_devices is not None,
+             pipelined_execution=pipelined)
     eng = E(assigner=T(10.0), operator=op, aion=aion, value_width=1,
             device_budget_bytes=budget, trigger=D(executions=2), **dev)
     rng = np.random.default_rng(3)
@@ -272,9 +333,15 @@ def _run(pkg, pooled, pool_slots=256, overlap=True, budget=64 << 20):
                   rng.normal(size=(600, 1)).astype(np.float32)), now=81.0)
     for t in np.linspace(81, 81 + 2 * eng.cleanup.current_bound(), 10):
         eng.poll(t)
+    if pipelined:
+        assert eng.pipeline.drain()
+        assert eng.metrics.pipeline_rounds > 0
     results = {(w.start, w.end): r for w, r in eng.results.items()}
     m = eng.metrics
     counts = (m.pooled_rows, m.fallback_rows, m.demand_pool_fills)
+    if slot_devices is not None:
+        assert m.sharded_batch_executions > 0
+        assert eng.pool.num_shards == len(slot_devices)
     eng.close()
     return results, counts
 
@@ -306,3 +373,39 @@ def test_pooled_engine_matches_jax(pool_slots, overlap, budget):
         assert fallback > 0
     if budget < (1 << 20):
         assert (demand > 0) == overlap
+
+
+@pytest.mark.parametrize("tiles", ["views", "tensors"])
+@pytest.mark.parametrize("pool_slots,budget", [(256, 64 << 20),
+                                               (256, 192 << 10)])
+def test_sharded_pool_engine_matches_jax(tiles, pool_slots, budget):
+    """The pooled engine sharded over a 4-entry slot mesh, its arena
+    tiles views of one tensor (one device) or one tensor each (``cpu``
+    and ``cpu:0`` alternating), against the JAX package's unsharded
+    pooled engine."""
+    devices = [CPU] * 4 if tiles == "views" \
+        else [CPU, torch.device("cpu", 0)] * 2
+    want, _ = _run("jax", True, pool_slots, True, budget)
+    got, (pooled, _, demand) = _run("torch", True, pool_slots, True, budget,
+                                    slot_devices=devices)
+    _assert_results_equal(got, want)
+    assert pooled > 0
+    if budget < (1 << 20):
+        assert demand > 0
+
+
+@pytest.mark.parametrize("tiles", ["views", "tensors"])
+@pytest.mark.parametrize("budget", [64 << 20, 192 << 10])
+def test_sharded_pipelined_pool_engine_matches_jax(tiles, budget):
+    """The pipelined engine (its epoch-checked pin strategy) with the
+    pooled arena sharded over a 4-entry slot mesh, against the JAX
+    package's unsharded synchronous pooled engine."""
+    devices = [CPU] * 4 if tiles == "views" \
+        else [CPU, torch.device("cpu", 0)] * 2
+    want, _ = _run("jax", True, 256, True, budget)
+    got, (pooled, _, demand) = _run("torch", True, 256, True, budget,
+                                    slot_devices=devices, pipelined=True)
+    _assert_results_equal(got, want)
+    assert pooled > 0
+    if budget < (1 << 20):
+        assert demand > 0

@@ -264,7 +264,7 @@ def test_engine_defaults_to_the_card(tmp_path):
     """No device given: the engine resolves CUDA, and raises where CUDA
     is missing; the pipelined engine and the learned prefetch backend
     build on ``device="cpu"`` and resolve the device the same way; slot
-    sharding, outside the port, raises at construction."""
+    sharding on one CPU builds no mesh and folds unsharded."""
     op = tops.make_operator("stock", CAP, WIDTH, device="cpu")
     kw = dict(assigner=tcore.TumblingWindows(WINDOW), operator=op,
               value_width=WIDTH)
@@ -283,6 +283,19 @@ def test_engine_defaults_to_the_card(tmp_path):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 tcore.StreamEngine(aion=aion, **kw)
-    with pytest.raises(NotImplementedError):
-        tcore.StreamEngine(aion=tcfg.AionConfig(slot_sharding=True),
-                           device="cpu", **kw)
+    # slot sharding on one CPU with no slot devices: no mesh, an unsharded
+    # pool, and batched folds that do not shard (the JAX package's no-op
+    # on one device)
+    eng = tcore.StreamEngine(aion=tcfg.AionConfig(slot_sharding=True),
+                             device="cpu", **kw)
+    assert eng.slot_mesh is None and eng.pool.num_shards == 1
+    rng = np.random.default_rng(0)
+    eng.ingest(tev.EventBatch(rng.integers(0, KEYS, 400),
+                              rng.uniform(0.0, 40.0, 400),
+                              rng.uniform(1.0, MAX_VALUE, (400, WIDTH))
+                              .astype(np.float32)), 0.0)
+    eng.advance_watermark(40.0, 40.0)
+    assert eng.metrics.batch_executions > 0
+    assert eng.metrics.sharded_batch_executions == 0
+    assert len(eng.results) == 4
+    eng.close()

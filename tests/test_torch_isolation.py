@@ -38,6 +38,7 @@ SLICE_MODULES = [
     "repro_torch.prefetch.planner", "repro_torch.prefetch.scheduler",
     "repro_torch.testing", "repro_torch.testing.faults",
     "repro_torch.models.moe", "repro_torch.train.compression",
+    "repro_torch.distributed.sharding",
 ]
 
 #: classes each slice added to a module the walk imports: (module, name)

@@ -369,10 +369,12 @@ def test_segment_aggregate_stats_selection(stats):
 
 
 def test_mesh_and_unknown_backend_raise():
-    with pytest.raises(NotImplementedError):
-        segment_aggregate_batched(torch.zeros(2, 4, 1),
-                                  torch.zeros(2, 4, dtype=torch.int32), 2,
-                                  mesh=object())
+    # a slot mesh the rows do not divide (3 rows over 2 shards)
+    from repro_torch.distributed.sharding import make_slot_mesh
+    with pytest.raises(ValueError, match="divide"):
+        segment_aggregate_batched(torch.zeros(3, 4, 1),
+                                  torch.zeros(3, 4, dtype=torch.int32), 2,
+                                  mesh=make_slot_mesh(devices=["cpu"] * 2))
     with pytest.raises(ValueError):
         segment_aggregate(torch.zeros(4, 1), torch.zeros(4), 2,
                           backend="interpret")

@@ -354,3 +354,80 @@ def test_flat_design_rule_sends_large_partials_to_global(dev):
             vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns,
             stats=("sum", "count"), design="smem")
     assert sa.segment_aggregate_cuda.launches == launches
+
+
+# ------------------------------------------------ slot-sharded wrappers
+def _card_mesh(n):
+    from repro_torch.distributed.sharding import make_slot_mesh
+    return make_slot_mesh(devices=["cuda"] * n)
+
+
+def _shard_counts(fn):
+    return {d: dict(v) for d, v in fn.launches_by_shard.items()}
+
+
+@pytest.mark.parametrize("chunk_rows", [0, 32])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_block_table_sharded_matches_plain(dev, shards, chunk_rows):
+    """K2 (K3 where chunk_rows > 0) once per shard on its tile of the
+    arena, against the plain version on the whole arena; every shard
+    launches."""
+    g = np.random.default_rng(shards + chunk_rows)
+    pool_per, cap, w, s, slots_per, rows_per = 16, 512, 4, 16, 3, 24
+    p, r = shards * pool_per, shards * rows_per
+    arena = torch.tensor(g.normal(size=(p, cap, w)), dtype=torch.float32,
+                         device=dev)
+    table = torch.tensor(np.concatenate([
+        g.integers(d * pool_per, (d + 1) * pool_per, rows_per)
+        for d in range(shards)]), dtype=torch.int32, device=dev)
+    sl = torch.tensor(np.concatenate([
+        g.integers(d * slots_per, (d + 1) * slots_per, rows_per)
+        for d in range(shards)]), dtype=torch.int32, device=dev)
+    ids = torch.tensor(g.integers(0, s, (r, cap)), dtype=torch.int32,
+                       device=dev)
+    fills = g.integers(0, cap + 1, r)
+    valid = torch.tensor(np.arange(cap)[None] < fills[:, None], device=dev)
+    ns = shards * slots_per
+    fn = sa.segment_aggregate_block_table_splitk_cuda if chunk_rows \
+        else sa.segment_aggregate_block_table_cuda
+    fn.launches_by_shard.clear()
+    out = sa.segment_aggregate_block_table_sharded(
+        arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns,
+        mesh=_card_mesh(shards), num_cols=2, chunk_rows=chunk_rows)
+    ref = sa.segment_aggregate_block_table_plain(
+        arena, ids, table, s, valid=valid, slot_ids=sl, num_slots=ns,
+        num_cols=2)
+    _close(out, ref, rows_per * cap, 5.0)
+    assert sorted(_shard_counts(fn)) == list(range(shards))
+
+
+@pytest.mark.parametrize("balanced", [False, True])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_batched_sharded_matches_plain(dev, shards, balanced):
+    """K1 once per shard: the ownership layout (shard-major rows, slot
+    tiles concatenated) and the row-balanced one (full partials merged),
+    against the plain stacked fold."""
+    g = np.random.default_rng(10 + shards)
+    rows_per, n, w, s, slots_per = 8, 512, 1, 128, 2
+    b, ns = shards * rows_per, shards * slots_per
+    vals = torch.tensor(g.normal(size=(b, n, w)), dtype=torch.float32,
+                        device=dev)
+    ids = torch.tensor(g.integers(0, s, (b, n)), dtype=torch.int32,
+                       device=dev)
+    valid = torch.tensor(g.random((b, n)) < 0.9, device=dev)
+    if balanced:
+        sl = g.integers(0, ns, b)
+        fold = sa.segment_aggregate_batched_splitk_sharded
+    else:
+        sl = np.concatenate([g.integers(d * slots_per, (d + 1) * slots_per,
+                                        rows_per) for d in range(shards)])
+        fold = sa.segment_aggregate_batched_sharded
+    sl = torch.tensor(sl, dtype=torch.int32, device=dev)
+    sa.segment_aggregate_cuda.launches_by_shard.clear()
+    out = fold(vals, ids, s, valid=valid, slot_ids=sl, num_slots=ns,
+               mesh=_card_mesh(shards))
+    ref = sa.segment_aggregate_batched_plain(vals, ids, s, valid=valid,
+                                             slot_ids=sl, num_slots=ns)
+    _close(out, ref, b * n, 5.0)
+    assert sorted(_shard_counts(sa.segment_aggregate_cuda)) == \
+        list(range(shards))

@@ -113,8 +113,11 @@ def test_fold_batch_counts_launch_shapes():
         top.fold_batch(data, fills, slots, 3, table=table)
     top.fold_batch(data, fills, slots, 3, table=table, splitk=2)
     assert len(top.fold_batch.launch_shapes) == 2
-    with pytest.raises(NotImplementedError):
-        top.fold_batch(data, fills, slots, 3, table=table, mesh=object())
+    # a slot mesh that the 3 rows and slots do not divide
+    from repro_torch.distributed.sharding import make_slot_mesh
+    with pytest.raises(ValueError, match="divide"):
+        top.fold_batch(data, fills, slots, 3, table=table,
+                       mesh=make_slot_mesh(devices=["cpu"] * 2))
 
 
 def test_operator_defaults_to_the_card():

@@ -1,13 +1,13 @@
 """The differential soak on the port: ``tests/test_soak_differential.py``'s
-rows that do not shard, run through ``repro_torch``'s ``StreamEngine`` on
-the CPU on the same seed, event stream, budgets and mid-stream
-checkpoint/restore, and held to the same numpy oracles with the same
-tolerances (the means within ``rel=2e-4, abs=2e-4``; stock min and max
-within 1e-5; percentiles within 1e-5). The rows with ``sharded=True``
-stay refused: the port raises ``NotImplementedError`` for
-``slot_sharding`` at construction (ROADMAP Queue 1, item 8). Besides, one
-stream with no faults goes through both packages' engines and the
-per-window results agree within the soak's tolerances.
+rows, run through ``repro_torch``'s ``StreamEngine`` on the CPU on the
+same seed, event stream, budgets and mid-stream checkpoint/restore, and
+held to the same numpy oracles with the same tolerances (the means within
+``rel=2e-4, abs=2e-4``; stock min and max within 1e-5; percentiles within
+1e-5). The rows with ``sharded=True`` run on a ``SHARDS``-entry slot mesh
+of the CPU (the JAX package shards them only under a forced host device
+count, and is a checked no-op on one device), and must have folded
+sharded. Besides, one stream with no faults goes through both packages'
+engines and the per-window results agree within the soak's tolerances.
 
 The harness (``drive``) is shared with ``tests/test_torch_chaos.py``.
 """
@@ -23,6 +23,9 @@ WINDOW, N_EVENTS, CHUNK, MAX_LATE, SEED = (J.WINDOW, J.N_EVENTS, J.CHUNK,
                                            J.MAX_LATE, J.SEED)
 CHAOS_OPS = J._CHAOS_OPS
 REL = ABS = 2e-4
+#: entries of the port's slot mesh in the sharded rows (one CPU, named
+#: this many times)
+SHARDS = 4
 
 
 def package(name: str) -> SimpleNamespace:
@@ -85,7 +88,9 @@ def make_engine(pkg, op_name, batched, sharded, spill_dir, width,
         trigger=pkg.DeltaTTrigger(executions=2),
         device_budget_bytes=1 << 17 if fault_rate > 0 else 1 << 20,
         host_budget_bytes=1 << 16 if fault_rate > 0 else 1 << 19,
-        spill_dir=spill_dir, store=store_obj, **pkg.dev)
+        spill_dir=spill_dir, store=store_obj, **pkg.dev,
+        **({"slot_devices": ["cpu"] * SHARDS} if sharded and pkg.dev
+           else {}))
     if store_obj is not None:
         eng._fault_injector = store_obj.injector
     return eng
@@ -301,15 +306,68 @@ def test_soak_differential_percentile(tmp_path, splitk):
         assert totals.splitk_launches > 0
 
 
-# ------------------------------------------------ what the port leaves out
-@pytest.mark.parametrize("op_name,pooled", [("average", True),
-                                            ("stock", False)])
-def test_sharded_rows_are_refused(tmp_path, op_name, pooled):
-    """The soak's ``sharded=True`` rows: slot sharding is not ported, and
-    the engine refuses it at construction instead of ignoring it."""
-    with pytest.raises(NotImplementedError, match="slot_sharding"):
-        make_engine(package("torch"), op_name, True, True, tmp_path, 1,
-                    pooled=pooled)
+# ----------------------------------- test_soak_differential's sharded rows
+@pytest.mark.parametrize("batched,pooled,store", [
+    (True, True, "log"), (True, False, "log"), (False, False, "log"),
+    (True, False, "npz"),
+])
+def test_soak_differential_average_sharded(tmp_path, batched, pooled,
+                                           store):
+    results, events, totals = drive("average", batched, True, tmp_path,
+                                    pooled=pooled, store=store)
+    hold_average(results, oracle_average(events))
+    assert totals.ingested == N_EVENTS
+    assert totals.ingested_late > N_EVENTS // 10
+    assert totals.late_executions > 0
+    if batched:
+        assert totals.batch_executions > 0
+        assert totals.sharded_batch_executions > 0
+    else:
+        assert totals.batch_executions == 0
+        assert totals.sharded_batch_executions == 0
+    if pooled:
+        assert totals.pooled_rows > 0
+    else:
+        assert totals.pooled_rows == 0
+
+
+@pytest.mark.parametrize("pooled", [True, False])
+def test_soak_differential_stock_spill_pressure_sharded(tmp_path, pooled):
+    results, events, totals = drive("stock", True, True, tmp_path,
+                                    pooled=pooled)
+    hold_stock(results, events)
+    assert totals.ingested == N_EVENTS
+    assert totals.sharded_batch_executions > 0
+    if pooled:
+        assert totals.pooled_rows > 0
+
+
+@pytest.mark.parametrize("pooled", [True, False])
+def test_soak_differential_splitk_sharded(tmp_path, pooled):
+    """Split-K over the sharded layouts: per-shard chunks (K3 on each
+    shard) with the pool, the row-balanced stacked fold without it."""
+    results, events, totals = drive("stock", True, True, tmp_path,
+                                    pooled=pooled, splitk=8)
+    hold_stock(results, events)
+    assert totals.ingested == N_EVENTS
+    assert totals.sharded_batch_executions > 0
+    assert totals.splitk_launches > 0
+
+
+@pytest.mark.parametrize("pooled", [True, False])
+def test_soak_differential_pipelined_sharded(tmp_path, pooled):
+    """``test_soak_differential_pipelined``'s row on the slot mesh: every
+    round folds sharded on the pipeline's worker (the pooled one through
+    the epoch-checked pin strategy)."""
+    results, events, totals = drive("average", True, True, tmp_path,
+                                    pooled=pooled, pipelined=True)
+    hold_average(results, oracle_average(events))
+    assert totals.ingested == N_EVENTS
+    assert totals.ingested_late > N_EVENTS // 10
+    assert totals.pipeline_rounds > 0
+    assert totals.sharded_batch_executions > 0
+    assert totals.io_errors == 0
+    assert (totals.pooled_rows > 0) == pooled
 
 
 # --------------------------------------------------- the two engines agree
