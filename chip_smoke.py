@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--windows 6] [--splitk-windows 2]
-                          [--lrb-windows 3] [--pipeline-windows 6]
-                          [--failure-windows 2] [--tenant-seconds 60]
-                          [--chaos-windows 3] [--recovery-windows 2]
+    python3 chip_smoke.py [--windows 3] [--splitk-windows 2]
+                          [--lrb-windows 2] [--pipeline-windows 3]
+                          [--failure-windows 2] [--tenant-seconds 45]
+                          [--chaos-windows 2] [--recovery-windows 2]
                           [--sharded-windows 3]
                           [--sharded-splitk-windows 2]
                           [--sharded-lrb-windows 1.5]
@@ -174,7 +174,7 @@ Phases (the first failed check exits non-zero, with no result line):
    lognormal lateness; ``configs/workloads.py: LRB``), through
    ``StreamEngine`` with the lrb operator and a 4,096-slot block pool
    (3.2 GB of window state on the card), over ``--lrb-windows`` windows
-   of processing time (1.8 M events), as phase 1 runs and closes out
+   of processing time (1.2 M events at 2), as phase 1 runs and closes out
    stock. Every window against a numpy oracle over all events: count,
    accident (2 or more stopped vehicles) and toll exact, avg_speed within
    the mean's tolerance. The operator gathers each table row's full
@@ -215,14 +215,14 @@ Phases (the first failed check exits non-zero, with no result line):
    one 8 GiB device budget, one 2 GiB host budget sliced by the
    profiles, one log store, one transfer executor and one pipeline.
    Each tenant streams at its Table-1 rate (40,000 events/s in all) for
-   ``--tenant-seconds`` of processing time (2.4 M events), then closes
-   out; every stock window is held to the stock oracle and the Linear
+   ``--tenant-seconds`` of processing time (1.8 M events at 45), then
+   closes out; every stock window is held to the stock oracle and the Linear
    Road window to its own, every tenant must have had I/O executed
    (``fairness_stats``), and every fold launch must have gone out from
    the shared pipeline's worker thread.
 15. Aion's failure path on phase 1's deployment, seed, 3,072-slot pool
-   and budgets, each run over ``--chaos-windows`` windows (900,000 events
-   at the default 3): the log store behind a ``FaultyBlockStore`` whose
+   and budgets, each run over ``--chaos-windows`` windows (600,000 events
+   at the default 2): the log store behind a ``FaultyBlockStore`` whose
    ``FaultInjector`` (``repro_torch.testing``; seed 77, max_consecutive
    2) fails a quarter of the store's get, put, commit and readahead
    calls, with ``AionConfig(io_retry_backoff=0.0,
@@ -407,6 +407,36 @@ Phases (the first failed check exits non-zero, with no result line):
    and SHARD_SUM_ATOL; pool slot 0 NaN and inert); printed beside phase
    1's events/s, the rows and launches by shard, and the close-out's
    device busy share.
+28. The LM half of multi-device training (run last): a (2, 2) mesh
+   (``data``, ``model``) of four ranks spawned on ``cuda:0`` and joined by
+   gloo (NCCL refuses two ranks on one device), every collective an
+   all-reduce across the host; the kernels are built
+   before (phase 0), so no rank runs nvcc. 28a: starcoder2-7b at full
+   width with 4 layers (``LM_DENSE_RUN``: 2 x 4,096 tokens a step, bf16
+   compute, fp32 parameters, remat full): data-parallel over ``data``,
+   FSDP (the ``fsdp`` dims over ``data``), tensor-parallel over
+   ``model`` (18 query and 2 KV heads a rank); rank 0 first runs the
+   one-process steps on the same weights and saves the first step's
+   gradients; as the control, the mesh's gradients of the first batch
+   with the ``o`` projection's ``model`` reduce dropped must read at
+   least CONTROL_FACTOR x GRAD_RTOL; then ``LM_DENSE_RUN["steps"]`` steps
+   (the main path: K5 and K6 counted on every rank, 2 x layers and
+   layers a step, all on wgmma), the first step's loss within LOSS_TOL
+   of the one-process step's and each of its gradients within GRAD_RTOL
+   of its norm (every rank reading its shards against its slices), the
+   later losses beside the one-process steps', and each rank's first K5
+   and K6 launch replayed against the plain version within
+   ``kernels/flash_limits.py``.
+   28b: qwen3-moe-30b at full width with 2 layers, the experts over
+   ``model`` (64 a rank): each rank's MoE layer outputs against the
+   one-process ``moe_forward`` of its data shard's tokens with the
+   layer's full weights (JAX's expert parallelism: the capacity from
+   the local token count) within MOE_EP_RTOL, the expert outputs'
+   ``model`` reduce dropped as the control, then ``LM_MOE_RUN["steps"]``
+   steps whose losses must be finite and equal on every rank. Printed:
+   tokens/s, each rank's peak memory, each collective's calls, bytes
+   and host seconds, with the card's name and power limit; four ranks on
+   one card share its SMs, so nothing here speaks of scaling.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -416,7 +446,8 @@ readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16,
 27a-27e, 4, 6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
-and 25a and read just after; every bf16 launch of K5 and K6 in phases 4,
+and 25a (and 28a and 28b on each rank) and read just after; every bf16
+launch of K5 and K6 in phases 4, 28a,
 6b, 10, 17a, 18, 19, 21b, 23a, 24b and 25a must have gone through the
 wgmma design, and every K7 launch of 20b and 21b through the tensor
 design. A segment kernel's
@@ -426,7 +457,8 @@ Linear Road run, K2 the main run, K3 the split-K run;
 in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a), and
 ``launches_by_shard`` each shard's launches in phase 27 by design); K4's
 and K5's are their counts in phase 4, K6's in phase 6b, K7's in phase
-9a; K5's and K6's ``non_causal`` hold phase 26's replays. The
+9a; K5's and K6's ``non_causal`` hold phase 26's replays and their
+``launches_by_rank`` each rank's count in phases 28a and 28b. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -5752,14 +5784,543 @@ def frontend_phases(device, every: dict, small: bool = False) -> dict:
     return {"runs": runs, "replays": replays}
 
 
+# ------------------------------------------------------------------ phase 28
+#: phase 28: the LM half of multi-device training on one card, a (2, 2)
+#: mesh of four ranks on cuda:0 joined by gloo (NCCL refuses two ranks on
+#: one device). 28a: TRAIN_ARCH at full width with 4 layers, bf16 compute;
+#: 28b: MOE_ARCH at full width with 2 layers, experts over ``model``
+LM_MESH = (2, 2)
+LM_DENSE_RUN = dict(layers=4, batch=2, seq=4096, steps=3)
+LM_MOE_RUN = dict(layers=2, batch=2, seq=4096, steps=2)
+#: the CPU rehearsal's runs: the reduced configs
+SMALL_LM_DENSE = dict(layers=2, batch=2, seq=128, steps=2)
+SMALL_LM_MOE = dict(layers=2, batch=2, seq=128, steps=2)
+#: 28b: each rank's expert-parallel MoE layer output against the
+#: one-process ``moe_forward`` of its data shard's tokens, in norm (bf16:
+#: each side adds its experts' shares in its own order)
+MOE_EP_RTOL = 2e-2
+#: torch threads a rank (four ranks share the host's cores)
+LM_THREADS = 2
+LM_TIMEOUT_S = 600.0
+
+
+def _lm_cfg(arch: str, run: dict, small: bool):
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(arch)
+    if small:
+        cfg = reduced(cfg)
+    return dataclasses.replace(cfg, num_layers=run["layers"])
+
+
+def _lm_barrier(mesh) -> None:
+    import torch
+    from repro_torch.distributed import collectives as col
+    col.all_reduce(torch.zeros((), device=mesh.device), mesh, mesh.axes,
+                   kind="barrier")
+
+
+def _lm_batches(cfg, run: dict, n: int, seed: int, dev) -> list:
+    """``n`` global batches, the same on every rank."""
+    import torch
+    from repro_torch.data.generators import token_batches
+    gen = token_batches(cfg.vocab_size, run["batch"], run["seq"], seed=seed)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()}
+            for _ in range(n)]
+
+
+def _lm_grads(model, params, batch):
+    """(loss, gradients) of ``batch``; under a mesh, this rank's rows of
+    it, and the gradients reduced as the train step reduces them."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import local_batch, reduce_grads
+    ctx = shd.mesh_ctx()
+    if ctx is not None:
+        batch = local_batch(batch, ctx)
+    loss, metrics = model.loss(params, batch)
+    g = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    if ctx is not None:
+        g = reduce_grads(g, model, ctx)
+    return float(metrics.get("loss", loss).detach()), g
+
+
+def _lm_save_ref(grads: dict, where: Path) -> None:
+    """The one-process gradients, one ``.npy`` a parameter, for every
+    rank to read its shards of (no collective carries them)."""
+    import numpy as np
+    where.mkdir(parents=True, exist_ok=True)
+    for n, g in grads.items():
+        np.save(where / f"{n}.npy", g.detach().float().cpu().numpy())
+
+
+def _lm_rel(ctx, model, grads: dict, where: Path) -> tuple:
+    """Each gradient's distance from the one-process gradient in units of
+    that one's norm: every rank sums the squares of its shard against its
+    slice of the saved gradient (a shard held by several ranks counted
+    once), one all-reduce adds them. Returns (worst, name)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import grad_replicas
+    specs, reps = model.specs(), grad_replicas(model, ctx)
+    names = list(grads)
+    sums = torch.zeros(2 * len(names), dtype=torch.float64,
+                       device=ctx.mesh.device)
+    for i, n in enumerate(names):
+        g = grads[n].detach().float()
+        check(bool(torch.isfinite(g).all()), f"{n}: gradient not finite")
+        ref = np.load(where / f"{n}.npy", mmap_mode="r")
+        sl = shd.shard_slices(ref.shape, ctx.pspec(*specs[n]), ctx.mesh)
+        w = torch.from_numpy(np.array(ref[sl])).to(g.device)
+        sums[2 * i] = float((g - w).double().square().sum()) / reps[n]
+        sums[2 * i + 1] = float(w.double().square().sum()) / reps[n]
+    sums = col.all_reduce(sums, ctx.mesh, ctx.mesh.axes, kind="check")
+    rel = [(float(sums[2 * i].sqrt() / sums[2 * i + 1].sqrt().clamp(
+        min=1e-30)), n) for i, n in enumerate(names)]
+    return max(rel)
+
+
+class _KeepLargest:
+    """The first K5 and K6 launches of the path (every launch of a phase
+    has one shape), for the replays."""
+
+    def __init__(self):
+        self.fa = importlib.import_module(
+            "repro_torch.kernels.flash_attention")
+        self.kept = {}
+
+    def __enter__(self):
+        fa, kept = self.fa, self.kept
+        self.real = (fa._launch, fa.flash_attention_bwd_cuda)
+        real_fwd, real_bwd = self.real
+
+        def fwd(q, k, v, causal, window, want_lse, design):
+            if "K5" not in kept and q.is_cuda:
+                kept["K5"] = dict(args=tuple(t.detach().clone()
+                                             for t in (q, k, v)),
+                                  kw=dict(causal=causal, window=window))
+            return real_fwd(q, k, v, causal, window, want_lse, design)
+
+        def bwd(q, k, v, o, do, lse, **kw):
+            if "K6" not in kept and q.is_cuda:
+                kept["K6"] = dict(args=tuple(t.detach().clone() for t in
+                                             (q, k, v, o, do, lse)), kw=kw)
+            return real_bwd(q, k, v, o, do, lse, **kw)
+
+        fa._launch, fa.flash_attention_bwd_cuda = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._launch, self.fa.flash_attention_bwd_cuda = self.real
+
+
+def _lm_replays(kept: dict) -> dict:
+    """Each kept launch against its plain version on the float32 values of
+    the same inputs, within ``kernels/flash_limits.py``'s limits."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fb = importlib.import_module("repro_torch.kernels.flash_attention_bwd")
+    FL = flash_limits()
+    out = {}
+    if "K5" in kept:
+        q, k, v = kept["K5"]["args"]
+        kw = kept["K5"]["kw"]
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        out["K5"] = dict(flash_close(got, want, FL.FWD_ROW_RTOL,
+                                     ATTN_ULP_FLOOR),
+                         shape=f"q {list(q.shape)}, k/v {list(k.shape)}")
+    if "K6" in kept:
+        q, k, v, o, do, lse = kept["K6"]["args"]
+        kw = kept["K6"]["kw"]
+        got = fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        want = fb.flash_attention_bwd_plain(
+            *(x.float() for x in (q, k, v, o, do)), lse, **kw)
+        reads = [flash_close(a, w, FL.BWD_ROW_RTOL,
+                             max(float(w.abs().max()), 1e-30)
+                             * GRAD_ULP_FLOOR) for a, w in zip(got, want)]
+        out["K6"] = dict({key: max(x[key] for x in reads)
+                          for key in ("max_abs_err", "row_err", "ulps")},
+                         shape=f"q {list(q.shape)}, k/v {list(k.shape)}")
+    return out
+
+
+@contextlib.contextmanager
+def _first_grads(fn):
+    """``fn(grads)`` on the gradients the train step hands AdamW at its
+    first call (reduced, on a mesh), before the update."""
+    ts = importlib.import_module("repro_torch.train.train_step")
+    real = ts.adamw_update
+    seen = []
+
+    def update(cfg, params, grads, *a, **kw):
+        if not seen:
+            seen.append(True)
+            fn(grads)
+        return real(cfg, params, grads, *a, **kw)
+
+    ts.adamw_update = update
+    try:
+        yield
+    finally:
+        ts.adamw_update = real
+
+
+def _lm_dense(rank: int, mesh, dev, small: bool, wrappers: dict,
+              ref_dir: Path) -> dict:
+    """28a on this rank: the one-process steps (rank 0; the first step's
+    gradients saved under ``ref_dir``), the dropped-``o``-reduce control
+    (the first batch's gradients on the mesh), then the main path
+    (run["steps"] steps, counted and timed; the first step's loss and
+    gradients held against the one-process step's) and the replays of
+    its K5/K6 launches."""
+    import torch
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as lyr
+    from repro_torch.models.model import build_model
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainState
+    run = SMALL_LM_DENSE if small else LM_DENSE_RUN
+    cfg = _lm_cfg(TRAIN_ARCH, run, small)
+    mesh_cfg = MeshConfig(LM_MESH, ("data", "model"))
+    batches = _lm_batches(cfg, run, run["steps"], SEED + 28, dev)
+    opt = OptConfig(warmup_steps=1, total_steps=run["steps"])
+    rec = {"rank": rank}
+    if rank == 0:
+        # the one-process steps on the same weights, alone on the card
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(SEED + 28))
+        step = make_train_step(model, opt)
+        state = TrainState(params=params, opt=adamw_init(params))
+        ref_losses = []
+        with _first_grads(lambda g: _lm_save_ref(g, ref_dir)):
+            for b in batches:
+                state, m = step(state, b)
+                ref_losses.append(float(m["loss"]))
+        del model, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        rec.update(ref_losses=ref_losses, ref_s=time.perf_counter() - t0)
+    _lm_barrier(mesh)
+    prof = shd.sharding_profile(cfg, mesh_cfg, run["batch"], run["seq"])
+    ctx = shd.ShardCtx(mesh, shd.make_rules(cfg, mesh_cfg, run["batch"],
+                                            run["seq"]), prof)
+    with shd.use_ctx(ctx):
+        model = build_model(cfg, kv_repeat=prof.kv_repeat, device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(SEED + 28))
+        rec["local_params"] = sum(p.numel() for p in params.values())
+        real = attn_mod.row_parallel
+        attn_mod.row_parallel = lambda p, x, cd, n, m, a: lyr.row_parallel(
+            p, x, cd, n, None, None)
+        try:
+            c_loss, c_grads = _lm_grads(model, params, batches[0])
+        finally:
+            attn_mod.row_parallel = real
+        c_worst, c_name = _lm_rel(ctx, model, c_grads, ref_dir)
+        del c_grads
+        gc.collect()
+        step = make_train_step(model, opt)
+        state = TrainState(params=params, opt=adamw_init(params))
+        zero_counts(wrappers.values())
+        col.reset_stats()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, wall, first = [], [], {}
+        with _KeepLargest() as keep, _first_grads(
+                lambda g: first.update(rel=_lm_rel(ctx, model, g, ref_dir))):
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+        worst, name = first["rel"]
+        if rank == 0:
+            rec.update(loss=losses[0],
+                       loss_err=abs(losses[0] - rec["ref_losses"][0]),
+                       grad_rel_err=worst, worst_param=name,
+                       control_loss=c_loss, control_rel_err=c_worst,
+                       control_param=c_name)
+        rec["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+        rec["by_design"] = by_design(wrappers)
+        rec["collectives"] = {k: dict(v) for k, v in col.STATS.items()}
+        rec.update(losses=losses, step_s=wall)
+        if dev.type == "cuda":
+            rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del state, step, params, model
+    rec["replays"] = _lm_replays(keep.kept)
+    del keep
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_moe(rank: int, mesh, dev, small: bool, wrappers: dict) -> dict:
+    """28b on this rank: each MoE layer's expert-parallel output against
+    the one-process ``moe_forward`` of this data shard's tokens (the
+    layer's full weights gathered), the same with the expert outputs'
+    ``model`` reduce dropped as the control, then run["steps"] steps."""
+    import torch
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.elastic import Placement
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainState, local_batch
+    run = SMALL_LM_MOE if small else LM_MOE_RUN
+    cfg = _lm_cfg(MOE_ARCH, run, small)
+    mesh_cfg = MeshConfig(LM_MESH, ("data", "model"))
+    batches = _lm_batches(cfg, run, run["steps"] + 1, SEED + 29, dev)
+    prof = shd.sharding_profile(cfg, mesh_cfg, run["batch"], run["seq"])
+    check(prof.expert_tp, "28b: the experts do not shard over model")
+    ctx = shd.ShardCtx(mesh, shd.make_rules(cfg, mesh_cfg, run["batch"],
+                                            run["seq"]), prof)
+    rec = {"rank": rank, "data": mesh.index("data"),
+           "model": mesh.index("model")}
+    plain_fwd, plain_combine = moe_mod.moe_forward, moe_mod._combine
+    with shd.use_ctx(ctx):
+        model = build_model(cfg, kv_repeat=prof.kv_repeat, device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(SEED + 29))
+        rec["local_params"] = sum(p.numel() for p in params.values())
+        rec["local_experts"] = params["layers.0.moe.wg"].shape[0]
+        lb = local_batch(batches[0], ctx)
+        seen = {}
+
+        def recording(tag):
+            def fwd(p, x, c):
+                y, aux = plain_fwd(p, x, c)
+                seen.setdefault(tag, []).append((x.detach(), y.detach()))
+                return y, aux
+            return fwd
+
+        with torch.no_grad():
+            moe_mod.moe_forward = recording("ep")
+            try:
+                model.train_logits(params, lb)
+                moe_mod._combine = lambda y, m, a: y
+                moe_mod.moe_forward = recording("control")
+                model.train_logits(params, lb)
+            finally:
+                moe_mod.moe_forward, moe_mod._combine = plain_fwd, \
+                    plain_combine
+        specs = model.specs()
+        errs, c_errs = [], []
+        for layer in range(cfg.num_layers):
+            pre = f"layers.{layer}.moe."
+            full = {n[len(pre):]: Placement(mesh, ctx.pspec(*specs[n]))
+                    .gather(t.detach()) for n, t in params.items()
+                    if n.startswith(pre)}
+            p = {"router": {"w": full["router.w"]},
+                 **{w: full[w] for w in ("wg", "wu", "wd")}}
+            x, y = seen["ep"][layer]
+            with torch.no_grad(), shd.use_ctx(None):
+                want, _ = plain_fwd(p, x, cfg)
+            den = float(torch.linalg.vector_norm(want.float()))
+            errs.append(float(torch.linalg.vector_norm(
+                (y - want).float())) / den)
+            cx, cy = seen["control"][layer]
+            check(torch.equal(cx, x) or layer > 0, "28b: the control's "
+                                                   "first layer saw other "
+                                                   "tokens")
+            with torch.no_grad(), shd.use_ctx(None):
+                cwant, _ = plain_fwd(p, cx, cfg)
+            c_errs.append(float(torch.linalg.vector_norm(
+                (cy - cwant).float())) / float(torch.linalg.vector_norm(
+                    cwant.float())))
+            del full, p, want, cwant
+        del seen
+        rec.update(layer_rel_err=errs, control_rel_err=c_errs)
+        step = make_train_step(model, OptConfig(warmup_steps=1,
+                                                total_steps=run["steps"]))
+        state = TrainState(params=params, opt=adamw_init(params))
+        zero_counts(wrappers.values())
+        col.reset_stats()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, auxes, wall = [], [], []
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        rec["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+        rec["collectives"] = {k: dict(v) for k, v in col.STATS.items()}
+        rec.update(losses=losses, aux=auxes, step_s=wall)
+        if dev.type == "cuda":
+            rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del state, step, params, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str
+                  ) -> dict:
+    """One rank of phase 28's world: the (2, 2) mesh over the four ranks,
+    then 28a and 28b."""
+    import torch
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh_from_config
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh_from_config(MeshConfig(LM_MESH, ("data", "model")),
+                                 dev)
+    wrappers = all_wrappers()
+    t0 = time.perf_counter()
+    dense = _lm_dense(rank, mesh, dev, small, wrappers, Path(ref_dir))
+    dense["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe = _lm_moe(rank, mesh, dev, small, wrappers)
+    moe["wall_s"] = time.perf_counter() - t0
+    return {"dense": dense, "moe": moe}
+
+
+def _collective_line(stats: dict) -> str:
+    return "; ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e9:.3f} GB "
+                     f"{v['seconds']:.2f} s" for k, v in sorted(stats.items()))
+
+
+def lm_world_phase(dev, card: str, small: bool = False) -> dict:
+    """Phase 28: spawn the world (four ranks on ``dev``), then hold what
+    each rank read. The kernels are built before (phase 0), so no rank
+    runs nvcc."""
+    from repro_torch.launch.mesh import spawn_world
+    t0 = time.perf_counter()
+    ref_dir = Path(tempfile.mkdtemp(prefix="lm_ref_", dir=ROOT / "build"))
+    try:
+        ranks = spawn_world(lm_world_rank, math.prod(LM_MESH),
+                            (str(dev), small, str(ref_dir)), device=str(dev),
+                            timeout_s=LM_TIMEOUT_S,
+                            threads=1 if dev.type == "cpu" else LM_THREADS)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    cuda = dev.type == "cuda"
+    log(f"phase 28: a {LM_MESH} mesh of {len(ranks)} ranks on {dev} in "
+        f"{wall:.1f} s ({card}): four ranks on one card share its SMs and "
+        "its memory, and every collective crosses the host (gloo), so "
+        "nothing here speaks of scaling across cards")
+    # 28a
+    run = SMALL_LM_DENSE if small else LM_DENSE_RUN
+    d = [r["dense"] for r in ranks]
+    r0 = d[0]
+    cfg = _lm_cfg(TRAIN_ARCH, run, small)
+    log(f"phase 28a: {cfg.name} at {'reduced' if small else 'full'} width "
+        f"({cfg.d_model} wide, {cfg.num_heads} heads, {cfg.num_kv_heads} "
+        f"KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) with "
+        f"{cfg.num_layers} layers, {run['batch']} x {run['seq']} tokens a "
+        f"step, bf16 compute; one-process reference in {r0['ref_s']:.1f} s "
+        f"({card})")
+    log(f"phase 28a: the first step on the mesh against the one-process "
+        f"step: loss {r0['loss']:.6f} (off by {r0['loss_err']:.3g}, limit "
+        f"{LOSS_TOL}), the worst gradient {r0['worst_param']} off by "
+        f"{r0['grad_rel_err']:.3g} of its norm (limit {GRAD_RTOL})")
+    check(r0["loss_err"] <= LOSS_TOL, f"28a: loss off by {r0['loss_err']}")
+    check(r0["grad_rel_err"] <= GRAD_RTOL,
+          f"28a: {r0['worst_param']} off by {r0['grad_rel_err']:.3g}")
+    r0["control_ratio"] = control_reads(
+        f"the o projection's model reduce dropped ({r0['control_param']})",
+        r0["control_rel_err"], GRAD_RTOL)
+    tokens = run["batch"] * run["seq"]
+    timed = r0["step_s"][1:] or r0["step_s"]
+    tps = tokens * len(timed) / sum(timed)
+    log(f"phase 28a: {run['steps']} steps: losses "
+        f"{[round(x, 4) for x in r0['losses']]} (one process "
+        f"{[round(x, 4) for x in r0['ref_losses']]}), step seconds "
+        f"{[round(x, 3) for x in r0['step_s']]}, {tps:.1f} tokens/s "
+        f"({card})")
+    for a, b in zip(r0["losses"], r0["ref_losses"]):
+        check(math.isfinite(a) and abs(a - b) <= 10 * LOSS_TOL * max(
+            1.0, abs(b)), f"28a: step loss {a} against one process {b}")
+    layers = cfg.num_layers
+    for r in d:
+        check(all(x == r0["losses"][i] for i, x in enumerate(r["losses"])),
+              f"28a: rank {r['rank']} reads losses {r['losses']}")
+        mem = r.get("max_memory_allocated", 0) / 1e9
+        log(f"  rank {r['rank']}: {r['local_params'] / 1e6:.1f} M local "
+            f"parameters, max_memory_allocated {mem:.2f} GB, launches "
+            f"{r['launches']}; collectives: "
+            + _collective_line(r["collectives"]) + f" ({card})")
+        if cuda:
+            for k, per_step in (("K5", 2 * layers), ("K6", layers)):
+                want = per_step * run["steps"]
+                check(r["launches"][k] == want,
+                      f"28a: rank {r['rank']}: {k} launched "
+                      f"{r['launches'][k]} times, the path implies {want}")
+                check(r["by_design"][k] == {"wgmma": want, "cuda_core": 0},
+                      f"28a: rank {r['rank']}: {k} by design "
+                      f"{r['by_design'][k]}")
+            for k in ("K5", "K6"):
+                check(k in r["replays"], f"28a: rank {r['rank']}: no {k} "
+                                         "launch kept")
+        for k, rp in r["replays"].items():
+            log(f"  rank {r['rank']}: {k} replay ({rp['shape']}): worst row "
+                f"{rp['row_err']:.3g}, {rp['ulps']:.1f} ulps, max_abs_err "
+                f"{rp['max_abs_err']:.3g} ({card})")
+    # 28b
+    run = SMALL_LM_MOE if small else LM_MOE_RUN
+    m = [r["moe"] for r in ranks]
+    cfg = _lm_cfg(MOE_ARCH, run, small)
+    log(f"phase 28b: {cfg.name} with {cfg.num_layers} layers, "
+        f"{m[0]['local_experts']} of {cfg.moe.num_experts} experts a rank, "
+        f"{run['batch']} x {run['seq']} tokens a step, in "
+        f"{m[0]['wall_s']:.1f} s ({card})")
+    for r in m:
+        log(f"  rank {r['rank']} (data {r['data']}, model {r['model']}): "
+            f"MoE layer outputs off the one-process moe_forward of its "
+            f"tokens by {[f'{x:.3g}' for x in r['layer_rel_err']]} of their "
+            f"norm (limit {MOE_EP_RTOL}); losses {r['losses']}, step "
+            f"seconds {[round(x, 3) for x in r['step_s']]}, max_memory_"
+            f"allocated {r.get('max_memory_allocated', 0) / 1e9:.2f} GB, "
+            f"launches {r['launches']}; collectives: "
+            + _collective_line(r["collectives"]) + f" ({card})")
+        for i, e in enumerate(r["layer_rel_err"]):
+            check(e <= MOE_EP_RTOL, f"28b: rank {r['rank']} layer {i} off "
+                                    f"by {e:.3g}")
+        r["control_ratio"] = control_reads(
+            f"rank {r['rank']}: the expert outputs' model reduce dropped",
+            min(r["control_rel_err"]), MOE_EP_RTOL)
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"28b: rank {r['rank']} loss not finite")
+        check(r["losses"] == m[0]["losses"],
+              f"28b: rank {r['rank']} reads losses {r['losses']}, rank 0 "
+              f"{m[0]['losses']}")
+        if cuda:
+            for k in ("K5", "K6"):
+                check(r["launches"][k] > 0, f"28b: rank {r['rank']}: {k} "
+                                            "never launched")
+    timed = m[0]["step_s"][1:] or m[0]["step_s"]
+    log(f"phase 28b: {run['batch'] * run['seq'] * len(timed) / sum(timed):.1f}"
+        f" tokens/s ({card})")
+    return {"dense": d, "moe": m, "wall_s": wall}
+
+
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--windows", type=float, default=6.0,
+    ap.add_argument("--windows", type=float, default=3.0,
                     help="windows of processing time streamed in phase 1")
     ap.add_argument("--splitk-windows", type=float, default=2.0,
                     help="windows of processing time streamed in phase 2")
-    ap.add_argument("--lrb-windows", type=float, default=3.0,
+    ap.add_argument("--lrb-windows", type=float, default=2.0,
                     help="windows of processing time streamed in phase 12")
     ap.add_argument("--pipeline-windows", type=float, default=None,
                     help="windows of processing time streamed in phase 13 "
@@ -5767,9 +6328,9 @@ def main(argv=None) -> int:
     ap.add_argument("--failure-windows", type=float, default=2.0,
                     help="windows of processing time streamed by each "
                     "failure control of phase 13b")
-    ap.add_argument("--tenant-seconds", type=float, default=60.0,
+    ap.add_argument("--tenant-seconds", type=float, default=45.0,
                     help="seconds of processing time streamed in phase 14")
-    ap.add_argument("--chaos-windows", type=float, default=3.0,
+    ap.add_argument("--chaos-windows", type=float, default=2.0,
                     help="windows of processing time streamed by each run of "
                     "phase 15")
     ap.add_argument("--recovery-windows", type=float, default=2.0,
@@ -6346,10 +6907,30 @@ def main(argv=None) -> int:
                 "hybrid_train": runs[f"{HYBRID_ARCH}_train"]["launches"],
                 **{name: runs[name]["launches"] for name in (
                     "encdec_serve", "encdec_train", "vlm_serve")}}
+    # phase 28: the LM half of multi-device training, a (2, 2) mesh of
+    # four ranks on this card
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_world_phase(dev, card)
+    log(f"phase 28: {lm['wall_s']:.1f} s")
+    for part in ("dense", "moe"):
+        tag = "28a" if part == "dense" else "28b"
+        runs[f"lm_{tag}"] = {"launches_by_rank": [r["launches"]
+                                                  for r in lm[part]],
+                             "ranks": lm[part]}
+        new_runs.update({f"{tag}_rank{r['rank']}": r["launches"]
+                         for r in lm[part]})
     for entry in kernels:
         key = entry["name"].split("(")[1].split(",")[0]
         entry.setdefault("launches_by_run", {}).update(
             {run: n[key] for run, n in new_runs.items()})
+        if key in ("K5", "K6"):
+            entry["launches_by_rank"] = {
+                tag: [r["launches"][key] for r in lm[part]]
+                for tag, part in (("28a", "dense"), ("28b", "moe"))}
+            entry["replays_by_rank"] = [
+                r["replays"][key]["row_err"] for r in lm["dense"]
+                if key in r["replays"]]
 
     if args.out is not None:
         report["kernels"] = [dict(x, shape=s)

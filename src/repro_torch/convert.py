@@ -2,8 +2,10 @@
 state (``engine_state_from_jax``), a serving cache's KV pages
 (``tiered_kv_cache_from_jax``), and a model's parameters and a train state
 (``model_params_from_jax``, ``train_state_from_jax``; the reverse,
-``model_params_to_jax``, gives the JAX tree that checkpoints store), and
-a model's decode cache (``model_cache_from_jax``).
+``model_params_to_jax``, gives the JAX tree that checkpoints store), a
+rank's shards of a model's parameters on a mesh (``shard_params_from_jax``;
+the reverse, ``gather_params_to_jax``), and a model's decode cache
+(``model_cache_from_jax``).
 
 A streaming engine carries window state where a model carries weights.
 ``engine_state_from_jax(snap)`` takes the dict that the JAX package's
@@ -285,6 +287,43 @@ def model_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = arr
     return tree
+
+
+def shard_params_from_jax(params: Dict[str, Any], model,
+                          ctx=None, device=None) -> Dict[str, torch.Tensor]:
+    """A JAX model's parameter tree (numpy) -> this rank's shards of the
+    port's parameters on the mesh of ``ctx`` (the ambient ``ShardCtx``
+    by default), by ``model.specs()`` and the context's rules, on
+    ``device`` (the mesh's by default), as leaf tensors that require
+    grad. Without a mesh: the full parameters."""
+    from repro_torch.distributed import sharding as shd
+    ctx = shd.current_ctx() if ctx is None else ctx
+    full = model_params_from_jax(params)
+    if ctx is None or ctx.mesh is None:
+        dev = device
+        return {n: t.to(dev).requires_grad_(True) for n, t in full.items()}
+    dev = ctx.mesh.device if device is None else device
+    specs = model.specs()
+    out = {}
+    for n, t in full.items():
+        sl = shd.shard_slices(t.shape, ctx.pspec(*specs[n]), ctx.mesh)
+        out[n] = t[sl].contiguous().to(dev).requires_grad_(True)
+    return out
+
+
+def gather_params_to_jax(params: Dict[str, torch.Tensor], model,
+                         ctx=None) -> Dict[str, Any]:
+    """The reverse: every rank's shards gathered (a collective over the
+    mesh's ranks) into the JAX tree of full numpy arrays."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.elastic import Placement
+    ctx = shd.current_ctx() if ctx is None else ctx
+    if ctx is None or ctx.mesh is None:
+        return model_params_to_jax(params)
+    specs = model.specs()
+    full = {n: Placement(ctx.mesh, ctx.pspec(*specs[n])).gather(
+        t.detach()).cpu() for n, t in params.items()}
+    return model_params_to_jax(full)
 
 
 def train_state_from_jax(state: Any, device=None):

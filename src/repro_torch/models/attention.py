@@ -27,6 +27,19 @@ valid frames. ``kv_repeat`` (K/V heads repeated so that a
 tensor-parallel head axis shards evenly) is ``_repeat_kv``, a
 ``repeat_interleave`` on the head axis, as ``jnp.repeat``.
 
+Under a mesh of more than one rank with ``attn_tp`` (the ambient
+``ShardCtx``), each rank keeps its query heads (``q`` is column-parallel,
+its input through ``copy_to``) and its slice of the *stored* K/V heads,
+as ``KV_HEADS -> model`` says: where the parameter heads shard
+(``KV_PARAM_HEADS -> model``, ``num_kv_heads % model == 0``) it projects
+its own; where they do not (``kv_repeat > 1``), every rank projects all
+of them, repeats them, and takes its slice of the repeated heads behind
+``copy_to``, so that the gradient of the replicated K/V weights is the
+sum of every slice's share. K5 and K6 run unchanged on the local heads;
+``o`` is row-parallel (summed over ``model``, its bias added once).
+Without ``attn_tp`` attention is replicated over ``model``, the DP-only
+fallback. ``attn_decode`` under a mesh is serving, not ported here.
+
 Not ported here: ``kv_valid_len`` of ``attn_forward`` (a per-row key
 length, which no caller of the JAX package passes and the Pallas flash
 kernel has no argument for) raises. ``dus_write`` (the JAX per-shard
@@ -41,8 +54,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_apply, dense_init
+from repro_torch.models.layers import apply_rope, dense_apply, dense_init, \
+    row_parallel, tp
 
 NEG_INF = -1e30
 
@@ -61,6 +77,22 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
     out["o"] = dense_init(generator, (h, dh), (d,), dtype, device,
                           cfg.use_bias)
     return out
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of ``attn_init``'s parameters, as JAX's
+    ``attn_init`` gives them."""
+    def dense(*logical):
+        out = {"w": logical}
+        if cfg.use_bias:
+            out["b"] = logical[1:]
+        return out
+    o = {"w": (shd.HEADS, None, shd.FSDP)}
+    if cfg.use_bias:
+        o["b"] = (None,)
+    return {"q": dense(shd.FSDP, shd.HEADS, None),
+            "k": dense(shd.FSDP, shd.KV_PARAM_HEADS, None),
+            "v": dense(shd.FSDP, shd.KV_PARAM_HEADS, None), "o": o}
 
 
 def _repeat_kv(kv: torch.Tensor, repeat: int) -> torch.Tensor:
@@ -90,14 +122,34 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError("kv_valid_len (a per-row key length in "
                                   "K5/K6) is not ported")
     cd = x.dtype
-    q = dense_apply(params["q"], x, cd)                      # [B,S,H,dh]
+    mesh, axis = tp(shd.HEADS)
+    hs = cfg.num_kv_heads * kv_repeat
+    q = dense_apply(params["q"], col.copy_to(x, mesh, axis), cd)
+    q = shd.constrain(q, shd.BATCH, None, shd.HEADS, None,
+                      full=(None, None, cfg.num_heads, None))
     if xattn_kv is None:
-        k = dense_apply(params["k"], x, cd)
-        v = dense_apply(params["v"], x, cd)
+        if axis is not None and tp(shd.KV_PARAM_HEADS)[1] is None:
+            # the parameter heads do not shard: all of them, repeated,
+            # then this rank's slice of the stored heads
+            k = dense_apply(params["k"], x, cd)
+            v = dense_apply(params["v"], x, cd)
+        else:
+            xk = col.copy_to(x, mesh, axis)
+            k = dense_apply(params["k"], xk, cd)
+            v = dense_apply(params["v"], xk, cd)
         if cfg.rope_theta > 0:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
         k, v = _repeat_kv(k, kv_repeat), _repeat_kv(v, kv_repeat)
+        if axis is not None and k.shape[2] == hs:
+            n = hs // mesh.size(axis)
+            lo = mesh.index(axis) * n
+            k = col.copy_to(k, mesh, axis)[:, :, lo:lo + n]
+            v = col.copy_to(v, mesh, axis)[:, :, lo:lo + n]
+        k = shd.constrain(k, shd.BATCH, None, shd.KV_HEADS, None,
+                          full=(None, None, hs, None))
+        v = shd.constrain(v, shd.BATCH, None, shd.KV_HEADS, None,
+                          full=(None, None, hs, None))
     else:
         k, v = xattn_kv
         if cfg.rope_theta > 0:
@@ -105,7 +157,10 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     out = ops.flash_attention_vjp(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
                                   window=window)
-    y = dense_apply(params["o"], out, cd, contract_dims=2)
+    out = shd.constrain(out, shd.BATCH, None, shd.HEADS, None,
+                        full=(None, None, cfg.num_heads, None))
+    y = row_parallel(params["o"], out, cd, 2, mesh, axis)
+    y = shd.constrain(y, shd.BATCH, None, None)
     return y, ((k, v) if return_kv or xattn_kv is not None else None)
 
 

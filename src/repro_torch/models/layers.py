@@ -12,9 +12,16 @@ Conventions
   ``compute_dtype`` (bf16) at use sites.
 * Activation tensors are ``[batch, seq, d_model]``.
 
-The JAX package's sharding constraints (``shd.constrain``) have no
-counterpart on one card and are dropped; ``pad_vocab`` is copied from its
-``distributed/sharding.py``.
+Under a mesh of more than one rank (the ambient ``ShardCtx``), each
+function takes this rank's shard of its parameters, their FSDP dims
+already gathered over ``data`` (``Model._split``), and moves the
+activations itself where the JAX package's ``shd.constrain`` lets GSPMD
+move them: the MLP is column-parallel (``gate``/``up``) then
+row-parallel (``down``, summed over ``model``, its bias added once after
+the sum); the embedding is vocab-parallel (a masked lookup of this
+shard's rows, summed over ``model``); the unembedding keeps this shard's
+logits, the pad mask applied to its own columns. Without a mesh nothing
+of this runs.
 """
 from __future__ import annotations
 
@@ -25,10 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-
-
-def pad_vocab(vocab: int, multiple: int = 256) -> int:
-    return ((vocab + multiple - 1) // multiple) * multiple
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import pad_vocab
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -62,6 +68,34 @@ def dense_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     dims."""
     w = params["w"].to(compute_dtype)
     y = torch.tensordot(x.to(compute_dtype), w, dims=contract_dims)
+    if "b" in params:
+        y = y + params["b"].to(compute_dtype)
+    return y
+
+
+def tp(logical: str):
+    """(mesh, axis) of a logical axis that a mesh of more than one rank
+    splits; (mesh or None, None) where nothing is split."""
+    ctx = shd.mesh_ctx()
+    if ctx is None:
+        return None, None
+    return ctx.mesh, ctx.axis(logical)
+
+
+def row_parallel(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 compute_dtype: torch.dtype, contract_dims: int, mesh,
+                 axis) -> torch.Tensor:
+    """``dense_apply`` over an input dim split on ``axis``: this shard's
+    partial product, summed over ``axis``, then the bias once. The
+    partial products of a low-precision compute type are taken and
+    summed in float32 and rounded once, as one device's product rounds
+    its float32 accumulation once (a bf16 partial would round twice)."""
+    if axis is None:
+        return dense_apply(params, x, compute_dtype, contract_dims)
+    w = params["w"].to(compute_dtype)
+    y = torch.tensordot(x.to(compute_dtype).float(), w.float(),
+                        dims=contract_dims)
+    y = col.reduce_from(y, mesh, axis).to(compute_dtype)
     if "b" in params:
         y = y + params["b"].to(compute_dtype)
     return y
@@ -122,8 +156,24 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def mlp_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of ``mlp_init``'s parameters, as JAX's ``mlp_init``
+    gives them (a bias takes its weight's output axes)."""
+    def dense(*logical):
+        out = {"w": logical}
+        if cfg.use_bias:
+            out["b"] = logical[1:]
+        return out
+    names = ("gate", "up") if cfg.mlp_variant == "swiglu" else ("up",)
+    specs = {n: dense(shd.FSDP, shd.MLP) for n in names}
+    specs["down"] = dense(shd.MLP, shd.FSDP)
+    return specs
+
+
 def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig,
               compute_dtype: torch.dtype) -> torch.Tensor:
+    mesh, axis = tp(shd.MLP)
+    x = col.copy_to(x, mesh, axis)
     if cfg.mlp_variant == "swiglu":
         g = dense_apply(params["gate"], x, compute_dtype)
         u = dense_apply(params["up"], x, compute_dtype)
@@ -132,7 +182,9 @@ def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig,
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(dense_apply(params["up"], x, compute_dtype),
                    approximate="tanh")
-    return dense_apply(params["down"], h, compute_dtype)
+    h = shd.constrain(h, shd.BATCH, None, shd.MLP, full=(None, None,
+                                                         cfg.d_ff))
+    return row_parallel(params["down"], h, compute_dtype, 1, mesh, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -151,27 +203,53 @@ def embed_init(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def embed_specs(cfg: ModelConfig) -> dict:
+    specs = {"table": (shd.VOCAB, shd.FSDP)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = (shd.FSDP, shd.VOCAB)
+    return specs
+
+
+#: a norm's scale is replicated
+NORM_SPECS = {"scale": (None,)}
+
+
 def embed_apply(params, tokens: torch.Tensor,
                 compute_dtype: torch.dtype) -> torch.Tensor:
     """tokens [B, S] int -> [B, S, D]: the rows, then the cast (the same
     values as the JAX cast-then-take, without a cast copy of the
-    table)."""
-    return params["table"][tokens.long()].to(compute_dtype)
+    table). Vocab-parallel under a mesh: this shard's rows where the
+    token falls in its range, zeros elsewhere, summed over ``model``
+    (exact: one shard holds each row)."""
+    mesh, axis = tp(shd.VOCAB)
+    table = params["table"]
+    if axis is None:
+        return table[tokens.long()].to(compute_dtype)
+    rows = table.shape[0]
+    local = tokens.long() - mesh.index(axis) * rows
+    hit = (local >= 0) & (local < rows)
+    emb = table[local.clamp(0, rows - 1)] * hit[..., None].to(table.dtype)
+    return col.reduce_from(emb, mesh, axis).to(compute_dtype)
 
 
 def unembed_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x [B, S, D] -> fp32 logits [B, S, V_padded] with pad positions
     masked to a large negative value (so CE over padded vocab is exact).
     The weights are cast to x's type and the product is taken in fp32, as
-    the JAX ``dot_general(..., preferred_element_type=float32)``."""
+    the JAX ``dot_general(..., preferred_element_type=float32)``. Under a
+    vocab-parallel mesh: this shard's columns of the logits."""
+    mesh, axis = tp(shd.VOCAB)
+    x = col.copy_to(x, mesh, axis)
     if cfg.tie_embeddings:
         w = params["table"].to(x.dtype).T / math.sqrt(cfg.d_model)
     else:
         w = params["unembed"].to(x.dtype)
     logits = torch.matmul(x.float(), w.float())
     vp = logits.shape[-1]
-    if vp - cfg.vocab_size:
-        keep = torch.arange(vp, device=logits.device) < cfg.vocab_size
+    lo = 0 if axis is None else mesh.index(axis) * vp
+    if lo + vp > cfg.vocab_size:
+        keep = torch.arange(lo, lo + vp,
+                            device=logits.device) < cfg.vocab_size
         logits = torch.where(keep, logits,
                              torch.full((), -1e30, device=logits.device))
     return logits

@@ -16,12 +16,26 @@ experts and each expert's top-capacity tokens) take a stable descending
 affinities are in the compute type and most of them are exactly 0.
 
 The expert products are plain torch here, as they are einsums outside any
-kernel in the JAX package. The JAX ``shard_map`` branch (experts sharded
-over the ``model`` mesh axis, partial outputs summed by ``psum``) is
-multi-device work and is not ported; on one card it has nothing to
-switch. The scatter-add sums up to ``top_k`` contributions per token; on
-the card ``index_add_`` adds them by atomics in no fixed order, so in
-bf16 the output differs from the CPU's by rounding.
+kernel in the JAX package. The scatter-add sums up to ``top_k``
+contributions per token; on the card ``index_add_`` adds them by atomics
+in no fixed order, so in bf16 the output differs from the CPU's by
+rounding.
+
+The expert-parallel branch (JAX's ``shard_map``, under a mesh of more than
+one rank with ``expert_tp``): the experts are sharded over ``model`` while
+the tokens stay this data shard's (replicated over ``model``). Routing
+runs on every rank alike; each rank's local experts take their top-C
+among the data shard's tokens, with C from the *local* token count
+(``b / n_batch * s``, JAX's ``t_loc``), and the partial outputs are
+summed over ``model`` (``reduce_from``, the ``psum``); the tokens and
+their routing weights enter the local experts through ``copy_to``, so
+that their gradient sums every rank's experts. The aux loss uses the
+*global* means: the router's mean probability, the routed fraction and
+the z-loss's mean are sums over the data shards (``reduce_from`` over the
+batch axes) over the global token count, as the JAX program computes
+them on the global batch. A mesh that shards the batch without
+``expert_tp`` would have each expert take its top-C among the global
+tokens, and raises.
 """
 from __future__ import annotations
 
@@ -32,6 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import dense_init
 
 
@@ -70,14 +86,16 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _expert_ffn(x_flat: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor,
                 wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
-                capacity: int, variant: str) -> torch.Tensor:
-    """x_flat [T, D]; idx/wts [T, K]; wg/wu/wd [E, ...]. Each expert's
-    affinity for each token (its routing weight, else 0), its top
-    ``capacity`` tokens gathered through the FFN, gated and
-    scatter-added. Returns [T, D] in the compute type."""
+                capacity: int, variant: str,
+                e_offset: int = 0) -> torch.Tensor:
+    """x_flat [T, D]; idx/wts [T, K]; wg/wu/wd [E_loc, ...], experts
+    ``e_offset`` .. ``e_offset + E_loc - 1``. Each expert's affinity for
+    each token (its routing weight, else 0), its top ``capacity`` tokens
+    gathered through the FFN, gated and scatter-added. Returns [T, D] in
+    the compute type: the local experts' share of the output."""
     e = wg.shape[0]
     t, d = x_flat.shape
-    eids = torch.arange(e, dtype=idx.dtype, device=idx.device)
+    eids = e_offset + torch.arange(e, dtype=idx.dtype, device=idx.device)
     hit = idx[None, :, :] == eids[:, None, None]              # [E, T, K]
     aff = torch.where(hit, wts[None], torch.zeros((), dtype=wts.dtype,
                                                   device=wts.device)).sum(-1)
@@ -107,18 +125,62 @@ def moe_forward(params, x: torch.Tensor,
     wts, idx = top_k(probs, k)                                # [B, S, K]
     wts = wts / wts.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    # Switch aux losses
-    me = probs.mean(dim=(0, 1))                               # [E]
-    ce_frac = F.one_hot(idx, e).float().sum(2).mean(dim=(0, 1))
+    ctx = shd.mesh_ctx()
+    x_flat = x.reshape(b * s, d)
+    idx_flat = idx.reshape(b * s, k)
+    wts_flat = wts.reshape(b * s, k).to(cd)
+    if ctx is None:
+        # Switch aux losses
+        me = probs.mean(dim=(0, 1))                           # [E]
+        ce_frac = F.one_hot(idx, e).float().sum(2).mean(dim=(0, 1))
+        aux = cfg.moe.router_aux_weight * e * (me * ce_frac).sum()
+        zloss = cfg.moe.router_z_weight * torch.logsumexp(
+            logits, dim=-1).square().mean()
+        aux = aux + zloss
+        y = _expert_ffn(x_flat, idx_flat, wts_flat,
+                        params["wg"].to(cd), params["wu"].to(cd),
+                        params["wd"].to(cd), _capacity(b * s, cfg),
+                        cfg.mlp_variant)
+        return y.reshape(b, s, d), aux
+
+    mesh, batch_axes = ctx.mesh, ctx.profile.batch_axes
+    if not ctx.profile.expert_tp:
+        raise NotImplementedError(
+            "moe_forward under a mesh without expert_tp (each expert's "
+            "top-C among the global tokens) is not ported")
+    # the global means: sums over the data shards over the global count
+    t_all = float(b * s * ctx.shards(batch_axes))
+    me = col.reduce_from(probs.sum(dim=(0, 1)), mesh, batch_axes) / t_all
+    ce_frac = col.all_reduce(F.one_hot(idx, e).float().sum(dim=(0, 1, 2)),
+                             mesh, batch_axes) / t_all
     aux = cfg.moe.router_aux_weight * e * (me * ce_frac).sum()
-    zloss = cfg.moe.router_z_weight * torch.logsumexp(
-        logits, dim=-1).square().mean()
+    lse2 = torch.logsumexp(logits, dim=-1).square().sum()
+    zloss = cfg.moe.router_z_weight * col.reduce_from(
+        lse2, mesh, batch_axes) / t_all
     aux = aux + zloss
 
-    x_flat = x.reshape(b * s, d)
-    y = _expert_ffn(x_flat, idx.reshape(b * s, k),
-                    wts.reshape(b * s, k).to(cd),
-                    params["wg"].to(cd), params["wu"].to(cd),
-                    params["wd"].to(cd), _capacity(b * s, cfg),
-                    cfg.mlp_variant)
+    axis = ctx.axis(shd.EXPERTS)
+    wg = params["wg"]
+    e_off = 0 if axis is None else mesh.index(axis) * wg.shape[0]
+    shd.constrain(wg, shd.EXPERTS, None, None, full=(e, None, None))
+    y = _expert_ffn(col.copy_to(x_flat, mesh, axis), idx_flat,
+                    col.copy_to(wts_flat, mesh, axis), wg.to(cd),
+                    params["wu"].to(cd), params["wd"].to(cd),
+                    _capacity(b * s, cfg), cfg.mlp_variant, e_offset=e_off)
+    y = _combine(y, mesh, axis)
     return y.reshape(b, s, d), aux
+
+
+def _combine(y: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The local experts' partial outputs summed over ``model`` (JAX's
+    ``psum``)."""
+    return col.reduce_from(y, mesh, axis)
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, object]:
+    """Logical axes of ``moe_init``'s parameters, as JAX's ``moe_init``
+    gives them."""
+    return {"router": {"w": (shd.FSDP, None)},
+            "wg": (shd.EXPERTS, shd.FSDP, None),
+            "wu": (shd.EXPERTS, shd.FSDP, None),
+            "wd": (shd.EXPERTS, None, shd.FSDP)}

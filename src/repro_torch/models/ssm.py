@@ -17,8 +17,11 @@ does under ``jax.value_and_grad``; the serving path calls it under
 JAX package has no kernel there either. Parameters keep the JAX layout
 and names: ``z``/``x`` [d, nh, p], ``B``/``C`` [d, n], ``dt`` [d, nh],
 ``o`` [nh, p, d], ``A_log``, ``D``, ``dt_bias`` [nh], ``conv_x``
-[cw, nh, p], ``conv_b``/``conv_c`` [cw, n], ``norm``. The JAX sharding
-constraints have no counterpart on one card and are dropped.
+[cw, nh, p], ``conv_b``/``conv_c`` [cw, n], ``norm``; ``ssd_specs``
+gives their logical axes. SSD tensor parallelism (``ssd_tp``) is not
+ported: a model with an SSD block refuses a mesh of more than one rank
+(``models/transformer.py``), so the JAX sharding constraints of
+``ssd_forward`` have nothing to check yet.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models.layers import dense_apply, dense_init, rmsnorm_apply, \
     rmsnorm_init
@@ -76,6 +80,22 @@ def ssd_init(generator: torch.Generator, cfg: ModelConfig,
                   dt_bias=dt_bias.to(dtype), **conv,
                   norm=rmsnorm_init(nh * p, dtype, device))
     return params
+
+
+def ssd_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of ``ssd_init``'s parameters, as JAX's ``ssd_init``
+    gives them."""
+    return {
+        "z": {"w": (shd.FSDP, shd.SSD_HEADS, None)},
+        "x": {"w": (shd.FSDP, shd.SSD_HEADS, None)},
+        "B": {"w": (shd.FSDP, None)}, "C": {"w": (shd.FSDP, None)},
+        "dt": {"w": (shd.FSDP, shd.SSD_HEADS)},
+        "o": {"w": (shd.SSD_HEADS, None, shd.FSDP)},
+        "A_log": (shd.SSD_HEADS,), "D": (shd.SSD_HEADS,),
+        "dt_bias": (shd.SSD_HEADS,),
+        "conv_x": (None, shd.SSD_HEADS, None), "conv_b": (None, None),
+        "conv_c": (None, None), "norm": {"scale": (None,)},
+    }
 
 
 def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

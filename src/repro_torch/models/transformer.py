@@ -65,6 +65,22 @@ cache); clone a cache to keep it. ``kv_dus_write`` (the JAX per-shard
 cache write) has nothing to switch on one card. The JAX ``cache_specs``
 (logical shardings for the dry-run) has no counterpart here.
 
+Under a mesh of more than one rank (the ambient ``ShardCtx`` of
+``distributed/sharding.py``, JAX's ``launch/dryrun.py`` construction of
+the train step), the dense and MoE families train sharded: ``init``
+keeps this rank's shard of each parameter (``specs()`` gives every
+parameter's logical axes, the JAX ``specs()`` under ``convert.py``'s
+naming, without the stacked layers axis); ``_split`` gathers the FSDP
+dims over ``data`` (the gradient is reduce-scattered back); the layers
+move their activations over ``model`` themselves (``models/layers.py``,
+``attention.py``, ``moe.py``); and ``loss`` is a vocab-parallel
+cross-entropy (the max, the sum of exponentials and the gold logit
+reduced over ``model``) whose CE sum is divided by the *global* token
+count (reduced over the batch axes), so that the gradients summed over
+the data shards are those of JAX's global mean. The other families, and
+``prefill``, ``prefill_streaming`` and ``decode_step``, raise
+``NotImplementedError`` under such a mesh.
+
 A window arch keeps the last ``window`` keys of a longer prompt in slots
 ``0..window-1`` and decodes position ``pos`` into slot ``pos % window``,
 as the JAX package does: the ring is aligned only when the prompt length
@@ -86,6 +102,8 @@ from repro_torch.configs.base import (
     FAMILY_AUDIO, FAMILY_DENSE, FAMILY_ENCDEC, FAMILY_HYBRID, FAMILY_MOE,
     FAMILY_SSM, FAMILY_VLM, ModelConfig,
 )
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
@@ -107,6 +125,8 @@ STUB_INPUTS = {FAMILY_AUDIO: "frame_embeds", FAMILY_ENCDEC: "frame_embeds",
 #: stacked over the layers there (``layers.<i>.`` and ``encoder.<i>.`` here)
 HEADS = ("embed", "layers", "encoder", "enc_norm", "final_norm")
 STACKED = ("layers", "encoder")
+#: the families that train under a mesh of more than one rank
+MESH_FAMILIES = (FAMILY_DENSE, FAMILY_MOE)
 
 
 def _layer_init(generator: torch.Generator, cfg: ModelConfig,
@@ -129,6 +149,35 @@ def _layer_init(generator: torch.Generator, cfg: ModelConfig,
         params["ln2"] = lyr.rmsnorm_init(cfg.d_model, dtype, device)
         params["mlp"] = lyr.mlp_init(generator, cfg, dtype, device)
     return params
+
+
+def _layer_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Logical axes of ``_layer_init``'s parameters."""
+    specs = {"ln1": lyr.NORM_SPECS}
+    if cfg.family != FAMILY_SSM:
+        specs["attn"] = attn_mod.attn_specs(cfg)
+    if cfg.family in (FAMILY_SSM, FAMILY_HYBRID):
+        specs["ssd"] = ssm_mod.ssd_specs(cfg)
+    if cross:
+        specs["ln_x"] = lyr.NORM_SPECS
+        specs["xattn"] = attn_mod.attn_specs(cfg)
+    if cfg.family == FAMILY_MOE:
+        specs["ln2"] = lyr.NORM_SPECS
+        specs["moe"] = moe_mod.moe_specs(cfg)
+    elif cfg.d_ff > 0:
+        specs["ln2"] = lyr.NORM_SPECS
+        specs["mlp"] = lyr.mlp_specs(cfg)
+    return specs
+
+
+def _flat_specs(tree: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
@@ -181,6 +230,7 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
     elif "mlp" in lp:
         h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
         x = x + lyr.mlp_apply(lp["mlp"], h2, cfg, cd)
+    x = shd.constrain(x, shd.BATCH, None, None)
     return x, aux, collected
 
 
@@ -197,11 +247,26 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
         else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _in_ctx(fn):
+    """``fn`` under the ambient ``ShardCtx`` of this call: a checkpoint's
+    recompute runs in the backward, on autograd's device thread on the
+    card, where the thread-local context is not set."""
+    ctx = shd.current_ctx()
+    if ctx is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with shd.use_ctx(ctx):
+            return fn(*args, **kwargs)
+    return run
+
+
 def _remat_wrap(fn, policy: str):
     """``fn`` under ``policy``: plain, checkpointed, or checkpointed
     saving the matrix products."""
     if policy == "none":
         return fn
+    fn = _in_ctx(fn)
     kw = {}
     if policy == "dots":
         kw["context_fn"] = functools.partial(
@@ -290,6 +355,11 @@ class Model(nn.Module):
         if kv_cache_bits not in (8, 16):
             raise ValueError(f"kv_cache_bits must be 8 or 16, got "
                              f"{kv_cache_bits}")
+        if shd.mesh_ctx() is not None and cfg.family not in MESH_FAMILIES:
+            raise NotImplementedError(
+                f"family {cfg.family!r} under a mesh of more than one rank "
+                f"is not ported (tensor parallelism of the SSD block and "
+                f"the frontends; of {MESH_FAMILIES})")
         self.cfg = cfg
         self.kv_repeat = kv_repeat
         self.remat_group = remat_group
@@ -323,7 +393,50 @@ class Model(nn.Module):
             self.enc_norm = _Params(lyr.rmsnorm_init(cfg.d_model, dtype,
                                                      dev))
         self.final_norm = _Params(lyr.rmsnorm_init(cfg.d_model, dtype, dev))
+        ctx = shd.mesh_ctx()
+        if ctx is not None:
+            # the same draws as on one device; this rank keeps its shard
+            specs = self.specs()
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    sl = shd.shard_slices(p.shape, ctx.pspec(*specs[name]),
+                                          ctx.mesh)
+                    p.data = p.data[sl].clone()
         return dict(self.named_parameters())
+
+    def specs(self) -> Dict[str, tuple]:
+        """Every parameter's logical axes by name (``init``'s keys): the
+        JAX ``specs()`` under ``convert.py``'s naming, each stacked leaf's
+        leading ``layers`` axis dropped, as the port keeps one tensor a
+        layer."""
+        cfg = self.cfg
+        out = _flat_specs({"embed": lyr.embed_specs(cfg)}, "")
+        layer = _flat_specs(_layer_specs(cfg, cross=cfg.family in CROSS), "")
+        for i in range(cfg.num_layers):
+            out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+        if cfg.encoder_layers:
+            enc = _flat_specs(_layer_specs(cfg), "")
+            for i in range(cfg.encoder_layers):
+                out.update({f"encoder.{i}.{k}": v for k, v in enc.items()})
+            out["enc_norm.scale"] = lyr.NORM_SPECS["scale"]
+        out["final_norm.scale"] = lyr.NORM_SPECS["scale"]
+        return out
+
+    def _gather_fsdp(self, params: Mapping[str, torch.Tensor],
+                     ctx: shd.ShardCtx) -> Dict[str, torch.Tensor]:
+        """Each local shard with its dims over the data-parallel axes
+        gathered (ZeRO-3's use of a weight); the model-axis dims stay
+        local."""
+        specs = self.specs()
+        out = {}
+        for name, t in params.items():
+            for dim, entry in enumerate(ctx.pspec(*specs[name])):
+                axes = [a for a in shd.entry_axes(entry)
+                        if a != shd.MODEL_AXIS]
+                if axes:
+                    t = col.gather(t, ctx.mesh, axes, dim)
+            out[name] = t
+        return out
 
     def _split(self, params: Optional[Mapping[str, torch.Tensor]]) -> dict:
         """``params`` (``None``: the model's own) by head of the tree:
@@ -332,6 +445,9 @@ class Model(nn.Module):
         under no head raises: it would otherwise get no gradient and no
         update."""
         p = dict(self.named_parameters()) if params is None else params
+        ctx = shd.mesh_ctx()
+        if ctx is not None:
+            p = self._gather_fsdp(p, ctx)
         cfg = self.cfg
         flat: dict = {"embed": {}, "enc_norm": {}, "final_norm": {},
                       "layers": [{} for _ in range(cfg.num_layers)],
@@ -435,7 +551,8 @@ class Model(nn.Module):
         g = self.remat_group
         if g > 1 and cfg.num_layers % g == 0:
             for i in range(0, cfg.num_layers, g):
-                x, aux = checkpoint(run, layers[i:i + g], cross[i:i + g], x,
+                x, aux = checkpoint(_in_ctx(run), layers[i:i + g],
+                                    cross[i:i + g], x,
                                     aux, use_reentrant=False)
         else:
             x, aux = run(layers, cross, x, aux)
@@ -452,12 +569,45 @@ class Model(nn.Module):
             logits = logits[:, logits.shape[1] - targets.shape[1]:]
         mask = (targets >= 0).float()
         tgt = targets.clamp(min=0)
+        ctx = shd.mesh_ctx()
+        if ctx is not None:
+            return self._mesh_loss(ctx, logits, aux, tgt, mask)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
         ce = (logz - gold) * mask
         ntok = mask.sum().clamp(min=1.0)
         loss = ce.sum() / ntok + aux
         return loss, {"ce": ce.sum() / ntok, "aux": aux, "ntok": ntok}
+
+    def _mesh_loss(self, ctx: shd.ShardCtx, logits: torch.Tensor,
+                   aux: torch.Tensor, tgt: torch.Tensor,
+                   mask: torch.Tensor) -> tuple:
+        """The loss on a data shard with this rank's vocab shard of the
+        logits: the softmax's max, sum and the gold logit reduced over
+        ``model``; this shard's CE sum over the *global* token count.
+        Returns (the loss this rank differentiates, the global metrics,
+        ``loss`` among them). Where the batch is replicated over a
+        data-parallel axis, each replica takes its share of the loss."""
+        mesh, axis = ctx.mesh, ctx.axis(shd.VOCAB)
+        batch_axes = ctx.profile.batch_axes
+        m = col.all_reduce(logits.detach().amax(-1), mesh, axis, op="max")
+        sumexp = col.reduce_from(torch.exp(logits - m[..., None]).sum(-1),
+                                 mesh, axis)
+        logz = torch.log(sumexp) + m
+        vp = logits.shape[-1]
+        local = tgt - (0 if axis is None else mesh.index(axis) * vp)
+        hit = (local >= 0) & (local < vp)
+        gold = torch.gather(logits, -1, local.clamp(0, vp - 1)[..., None])
+        gold = col.reduce_from(gold[..., 0] * hit, mesh, axis)
+        ce = ((logz - gold) * mask).sum()
+        ntok = _global_ntok(mask.sum(), mesh, batch_axes).clamp(min=1.0)
+        replicas = mesh.world // (ctx.shards(batch_axes)
+                                  * mesh.size(shd.MODEL_AXIS))
+        loss = (ce / ntok + aux) / replicas
+        ce_all = col.all_reduce(ce.detach(), mesh, batch_axes) / ntok
+        aux = aux.detach()
+        return loss, {"ce": ce_all, "aux": aux, "ntok": ntok,
+                      "loss": ce_all + aux}
 
     # -------------------------------------------------- serving
     def cache_len_for(self, seq_len: int) -> int:
@@ -512,6 +662,7 @@ class Model(nn.Module):
         the last ``window`` keys of a longer prompt in slots
         ``0..window-1``. The cross K/V of every frame of the batch fill
         ``cross_k``/``cross_v``."""
+        _no_mesh("serving")
         cfg = self.cfg
         cd = lyr.dtype_of(cfg.compute_dtype)
         tree = self._split(params)
@@ -564,6 +715,7 @@ class Model(nn.Module):
         ``init_state``) and the conv tail between them, so that peak
         activation memory is O(chunk). Returns (last-token logits,
         decode-ready cache)."""
+        _no_mesh("serving")
         cfg = self.cfg
         if cfg.family != FAMILY_SSM:
             raise ValueError("streaming prefill is SSM-only")
@@ -600,6 +752,7 @@ class Model(nn.Module):
                     tokens: torch.Tensor, cache: dict):
         """tokens [B, 1] -> (logits [B,1,Vp] fp32, the cache with this
         token written in place and ``pos + 1``)."""
+        _no_mesh("serving")
         cfg = self.cfg
         cd = lyr.dtype_of(cfg.compute_dtype)
         tree = self._split(params)
@@ -615,3 +768,15 @@ class Model(nn.Module):
         cache["pos"] = torch.full((), pos + 1, dtype=torch.int32,
                                   device=cache["pos"].device)
         return logits, cache
+
+
+def _global_ntok(ntok: torch.Tensor, mesh, batch_axes) -> torch.Tensor:
+    """The token count of the whole batch: this shard's, summed over the
+    batch axes."""
+    return col.all_reduce(ntok.detach(), mesh, batch_axes)
+
+
+def _no_mesh(what: str) -> None:
+    if shd.mesh_ctx() is not None:
+        raise NotImplementedError(f"{what} under a mesh of more than one "
+                                  "rank is not ported")

@@ -16,6 +16,13 @@ leading ``layers`` axis (``convert.model_params_to_jax``). Writes go to a
 ``.tmp`` directory first and are renamed only after fsync, so a crash
 mid-save never corrupts the previous checkpoint. ``AsyncCheckpointer``
 copies the state to the host, then persists it on a background thread.
+
+A state sharded on a mesh of more than one rank (``model=`` under the
+ambient ``ShardCtx``) is saved as its full arrays: every rank of the
+mesh gathers them, the mesh's rank 0 writes, and the others wait for it.
+So a checkpoint stays mesh-agnostic (JAX ``train/elastic.py``): it
+restores as full arrays, and ``elastic.elastic_reshard`` places them on
+any mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
 from repro_torch.train.train_step import TrainState
 
 
@@ -66,7 +75,20 @@ def _host(x) -> np.ndarray:
 
 
 def save_checkpoint(ckpt_dir: Path, state, step: int,
-                    metadata: Optional[Dict] = None) -> Path:
+                    metadata: Optional[Dict] = None, model=None) -> Path:
+    """Write ``state`` as step ``step``. ``model``: the state's model,
+    where the state may be sharded on the ambient mesh (then every rank
+    of the mesh calls this)."""
+    ctx = shd.mesh_ctx()
+    if model is not None and ctx is not None:
+        from repro_torch.train.elastic import gather_state
+        full = gather_state(state, model, ctx.mesh, ctx.rules)
+        path = Path(ckpt_dir) / f"step_{step:08d}"
+        if ctx.mesh.rank == 0:
+            path = save_checkpoint(ckpt_dir, full, step, metadata)
+        col.all_reduce(torch.zeros((), device=ctx.mesh.device), ctx.mesh,
+                       ctx.mesh.axes, kind="barrier")
+        return path
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"

@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as col
 from repro_torch.models.transformer import STACKED
 
 
@@ -62,9 +63,21 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    leaves = [x.float().square().sum() for x in tree.values()]
-    return torch.stack(leaves).sum().sqrt()
+def global_norm(tree: Mapping[str, torch.Tensor],
+                replicas: Optional[Mapping[str, int]] = None,
+                mesh=None) -> torch.Tensor:
+    """The norm of every leaf together. Under a mesh the leaves are this
+    rank's shards: the squares are summed over every rank, each divided by
+    the number of ranks that hold an equal copy (``replicas``), so that a
+    replicated tensor counts once."""
+    if mesh is None:
+        leaves = [x.float().square().sum() for x in tree.values()]
+        return torch.stack(leaves).sum().sqrt()
+    leaves = [x.float().square().sum() / replicas[n]
+              for n, x in tree.items()]
+    total = col.all_reduce(torch.stack(leaves).sum(), mesh, mesh.axes,
+                           kind="norm_all_reduce")
+    return total.sqrt()
 
 
 def jax_rank(name: str, p: torch.Tensor) -> int:
@@ -76,12 +89,15 @@ def jax_rank(name: str, p: torch.Tensor) -> int:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params: Mapping[str, torch.Tensor],
-                 grads: Mapping[str, torch.Tensor], opt_state: dict
+                 grads: Mapping[str, torch.Tensor], opt_state: dict,
+                 replicas: Optional[Mapping[str, int]] = None, mesh=None
                  ) -> Tuple[Mapping[str, torch.Tensor], dict,
                             Dict[str, torch.Tensor]]:
     """One AdamW step, in place on ``params`` and the moments. Returns
-    (params, opt_state, stats) as the JAX function does."""
-    gnorm = global_norm(grads)
+    (params, opt_state, stats) as the JAX function does. Under a mesh
+    (``mesh``, ``replicas``: ``global_norm``'s) the tensors are this
+    rank's shards, and the moments are sharded as their parameters."""
+    gnorm = global_norm(grads, replicas, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = opt_state["step"] + 1

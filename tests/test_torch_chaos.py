@@ -24,10 +24,17 @@ def test_soak_differential_chaos_faults(tmp_path, pipelined):
     """A quarter of the store's get/put/commit/readahead calls fail: the
     retries absorb every one (``max_consecutive=2`` below the retry
     limit), the ladder sheds readahead first and moves one rung at a
-    time, and every window meets the oracle."""
+    time, and every window meets the oracle.
+
+    The stream steps with the engine's I/O thread idle (``step_barrier``):
+    how many store calls the I/O thread makes, and so how many faults
+    are injected, follows its pace against the driving loop, which the
+    machine's load sets
+    (``test_chaos_fault_count_follows_the_io_threads_pace``)."""
     results, events, totals = drive(
         "average", True, False, tmp_path, pooled=True,
-        pipelined=pipelined, fault_rate=0.25, fault_seed=77)
+        pipelined=pipelined, fault_rate=0.25, fault_seed=77,
+        step_barrier=True)
     hold_average(results, oracle_average(events))
     assert totals.ingested == N_EVENTS
     assert totals.injected_faults > 100
@@ -40,6 +47,31 @@ def test_soak_differential_chaos_faults(tmp_path, pipelined):
         assert abs(to - frm) == 1
     assert totals.shed_readahead_drives > 0
     assert totals.deferred_events == totals.readmitted_events
+
+
+def test_chaos_fault_count_follows_the_io_threads_pace(tmp_path,
+                                                       monkeypatch):
+    """Why the chaos rows step with the I/O thread idle: slowed by 2 ms a
+    store call, an I/O thread that the loop does not wait for makes so few
+    calls that fewer than 100 faults are injected (the rows' own floor)
+    and the breaker barely moves; stepping with it idle, the same slowed
+    thread injects as many as the rows inject at full speed."""
+    import test_torch_soak as T
+    real = T.make_engine
+
+    def slowed(*a, **kw):
+        eng = real(*a, **kw)
+        eng._fault_injector.latency = 2e-3
+        return eng
+
+    monkeypatch.setattr(T, "make_engine", slowed)
+    counts = {}
+    for barrier in (False, True):
+        _, _, totals = drive("average", True, False, tmp_path / str(barrier),
+                             pooled=True, pipelined=True, fault_rate=0.25,
+                             fault_seed=77, step_barrier=barrier)
+        counts[barrier] = totals.injected_faults
+    assert counts[False] < 100 < counts[True], counts
 
 
 def test_soak_differential_chaos_restart(tmp_path):

@@ -39,6 +39,8 @@ SLICE_MODULES = [
     "repro_torch.testing", "repro_torch.testing.faults",
     "repro_torch.models.moe", "repro_torch.train.compression",
     "repro_torch.distributed.sharding",
+    "repro_torch.distributed.collectives", "repro_torch.launch.mesh",
+    "repro_torch.train.elastic",
 ]
 
 #: classes each slice added to a module the walk imports: (module, name)
@@ -49,6 +51,9 @@ SLICE_CLASSES = [
     ("repro_torch.distributed", "RestartManager"),
     ("repro_torch.testing", "FaultInjector"),
     ("repro_torch.testing", "FaultyBlockStore"),
+    ("repro_torch.distributed", "ShardCtx"),
+    ("repro_torch.distributed", "use_ctx"),
+    ("repro_torch.distributed", "make_rules"),
 ]
 
 
