@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--windows 3] [--splitk-windows 2]
-                          [--lrb-windows 2] [--pipeline-windows 3]
+    python3 chip_smoke.py [--windows 2] [--splitk-windows 2]
+                          [--lrb-windows 2] [--pipeline-windows 2]
                           [--failure-windows 2] [--tenant-seconds 45]
                           [--chaos-windows 2] [--recovery-windows 2]
                           [--sharded-windows 3]
@@ -407,7 +407,7 @@ Phases (the first failed check exits non-zero, with no result line):
    and SHARD_SUM_ATOL; pool slot 0 NaN and inert); printed beside phase
    1's events/s, the rows and launches by shard, and the close-out's
    device busy share.
-28. The LM half of multi-device training (run last): a (2, 2) mesh
+28. The LM half of multi-device training and serving (run last): a (2, 2) mesh
    (``data``, ``model``) of four ranks spawned on ``cuda:0`` and joined by
    gloo (NCCL refuses two ranks on one device), every collective an
    all-reduce across the host; the kernels are built
@@ -433,8 +433,27 @@ Phases (the first failed check exits non-zero, with no result line):
    layer's full weights (JAX's expert parallelism: the capacity from
    the local token count) within MOE_EP_RTOL, the expert outputs'
    ``model`` reduce dropped as the control, then ``LM_MOE_RUN["steps"]``
-   steps whose losses must be finite and equal on every rank. Printed:
-   tokens/s, each rank's peak memory, each collective's calls, bytes
+   steps whose losses must be finite and equal on every rank.
+   28c and 28d, serving under the same mesh on the same ranks
+   (``LM_SERVE``, bf16 weights and compute): 28c starcoder2-7b at full
+   width with 4 layers, a prefill of 2 x 4,096 under the prefill rules
+   (the batch over ``data``, K5 once a layer on each rank's 18 query and
+   2 KV heads), the cache handed over to the decode rules' layout (all 4
+   KV heads over each rank's 2,080 of 4,160 slots), then 32 decode
+   steps (context-parallel: q gathered over ``model``, the partial
+   softmax merged across it, each rank writing the token only where its
+   slice holds the slot); 28d qwen3-moe-30b with 2 layers (64 experts a
+   rank), 2 x 2,048, 2,064 slots, 16 steps. Rank 0 first runs the
+   one-process prefill and greedy decode on the same weights and saves
+   its logits and tokens; the mesh decodes those tokens, and every
+   rank's prefill and step logits (its rows and vocab shard) must lie
+   within TF_RTOL of the row's norm; the next tokens' agreement is read.
+   A float32-compute rerun at 2 layers (prefill and 2 steps) must lie
+   within TF_F32_RTOL, and with the merge's ``model`` reduce dropped
+   (each rank attending only its slice) read at least CONTROL_FACTOR x
+   that. The main path (bf16 prefill and steps) is counted: K5 once a
+   layer on every rank, on wgmma. Printed for every part: tokens/s on the
+   host clock, each rank's peak memory, each collective's calls, bytes
    and host seconds, with the card's name and power limit; four ranks on
    one card share its SMs, so nothing here speaks of scaling.
 
@@ -446,8 +465,8 @@ readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16,
 27a-27e, 4, 6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
-and 25a (and 28a and 28b on each rank) and read just after; every bf16
-launch of K5 and K6 in phases 4, 28a,
+and 25a (and 28a-28d on each rank) and read just after; every bf16
+launch of K5 and K6 in phases 4, 28a, 28c, 28d,
 6b, 10, 17a, 18, 19, 21b, 23a, 24b and 25a must have gone through the
 wgmma design, and every K7 launch of 20b and 21b through the tensor
 design. A segment kernel's
@@ -458,7 +477,8 @@ in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a), and
 ``launches_by_shard`` each shard's launches in phase 27 by design); K4's
 and K5's are their counts in phase 4, K6's in phase 6b, K7's in phase
 9a; K5's and K6's ``non_causal`` hold phase 26's replays and their
-``launches_by_rank`` each rank's count in phases 28a and 28b. The
+``launches_by_rank`` each rank's count in phases 28a-28d (K5's serving
+launches are 28c's and 28d's). The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -5790,7 +5810,8 @@ def frontend_phases(device, every: dict, small: bool = False) -> dict:
 #: one device). 28a: TRAIN_ARCH at full width with 4 layers, bf16 compute;
 #: 28b: MOE_ARCH at full width with 2 layers, experts over ``model``
 LM_MESH = (2, 2)
-LM_DENSE_RUN = dict(layers=4, batch=2, seq=4096, steps=3)
+#: (28a takes 2 steps, cut from 3 to pay for 28c and 28d)
+LM_DENSE_RUN = dict(layers=4, batch=2, seq=4096, steps=2)
 LM_MOE_RUN = dict(layers=2, batch=2, seq=4096, steps=2)
 #: the CPU rehearsal's runs: the reduced configs
 SMALL_LM_DENSE = dict(layers=2, batch=2, seq=128, steps=2)
@@ -5802,6 +5823,28 @@ MOE_EP_RTOL = 2e-2
 #: torch threads a rank (four ranks share the host's cores)
 LM_THREADS = 2
 LM_TIMEOUT_S = 600.0
+#: phase 28's parts, each by the key of its ranks' records
+LM_PARTS = {"28a": "dense", "28b": "moe", "28c": "serve_dense",
+            "28d": "serve_moe"}
+#: 28c/28d: serving under the (2, 2) mesh, bf16 weights and compute. The
+#: prefill of ``batch`` x ``seq`` under the prefill rules (the batch over
+#: ``data``, each rank's heads through K5), the cache handed over to the
+#: decode rules' layout (every KV head over this rank's half of ``cap``
+#: slots), then ``steps`` decode steps on rank 0's one-process greedy
+#: tokens; the check reruns the prefill and ``check_steps`` steps in
+#: float32 compute at ``check_layers`` layers, with the merge's ``model``
+#: reduce dropped as the control. 28c: TRAIN_ARCH with 4 layers; 28d:
+#: MOE_ARCH with 2 (64 experts a rank)
+LM_SERVE = {
+    "dense": dict(arch=TRAIN_ARCH, layers=4, batch=2, seq=4096, cap=4160,
+                  steps=32, check_layers=2, check_steps=2),
+    "moe": dict(arch=MOE_ARCH, layers=2, batch=2, seq=2048, cap=2064,
+                steps=16, check_layers=2, check_steps=2)}
+SMALL_LM_SERVE = {
+    "dense": dict(arch=TRAIN_ARCH, layers=2, batch=2, seq=128, cap=136,
+                  steps=3, check_layers=2, check_steps=2),
+    "moe": dict(arch=MOE_ARCH, layers=2, batch=2, seq=128, cap=136,
+                steps=3, check_layers=2, check_steps=2)}
 
 
 def _lm_cfg(arch: str, run: dict, small: bool):
@@ -6170,10 +6213,213 @@ def _lm_moe(rank: int, mesh, dev, small: bool, wrappers: dict) -> dict:
     return rec
 
 
-def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str
-                  ) -> dict:
+def _serve_cfg(run: dict, small: bool, layers: int, compute: str):
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(run["arch"])
+    if small:
+        cfg = reduced(cfg)
+    return dataclasses.replace(cfg, num_layers=layers,
+                               param_dtype="bfloat16", compute_dtype=compute)
+
+
+def _serve_prompt(cfg, run: dict, dev):
+    import torch
+    g = torch.Generator().manual_seed(SEED + 30)
+    return torch.randint(0, cfg.vocab_size, (run["batch"], run["seq"]),
+                         generator=g).to(dev)
+
+
+def _serve_ref(cfg, run: dict, dev, steps: int, where: Path) -> None:
+    """Rank 0's one-process serving on the mesh's weights: the prefill and
+    ``steps`` greedy decode steps; every logits tensor and the tokens
+    (the prefill's next token, then each step's) saved under ``where``."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 31))
+    logits, cache = model.prefill(params, {"tokens": _serve_prompt(
+        cfg, run, dev)}, max_len=run["cap"])
+    lgs, toks = [logits], [logits.argmax(-1)]
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, toks[-1], cache)
+        lgs.append(logits)
+        toks.append(logits.argmax(-1))
+    where.mkdir(parents=True, exist_ok=True)
+    np.save(where / "logits.npy", torch.stack(lgs).float().cpu().numpy())
+    np.save(where / "tokens.npy", torch.stack(toks).cpu().numpy())
+    del model, params, cache, lgs
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _shard_rows_rel(ctx, got, want, vocab: int) -> float:
+    """The worst row's distance between this rank's vocab shard of the
+    logits [B_local, 1, V_shard] and the same rows and columns of the
+    whole ``want`` [B, 1, V] (numpy), in units of the whole row's norm:
+    the sums of squares over each shard's real columns added over
+    ``model``."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    mesh, axis = ctx.mesh, ctx.axis(shd.VOCAB)
+    pspec = (ctx.profile.batch_axes or None, None, ctx.rules[shd.VOCAB])
+    sl = shd.shard_slices(want.shape, pspec, mesh)
+    w = torch.from_numpy(np.array(want[sl])).to(got.device)
+    lo = sl[2].start
+    real = torch.arange(lo, lo + w.shape[-1], device=got.device) < vocab
+    g = got.float()
+    check(bool(torch.isfinite(g[..., real]).all()), "logits not finite")
+    zero = torch.zeros((), device=got.device)
+    # the pad columns (-1e30 on both sides) count nothing
+    sums = torch.stack([torch.where(real, (g - w).square(), zero).sum(-1),
+                        torch.where(real, w.square(), zero).sum(-1)])
+    sums = col.all_reduce(sums, mesh, axis, kind="check")
+    return float((sums[0].sqrt() / sums[1].sqrt()).max())
+
+
+def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
+                control: bool = False) -> dict:
+    """The mesh's serving of ``run`` on this rank (module comment of
+    LM_SERVE): the prefill's and every step's logits against rank 0's
+    saved ones (``_shard_rows_rel``), the next tokens (``vocab_argmax``)
+    against its greedy ones, host seconds around synchronised prefill
+    and steps; ``control`` decodes the steps again with the merge's
+    ``model`` reduce dropped."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serve_step import vocab_argmax
+    from repro_torch.train.train_step import local_batch
+    mesh_cfg = MeshConfig(LM_MESH, ("data", "model"))
+    ctxs = {}
+    for kind, n in (("prefill", run["seq"]), ("decode", run["cap"])):
+        prof = shd.sharding_profile(cfg, mesh_cfg, run["batch"], n, kind)
+        ctxs[kind] = shd.ShardCtx(mesh, shd.make_rules(
+            cfg, mesh_cfg, run["batch"], n, kind), prof)
+    pctx, dctx = ctxs["prefill"], ctxs["decode"]
+    check(dctx.profile.kv_seq_shard, "the decode cache is not sequence-"
+                                     "sharded over model")
+    ref_logits = np.load(where / "logits.npy", mmap_mode="r")
+    ref_toks = torch.from_numpy(np.load(where / "tokens.npy")).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {"kv_repeat": (pctx.profile.kv_repeat, dctx.profile.kv_repeat)}
+    with shd.use_ctx(pctx):
+        model = build_model(cfg, kv_repeat=pctx.profile.kv_repeat,
+                            device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(SEED + 31))
+        prompt = local_batch({"tokens": _serve_prompt(cfg, run, dev)},
+                             pctx)["tokens"]
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      max_len=run["cap"])
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_rel"] = _shard_rows_rel(pctx, logits, ref_logits[0],
+                                             cfg.vocab_size)
+        tok = vocab_argmax(logits)
+        full = convert.gather_cache(cache, model)
+        del cache, logits
+    # the prefill's stored heads without its repeat: every r-th head
+    r = pctx.profile.kv_repeat // dctx.profile.kv_repeat
+    full["layers"] = {k: t[:, :, :, ::r] for k, t in full["layers"].items()}
+    agree = [int((tok == local_batch({"tokens": ref_toks[0]}, pctx)
+                  ["tokens"]).sum())]
+    with shd.use_ctx(dctx):
+        dmodel = model if r == 1 else build_model(
+            cfg, kv_repeat=dctx.profile.kv_repeat, device=dev)
+
+        def decode(tag):
+            cache = convert.shard_cache(full, dmodel)
+            rels, secs = [], []
+            for i in range(steps):
+                t = local_batch({"tokens": ref_toks[i]}, dctx)["tokens"]
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = dmodel.decode_step(params, t, cache)
+                sync()
+                secs.append(time.perf_counter() - t0)
+                rels.append(_shard_rows_rel(dctx, lg, ref_logits[i + 1],
+                                            cfg.vocab_size))
+                if tag == "main":
+                    want = local_batch({"tokens": ref_toks[i + 1]},
+                                       dctx)["tokens"]
+                    agree.append(int((vocab_argmax(lg) == want).sum()))
+            out[f"{tag}_rels"], out[f"{tag}_s"] = rels, secs
+            out["cache_slots"] = int(cache["layers"]["k"].shape[2])
+
+        decode("main")
+        if control:
+            real = attn_mod.merge_partials
+            attn_mod.merge_partials = lambda m, l, acc, rmax, rsum: real(
+                m, l, acc, lambda x: x, lambda x: x)
+            try:
+                decode("control")
+            finally:
+                attn_mod.merge_partials = real
+    out["agree"] = agree
+    out["rows"] = int(prompt.shape[0])
+    del model, dmodel, params, full
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_serve(rank: int, mesh, dev, small: bool, wrappers: dict,
+              ref_dir: Path, part: str) -> dict:
+    """28c (``part`` dense) or 28d (moe) on this rank: rank 0's
+    one-process references (bf16, then float32 at ``check_layers``), then
+    the main path on the mesh (bf16: prefill and ``steps`` steps, the
+    kernel counters set to 0 just before and read just after, the
+    collectives and peak memory read), then the float32 check and its
+    control."""
+    import torch
+    from repro_torch.distributed import collectives as col
+    run = (SMALL_LM_SERVE if small else LM_SERVE)[part]
+    cfg = _serve_cfg(run, small, run["layers"], "bfloat16")
+    cfg32 = _serve_cfg(run, small, run["check_layers"], "float32")
+    where = ref_dir / f"serve_{part}"
+    where32 = ref_dir / f"serve_{part}_fp32"
+    rec = {"rank": rank, "data": mesh.index("data"),
+           "model": mesh.index("model")}
+    if rank == 0:
+        t0 = time.perf_counter()
+        _serve_ref(cfg, run, dev, run["steps"], where)
+        _serve_ref(cfg32, run, dev, run["check_steps"], where32)
+        rec["ref_s"] = time.perf_counter() - t0
+    _lm_barrier(mesh)
+    zero_counts(wrappers.values())
+    col.reset_stats()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rec["bf16"] = _serve_mesh(cfg, run, mesh, dev, run["steps"], where)
+    rec["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    rec["by_design"] = by_design(wrappers)
+    rec["collectives"] = {k: dict(v) for k, v in col.STATS.items()}
+    if dev.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["fp32"] = _serve_mesh(cfg32, run, mesh, dev, run["check_steps"],
+                              where32, control=True)
+    return rec
+
+
+def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str,
+                  parts: tuple = tuple(LM_PARTS)) -> dict:
     """One rank of phase 28's world: the (2, 2) mesh over the four ranks,
-    then 28a and 28b."""
+    then 28a, 28b, 28c and 28d (those of ``parts``)."""
     import torch
     from repro_torch.configs.base import MeshConfig
     from repro_torch.launch.mesh import make_mesh_from_config
@@ -6184,13 +6430,19 @@ def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str
     mesh = make_mesh_from_config(MeshConfig(LM_MESH, ("data", "model")),
                                  dev)
     wrappers = all_wrappers()
-    t0 = time.perf_counter()
-    dense = _lm_dense(rank, mesh, dev, small, wrappers, Path(ref_dir))
-    dense["wall_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    moe = _lm_moe(rank, mesh, dev, small, wrappers)
-    moe["wall_s"] = time.perf_counter() - t0
-    return {"dense": dense, "moe": moe}
+    runs = {"28a": lambda: _lm_dense(rank, mesh, dev, small, wrappers,
+                                     Path(ref_dir)),
+            "28b": lambda: _lm_moe(rank, mesh, dev, small, wrappers),
+            "28c": lambda: _lm_serve(rank, mesh, dev, small, wrappers,
+                                     Path(ref_dir), "dense"),
+            "28d": lambda: _lm_serve(rank, mesh, dev, small, wrappers,
+                                     Path(ref_dir), "moe")}
+    out = {}
+    for tag in parts:
+        t0 = time.perf_counter()
+        out[LM_PARTS[tag]] = runs[tag]()
+        out[LM_PARTS[tag]]["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def _collective_line(stats: dict) -> str:
@@ -6198,16 +6450,18 @@ def _collective_line(stats: dict) -> str:
                      f"{v['seconds']:.2f} s" for k, v in sorted(stats.items()))
 
 
-def lm_world_phase(dev, card: str, small: bool = False) -> dict:
+def lm_world_phase(dev, card: str, small: bool = False,
+                   parts: tuple = tuple(LM_PARTS)) -> dict:
     """Phase 28: spawn the world (four ranks on ``dev``), then hold what
-    each rank read. The kernels are built before (phase 0), so no rank
-    runs nvcc."""
+    each rank read in each of ``parts``. The kernels are built before
+    (phase 0), so no rank runs nvcc."""
     from repro_torch.launch.mesh import spawn_world
     t0 = time.perf_counter()
     ref_dir = Path(tempfile.mkdtemp(prefix="lm_ref_", dir=ROOT / "build"))
     try:
         ranks = spawn_world(lm_world_rank, math.prod(LM_MESH),
-                            (str(dev), small, str(ref_dir)), device=str(dev),
+                            (str(dev), small, str(ref_dir), tuple(parts)),
+                            device=str(dev),
                             timeout_s=LM_TIMEOUT_S,
                             threads=1 if dev.type == "cpu" else LM_THREADS)
     finally:
@@ -6218,105 +6472,179 @@ def lm_world_phase(dev, card: str, small: bool = False) -> dict:
         f"{wall:.1f} s ({card}): four ranks on one card share its SMs and "
         "its memory, and every collective crosses the host (gloo), so "
         "nothing here speaks of scaling across cards")
-    # 28a
-    run = SMALL_LM_DENSE if small else LM_DENSE_RUN
-    d = [r["dense"] for r in ranks]
-    r0 = d[0]
-    cfg = _lm_cfg(TRAIN_ARCH, run, small)
-    log(f"phase 28a: {cfg.name} at {'reduced' if small else 'full'} width "
-        f"({cfg.d_model} wide, {cfg.num_heads} heads, {cfg.num_kv_heads} "
-        f"KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) with "
-        f"{cfg.num_layers} layers, {run['batch']} x {run['seq']} tokens a "
-        f"step, bf16 compute; one-process reference in {r0['ref_s']:.1f} s "
-        f"({card})")
-    log(f"phase 28a: the first step on the mesh against the one-process "
-        f"step: loss {r0['loss']:.6f} (off by {r0['loss_err']:.3g}, limit "
-        f"{LOSS_TOL}), the worst gradient {r0['worst_param']} off by "
-        f"{r0['grad_rel_err']:.3g} of its norm (limit {GRAD_RTOL})")
-    check(r0["loss_err"] <= LOSS_TOL, f"28a: loss off by {r0['loss_err']}")
-    check(r0["grad_rel_err"] <= GRAD_RTOL,
-          f"28a: {r0['worst_param']} off by {r0['grad_rel_err']:.3g}")
-    r0["control_ratio"] = control_reads(
-        f"the o projection's model reduce dropped ({r0['control_param']})",
-        r0["control_rel_err"], GRAD_RTOL)
-    tokens = run["batch"] * run["seq"]
-    timed = r0["step_s"][1:] or r0["step_s"]
-    tps = tokens * len(timed) / sum(timed)
-    log(f"phase 28a: {run['steps']} steps: losses "
-        f"{[round(x, 4) for x in r0['losses']]} (one process "
-        f"{[round(x, 4) for x in r0['ref_losses']]}), step seconds "
-        f"{[round(x, 3) for x in r0['step_s']]}, {tps:.1f} tokens/s "
-        f"({card})")
-    for a, b in zip(r0["losses"], r0["ref_losses"]):
-        check(math.isfinite(a) and abs(a - b) <= 10 * LOSS_TOL * max(
-            1.0, abs(b)), f"28a: step loss {a} against one process {b}")
-    layers = cfg.num_layers
-    for r in d:
-        check(all(x == r0["losses"][i] for i, x in enumerate(r["losses"])),
-              f"28a: rank {r['rank']} reads losses {r['losses']}")
+    out = {"wall_s": wall}
+    if "dense" in ranks[0]:
+        run = SMALL_LM_DENSE if small else LM_DENSE_RUN
+        d = [r["dense"] for r in ranks]
+        r0 = d[0]
+        cfg = _lm_cfg(TRAIN_ARCH, run, small)
+        log(f"phase 28a: {cfg.name} at {'reduced' if small else 'full'} width "
+            f"({cfg.d_model} wide, {cfg.num_heads} heads, {cfg.num_kv_heads} "
+            f"KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) with "
+            f"{cfg.num_layers} layers, {run['batch']} x {run['seq']} tokens a "
+            f"step, bf16 compute; one-process reference in {r0['ref_s']:.1f} s "
+            f"({card})")
+        log(f"phase 28a: the first step on the mesh against the one-process "
+            f"step: loss {r0['loss']:.6f} (off by {r0['loss_err']:.3g}, limit "
+            f"{LOSS_TOL}), the worst gradient {r0['worst_param']} off by "
+            f"{r0['grad_rel_err']:.3g} of its norm (limit {GRAD_RTOL})")
+        check(r0["loss_err"] <= LOSS_TOL, f"28a: loss off by {r0['loss_err']}")
+        check(r0["grad_rel_err"] <= GRAD_RTOL,
+              f"28a: {r0['worst_param']} off by {r0['grad_rel_err']:.3g}")
+        r0["control_ratio"] = control_reads(
+            f"the o projection's model reduce dropped ({r0['control_param']})",
+            r0["control_rel_err"], GRAD_RTOL)
+        tokens = run["batch"] * run["seq"]
+        timed = r0["step_s"][1:] or r0["step_s"]
+        tps = tokens * len(timed) / sum(timed)
+        log(f"phase 28a: {run['steps']} steps: losses "
+            f"{[round(x, 4) for x in r0['losses']]} (one process "
+            f"{[round(x, 4) for x in r0['ref_losses']]}), step seconds "
+            f"{[round(x, 3) for x in r0['step_s']]}, {tps:.1f} tokens/s "
+            f"({card})")
+        for a, b in zip(r0["losses"], r0["ref_losses"]):
+            check(math.isfinite(a) and abs(a - b) <= 10 * LOSS_TOL * max(
+                1.0, abs(b)), f"28a: step loss {a} against one process {b}")
+        layers = cfg.num_layers
+        for r in d:
+            check(all(x == r0["losses"][i] for i, x in enumerate(r["losses"])),
+                  f"28a: rank {r['rank']} reads losses {r['losses']}")
+            mem = r.get("max_memory_allocated", 0) / 1e9
+            log(f"  rank {r['rank']}: {r['local_params'] / 1e6:.1f} M local "
+                f"parameters, max_memory_allocated {mem:.2f} GB, launches "
+                f"{r['launches']}; collectives: "
+                + _collective_line(r["collectives"]) + f" ({card})")
+            if cuda:
+                for k, per_step in (("K5", 2 * layers), ("K6", layers)):
+                    want = per_step * run["steps"]
+                    check(r["launches"][k] == want,
+                          f"28a: rank {r['rank']}: {k} launched "
+                          f"{r['launches'][k]} times, the path implies {want}")
+                    check(r["by_design"][k] == {"wgmma": want, "cuda_core": 0},
+                          f"28a: rank {r['rank']}: {k} by design "
+                          f"{r['by_design'][k]}")
+                for k in ("K5", "K6"):
+                    check(k in r["replays"], f"28a: rank {r['rank']}: no {k} "
+                                             "launch kept")
+            for k, rp in r["replays"].items():
+                log(f"  rank {r['rank']}: {k} replay ({rp['shape']}): worst row "
+                    f"{rp['row_err']:.3g}, {rp['ulps']:.1f} ulps, max_abs_err "
+                    f"{rp['max_abs_err']:.3g} ({card})")
+        out["dense"] = d
+    if "moe" in ranks[0]:
+        run = SMALL_LM_MOE if small else LM_MOE_RUN
+        m = [r["moe"] for r in ranks]
+        cfg = _lm_cfg(MOE_ARCH, run, small)
+        log(f"phase 28b: {cfg.name} with {cfg.num_layers} layers, "
+            f"{m[0]['local_experts']} of {cfg.moe.num_experts} experts a rank, "
+            f"{run['batch']} x {run['seq']} tokens a step, in "
+            f"{m[0]['wall_s']:.1f} s ({card})")
+        for r in m:
+            log(f"  rank {r['rank']} (data {r['data']}, model {r['model']}): "
+                f"MoE layer outputs off the one-process moe_forward of its "
+                f"tokens by {[f'{x:.3g}' for x in r['layer_rel_err']]} of their "
+                f"norm (limit {MOE_EP_RTOL}); losses {r['losses']}, step "
+                f"seconds {[round(x, 3) for x in r['step_s']]}, max_memory_"
+                f"allocated {r.get('max_memory_allocated', 0) / 1e9:.2f} GB, "
+                f"launches {r['launches']}; collectives: "
+                + _collective_line(r["collectives"]) + f" ({card})")
+            for i, e in enumerate(r["layer_rel_err"]):
+                check(e <= MOE_EP_RTOL, f"28b: rank {r['rank']} layer {i} off "
+                                        f"by {e:.3g}")
+            r["control_ratio"] = control_reads(
+                f"rank {r['rank']}: the expert outputs' model reduce dropped",
+                min(r["control_rel_err"]), MOE_EP_RTOL)
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"28b: rank {r['rank']} loss not finite")
+            check(r["losses"] == m[0]["losses"],
+                  f"28b: rank {r['rank']} reads losses {r['losses']}, rank 0 "
+                  f"{m[0]['losses']}")
+            if cuda:
+                for k in ("K5", "K6"):
+                    check(r["launches"][k] > 0, f"28b: rank {r['rank']}: {k} "
+                                                "never launched")
+        timed = m[0]["step_s"][1:] or m[0]["step_s"]
+        log(f"phase 28b: {run['batch'] * run['seq'] * len(timed) / sum(timed):.1f}"
+            f" tokens/s ({card})")
+        out["moe"] = m
+    for part, tag in (("dense", "28c"), ("moe", "28d")):
+        if f"serve_{part}" in ranks[0]:
+            out[f"serve_{part}"] = serve_report(
+                [r[f"serve_{part}"] for r in ranks], part, tag, small, card,
+                cuda)
+    return out
+
+
+def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
+                 cuda: bool) -> list:
+    """28c or 28d: print and hold what each rank read."""
+    run = (SMALL_LM_SERVE if small else LM_SERVE)[part]
+    cfg = _serve_cfg(run, small, run["layers"], "bfloat16")
+    r0 = rs[0]
+    kv = r0["bf16"]["kv_repeat"]
+    log(f"phase {tag}: {cfg.name} at {'reduced' if small else 'full'} "
+        f"width ({cfg.d_model} wide, {cfg.num_heads} heads, "
+        f"{cfg.num_kv_heads} KV heads, vocab {cfg.vocab_size}) with "
+        f"{cfg.num_layers} layers, bf16 weights and compute: a prefill of "
+        f"{run['batch']} x {run['seq']} under the prefill rules (KV "
+        f"repeat {kv[0]}), the cache handed over to the decode rules' "
+        f"layout ({run['cap']} slots, {r0['bf16']['cache_slots']} a rank, "
+        f"KV repeat {kv[1]}), then {run['steps']} decode steps on rank 0's "
+        f"greedy tokens; the one-process references in "
+        f"{r0['ref_s']:.1f} s, in {r0['wall_s']:.1f} s in all ({card})")
+    rows = sum(r["bf16"]["rows"] for r in rs if r["model"] == 0)
+    agree = [sum(r["bf16"]["agree"][i] for r in rs if r["model"] == 0)
+             for i in range(run["steps"] + 1)]
+    for r in rs:
+        b, f = r["bf16"], r["fp32"]
         mem = r.get("max_memory_allocated", 0) / 1e9
-        log(f"  rank {r['rank']}: {r['local_params'] / 1e6:.1f} M local "
-            f"parameters, max_memory_allocated {mem:.2f} GB, launches "
-            f"{r['launches']}; collectives: "
-            + _collective_line(r["collectives"]) + f" ({card})")
-        if cuda:
-            for k, per_step in (("K5", 2 * layers), ("K6", layers)):
-                want = per_step * run["steps"]
-                check(r["launches"][k] == want,
-                      f"28a: rank {r['rank']}: {k} launched "
-                      f"{r['launches'][k]} times, the path implies {want}")
-                check(r["by_design"][k] == {"wgmma": want, "cuda_core": 0},
-                      f"28a: rank {r['rank']}: {k} by design "
-                      f"{r['by_design'][k]}")
-            for k in ("K5", "K6"):
-                check(k in r["replays"], f"28a: rank {r['rank']}: no {k} "
-                                         "launch kept")
-        for k, rp in r["replays"].items():
-            log(f"  rank {r['rank']}: {k} replay ({rp['shape']}): worst row "
-                f"{rp['row_err']:.3g}, {rp['ulps']:.1f} ulps, max_abs_err "
-                f"{rp['max_abs_err']:.3g} ({card})")
-    # 28b
-    run = SMALL_LM_MOE if small else LM_MOE_RUN
-    m = [r["moe"] for r in ranks]
-    cfg = _lm_cfg(MOE_ARCH, run, small)
-    log(f"phase 28b: {cfg.name} with {cfg.num_layers} layers, "
-        f"{m[0]['local_experts']} of {cfg.moe.num_experts} experts a rank, "
-        f"{run['batch']} x {run['seq']} tokens a step, in "
-        f"{m[0]['wall_s']:.1f} s ({card})")
-    for r in m:
         log(f"  rank {r['rank']} (data {r['data']}, model {r['model']}): "
-            f"MoE layer outputs off the one-process moe_forward of its "
-            f"tokens by {[f'{x:.3g}' for x in r['layer_rel_err']]} of their "
-            f"norm (limit {MOE_EP_RTOL}); losses {r['losses']}, step "
-            f"seconds {[round(x, 3) for x in r['step_s']]}, max_memory_"
-            f"allocated {r.get('max_memory_allocated', 0) / 1e9:.2f} GB, "
-            f"launches {r['launches']}; collectives: "
+            f"bf16 prefill logits off by {b['prefill_rel']:.4g} of their "
+            f"row's norm, the worst decode step {max(b['main_rels']):.4g} "
+            f"(limit {TF_RTOL}); float32 at {run['check_layers']} layers: "
+            f"prefill {f['prefill_rel']:.3g}, steps "
+            f"{[f'{x:.3g}' for x in f['main_rels']]} (limit "
+            f"{TF_F32_RTOL}); prefill {b['prefill_s']:.3f} s, decode "
+            f"steps {sum(b['main_s']):.3f} s, max_memory_allocated "
+            f"{mem:.2f} GB, launches {r['launches']}, by design "
+            f"{r['by_design'].get('K5')}; collectives: "
             + _collective_line(r["collectives"]) + f" ({card})")
-        for i, e in enumerate(r["layer_rel_err"]):
-            check(e <= MOE_EP_RTOL, f"28b: rank {r['rank']} layer {i} off "
-                                    f"by {e:.3g}")
+        check(b["prefill_rel"] <= TF_RTOL, f"{tag}: rank {r['rank']} "
+              f"prefill logits off by {b['prefill_rel']:.4g}")
+        check(max(b["main_rels"]) <= TF_RTOL, f"{tag}: rank {r['rank']} "
+              f"decode logits off by {max(b['main_rels']):.4g}")
+        check(f["prefill_rel"] <= TF_F32_RTOL and max(f["main_rels"])
+              <= TF_F32_RTOL, f"{tag}: rank {r['rank']} float32 logits off "
+              f"by {f['prefill_rel']:.3g}, {f['main_rels']}")
         r["control_ratio"] = control_reads(
-            f"rank {r['rank']}: the expert outputs' model reduce dropped",
-            min(r["control_rel_err"]), MOE_EP_RTOL)
-        check(all(math.isfinite(x) for x in r["losses"]),
-              f"28b: rank {r['rank']} loss not finite")
-        check(r["losses"] == m[0]["losses"],
-              f"28b: rank {r['rank']} reads losses {r['losses']}, rank 0 "
-              f"{m[0]['losses']}")
+            f"{tag}: rank {r['rank']}: the merge's model reduce dropped",
+            max(f["control_rels"]), TF_F32_RTOL)
         if cuda:
-            for k in ("K5", "K6"):
-                check(r["launches"][k] > 0, f"28b: rank {r['rank']}: {k} "
-                                            "never launched")
-    timed = m[0]["step_s"][1:] or m[0]["step_s"]
-    log(f"phase 28b: {run['batch'] * run['seq'] * len(timed) / sum(timed):.1f}"
-        f" tokens/s ({card})")
-    return {"dense": d, "moe": m, "wall_s": wall}
+            layers = cfg.num_layers
+            check(r["launches"]["K5"] == layers,
+                  f"{tag}: rank {r['rank']}: K5 launched "
+                  f"{r['launches']['K5']} times, the prefill implies "
+                  f"{layers}")
+            check(r["by_design"]["K5"] == {"wgmma": layers,
+                                            "cuda_core": 0},
+                  f"{tag}: rank {r['rank']}: K5 by design "
+                  f"{r['by_design']['K5']}")
+    prefill_s = max(r["bf16"]["prefill_s"] for r in rs)
+    steps = r0["bf16"]["main_s"][1:] or r0["bf16"]["main_s"]
+    log(f"phase {tag}: prefill {run['batch'] * run['seq'] / prefill_s:.1f} "
+        f"tokens/s, decode {run['batch'] * len(steps) / sum(steps):.1f} "
+        f"tokens/s (steps 2-{run['steps']}, rank 0); next tokens equal to "
+        f"the one-process run's on {sum(agree)} of {rows * len(agree)} "
+        f"(prefill {agree[0]} of {rows}; read, not held: one rounding "
+        f"turns a near tie) ({card}): four ranks on one card and gloo "
+        "across the host, so these rates say nothing of scaling")
+    return rs
 
 
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--windows", type=float, default=3.0,
+    ap.add_argument("--windows", type=float, default=2.0,
                     help="windows of processing time streamed in phase 1")
     ap.add_argument("--splitk-windows", type=float, default=2.0,
                     help="windows of processing time streamed in phase 2")
@@ -6913,8 +7241,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm = lm_world_phase(dev, card)
     log(f"phase 28: {lm['wall_s']:.1f} s")
-    for part in ("dense", "moe"):
-        tag = "28a" if part == "dense" else "28b"
+    for tag, part in LM_PARTS.items():
         runs[f"lm_{tag}"] = {"launches_by_rank": [r["launches"]
                                                   for r in lm[part]],
                              "ranks": lm[part]}
@@ -6927,7 +7254,7 @@ def main(argv=None) -> int:
         if key in ("K5", "K6"):
             entry["launches_by_rank"] = {
                 tag: [r["launches"][key] for r in lm[part]]
-                for tag, part in (("28a", "dense"), ("28b", "moe"))}
+                for tag, part in LM_PARTS.items()}
             entry["replays_by_rank"] = [
                 r["replays"][key]["row_err"] for r in lm["dense"]
                 if key in r["replays"]]

@@ -367,3 +367,43 @@ def model_cache_from_jax(cache: Dict[str, Any], device=None
     pos = torch.tensor(int(np.asarray(cache["pos"])), dtype=torch.int32,
                        device=dev)
     return {"pos": pos, "layers": layers}
+
+
+def shard_cache(cache: Dict[str, Any], model, ctx=None,
+                device=None) -> Dict[str, Any]:
+    """A whole decode cache of the port (every leaf at its global shape)
+    -> this rank's piece of each leaf on the mesh of ``ctx`` (the ambient
+    ``ShardCtx`` by default), by ``model.cache_specs()`` and the
+    context's rules, on ``device`` (the mesh's by default); ``pos``
+    replicated. Without a mesh: the cache on ``device``."""
+    from repro_torch.distributed import sharding as shd
+    ctx = shd.current_ctx() if ctx is None else ctx
+    if ctx is None or ctx.mesh is None:
+        dev = device
+        specs, pick = {}, lambda t, n: t
+    else:
+        dev = ctx.mesh.device if device is None else device
+        specs = model.cache_specs()["layers"]
+
+        def pick(t, n):
+            return t[shd.shard_slices(t.shape, ctx.pspec(*specs[n]),
+                                      ctx.mesh)]
+    return {"pos": cache["pos"].to(dev),
+            "layers": {n: pick(t, n).contiguous().to(dev)
+                       for n, t in cache["layers"].items()}}
+
+
+def gather_cache(cache: Dict[str, Any], model, ctx=None) -> Dict[str, Any]:
+    """The reverse of ``shard_cache``: every rank's pieces gathered (a
+    collective over the mesh's ranks) into the whole cache, on the
+    host."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.elastic import Placement
+    ctx = shd.current_ctx() if ctx is None else ctx
+    if ctx is None or ctx.mesh is None:
+        return {"pos": cache["pos"].cpu(),
+                "layers": {n: t.cpu() for n, t in cache["layers"].items()}}
+    specs = model.cache_specs()["layers"]
+    return {"pos": cache["pos"].cpu(),
+            "layers": {n: Placement(ctx.mesh, ctx.pspec(*specs[n])).gather(
+                t).cpu() for n, t in cache["layers"].items()}}

@@ -159,16 +159,17 @@ def _count(kind: str, t: torch.Tensor, t0: float) -> None:
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes,
                op: str = "sum", kind: str = "all_reduce") -> torch.Tensor:
-    """The sum (or ``max``) of ``x`` over the mesh axes ``axes``, as a new
-    tensor on every rank of each group; low precision floats reduce in
-    float32."""
+    """The sum (or ``max``, ``min``) of ``x`` over the mesh axes
+    ``axes``, as a new tensor on every rank of each group; low precision
+    floats reduce in float32."""
     axes = [a for a in _axes(axes) if mesh.size(a) > 1]
     if not axes:
         return x.clone()
     buf = x.float() if x.is_floating_point() and x.element_size() < 4 \
         else x
     buf = buf.clone().contiguous()
-    rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}[op]
     for ax in axes:
         t0 = time.perf_counter()
         dist.all_reduce(buf, op=rop, group=mesh.groups[ax])

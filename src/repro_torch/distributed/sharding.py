@@ -410,3 +410,11 @@ def shard_slices(shape: Sequence[int], pspec: Tuple[Any, ...],
         step = n // parts
         out.append(slice(index * step, (index + 1) * step))
     return tuple(out)
+
+
+def local_shape(shape: Sequence[int], pspec: Tuple[Any, ...],
+                mesh) -> Tuple[int, ...]:
+    """The shape of this rank's piece of a tensor of ``shape`` under
+    ``pspec`` (``shard_slices``'s)."""
+    return tuple(sl.stop - sl.start for sl in shard_slices(shape, pspec,
+                                                          mesh))

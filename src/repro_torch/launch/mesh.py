@@ -11,7 +11,10 @@ a ``FileStore`` (a file, not a TCP port, so that concurrent worlds on one
 host cannot clash), each with a deadline: the process group's timeout,
 and a join deadline after which every rank still alive is terminated. A
 rank that fails terminates the others, and the failure is raised with
-that rank's traceback. ``fn`` must be importable by name from the child
+every failed rank's traceback, the earliest written first: once one rank
+has failed the others get ``FAILURE_GRACE_S`` to exit, since a rank left
+waiting in a collective may fail and exit before the rank that caused
+it. ``fn`` must be importable by name from the child
 (a module-level function), as the ``spawn`` start method requires.
 """
 from __future__ import annotations
@@ -89,6 +92,29 @@ class WorldError(RuntimeError):
     """A rank of a spawned world failed or missed its deadline."""
 
 
+#: seconds the other ranks get to exit once one rank has failed
+FAILURE_GRACE_S = 10.0
+
+
+def _await_exits(procs, until: float) -> None:
+    while time.monotonic() < until and any(p.exitcode is None
+                                           for p in procs):
+        time.sleep(0.05)
+
+
+def _failure_report(out: str, procs, world: int) -> str:
+    """Which ranks failed, and each error file's traceback, in the order
+    the files were written."""
+    codes = [p.exitcode for p in procs]
+    errs = sorted((e.stat().st_mtime_ns, r, e) for r in range(world)
+                  for e in [Path(f"{out}.{r}.err")] if e.exists())
+    bad = sorted({r for r, c in enumerate(codes) if c not in (None, 0)}
+                 | {r for _, r, _ in errs})
+    text = "".join(f"--- rank {r} ---\n{e.read_text()}" for _, r, e in errs)
+    return (f"rank(s) {bad} of {world} failed (exit codes {codes}; errors "
+            f"in the order written: {[r for _, r, _ in errs]}):\n{text}")
+
+
 def spawn_world(fn: Callable, world: int, args: tuple = (), *,
                 device: str = "cpu", timeout_s: float = 120.0,
                 threads: int = 1, workdir: Optional[Path] = None
@@ -115,12 +141,13 @@ def spawn_world(fn: Callable, world: int, args: tuple = (), *,
     try:
         while True:
             codes = [p.exitcode for p in procs]
-            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            if bad:
-                errs = [Path(f"{out}.{r}.err") for r in bad]
-                text = "\n".join(e.read_text() for e in errs if e.exists())
-                raise WorldError(f"rank(s) {bad} of {world} failed "
-                                 f"(exit codes {codes}):\n{text}")
+            if any(c not in (None, 0) for c in codes):
+                # the rank left waiting in a collective may exit before
+                # the rank that failed it: let the others exit, then
+                # report every error, the earliest written first
+                _await_exits(procs, min(deadline, time.monotonic()
+                                        + FAILURE_GRACE_S))
+                raise WorldError(_failure_report(out, procs, world))
             if all(c == 0 for c in codes):
                 break
             if time.monotonic() > deadline:

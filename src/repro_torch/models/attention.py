@@ -38,13 +38,36 @@ of them, repeats them, and takes its slice of the repeated heads behind
 sum of every slice's share. K5 and K6 run unchanged on the local heads;
 ``o`` is row-parallel (summed over ``model``, its bias added once).
 Without ``attn_tp`` attention is replicated over ``model``, the DP-only
-fallback. ``attn_decode`` under a mesh is serving, not ported here.
+fallback.
+
+``attn_decode`` under a mesh (the decode rules of ``sharding_profile``:
+``KV_HEADS`` unsplit, ``KV_SEQ -> model`` where the profile shards the
+cache's sequence) is context-parallel: q is head-sharded over
+``model``, and the cache holds every stored KV head over this rank's
+slice of the slots (all of them where ``KV_SEQ`` does not split, and
+then the merge is over one slice). Where JAX lets SPMD insert the
+cross-shard softmax reductions, the port moves the data itself: the
+step's q heads (and the new token's K/V heads, where their projection
+is head-sharded) are gathered over ``model``; each rank scores every q
+head against its own slots
+(``decode_partials``: the partial max, sum of exponentials and
+unnormalised readout) and the partials are merged across ``KV_SEQ``'s
+axis by the log-sum-exp rule (``merge_partials``: a MAX, then one SUM of
+the rescaled sums and readouts); each rank keeps its q heads for the
+row-parallel ``o``. JAX rounds the *normalised* probabilities to the
+cache's type before the readout; a partial rounds its unnormalised ones
+(as K5 rounds P), so a bf16 merge cannot match JAX bit for bit, and a
+float32 one meets it at float32's rounding. Only the rank whose slice
+holds the slot writes the token (``shard_write``, the counterpart of
+JAX's ``_shard_map_dus_write`` and of its masked write, whose results
+are equal, so ``dus_write`` selects nothing); past the last slot of a
+sequence-sharded cache no rank writes, as no JAX shard is in range,
+where one device clamps the slot and overwrites the last one. Decode
+under the train/prefill rules (``KV_HEADS`` split) raises.
 
 Not ported here: ``kv_valid_len`` of ``attn_forward`` (a per-row key
 length, which no caller of the JAX package passes and the Pallas flash
-kernel has no argument for) raises. ``dus_write`` (the JAX per-shard
-write into a sequence-sharded cache) is accepted and has nothing to
-switch on one card.
+kernel has no argument for) raises.
 """
 from __future__ import annotations
 
@@ -188,6 +211,58 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 
+def decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, valid_mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``decode_attention`` over a slice of the slots, unnormalised: (the
+    max of the valid scores [B, Hs, G], the sum of their exponentials
+    [B, Hs, G], the readout [B, Hs, G, D]), all float32. The
+    exponentials are rounded to the cache's type for the readout, and a
+    slice with no valid slot gives (-1e30, 0, 0).
+
+    q: [B, 1, Hq, D]; caches: [B, S, Hs, D]; valid_mask: [B, S] bool."""
+    b, _, hq, dh = q.shape
+    hs = k_cache.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, hs, hq // hs, dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                          k_cache.float()) * scale
+    mask = valid_mask[:, None, None, :]
+    scores = torch.where(mask, scores,
+                         torch.full((), NEG_INF, device=q.device))
+    m = scores.amax(dim=-1)
+    p = torch.where(mask, torch.exp(scores - m[..., None]),
+                    torch.zeros((), device=q.device))
+    acc = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return m, p.sum(dim=-1), acc
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   reduce_max, reduce_sum) -> torch.Tensor:
+    """The attention output [B, Hs, G, D] from the partials of the slices,
+    by the log-sum-exp rule: ``reduce_max`` gives the max over the slices,
+    and one ``reduce_sum`` the sums of the rescaled exponential sums and
+    readouts (each reducer maps this slice's tensor to the reduction over
+    every slice: a collective across ranks, or a reduction over a stacked
+    leading dim)."""
+    top = reduce_max(m)
+    w = torch.exp(m - top)
+    both = reduce_sum(torch.cat([(l * w)[..., None], acc * w[..., None]],
+                                dim=-1))
+    return both[..., 1:] / both[..., :1]
+
+
+def shard_write(cache: torch.Tensor, new: torch.Tensor, slot: int,
+                lo: int) -> None:
+    """Write ``new`` [B, 1, ...] at the global ``slot`` of a cache
+    [B, S_local, ...] whose slots start at ``lo``, in place, if the slot
+    lies in this slice; else nothing."""
+    local = slot - lo
+    if 0 <= local < cache.shape[1]:
+        cache[:, local] = new[:, 0].to(cache.dtype)
+
+
 def _quantize_kv(x: torch.Tensor):
     """[..., dh] -> (int8 values, per-vector scale in x's type)."""
     xf = x.float()
@@ -219,7 +294,16 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     The caches (and scales) are written in place at the slot, where the
     JAX function returns updated copies; they are returned all the same.
+    Under a mesh: the context-parallel decode of the module docstring
+    (``cache_k``/``cache_v`` this rank's slice, ``x`` this data shard's
+    rows); ``dus_write`` selects nothing.
+
     Returns (out, cache_k, cache_v, scales_or_None)."""
+    if shd.mesh_ctx() is not None and xattn_kv is None:
+        return _attn_decode_mesh(params, x, cfg, cache_k=cache_k,
+                                 cache_v=cache_v, cache_pos=cache_pos,
+                                 kv_repeat=kv_repeat, window=window,
+                                 kv_scales=kv_scales)
     cd = x.dtype
     b = x.shape[0]
     pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
@@ -267,4 +351,83 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
         .expand(b, s_cache)
     out = decode_attention(q, k_att, v_att, valid)
     y = dense_apply(params["o"], out, cd, contract_dims=2)
+    return y, cache_k, cache_v, new_scales
+
+
+def _attn_decode_mesh(params, x: torch.Tensor, cfg: ModelConfig, *,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      cache_pos: int, kv_repeat: int, window: int,
+                      kv_scales):
+    """``attn_decode`` under a mesh: context-parallel decode (module
+    docstring)."""
+    ctx = shd.mesh_ctx()
+    mesh = ctx.mesh
+    if ctx.axis(shd.KV_HEADS) is not None:
+        raise NotImplementedError(
+            "attn_decode under rules that split the stored KV heads (the "
+            "train/prefill rules) is not ported: decode under the decode "
+            "rules, the cache handed over to their layout")
+    qa, pa, sa = (ctx.axis(shd.HEADS), ctx.axis(shd.KV_PARAM_HEADS),
+                  ctx.axis(shd.KV_SEQ))
+    cd = x.dtype
+    b = x.shape[0]
+    pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
+    q = dense_apply(params["q"], x, cd)
+    k_new = dense_apply(params["k"], x, cd)
+    v_new = dense_apply(params["v"], x, cd)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    q_local = q.shape[2]
+    # every rank scores every q head against its slots: q, and the new
+    # token's K/V where their projection is head-sharded, gathered
+    q = col.all_gather(q, mesh, qa, 2)
+    if pa is not None:
+        k_new = col.all_gather(k_new, mesh, pa, 2)
+        v_new = col.all_gather(v_new, mesh, pa, 2)
+    k_new, v_new = _repeat_kv(k_new, kv_repeat), _repeat_kv(v_new, kv_repeat)
+    if kv_scales is not None:
+        k_new, k_scale_new = _quantize_kv(k_new)
+        v_new, v_scale_new = _quantize_kv(v_new)
+
+    s_loc = cache_k.shape[1]
+    s_cache = s_loc * mesh.size(sa) if sa is not None else s_loc
+    lo = mesh.index(sa) * s_loc if sa is not None else 0
+    if window > 0:
+        slot = cache_pos % s_cache
+    elif sa is None:
+        # the whole cache on this rank: one device's clamped write
+        slot = min(cache_pos, s_cache - 1)
+    else:
+        # past the last slot no slice holds it, and nothing is written
+        slot = cache_pos
+    shard_write(cache_k, k_new, slot, lo)
+    shard_write(cache_v, v_new, slot, lo)
+    new_scales = None
+    if kv_scales is not None:
+        k_scale, v_scale = kv_scales
+        shard_write(k_scale, k_scale_new, slot, lo)
+        shard_write(v_scale, v_scale_new, slot, lo)
+        new_scales = (k_scale, v_scale)
+        k_att = cache_k.to(cd) * k_scale[..., None].to(cd)
+        v_att = cache_v.to(cd) * v_scale[..., None].to(cd)
+    else:
+        k_att, v_att = cache_k, cache_v
+
+    n_written = min(cache_pos + 1, s_cache)
+    valid = (torch.arange(lo, lo + s_loc, device=x.device)
+             < n_written)[None, :].expand(b, s_loc)
+    # with every slot on this rank (sa None) the merge is over one slice
+    def rmax(t):
+        return t if sa is None else col.all_reduce(t, mesh, sa, op="max")
+
+    def rsum(t):
+        return t if sa is None else col.all_reduce(t, mesh, sa)
+
+    out = merge_partials(*decode_partials(q, k_att, v_att, valid), rmax,
+                         rsum).reshape(q.shape).to(cd)
+    if qa is not None:
+        lo_h = mesh.index(qa) * q_local
+        out = out[:, :, lo_h:lo_h + q_local]
+    y = row_parallel(params["o"], out, cd, 2, mesh, qa)
     return y, cache_k, cache_v, new_scales

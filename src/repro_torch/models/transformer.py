@@ -61,9 +61,8 @@ under ``kv_cache_bits=8`` too), with ``pos`` a 0-dim int32 tensor; the
 VLM's positions count the patches, so after a prefill of F patches and S
 tokens ``pos`` is F + S. ``decode_step`` writes the new token's entries into the cache in
 place and returns it with ``pos + 1`` (the JAX function returns a new
-cache); clone a cache to keep it. ``kv_dus_write`` (the JAX per-shard
-cache write) has nothing to switch on one card. The JAX ``cache_specs``
-(logical shardings for the dry-run) has no counterpart here.
+cache); clone a cache to keep it. ``cache_specs`` gives every leaf's
+logical axes, the JAX ``cache_specs`` with its stacked ``layers`` axis.
 
 Under a mesh of more than one rank (the ambient ``ShardCtx`` of
 ``distributed/sharding.py``, JAX's ``launch/dryrun.py`` construction of
@@ -77,8 +76,21 @@ move their activations over ``model`` themselves (``models/layers.py``,
 cross-entropy (the max, the sum of exponentials and the gold logit
 reduced over ``model``) whose CE sum is divided by the *global* token
 count (reduced over the batch axes), so that the gradients summed over
-the data shards are those of JAX's global mean. The other families, and
-``prefill``, ``prefill_streaming`` and ``decode_step``, raise
+the data shards are those of JAX's global mean. They serve sharded too:
+``init_cache`` takes the *global* batch and allocates this rank's piece of
+each leaf by ``cache_specs`` under the ambient rules (``pos``
+replicated); ``prefill`` takes this data shard's rows under the prefill
+rules of ``sharding_profile`` and fills a cache of this rank's stored KV
+heads (``KV_HEADS -> model``), its logits this rank's vocab shard;
+``decode_step`` runs under the decode rules, the cache holding every KV
+head over this rank's slice of the sequence (``KV_SEQ -> model`` where
+the profile shards it; ``attention.py``'s context-parallel decode), each
+rank writing the token only where its slice holds the slot. A prefill
+cache reaches the decode layout by a gather and a re-placement
+(``convert.gather_cache``, ``convert.shard_cache``). Without autograd,
+a weight's FSDP gather is kept and reused while its shard is unchanged,
+so a decode step moves the step's activations and not the weights. The
+other families, and ``prefill_streaming`` (SSM-only), raise
 ``NotImplementedError`` under such a mesh.
 
 A window arch keeps the last ``window`` keys of a longer prompt in slots
@@ -276,7 +288,8 @@ def _remat_wrap(fn, policy: str):
 
 def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
                   cache_layer: dict, cache_pos: int, window: int,
-                  kv_repeat: int = 1) -> torch.Tensor:
+                  kv_repeat: int = 1, dus_write: bool = False
+                  ) -> torch.Tensor:
     """Single-token layer step. ``cache_layer`` holds this layer's views
     of the stacked cache, which are updated in place (the cross K/V are
     only read)."""
@@ -290,7 +303,8 @@ def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
         delta, _, _, _ = attn_mod.attn_decode(
             lp["attn"], h, cfg, cache_k=cache_layer["k"],
             cache_v=cache_layer["v"], cache_pos=cache_pos,
-            kv_repeat=kv_repeat, window=window, kv_scales=scales)
+            kv_repeat=kv_repeat, window=window, kv_scales=scales,
+            dus_write=dus_write)
     if "ssd" in lp:
         state = {"ssm": cache_layer["ssm"],
                  "conv": {"x": cache_layer["conv_x"],
@@ -335,11 +349,13 @@ class _Params(nn.Module):
 
 
 class Model(nn.Module):
-    """The model of one config, of any family, on one device.
+    """The model of one config, of any family, on one device or, for the
+    dense and MoE families, one rank of a mesh.
 
     ``causal_skip`` is accepted and has nothing to switch: K5 and K6
     always skip the tiles that the causal mask empties; nor has
-    ``kv_dus_write`` on one card."""
+    ``kv_dus_write``: the port's one per-shard write gives the results of
+    both JAX writes."""
 
     def __init__(self, cfg: ModelConfig, kv_repeat: int = 1,
                  remat_group: int = 0, causal_skip: bool = False,
@@ -372,6 +388,9 @@ class Model(nn.Module):
         self.encoder = nn.ModuleList()
         self.enc_norm = nn.ParameterDict()
         self.final_norm = nn.ParameterDict()
+        #: name -> (the shard, (its version, storage, pspec), the weight
+        #: gathered from it), kept by ``_gather_fsdp`` without autograd
+        self._gathered: dict = {}
 
     # -------------------------------------------------- init
     def init(self, generator: torch.Generator) -> Dict[str, nn.Parameter]:
@@ -426,15 +445,27 @@ class Model(nn.Module):
                      ctx: shd.ShardCtx) -> Dict[str, torch.Tensor]:
         """Each local shard with its dims over the data-parallel axes
         gathered (ZeRO-3's use of a weight); the model-axis dims stay
-        local."""
+        local. Without autograd (serving) a gathered weight is kept, and
+        reused while the same shard, unchanged in place, comes under the
+        same pspec."""
         specs = self.specs()
+        keep = not torch.is_grad_enabled()
         out = {}
-        for name, t in params.items():
-            for dim, entry in enumerate(ctx.pspec(*specs[name])):
+        for name, shard in params.items():
+            pspec = ctx.pspec(*specs[name])
+            key = (shard._version, shard.data_ptr(), pspec)
+            hit = self._gathered.get(name) if keep else None
+            if hit is not None and hit[0] is shard and hit[1] == key:
+                out[name] = hit[2]
+                continue
+            t = shard
+            for dim, entry in enumerate(pspec):
                 axes = [a for a in shd.entry_axes(entry)
                         if a != shd.MODEL_AXIS]
                 if axes:
                     t = col.gather(t, ctx.mesh, axes, dim)
+            if keep:
+                self._gathered[name] = (shard, key, t)
             out[name] = t
         return out
 
@@ -615,38 +646,70 @@ class Model(nn.Module):
             return min(seq_len, self.cfg.attn_window)
         return seq_len
 
-    def init_cache(self, batch_size: int, cache_len: int) -> dict:
-        """Zeroed decode cache on the model's device."""
-        cfg, dev = self.cfg, self.device
+    def cache_specs(self) -> dict:
+        """Logical axes of every leaf of ``init_cache``'s cache, as the JAX
+        ``cache_specs`` gives them (the leading ``layers`` axis kept: the
+        port's cache stacks the layers too)."""
+        cfg = self.cfg
+        L, B = shd.LAYERS, shd.BATCH
+        layers: Dict[str, tuple] = {}
+        if cfg.has_attention:
+            for name in ("k", "v"):
+                layers[name] = (L, B, shd.KV_SEQ, shd.KV_HEADS, None)
+            if self.kv_cache_bits == 8:
+                for name in ("k_scale", "v_scale"):
+                    layers[name] = (L, B, shd.KV_SEQ, shd.KV_HEADS)
+        if cfg.ssm.enabled:
+            layers["ssm"] = (L, B, shd.SSD_HEADS, None, None)
+            layers["conv_x"] = (L, B, None, shd.SSD_HEADS, None)
+            layers["conv_b"] = (L, B, None, None)
+            layers["conv_c"] = (L, B, None, None)
+        if cfg.encoder_layers:
+            for name in ("cross_k", "cross_v"):
+                layers[name] = (L, B, None, shd.KV_HEADS, None)
+        return {"pos": (), "layers": layers}
+
+    def cache_shapes(self, batch_size: int, cache_len: int) -> dict:
+        """Each leaf of the cache's full (global) shape and type."""
+        cfg = self.cfg
         cd = lyr.dtype_of(cfg.compute_dtype)
         L, b = cfg.num_layers, batch_size
         hs, dh = cfg.num_kv_heads * self.kv_repeat, cfg.resolved_head_dim
-        layers: Dict[str, torch.Tensor] = {}
+        layers: Dict[str, tuple] = {}
         if cfg.has_attention:
             s_c = self.cache_len_for(cache_len)
             kv_dtype = torch.int8 if self.kv_cache_bits == 8 else cd
             for name in ("k", "v"):
-                layers[name] = torch.zeros((L, b, s_c, hs, dh),
-                                           dtype=kv_dtype, device=dev)
+                layers[name] = ((L, b, s_c, hs, dh), kv_dtype)
             if self.kv_cache_bits == 8:
                 for name in ("k_scale", "v_scale"):
-                    layers[name] = torch.zeros((L, b, s_c, hs), dtype=cd,
-                                               device=dev)
+                    layers[name] = ((L, b, s_c, hs), cd)
         if cfg.ssm.enabled:
             _, nh, p, n = ssm_mod.ssm_dims(cfg)
             cw = cfg.ssm.conv_width
-            layers["ssm"] = torch.zeros((L, b, nh, p, n),
-                                        dtype=torch.float32, device=dev)
-            layers["conv_x"] = torch.zeros((L, b, cw - 1, nh, p), dtype=cd,
-                                           device=dev)
+            layers["ssm"] = ((L, b, nh, p, n), torch.float32)
+            layers["conv_x"] = ((L, b, cw - 1, nh, p), cd)
             for name in ("conv_b", "conv_c"):
-                layers[name] = torch.zeros((L, b, cw - 1, n), dtype=cd,
-                                           device=dev)
+                layers[name] = ((L, b, cw - 1, n), cd)
         if cfg.encoder_layers:
             for name in ("cross_k", "cross_v"):
-                layers[name] = torch.zeros(
-                    (L, b, cfg.frontend_tokens, hs, dh), dtype=cd,
-                    device=dev)
+                layers[name] = ((L, b, cfg.frontend_tokens, hs, dh), cd)
+        return layers
+
+    def init_cache(self, batch_size: int, cache_len: int) -> dict:
+        """Zeroed decode cache on the model's device. Under a mesh,
+        ``batch_size`` is the global batch and each leaf is this rank's
+        piece of it by ``cache_specs`` under the ambient rules."""
+        dev = self.device
+        ctx = shd.mesh_ctx()
+        specs = self.cache_specs()["layers"]
+        layers: Dict[str, torch.Tensor] = {}
+        for name, (shape, dtype) in self.cache_shapes(batch_size,
+                                                      cache_len).items():
+            if ctx is not None:
+                shape = shd.local_shape(shape, ctx.pspec(*specs[name]),
+                                        ctx.mesh)
+            layers[name] = torch.zeros(shape, dtype=dtype, device=dev)
         return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
                 "layers": layers}
 
@@ -661,9 +724,18 @@ class Model(nn.Module):
         calls have room; defaults to that length + 1. A window arch keeps
         the last ``window`` keys of a longer prompt in slots
         ``0..window-1``. The cross K/V of every frame of the batch fill
-        ``cross_k``/``cross_v``."""
-        _no_mesh("serving")
+        ``cross_k``/``cross_v``.
+
+        Under a mesh (the prefill rules): ``batch`` is this data shard's
+        rows, the cache this rank's piece (its stored KV heads) and the
+        logits this rank's vocab shard."""
         cfg = self.cfg
+        ctx = shd.mesh_ctx()
+        if ctx is not None and ctx.axis(shd.KV_SEQ) is not None:
+            raise NotImplementedError(
+                "prefill into a sequence-sharded cache (the decode rules) "
+                "is not ported: prefill under the prefill rules, then "
+                "hand the cache over to the decode layout")
         cd = lyr.dtype_of(cfg.compute_dtype)
         tree = self._split(params)
         x, positions, cross = self._decoder_inputs(tree, batch)
@@ -672,6 +744,8 @@ class Model(nn.Module):
         if cap < s and not cfg.attn_window:
             raise ValueError(f"prefill cache capacity {cap} < prompt "
                              f"embedding length {s}")
+        if ctx is not None:
+            b *= ctx.shards(ctx.rules.get(shd.BATCH))
         cache = self.init_cache(b, cap)
         cl = cache["layers"]
         for i, (lp, ckv) in enumerate(zip(tree["layers"], cross)):
@@ -715,7 +789,7 @@ class Model(nn.Module):
         ``init_state``) and the conv tail between them, so that peak
         activation memory is O(chunk). Returns (last-token logits,
         decode-ready cache)."""
-        _no_mesh("serving")
+        _no_mesh("prefill_streaming (SSM-only)")
         cfg = self.cfg
         if cfg.family != FAMILY_SSM:
             raise ValueError("streaming prefill is SSM-only")
@@ -751,8 +825,9 @@ class Model(nn.Module):
     def decode_step(self, params: Optional[Mapping[str, torch.Tensor]],
                     tokens: torch.Tensor, cache: dict):
         """tokens [B, 1] -> (logits [B,1,Vp] fp32, the cache with this
-        token written in place and ``pos + 1``)."""
-        _no_mesh("serving")
+        token written in place and ``pos + 1``). Under a mesh (the decode
+        rules): this data shard's tokens, this rank's cache and vocab
+        shard of the logits."""
         cfg = self.cfg
         cd = lyr.dtype_of(cfg.compute_dtype)
         tree = self._split(params)
@@ -763,7 +838,8 @@ class Model(nn.Module):
             x = _layer_decode(lp, x, cfg,
                               cache_layer={k: t[i] for k, t in cl.items()},
                               cache_pos=pos, window=cfg.attn_window,
-                              kv_repeat=self.kv_repeat)
+                              kv_repeat=self.kv_repeat,
+                              dus_write=self.kv_dus_write)
         logits = self._head(tree["embed"], tree["final_norm"], x, cd)
         cache["pos"] = torch.full((), pos + 1, dtype=torch.int32,
                                   device=cache["pos"].device)

@@ -303,7 +303,14 @@ def test_pool_defaults_to_the_card():
 
 # ------------------------------------------------------------ engine level
 def _run(pkg, pooled, pool_slots=256, overlap=True, budget=64 << 20,
-         slot_devices=None, pipelined=False):
+         slot_devices=None, pipelined=False, step_barrier=False):
+    """One stream through either package's pooled engine. Returns (the
+    results keyed by ``(start, end)``, (pooled rows, fallback rows,
+    demand pool fills)). ``step_barrier``: each step waits until the fold
+    pipeline and the I/O thread are idle, so that every spill the budget
+    forces has landed on the host before the next step reads the blocks
+    (the rows a fold finds cold, and so the demand fills, then follow
+    the stream, not the I/O thread's pace)."""
     if pkg == "jax":
         from repro.configs.base import AionConfig as A
         from repro.core import StreamEngine as E, TumblingWindows as T
@@ -324,15 +331,26 @@ def _run(pkg, pooled, pool_slots=256, overlap=True, budget=64 << 20,
              pipelined_execution=pipelined)
     eng = E(assigner=T(10.0), operator=op, aion=aion, value_width=1,
             device_budget_bytes=budget, trigger=D(executions=2), **dev)
+
+    def idle():
+        if step_barrier:
+            if eng.pipeline is not None:
+                assert eng.pipeline.drain()
+            assert eng.io.drain()
+
     rng = np.random.default_rng(3)
     n = 2500
     eng.ingest(EB(rng.integers(0, 8, n), rng.uniform(0, 80.0, n),
                   rng.normal(size=(n, 1)).astype(np.float32)), now=0.0)
+    idle()
     eng.advance_watermark(80.0, now=80.0)
+    idle()
     eng.ingest(EB(rng.integers(0, 8, 600), rng.uniform(0, 70.0, 600),
                   rng.normal(size=(600, 1)).astype(np.float32)), now=81.0)
+    idle()
     for t in np.linspace(81, 81 + 2 * eng.cleanup.current_bound(), 10):
         eng.poll(t)
+        idle()
     if pipelined:
         assert eng.pipeline.drain()
         assert eng.metrics.pipeline_rounds > 0
@@ -399,12 +417,19 @@ def test_sharded_pool_engine_matches_jax(tiles, pool_slots, budget):
 def test_sharded_pipelined_pool_engine_matches_jax(tiles, budget):
     """The pipelined engine (its epoch-checked pin strategy) with the
     pooled arena sharded over a 4-entry slot mesh, against the JAX
-    package's unsharded synchronous pooled engine."""
+    package's unsharded synchronous pooled engine. Both step with their
+    threads idle (``step_barrier``): a pressured pool is one whose folds
+    find spilled blocks outside the pool, and with the spills landed
+    before each step the 192 KiB budget gives the same 48 demand fills
+    in every run; without the barrier the count followed the I/O
+    thread's pace against the fold worker, and read 0 when the folds ran
+    before the spills."""
     devices = [CPU] * 4 if tiles == "views" \
         else [CPU, torch.device("cpu", 0)] * 2
-    want, _ = _run("jax", True, 256, True, budget)
+    want, _ = _run("jax", True, 256, True, budget, step_barrier=True)
     got, (pooled, _, demand) = _run("torch", True, 256, True, budget,
-                                    slot_devices=devices, pipelined=True)
+                                    slot_devices=devices, pipelined=True,
+                                    step_barrier=True)
     _assert_results_equal(got, want)
     assert pooled > 0
     if budget < (1 << 20):

@@ -16,7 +16,13 @@ each mesh a ``Mesh`` over some of its ranks:
   checkpointed, restored onto (1, 2) on ranks 0-1 through
   ``elastic_reshard``, and two more steps;
 - the controls on (2, 2): the ``o`` projection without its ``model``
-  reduce, and the CE over the local token count.
+  reduce, and the CE over the local token count;
+- serving (``SERVE``) on (2, 2), (1, 4) and the MoE (2, 2): the sharded
+  prefill under the prefill rules, then three decode steps under the
+  decode rules (the context-parallel decode on a sequence-sharded
+  cache), a replicated batch of 1, the 8-bit cache, a decode at
+  ``pos == capacity`` and a capacity that does not divide ``model``;
+  their two controls, and the step factories end to end.
 
 Each mesh runs the first batch's logits, loss and gradients, then two
 train steps from the JAX weights (``convert.shard_params_from_jax``), and
@@ -25,7 +31,12 @@ the JAX package's sharded step for the same meshes, built as
 ``launch/dryrun.py:126-176`` builds it, and executes it. The port's
 one-process step runs here, beside the world.
 
-The logits, losses and gradients are held at
+After its train step, each subprocess runs its share of JAX's serving
+cells (``SERVE_GROUPS``, ``_JAX_SERVE``): the prefill and decode cells
+built as ``launch/dryrun.py:179-204`` builds them and executed, the
+decode with ``kv_dus`` False and True.
+
+The logits, losses, gradients and serving caches are held at
 ``test_torch_models.py::test_model_matches_jax_float32``'s tolerances.
 The updated parameters are held as ``test_torch_train.py`` holds an
 AdamW update against JAX's: each parameter's update within 1% of its
@@ -75,6 +86,30 @@ MESHES = {
 ELASTIC_MESH = (1, 2)
 CONTROLS = ("no_o_reduce", "local_ntok")
 TIMEOUT_S = 240.0
+#: serving: (mesh, case) -> the batch, the decode cache's capacity, its
+#: bits, the decode steps and whether the case holds a prefill (the
+#: prompt is S tokens). "full" decodes at pos == capacity, where the
+#: sequence-sharded JAX cache writes nothing; "seq41"'s capacity does not
+#: divide ``model``, so the decode cache is not sequence-sharded; their
+#: prefill is "base"'s
+SERVE = {
+    ("dense22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
+    ("dense22", "int8"): dict(batch=B, cap=40, bits=8, steps=3),
+    ("dense22", "b1"): dict(batch=1, cap=40, bits=16, steps=3),
+    ("dense22", "full"): dict(batch=B, cap=S, bits=16, steps=1,
+                              prefill=False),
+    ("dense22", "seq41"): dict(batch=B, cap=41, bits=16, steps=3,
+                               prefill=False),
+    ("dense14", "base"): dict(batch=B, cap=40, bits=16, steps=3),
+    ("moe22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
+}
+#: the serving cells each JAX process runs after its mesh's train step
+SERVE_GROUPS = {"dense22": [("dense22", "b1"), ("dense22", "full")],
+                "dense14": [("dense14", "base"), ("dense22", "seq41")],
+                "dense21": [("dense22", "base"), ("dense22", "int8")],
+                "moe22": [("moe22", "base")]}
+#: the serving controls, each on ("dense22", "base")'s decode
+SERVE_CONTROLS = ("no_merge_reduce", "clamped_write")
 
 
 def port_cfg(kind):
@@ -256,28 +291,207 @@ def _controls(inputs, rank, results):
 
 
 def _refusals(results):
-    """Under a (1, 2) mesh on ranks 0-1: an SSM model refuses to build,
-    and a dense model's ``decode_step`` refuses to run."""
+    """Under a (1, 2) mesh on ranks 0-1: an SSM and a hybrid model refuse
+    to build, and a dense model's ``decode_step`` under the train rules
+    (the stored KV heads split over ``model``) refuses to run."""
     cfg, mesh, ctx = _context("dense", (1, 2), (0, 1))
     if not mesh.member:
         return
     raised = {}
     with shd.use_ctx(ctx):
-        try:
-            build_model(reduced(get_config("mamba2-780m")), device="cpu")
-        except NotImplementedError:
-            raised["ssm"] = True
+        for arch, key in (("mamba2-780m", "ssm"), ("hymba-1.5b", "hybrid")):
+            try:
+                build_model(reduced(get_config(arch)), device="cpu")
+            except NotImplementedError:
+                raised[key] = True
         model = build_model(cfg, kv_repeat=ctx.profile.kv_repeat,
                             device="cpu")
         model.init(torch.Generator().manual_seed(0))
+        cache = model.init_cache(2, S)
         try:
             model.decode_step(None, torch.zeros((2, 1), dtype=torch.long),
-                              {"pos": torch.zeros((), dtype=torch.int32),
-                               "layers": {}})
+                              cache)
         except NotImplementedError:
             raised["decode_step"] = True
     if mesh.rank == 0:
         results["refusals"] = raised
+
+
+# ---------------------------------------------------------------- serving
+def hand_over(cache, repeat, cap):
+    """A gathered prefill cache in the decode layout: its stored KV heads
+    without the prefill profile's repeat (``repeat_interleave``d heads,
+    so every ``repeat``-th), its slots zero-padded to ``cap``."""
+    layers = {}
+    for k, t in cache["layers"].items():
+        t = t[:, :, :, ::repeat]
+        pad = torch.zeros((*t.shape[:2], cap - t.shape[2], *t.shape[3:]),
+                          dtype=t.dtype)
+        layers[k] = torch.cat([t, pad], dim=2)
+    return {"pos": cache["pos"].clone(), "layers": layers}
+
+
+def start_cache(inputs, name, case):
+    """The cache a decode case starts from, on both sides: the port's
+    one-process prefill of the prompt at the case's capacity (``pos``
+    S), made with the inputs."""
+    pre = f"start/{name}/{case}/"
+    return {"pos": torch.from_numpy(inputs[pre + "pos"]),
+            "layers": {k[len(pre):]: torch.from_numpy(inputs[k])
+                       for k in inputs.files
+                       if k.startswith(pre) and k != pre + "pos"}}
+
+
+def _start_caches(arrays):
+    """``start_cache``'s caches, as arrays of the inputs."""
+    out = {}
+    for (name, case), v in SERVE.items():
+        kind = MESHES[name][0]
+        model = build_model(port_cfg(kind), kv_cache_bits=v["bits"],
+                            device="cpu")
+        tree = _nest({k[len(kind) + 1:]: a for k, a in arrays.items()
+                      if k.startswith(kind + "/")})
+        params = convert.shard_params_from_jax(tree, model)
+        toks = torch.from_numpy(arrays[f"serve_tokens_{kind}"][:v["batch"]])
+        _, cache = model.prefill(params, {"tokens": toks[:, :S]},
+                                 max_len=v["cap"])
+        pre = f"start/{name}/{case}/"
+        out[pre + "pos"] = cache["pos"].numpy()
+        out.update({pre + k: t.numpy() for k, t in cache["layers"].items()})
+    return out
+
+
+def _serve_contexts(kind, shape, ranks, v):
+    mesh_cfg = MeshConfig(shape, AXES)
+    cfg = port_cfg(kind)
+    mesh = make_mesh_from_config(mesh_cfg, "cpu", ranks=ranks)
+    out = []
+    for k, n in (("prefill", S), ("decode", v["cap"])):
+        prof = shd.sharding_profile(cfg, mesh_cfg, v["batch"], n, k)
+        out.append(shd.ShardCtx(mesh, shd.make_rules(
+            cfg, mesh_cfg, v["batch"], n, k), prof))
+    return cfg, mesh, out[0], out[1]
+
+
+def _logits_pspec(ctx):
+    return (ctx.profile.batch_axes or None, None, ctx.rules[shd.VOCAB])
+
+
+def _serve_case(inputs, name, case, control=None):
+    """One serving case on this rank: the sharded prefill of S tokens (its
+    logits, next tokens and cache gathered), then the decode steps from
+    ``start_cache`` placed by ``cache_specs`` on the prompt's next tokens
+    (each step's logits and tokens, the last cache, gathered): JAX's
+    decode cell starts from the same cache, so that an 8-bit cache's
+    codes are the same on both sides. ``control`` drops the merge's
+    reduce or writes the token on every rank at its clamped local
+    slot."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serve.serve_step import vocab_argmax
+    from repro_torch.train.elastic import Placement
+    from repro_torch.train.train_step import local_batch
+    kind, shape, ranks, _ = MESHES[name]
+    v = SERVE[(name, case)]
+    cfg, mesh, pctx, dctx = _serve_contexts(kind, shape, ranks, v)
+    if not mesh.member:
+        return None
+    toks = torch.from_numpy(inputs[f"serve_tokens_{kind}"][:v["batch"]])
+    out = {}
+    if v.get("prefill", True):
+        with shd.use_ctx(pctx):
+            model = build_model(cfg, kv_repeat=pctx.profile.kv_repeat,
+                                kv_cache_bits=v["bits"], device="cpu")
+            params = convert.shard_params_from_jax(jax_tree(inputs, kind),
+                                                   model)
+            lb = local_batch({"tokens": toks[:, :S]}, pctx)
+            logits, cache = model.prefill(params, lb, max_len=S)
+            out["prefill"] = dict(
+                logits=_gather(pctx, logits, _logits_pspec(pctx)),
+                tok=_gather(pctx, vocab_argmax(logits),
+                            _logits_pspec(pctx)[:2]),
+                cache={k: t.numpy() for k, t in convert.gather_cache(
+                    cache, model)["layers"].items()})
+    full = start_cache(inputs, name, case)
+    saved = (attn_mod.merge_partials, attn_mod.shard_write)
+    if control == "no_merge_reduce":
+        attn_mod.merge_partials = lambda m, l, acc, rmax, rsum: saved[0](
+            m, l, acc, lambda t: t, lambda t: t)
+    elif control == "clamped_write":
+        def clamped(cache, new, slot, lo):
+            local = min(max(slot - lo, 0), cache.shape[1] - 1)
+            saved[1](cache, new, local, 0)
+        attn_mod.shard_write = clamped
+    try:
+        with shd.use_ctx(dctx):
+            model = build_model(cfg, kv_repeat=dctx.profile.kv_repeat,
+                                kv_cache_bits=v["bits"], device="cpu")
+            params = convert.shard_params_from_jax(jax_tree(inputs, kind),
+                                                   model)
+            cache = convert.shard_cache(full, model)
+            lgs, tks = [], []
+            for i in range(v["steps"]):
+                t = local_batch({"tokens": toks[:, S + i:S + i + 1]},
+                                dctx)["tokens"]
+                lg, cache = model.decode_step(params, t, cache)
+                lgs.append(_gather(dctx, lg, _logits_pspec(dctx)))
+                tks.append(_gather(dctx, vocab_argmax(lg),
+                                   _logits_pspec(dctx)[:2]))
+            got = convert.gather_cache(cache, model)
+    finally:
+        attn_mod.merge_partials, attn_mod.shard_write = saved
+    out["decode"] = dict(logits=np.stack(lgs), tok=np.stack(tks),
+                         pos=int(got["pos"]),
+                         cache={k: t.numpy() for k, t in
+                                got["layers"].items()},
+                         kv_seq_shard=dctx.profile.kv_seq_shard)
+    return out if mesh.rank == 0 else None
+
+
+def _serve_e2e(inputs, steps=3):
+    """The dense (2, 2) mesh's greedy serving through the step factories:
+    ``make_prefill_step`` at capacity 40, the cache handed over, then
+    ``steps`` ``make_decode_step`` steps on the tokens they return."""
+    from repro_torch.serve.serve_step import make_decode_step, \
+        make_prefill_step
+    from repro_torch.train.train_step import local_batch
+    v = SERVE[("dense22", "base")]
+    kind, shape, ranks, _ = MESHES["dense22"]
+    cfg, mesh, pctx, dctx = _serve_contexts(kind, shape, ranks, v)
+    toks = torch.from_numpy(inputs[f"serve_tokens_{kind}"][:v["batch"]])
+    tokens = []
+    with shd.use_ctx(pctx):
+        model = build_model(cfg, kv_repeat=pctx.profile.kv_repeat,
+                            device="cpu")
+        params = convert.shard_params_from_jax(jax_tree(inputs, kind), model)
+        t, cache = make_prefill_step(model, max_len=v["cap"])(
+            params, local_batch({"tokens": toks[:, :S]}, pctx))
+        full = hand_over(convert.gather_cache(cache, model),
+                         pctx.profile.kv_repeat, v["cap"])
+    with shd.use_ctx(dctx):
+        model = build_model(cfg, kv_repeat=dctx.profile.kv_repeat,
+                            device="cpu")
+        params = convert.shard_params_from_jax(jax_tree(inputs, kind), model)
+        cache = convert.shard_cache(full, model)
+        step = make_decode_step(model)
+        for _ in range(steps):
+            tokens.append(_gather(dctx, t, _logits_pspec(dctx)[:2]))
+            t, cache = step(params, t, cache)
+        tokens.append(_gather(dctx, t, _logits_pspec(dctx)[:2]))
+        got = convert.gather_cache(cache, model)
+    if mesh.rank == 0:
+        return dict(tokens=np.stack(tokens), pos=int(got["pos"]),
+                    cache={k: t.numpy() for k, t in got["layers"].items()})
+    return None
+
+
+def _serving(inputs, rank, results):
+    """Every serving case, the controls and the end-to-end run."""
+    for name, case in SERVE:
+        results[f"serve/{name}/{case}"] = _serve_case(inputs, name, case)
+    for control in SERVE_CONTROLS:
+        results[f"serve_control/{control}"] = _serve_case(
+            inputs, "dense22", "base", control)
+    results["serve_e2e"] = _serve_e2e(inputs)
 
 
 def world_rank(rank, inputs_path, ckpt_dir):
@@ -293,6 +507,7 @@ def world_rank(rank, inputs_path, ckpt_dir):
     _elastic(inputs, first, ckpt_dir, rank, results)
     _controls(inputs, rank, results)
     _refusals(results)
+    _serving(inputs, rank, results)
     return results
 
 
@@ -350,7 +565,7 @@ def shardings(mesh, logical, rules):
         logical, is_leaf=lambda x: isinstance(x, tuple))
 
 
-for name, (kind, shape, mu) in spec["meshes"].items():
+for name, (kind, shape, mu) in spec.get("meshes", {}).items():
     kw = dict(spec["configs"][kind])
     cfg = dataclasses.replace(reduced(get_config(kw.pop("arch"))), **kw)
     b, s = spec["batch"], spec["seq"]
@@ -412,6 +627,102 @@ for name, (kind, shape, mu) in spec["meshes"].items():
         out[f"{name}/grads/{k}"] = v
     for k, v in flat(jax.tree.map(np.asarray, state.params)).items():
         out[f"{name}/params/{k}"] = v
+'''
+
+
+_JAX_SERVE = r'''
+from repro.serve.serve_step import make_decode_step, make_prefill_step
+
+
+def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre):
+    """The prefill cell, launch/dryrun.py:179-187, executed."""
+    prof = shd.sharding_profile(cfg, mesh_cfg, b, s, "prefill")
+    rules = shd.make_rules(cfg, mesh_cfg, b, s, "prefill")
+    model = build_model(cfg, kv_repeat=prof.kv_repeat, kv_cache_bits=bits)
+    with shd.use_ctx(shd.ShardCtx(mesh=mesh, rules=rules, profile=prof)):
+        p_sh = shardings(mesh, model.specs(), rules)
+        bspec = NamedSharding(mesh, shd.logical_to_pspec(("batch", None),
+                                                         rules))
+        pstep = make_prefill_step(model, max_len=s)
+
+        def prefill(p, batch):
+            tok, cache = pstep(p, batch)
+            logits, _ = model.prefill(p, batch, max_len=s)
+            return tok, logits, cache
+
+        tok, logits, cache = jax.jit(prefill, in_shardings=(
+            p_sh, {"tokens": bspec}))(jax.device_put(params, p_sh),
+                                      {"tokens": jax.device_put(
+                                          jnp.asarray(toks[:, :s]), bspec)})
+    out[f"{pre}/prefill/tok"] = np.asarray(tok)
+    out[f"{pre}/prefill/logits"] = np.asarray(logits)
+    for k, a in cache["layers"].items():
+        out[f"{pre}/prefill/cache/{k}"] = np.asarray(a)
+
+
+def decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre):
+    """The decode cell, launch/dryrun.py:188-204, executed with each
+    write from ``host``, the cache the port's decode starts from too."""
+    cap, bits = v["cap"], v["bits"]
+    dprof = shd.sharding_profile(cfg, mesh_cfg, b, cap, "decode")
+    drules = shd.make_rules(cfg, mesh_cfg, b, cap, "decode")
+    out[f"{pre}/kv_seq_shard"] = np.asarray(dprof.kv_seq_shard)
+    for dus in (False, True):
+        dmodel = build_model(cfg, kv_repeat=dprof.kv_repeat,
+                             kv_cache_bits=bits, kv_dus_write=dus)
+        with shd.use_ctx(shd.ShardCtx(mesh=mesh, rules=drules,
+                                      profile=dprof)):
+            dp_sh = shardings(mesh, dmodel.specs(), drules)
+            cache_sh = shardings(mesh, dmodel.cache_specs(), drules)
+            tok_sh = NamedSharding(mesh, shd.logical_to_pspec(
+                ("batch", None), drules))
+            dstep = make_decode_step(dmodel)
+
+            def decode(p, t, c):
+                nt, c2 = dstep(p, t, c)
+                lg, _ = dmodel.decode_step(p, t, c)
+                return nt, lg, c2
+
+            step = jax.jit(decode, in_shardings=(dp_sh, tok_sh, cache_sh),
+                           out_shardings=(None, None, cache_sh))
+            dparams = jax.device_put(params, dp_sh)
+            c = jax.device_put(jax.tree.map(jnp.asarray, host), cache_sh)
+            toks_out, lgs = [], []
+            for i in range(v["steps"]):
+                nt, lg, c = step(dparams, jax.device_put(
+                    jnp.asarray(toks[:, s + i:s + i + 1]), tok_sh), c)
+                toks_out.append(np.asarray(nt))
+                lgs.append(np.asarray(lg))
+        d = f"{pre}/dus{int(dus)}"
+        out[f"{d}/tok"] = np.stack(toks_out)
+        out[f"{d}/logits"] = np.stack(lgs)
+        out[f"{d}/pos"] = np.asarray(c["pos"])
+        for k, a in c["layers"].items():
+            out[f"{d}/cache/{k}"] = np.asarray(a)
+
+
+for name, kind, shape, v in spec.get("cells", []):
+    kw = dict(spec["configs"][kind])
+    cfg = dataclasses.replace(reduced(get_config(kw.pop("arch"))), **kw)
+    b, s = v["batch"], spec["seq"]
+    mesh_cfg = MeshConfig(tuple(shape), ("data", "model"))
+    n = int(np.prod(shape))
+    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
+                ("data", "model"))
+    params = nest({k[len(kind) + 1:]: inputs[k] for k in inputs.files
+                   if k.startswith(kind + "/")})
+    toks = np.asarray(inputs[f"serve_tokens_{kind}"][:b])
+    pre = f"{name}/{v['tag']}"
+    start = f"start/{pre}/"
+    host = {"pos": np.asarray(inputs[start + "pos"]),
+            "layers": {k[len(start):]: inputs[k] for k in inputs.files
+                       if k.startswith(start) and k != start + "pos"}}
+    if v.get("prefill", True):
+        prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, v["bits"], pre)
+    decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre)
+'''
+#: the end of the JAX program: everything it computed, saved
+_JAX_END = r'''
 np.savez(sys.argv[2], **out)
 print("ok", len(jax.devices()))
 '''
@@ -442,22 +753,29 @@ def world(tmp_path_factory):
         tgts = np.stack([b["targets"] for b in bs])
         tgts[:, 0, :9] = -1     # the first data shard counts fewer tokens
         arrays[f"tokens_{kind}"], arrays[f"targets_{kind}"] = toks, tgts
+        arrays[f"serve_tokens_{kind}"] = np.random.default_rng(5).integers(
+            0, jcfg.vocab_size, (B, S + 8)).astype(np.int32)
+    arrays.update(_start_caches(arrays))
     inputs_path = tmp / "inputs.npz"
     np.savez(inputs_path, **arrays)
 
     import json
     import threading
     script = tmp / "jax_step.py"
-    script.write_text(_JAX_STEP)
+    script.write_text(_JAX_STEP + _JAX_SERVE + _JAX_END)
     root = Path(__file__).resolve().parents[1]
     env = {**os.environ, "PYTHONPATH": str(root / "src"),
            "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
     procs = []
     cores = sorted(os.sched_getaffinity(0))
-    for i, names in enumerate([n] for n in MESHES):
+    # one process a mesh: its train step, then its SERVE_GROUPS cells
+    for i, n in enumerate(MESHES):
         spec = {"meshes": {n: (MESHES[n][0], list(MESHES[n][1]),
-                               MESHES[n][3]) for n in names},
+                               MESHES[n][3])},
+                "cells": [[m, MESHES[m][0], list(MESHES[m][1]),
+                           dict(SERVE[(m, c)], tag=c)]
+                          for m, c in SERVE_GROUPS[n]],
                 "configs": CONFIGS, "batch": B, "seq": S, "steps": STEPS}
         procs.append(subprocess.Popen(
             [sys.executable, str(script), str(inputs_path),
@@ -516,6 +834,10 @@ def world(tmp_path_factory):
             losses=list(want[f"{name}/losses"]),
             grads={n: t.numpy() for n, t in sub("grads").items()},
             params={n: t.numpy() for n, t in sub("params").items()})
+    for name, case in SERVE:
+        pre = f"{name}/{case}/"
+        jax_ref[f"serve/{name}/{case}"] = {
+            k[len(pre):]: want[k] for k in want if k.startswith(pre)}
     return dict(got=got, jax=jax_ref, one=one, inputs_path=inputs_path)
 
 
@@ -550,7 +872,28 @@ def one_process(inputs):
             rec["elastic"] = dict(losses=losses[STEPS:], params={
                 n: t.detach().numpy() for n, t in state.params.items()})
         out[name] = rec
+    out["serve_e2e"] = _serve_e2e_one_process(inputs)
     return out
+
+
+def _serve_e2e_one_process(inputs, steps=3):
+    """``_serve_e2e`` in one process: the same factories, one model."""
+    from repro_torch.serve.serve_step import make_decode_step, \
+        make_prefill_step
+    v = SERVE[("dense22", "base")]
+    model = build_model(port_cfg("dense"), device="cpu")
+    params = convert.shard_params_from_jax(jax_tree(inputs, "dense"), model)
+    toks = torch.from_numpy(inputs["serve_tokens_dense"][:v["batch"]])
+    t, cache = make_prefill_step(model, max_len=v["cap"])(
+        params, {"tokens": toks[:, :S]})
+    tokens = []
+    step = make_decode_step(model)
+    for _ in range(steps):
+        tokens.append(t.numpy())
+        t, cache = step(params, t, cache)
+    tokens.append(t.numpy())
+    return dict(tokens=np.stack(tokens), pos=int(cache["pos"]),
+                cache={k: t.numpy() for k, t in cache["layers"].items()})
 
 
 # ----------------------------------------------------------------- checks
@@ -645,9 +988,11 @@ def test_elastic_round_trip_equals_four_one_process_steps(world):
 
 
 def test_refusals_under_a_mesh(world):
-    """An SSM family under a (1, 2) mesh, and ``decode_step`` under a
-    mesh, raise ``NotImplementedError``."""
-    assert world["got"]["refusals"] == {"ssm": True, "decode_step": True}
+    """The SSM and hybrid families under a (1, 2) mesh, and
+    ``decode_step`` under the train rules, raise
+    ``NotImplementedError``."""
+    assert world["got"]["refusals"] == {"ssm": True, "hybrid": True,
+                                        "decode_step": True}
 
 
 @pytest.mark.parametrize("control", CONTROLS)
@@ -660,6 +1005,125 @@ def test_control_fails_the_comparison(world, control):
         want = world["one"]["dense22"]
         assert abs(got["loss0"] - want["loss0"]) <= 1e-5
         _close(got["grads"], want["grads"], control)
+
+
+#: the share of an 8-bit cache's codes that may sit one step from the
+#: reference's: float32 K/V that differ in their last bits round to the
+#: neighbouring code where they lie at a half step (2 of 32,768 codes of
+#: the (2, 2) prefill)
+INT8_MOVED = 1e-3
+
+
+def _hold_serving(got, want, what):
+    """Logits, next tokens and cache leaves at the float32 tolerance of
+    ``_close``; the tokens exact; an int8 leaf's codes equal but for
+    one-step moves on at most ``INT8_MOVED`` of them."""
+    _close({"logits": got["logits"]}, {"logits": want["logits"]}, what)
+    np.testing.assert_array_equal(got["tok"], want["tok"], err_msg=what)
+    assert set(got["cache"]) == set(want["cache"]), what
+    floats = {}
+    for k, w in want["cache"].items():
+        g = got["cache"][k]
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, k)
+        if w.dtype == np.int8:
+            moved = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert moved.max() <= 1 and moved.mean() <= INT8_MOVED, \
+                (what, k, int(moved.max()), float(moved.mean()))
+        else:
+            floats[k] = k
+    _close({k: got["cache"][k] for k in floats},
+           {k: want["cache"][k] for k in floats}, f"{what} cache")
+
+
+def _jax_cells(world, name, case):
+    want = world["jax"][f"serve/{name}/{case}"]
+    prefill = None
+    if "prefill/logits" in want:
+        prefill = {"logits": want["prefill/logits"],
+                   "tok": want["prefill/tok"],
+                   "cache": {k[len("prefill/cache/"):]: a
+                             for k, a in want.items()
+                             if k.startswith("prefill/cache/")}}
+    decode = {}
+    for dus in (0, 1):
+        pre = f"dus{dus}/"
+        decode[dus] = {"logits": want[pre + "logits"],
+                       "tok": want[pre + "tok"], "pos": int(want[pre + "pos"]),
+                       "cache": {k[len(pre + "cache/"):]: a
+                                 for k, a in want.items()
+                                 if k.startswith(pre + "cache/")}}
+    return prefill, decode, bool(want["kv_seq_shard"])
+
+
+@pytest.mark.parametrize("name,case", [k for k, v in SERVE.items()
+                                       if v.get("prefill", True)])
+def test_sharded_prefill_matches_jax(world, name, case):
+    """The sharded prefill (the prefill rules: each rank's stored KV heads,
+    its vocab shard of the logits) against JAX's executed prefill cell:
+    the gathered logits, the vocab-parallel argmax's tokens and the
+    gathered cache."""
+    got = world["got"][f"serve/{name}/{case}"]["prefill"]
+    prefill, _, _ = _jax_cells(world, name, case)
+    _hold_serving(got, prefill, f"{name} {case} prefill")
+
+
+@pytest.mark.parametrize("dus", [0, 1])
+@pytest.mark.parametrize("name,case", list(SERVE))
+def test_context_parallel_decode_matches_jax(world, name, case, dus):
+    """The decode steps under the decode rules (the cache sequence-sharded
+    over ``model``, the partials merged across it; whole on every rank
+    where the capacity does not divide ``model``) from one start cache,
+    against JAX's executed decode cell with the masked write (``kv_dus``
+    False) and with ``_shard_map_dus_write`` (True): each step's logits
+    and tokens, the last cache and ``pos``."""
+    got = world["got"][f"serve/{name}/{case}"]["decode"]
+    _, decode, kv_seq_shard = _jax_cells(world, name, case)
+    assert got["kv_seq_shard"] == kv_seq_shard == (case != "seq41")
+    assert got["pos"] == decode[dus]["pos"] == S + SERVE[(name, case)]["steps"]
+    _hold_serving(got, decode[dus], f"{name} {case} decode dus={dus}")
+
+
+def test_decode_past_capacity_writes_nothing(world):
+    """At ``pos == S_cache`` no slice of a sequence-sharded cache holds
+    the slot: the cache after the step is the handed-over prefill cache,
+    as in JAX, where one device (the port's one-process decode) clamps
+    the slot and overwrites the last one."""
+    got = world["got"]["serve/dense22/full"]
+    inputs = np.load(world["inputs_path"])
+    start = start_cache(inputs, "dense22", "full")
+    for k, a in got["decode"]["cache"].items():
+        np.testing.assert_array_equal(a, start["layers"][k].numpy(),
+                                      err_msg=k)
+    model = build_model(port_cfg("dense"), device="cpu")
+    params = convert.shard_params_from_jax(jax_tree(inputs, "dense"), model)
+    toks = torch.from_numpy(inputs["serve_tokens_dense"])
+    _, cache = model.prefill(params, {"tokens": toks[:, :S]}, max_len=S)
+    before = cache["layers"]["k"].clone()
+    model.decode_step(params, toks[:, S:S + 1], cache)
+    assert not torch.equal(cache["layers"]["k"][:, :, -1], before[:, :, -1])
+    assert torch.equal(cache["layers"]["k"][:, :, :-1], before[:, :, :-1])
+
+
+@pytest.mark.parametrize("control", SERVE_CONTROLS)
+def test_serving_control_fails_the_comparison(world, control):
+    """(2, 2)'s decode with the merge's ``model`` reduce dropped (each
+    rank attends only its slice), or with every rank writing the token at
+    its clamped local slot, must not meet JAX's decode cell."""
+    got = world["got"][f"serve_control/{control}"]["decode"]
+    _, decode, _ = _jax_cells(world, "dense22", "base")
+    with pytest.raises(AssertionError):
+        _hold_serving(got, decode[0], control)
+
+
+def test_serving_end_to_end_matches_one_process(world):
+    """``make_prefill_step`` on the (2, 2) mesh, the cache handed over to
+    the decode layout, then three greedy ``make_decode_step`` steps on
+    the tokens they return: the tokens, ``pos`` and the last cache of the
+    port's one-process run."""
+    got, want = world["got"]["serve_e2e"], world["one"]["serve_e2e"]
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    assert got["pos"] == want["pos"] == S + 3
+    _close(got["cache"], want["cache"], "end-to-end cache")
 
 
 def _fails_on_rank_1(rank):
@@ -678,3 +1142,40 @@ def test_a_failing_rank_fails_the_world_within_its_deadline(tmp_path):
     with pytest.raises(WorldError, match="rank 1 fails"):
         spawn_world(_fails_on_rank_1, 2, timeout_s=60.0, workdir=tmp_path)
     assert time.monotonic() - t0 < 60.0
+
+
+def _fails_on_rank_1_slow_exit(rank, err_path):
+    """Rank 1 raises; once its error file is written, it closes its
+    process group, which fails rank 0's waiting ``all_reduce`` at once,
+    and holds its own exit for 3 s: rank 0 exits first."""
+    import threading
+    import torch.distributed as dist
+
+    def close_then_linger():
+        while not os.path.exists(err_path):
+            time.sleep(0.01)
+        dist.destroy_process_group()
+        time.sleep(3.0)
+
+    if rank == 1:
+        threading.Thread(target=close_then_linger).start()
+        raise RuntimeError("rank 1 fails")
+    dist.all_reduce(torch.zeros(1))     # fails when rank 1 closes its group
+    return rank
+
+
+def test_the_first_failure_is_named_first_when_a_waiting_rank_exits_first(
+        tmp_path):
+    """The race of a failing rank against the rank it leaves waiting: the
+    waiting rank's collective fails and it exits before the failing rank
+    does. The world still names the failing rank's error, and names it
+    first, well inside its deadline."""
+    t0 = time.monotonic()
+    with pytest.raises(WorldError, match="rank 1 fails") as err:
+        spawn_world(_fails_on_rank_1_slow_exit, 2,
+                    (str(tmp_path / "result.1.err"),), timeout_s=60.0,
+                    workdir=tmp_path)
+    text = str(err.value)
+    assert time.monotonic() - t0 < 60.0
+    # rank 0's traceback is in the message too, after rank 1's
+    assert text.index("rank 1 fails") < text.index("all_reduce"), text
