@@ -316,10 +316,10 @@ Phases (the first failed check exits non-zero, with no result line):
    GRAD_RTOL cannot hold), and held instead on the last layer's own scan
    (``scan_grad_check``): dxdt, da, dB and dC within SCAN_GRAD_RTOL of
    the plain version's, the same dropped adjoint at least CONTROL_FACTOR
-   times that limit. 20b: six ``make_train_step`` steps of 2 x 4,096
+   times that limit. 20b: two ``make_train_step`` steps of 2 x 4,096
    tokens through ``PrefetchPipeline``, every loss finite, K7 launched
    twice a layer and step on its tensor design and no other kernel;
-   tokens/s over steps 2-6, forward, backward, AdamW and
+   tokens/s over step 2, forward, backward, AdamW and
    ``ssd_scan_bwd`` on CUDA events (the backward's share of the step),
    then one more step under ``torch.profiler`` (busy share, K7's time).
 21. The same for hybrid training at hymba-1.5b's full width and depth (32
@@ -335,7 +335,9 @@ Phases (the first failed check exits non-zero, with no result line):
    each norm (bit-for-bit equality printed) and each mode's peak of
    allocated memory; then two steps each of ``compress_grads`` in
    ``int8`` and ``topk`` (1%) with error feedback as the train step's
-   ``grad_transform``: every sent int8 element within INT8_STEPS of its
+   ``grad_transform``, one scale and one threshold for each JAX leaf
+   (every layer of a stacked name together, as JAX transforms its
+   stacked arrays): every sent int8 element within INT8_STEPS of its
    target, the new error feedback target - sent, top-k keeping at least
    k elements at or above the threshold and zero elsewhere.
 23. Enc-dec (audio) serving at seamless-m4t-medium's full width and depth
@@ -452,7 +454,24 @@ Phases (the first failed check exits non-zero, with no result line):
    within TF_F32_RTOL, and with the merge's ``model`` reduce dropped
    (each rank attending only its slice) read at least CONTROL_FACTOR x
    that. The main path (bf16 prefill and steps) is counted: K5 once a
-   layer on every rank, on wgmma. Printed for every part: tokens/s on the
+   layer on every rank, on wgmma.
+   28e and 28f, the SSM and hybrid families under the same mesh at full
+   width with 4 layers (``LM_SSD_RUN``, ``LM_SERVE``): 28e mamba2-780m
+   (24 of 48 SSD heads a rank, vocab-parallel tied embeddings), 28f
+   hymba-1.5b (25 of 50 SSD heads a rank beside DP-only attention on all
+   25 heads, window 1,024, and an MLP split over ``model``). Each trains
+   ``LM_SSD_RUN["steps"]`` steps of 2 x 4,096 tokens held as 28a holds
+   its first step (loss within LOSS_TOL, each gradient within GRAD_RTOL
+   of its norm), then serves as 28c does: a prefill of 2 x 4,096, 28e
+   also streamed in 2 chunks, 16 decode steps, each rank's SSM state
+   against its slice of the one-process state within TF_RTOL (float32
+   within TF_F32_RTOL); the float32 check's controls drop the SSD ``o``
+   projection's ``model`` reduce and the gated norm's sum over
+   ``model``, each read on the prefill. The main path (the training
+   steps, the prefills and the steps) is counted: K7 twice a layer and
+   step in training and once a layer a prefill or chunk, on tensor; in
+   28f K5 and K6 as in 28a and K5 once a layer a prefill, on wgmma.
+   Printed for every part: tokens/s on the
    host clock, each rank's peak memory, each collective's calls, bytes
    and host seconds, with the card's name and power limit; four ranks on
    one card share its SMs, so nothing here speaks of scaling.
@@ -465,20 +484,20 @@ readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16,
 27a-27e, 4, 6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
-and 25a (and 28a-28d on each rank) and read just after; every bf16
-launch of K5 and K6 in phases 4, 28a, 28c, 28d,
+and 25a (and 28a-28f on each rank) and read just after; every bf16
+launch of K5 and K6 in phases 4, 28a, 28c-28f,
 6b, 10, 17a, 18, 19, 21b, 23a, 24b and 25a must have gone through the
-wgmma design, and every K7 launch of 20b and 21b through the tensor
-design. A segment kernel's
+wgmma design, and every K7 launch of 20b, 21b, 28e and 28f through
+the tensor design. A segment kernel's
 ``launches`` is its count in the run whose launch it replays (K1 the
 Linear Road run, K2 the main run, K3 the split-K run;
 ``launches_by_run`` gives every run's count, and every kernel's counts
 in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a), and
 ``launches_by_shard`` each shard's launches in phase 27 by design); K4's
 and K5's are their counts in phase 4, K6's in phase 6b, K7's in phase
-9a; K5's and K6's ``non_causal`` hold phase 26's replays and their
-``launches_by_rank`` each rank's count in phases 28a-28d (K5's serving
-launches are 28c's and 28d's). The
+9a; K5's and K6's ``non_causal`` hold phase 26's replays, and K5's,
+K6's and K7's ``launches_by_rank`` each rank's count in phases 28a-28f
+(28e's and 28f's training and serving together). The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -5079,8 +5098,9 @@ def failure_controls(dev, spill_root: Path, windows: float) -> dict:
 #: phases 20 and 21: SSM_ARCH and HYBRID_ARCH trained at full width and
 #: depth (fp32 parameters, bf16 compute, ``remat="full"``): the gradient
 #: check (a) on 1 x grad_seq tokens through grad_layers of the layers,
-#: then (b) six steps of 2 x 4,096 tokens and one more step profiled
-SSM_TRAIN_RUN = dict(batch=2, seq=4096, steps=6, grad_seq=4096,
+#: then (b) two steps of 2 x 4,096 tokens (cut from six to pay for 28e and
+#: 28f) and one more step profiled
+SSM_TRAIN_RUN = dict(batch=2, seq=4096, steps=2, grad_seq=4096,
                      grad_layers=4, loss_tol=SSM_LOSS_TOL)
 #: 21a's zeroed-dq control drops K6's first dq block of the wgmma design
 #: (DQ_TILES: 128 query rows): 6a's 64 rows read below CONTROL_FACTOR at
@@ -5129,7 +5149,7 @@ def ssm_train(device, cfg, run: dict, seed: int, every: dict,
     layer and step under ``remat="full"``, K5 twice and K6 once on wgmma
     where the model has attention), then one step profiled; the
     backward's share of a step is ``ssd_scan_bwd``'s device time over
-    the step's wall, in steps 2-6."""
+    the step's wall, in steps 2 onwards."""
     import torch
     t_phase = time.perf_counter()
     model, params = build_serve(device, dataclasses.replace(
@@ -5296,12 +5316,13 @@ def compressed_steps(device, cfg, run: dict, seed: int) -> dict:
     """22b: ``make_train_step`` with ``compress_grads`` (error feedback
     on) as its ``grad_transform``, run["steps"] steps of 1 x seq tokens
     for each of ``int8`` and ``topk`` (run["topk_frac"]) on fresh weights.
-    Every step: the loss finite; every sent int8 element within half a
-    quantization step (the tensor's largest |target| / 127) of its target
-    (gradient + error feedback); the new error feedback equal to target -
-    sent; the top-k output keeping at least k elements, each equal to its
-    target and at or above the k-th largest |target|, and zero
-    elsewhere."""
+    Every step, for each JAX leaf (the layers of a stacked name
+    together, ``compression.leaves``): the loss finite; every sent int8
+    element within half a quantization step (the leaf's largest |target|
+    / 127) of its target (gradient + error feedback); the new error
+    feedback equal to target - sent; the top-k output keeping at least k
+    of the leaf's elements, each equal to its target and at or above the
+    leaf's k-th largest |target|, and zero elsewhere."""
     import torch
     from repro_torch.data.generators import token_batches
     from repro_torch.data.pipeline import PrefetchPipeline
@@ -5309,6 +5330,7 @@ def compressed_steps(device, cfg, run: dict, seed: int) -> dict:
         CompressorConfig, OptConfig, compress_grads, init_error_feedback,
         make_train_step,
     )
+    from repro_torch.train.compression import leaves
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.train_step import TrainState
     cfg = dataclasses.replace(cfg, num_layers=run["layers"])
@@ -5322,25 +5344,36 @@ def compressed_steps(device, cfg, run: dict, seed: int) -> dict:
         def transform(grads):
             targets = {k: g.float() + ef[0][k] for k, g in grads.items()}
             sent, new_ef = compress_grads(ccfg, grads, ef[0])
-            for k, t in targets.items():
-                sk, ek = sent[k], new_ef[k]
-                check(torch.equal(ek, t - sk), f"22b: {kind}: {k}: the "
-                      "new error feedback is not target - sent")
+            # one scale and one threshold for each JAX leaf: every layer
+            # of a stacked name together
+            for leaf, names in leaves(targets).items():
+                ts = [targets[k] for k in names]
+                for k, t in zip(names, ts):
+                    check(torch.equal(new_ef[k], t - sent[k]), f"22b: "
+                          f"{kind}: {k}: the new error feedback is not "
+                          "target - sent")
                 if kind == "int8":
-                    step = float(t.abs().max()) / 127.0 + 1e-12
-                    err = float((sk - t).abs().max()) / step
-                    check(err <= INT8_STEPS, f"22b: int8: {k}: an element "
-                          f"{err:.6f} steps from its target")
+                    step = max(float(t.abs().max()) for t in ts) / 127.0 \
+                        + 1e-12
+                    err = max(float((sent[k] - t).abs().max())
+                              for k, t in zip(names, ts)) / step
+                    check(err <= INT8_STEPS, f"22b: int8: {leaf}: an "
+                          f"element {err:.6f} steps from its target")
                     seen["int8_steps"] = max(seen["int8_steps"], err)
                 else:
-                    n_k = max(int(t.numel() * ccfg.topk_frac), 1)
-                    thresh = torch.topk(t.abs().reshape(-1), n_k).values[-1]
-                    kept = (sk == t) & (t.abs() >= thresh)
-                    check(int(kept.sum()) >= n_k and not bool(
-                        sk[~kept].any()), f"22b: topk: {k}: "
-                        f"{int(kept.sum())} kept of k = {n_k}, or a "
-                        "value sent below the threshold")
-                    seen["kept"] += int(kept.sum())
+                    n_k = max(int(sum(t.numel() for t in ts)
+                                  * ccfg.topk_frac), 1)
+                    thresh = torch.topk(torch.cat(
+                        [t.abs().reshape(-1) for t in ts]), n_k).values[-1]
+                    n_kept = 0
+                    for k, t in zip(names, ts):
+                        kept = (sent[k] == t) & (t.abs() >= thresh)
+                        check(not bool(sent[k][~kept].any()), f"22b: topk: "
+                              f"{k}: a value sent below the threshold")
+                        n_kept += int(kept.sum())
+                    check(n_kept >= n_k, f"22b: topk: {leaf}: {n_kept} "
+                                         f"kept of k = {n_k}")
+                    seen["kept"] += n_kept
                     seen["k"] += n_k
                 seen["tensors"] += 1
             ef[0] = new_ef
@@ -5374,7 +5407,7 @@ def compressed_steps(device, cfg, run: dict, seed: int) -> dict:
                f"quantization step of its target (limit {INT8_STEPS:.6f})"
                if kind == "int8" else
                f"{seen['kept']} elements kept of k = {seen['k']} over "
-               f"{seen['tensors']} tensors, all at or above their "
+               f"{seen['tensors']} JAX leaves, all at or above their "
                "threshold"))
     return out
 
@@ -5825,26 +5858,51 @@ LM_THREADS = 2
 LM_TIMEOUT_S = 600.0
 #: phase 28's parts, each by the key of its ranks' records
 LM_PARTS = {"28a": "dense", "28b": "moe", "28c": "serve_dense",
-            "28d": "serve_moe"}
-#: 28c/28d: serving under the (2, 2) mesh, bf16 weights and compute. The
+            "28d": "serve_moe", "28e": "ssm", "28f": "hybrid"}
+#: 28e/28f: the SSM and hybrid families under the same mesh, each at full
+#: width with 4 of its layers: ``LM_SSD_RUN["steps"]`` training steps
+#: (bf16 compute, fp32 parameters, remat full) held as 28a holds its
+#: first step, then served as 28c is (``LM_SERVE``), the SSD block split
+#: over ``model`` (28e mamba2-780m: 24 of 48 heads a rank; 28f
+#: hymba-1.5b: 25 of 50, its attention DP-only on all 25 heads beside
+#: it, the MLP split)
+LM_SSD_RUN = dict(layers=4, batch=2, seq=4096, steps=2)
+SMALL_LM_SSD = dict(layers=2, batch=2, seq=128, steps=2)
+#: the cache leaves that hold KV heads (the hand-over drops a repeat)
+KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+#: 28c-28f: serving under the (2, 2) mesh, bf16 weights and compute. The
 #: prefill of ``batch`` x ``seq`` under the prefill rules (the batch over
-#: ``data``, each rank's heads through K5), the cache handed over to the
-#: decode rules' layout (every KV head over this rank's half of ``cap``
-#: slots), then ``steps`` decode steps on rank 0's one-process greedy
-#: tokens; the check reruns the prefill and ``check_steps`` steps in
-#: float32 compute at ``check_layers`` layers, with the merge's ``model``
-#: reduce dropped as the control. 28c: TRAIN_ARCH with 4 layers; 28d:
-#: MOE_ARCH with 2 (64 experts a rank)
+#: ``data``, each rank's heads through K5 and K7), with ``chunks`` a
+#: streamed prefill of the same prompt, the cache handed over to the
+#: decode rules' layout (28c/28d: every KV head over this rank's half of
+#: ``cap`` slots; the SSM state keeps its split by SSD heads, and the
+#: hybrid's window ring its whole), then ``steps`` decode steps on rank
+#: 0's one-process greedy tokens; the check reruns the prefill and
+#: ``check_steps`` steps in float32 compute at ``check_layers`` layers,
+#: with ``controls`` dropped: the merge's ``model`` reduce (read on the
+#: steps), the SSD ``o`` projection's reduce, the gated norm's sum over
+#: ``model`` (each read on the prefill). 28c: TRAIN_ARCH with 4 layers;
+#: 28d: MOE_ARCH with 2 (64 experts a rank); 28e and 28f: SSM_ARCH and
+#: HYBRID_ARCH with 4 (the hybrid's prompt a multiple of its window)
 LM_SERVE = {
     "dense": dict(arch=TRAIN_ARCH, layers=4, batch=2, seq=4096, cap=4160,
-                  steps=32, check_layers=2, check_steps=2),
+                  steps=32, check_layers=2, check_steps=2,
+                  controls=("merge",)),
     "moe": dict(arch=MOE_ARCH, layers=2, batch=2, seq=2048, cap=2064,
-                steps=16, check_layers=2, check_steps=2)}
+                steps=16, check_layers=2, check_steps=2,
+                controls=("merge",)),
+    "ssm": dict(arch=SSM_ARCH, layers=4, batch=2, seq=4096, cap=4112,
+                steps=16, check_layers=2, check_steps=2, chunks=2,
+                controls=("ssd_o", "ssd_norm")),
+    "hybrid": dict(arch=HYBRID_ARCH, layers=4, batch=2, seq=4096, cap=4112,
+                   steps=16, check_layers=2, check_steps=2,
+                   controls=("ssd_o", "ssd_norm"))}
 SMALL_LM_SERVE = {
-    "dense": dict(arch=TRAIN_ARCH, layers=2, batch=2, seq=128, cap=136,
-                  steps=3, check_layers=2, check_steps=2),
-    "moe": dict(arch=MOE_ARCH, layers=2, batch=2, seq=128, cap=136,
-                steps=3, check_layers=2, check_steps=2)}
+    "dense": dict(LM_SERVE["dense"], layers=2, seq=128, cap=136, steps=3),
+    "moe": dict(LM_SERVE["moe"], seq=128, cap=136, steps=3),
+    "ssm": dict(LM_SERVE["ssm"], layers=2, seq=128, cap=136, steps=3),
+    "hybrid": dict(LM_SERVE["hybrid"], layers=2, seq=128, cap=136,
+                   steps=3)}
 
 
 def _lm_cfg(arch: str, run: dict, small: bool):
@@ -6232,20 +6290,33 @@ def _serve_prompt(cfg, run: dict, dev):
 def _serve_ref(cfg, run: dict, dev, steps: int, where: Path) -> None:
     """Rank 0's one-process serving on the mesh's weights: the prefill and
     ``steps`` greedy decode steps; every logits tensor and the tokens
-    (the prefill's next token, then each step's) saved under ``where``."""
+    (the prefill's next token, then each step's) saved under ``where``,
+    with the prefill's SSM state, and with ``run["chunks"]`` the streamed
+    prefill's logits and state."""
     import numpy as np
     import torch
     from repro_torch.models.model import build_model
+    where.mkdir(parents=True, exist_ok=True)
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(dev).manual_seed(SEED + 31))
-    logits, cache = model.prefill(params, {"tokens": _serve_prompt(
-        cfg, run, dev)}, max_len=run["cap"])
+    prompt = _serve_prompt(cfg, run, dev)
+    if run.get("chunks"):
+        logits, cache = model.prefill_streaming(
+            params, {"tokens": prompt}, chunk=run["seq"] // run["chunks"])
+        np.save(where / "stream_logits.npy", logits.float().cpu().numpy())
+        np.save(where / "stream_ssm.npy",
+                cache["layers"]["ssm"].float().cpu().numpy())
+        del logits, cache
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  max_len=run["cap"])
+    if cfg.ssm.enabled:
+        np.save(where / "ssm.npy", cache["layers"]["ssm"].float().cpu()
+                .numpy())
     lgs, toks = [logits], [logits.argmax(-1)]
     for _ in range(steps):
         logits, cache = model.decode_step(params, toks[-1], cache)
         lgs.append(logits)
         toks.append(logits.argmax(-1))
-    where.mkdir(parents=True, exist_ok=True)
     np.save(where / "logits.npy", torch.stack(lgs).float().cpu().numpy())
     np.save(where / "tokens.npy", torch.stack(toks).cpu().numpy())
     del model, params, cache, lgs
@@ -6280,14 +6351,54 @@ def _shard_rows_rel(ctx, got, want, vocab: int) -> float:
     return float((sums[0].sqrt() / sums[1].sqrt()).max())
 
 
+def _state_rel(ctx, model, got, where: Path) -> float:
+    """This rank's piece of a cache's SSM state [L, B, H, P, N] against
+    the same slice of the whole saved one, in units of that slice's
+    norm."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import sharding as shd
+    ref = np.load(where, mmap_mode="r")
+    spec = model.cache_specs()["layers"]["ssm"]
+    sl = shd.shard_slices(ref.shape, ctx.pspec(*spec), ctx.mesh)
+    w = torch.from_numpy(np.array(ref[sl])).to(got.device)
+    check(bool(torch.isfinite(got).all()), "SSM state not finite")
+    return float(torch.linalg.vector_norm(got.float() - w)
+                 / torch.linalg.vector_norm(w).clamp(min=1e-30))
+
+
+@contextlib.contextmanager
+def _ssd_control(name: str):
+    """The SSD block with one of its ``model`` sums dropped: the ``o``
+    projection's reduce (``ssd_o``), or the gated norm's mean of squares
+    over every rank's heads (``ssd_norm``: each rank normalises its own
+    heads alone)."""
+    ssm_mod = importlib.import_module("repro_torch.models.ssm")
+    lyr = importlib.import_module("repro_torch.models.layers")
+    real = (ssm_mod.row_parallel, ssm_mod._mean_square)
+    if name == "ssd_o":
+        ssm_mod.row_parallel = lambda p, x, cd, n, m, a: lyr.row_parallel(
+            p, x, cd, n, None, None)
+    else:
+        ssm_mod._mean_square = lambda y, m, a: y.square().mean(
+            -1, keepdim=True)
+    try:
+        yield
+    finally:
+        ssm_mod.row_parallel, ssm_mod._mean_square = real
+
+
 def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
-                control: bool = False) -> dict:
+                controls: tuple = ()) -> dict:
     """The mesh's serving of ``run`` on this rank (module comment of
-    LM_SERVE): the prefill's and every step's logits against rank 0's
-    saved ones (``_shard_rows_rel``), the next tokens (``vocab_argmax``)
-    against its greedy ones, host seconds around synchronised prefill
-    and steps; ``control`` decodes the steps again with the merge's
-    ``model`` reduce dropped."""
+    LM_SERVE): the prefill's (and the streamed prefill's) and every
+    step's logits against rank 0's saved ones (``_shard_rows_rel``), the
+    SSM state against its slice of rank 0's, the next tokens
+    (``vocab_argmax``) against its greedy ones, host seconds around
+    synchronised prefills and steps; ``controls`` rerun the prefill with
+    one of the SSD block's sums dropped (``ssd_o``, ``ssd_norm``) or
+    decode the steps again with the merge's ``model`` reduce dropped
+    (``merge``), each read in ``out["controls"]``."""
     import numpy as np
     import torch
     from repro_torch import convert
@@ -6304,16 +6415,21 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
         ctxs[kind] = shd.ShardCtx(mesh, shd.make_rules(
             cfg, mesh_cfg, run["batch"], n, kind), prof)
     pctx, dctx = ctxs["prefill"], ctxs["decode"]
-    check(dctx.profile.kv_seq_shard, "the decode cache is not sequence-"
-                                     "sharded over model")
+    seq_shard = cfg.has_attention and not cfg.attn_window
+    check(dctx.profile.kv_seq_shard == seq_shard,
+          f"the decode cache is {'' if seq_shard else 'not '}meant to be "
+          "sequence-sharded over model")
     ref_logits = np.load(where / "logits.npy", mmap_mode="r")
     ref_toks = torch.from_numpy(np.load(where / "tokens.npy")).to(dev)
+    vocab = cfg.vocab_size
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    out = {"kv_repeat": (pctx.profile.kv_repeat, dctx.profile.kv_repeat)}
+    out = {"kv_repeat": (pctx.profile.kv_repeat, dctx.profile.kv_repeat),
+           "profile": {k: getattr(pctx.profile, k) for k in
+                       ("attn_tp", "ssd_tp", "mlp_tp")}, "controls": {}}
     with shd.use_ctx(pctx):
         model = build_model(cfg, kv_repeat=pctx.profile.kv_repeat,
                             device=dev)
@@ -6327,13 +6443,39 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
         sync()
         out["prefill_s"] = time.perf_counter() - t0
         out["prefill_rel"] = _shard_rows_rel(pctx, logits, ref_logits[0],
-                                             cfg.vocab_size)
+                                             vocab)
+        if cfg.ssm.enabled:
+            out["state_rel"] = _state_rel(pctx, model, cache["layers"]["ssm"],
+                                          where / "ssm.npy")
         tok = vocab_argmax(logits)
         full = convert.gather_cache(cache, model)
         del cache, logits
+        if run.get("chunks"):
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill_streaming(
+                params, {"tokens": prompt},
+                chunk=run["seq"] // run["chunks"])
+            sync()
+            out["stream_s"] = time.perf_counter() - t0
+            out["stream_rel"] = _shard_rows_rel(
+                pctx, logits, np.load(where / "stream_logits.npy"), vocab)
+            out["stream_state_rel"] = _state_rel(
+                pctx, model, cache["layers"]["ssm"], where / "stream_ssm.npy")
+            del logits, cache
+        for name in controls:
+            if name == "merge":
+                continue
+            with _ssd_control(name):
+                lg, _ = model.prefill(params, {"tokens": prompt},
+                                      max_len=run["cap"])
+            out["controls"][name] = _shard_rows_rel(pctx, lg, ref_logits[0],
+                                                    vocab)
+            del lg
     # the prefill's stored heads without its repeat: every r-th head
     r = pctx.profile.kv_repeat // dctx.profile.kv_repeat
-    full["layers"] = {k: t[:, :, :, ::r] for k, t in full["layers"].items()}
+    full["layers"] = {k: t[:, :, :, ::r] if k in KV_LEAVES else t
+                      for k, t in full["layers"].items()}
     agree = [int((tok == local_batch({"tokens": ref_toks[0]}, pctx)
                   ["tokens"]).sum())]
     with shd.use_ctx(dctx):
@@ -6351,21 +6493,22 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
                 sync()
                 secs.append(time.perf_counter() - t0)
                 rels.append(_shard_rows_rel(dctx, lg, ref_logits[i + 1],
-                                            cfg.vocab_size))
+                                            vocab))
                 if tag == "main":
                     want = local_batch({"tokens": ref_toks[i + 1]},
                                        dctx)["tokens"]
                     agree.append(int((vocab_argmax(lg) == want).sum()))
-            out[f"{tag}_rels"], out[f"{tag}_s"] = rels, secs
-            out["cache_slots"] = int(cache["layers"]["k"].shape[2])
+            if "k" in cache["layers"]:
+                out["cache_slots"] = int(cache["layers"]["k"].shape[2])
+            return rels, secs
 
-        decode("main")
-        if control:
+        out["main_rels"], out["main_s"] = decode("main")
+        if "merge" in controls:
             real = attn_mod.merge_partials
             attn_mod.merge_partials = lambda m, l, acc, rmax, rsum: real(
                 m, l, acc, lambda x: x, lambda x: x)
             try:
-                decode("control")
+                out["controls"]["merge"] = max(decode("control")[0])
             finally:
                 attn_mod.merge_partials = real
     out["agree"] = agree
@@ -6379,8 +6522,9 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
 
 def _lm_serve(rank: int, mesh, dev, small: bool, wrappers: dict,
               ref_dir: Path, part: str) -> dict:
-    """28c (``part`` dense) or 28d (moe) on this rank: rank 0's
-    one-process references (bf16, then float32 at ``check_layers``), then
+    """The serving of 28c (``part`` dense), 28d (moe), 28e (ssm) or 28f
+    (hybrid) on this rank: rank 0's one-process references (bf16, then
+    float32 at ``check_layers``), then
     the main path on the mesh (bf16: prefill and ``steps`` steps, the
     kernel counters set to 0 just before and read just after, the
     collectives and peak memory read), then the float32 check and its
@@ -6412,14 +6556,178 @@ def _lm_serve(rank: int, mesh, dev, small: bool, wrappers: dict,
     if dev.type == "cuda":
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     rec["fp32"] = _serve_mesh(cfg32, run, mesh, dev, run["check_steps"],
-                              where32, control=True)
+                              where32, controls=run["controls"])
     return rec
+
+
+def _lm_ssd_train(rank: int, mesh, dev, small: bool, wrappers: dict,
+                  ref_dir: Path, part: str) -> dict:
+    """28e/28f's training on this rank: rank 0's one-process steps on the
+    same weights (the first step's gradients saved), then
+    ``LM_SSD_RUN["steps"]`` steps on the mesh (counted and timed; the
+    first step's loss and gradients held against the one-process
+    step's)."""
+    import torch
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainState
+    run = SMALL_LM_SSD if small else LM_SSD_RUN
+    cfg = _lm_cfg(LM_SERVE[part]["arch"], run, small)
+    mesh_cfg = MeshConfig(LM_MESH, ("data", "model"))
+    seed = SEED + 32 + (part == "hybrid")
+    batches = _lm_batches(cfg, run, run["steps"], seed, dev)
+    opt = OptConfig(warmup_steps=1, total_steps=run["steps"])
+    where = ref_dir / f"train_{part}"
+    rec = {"rank": rank}
+    if rank == 0:
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(seed))
+        step = make_train_step(model, opt)
+        state = TrainState(params=params, opt=adamw_init(params))
+        ref_losses = []
+        with _first_grads(lambda g: _lm_save_ref(g, where)):
+            for b in batches:
+                state, m = step(state, b)
+                ref_losses.append(float(m["loss"]))
+        del model, params, state, step
+        gc.collect()
+        _empty(dev)
+        rec.update(ref_losses=ref_losses, ref_s=time.perf_counter() - t0)
+    _lm_barrier(mesh)
+    prof = shd.sharding_profile(cfg, mesh_cfg, run["batch"], run["seq"])
+    ctx = shd.ShardCtx(mesh, shd.make_rules(cfg, mesh_cfg, run["batch"],
+                                            run["seq"]), prof)
+    with shd.use_ctx(ctx):
+        model = build_model(cfg, kv_repeat=prof.kv_repeat, device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(seed))
+        rec["local_params"] = sum(p.numel() for p in params.values())
+        rec["local_ssd_heads"] = params["layers.0.ssd.A_log"].shape[0]
+        rec["profile"] = {k: getattr(prof, k) for k in
+                          ("attn_tp", "ssd_tp", "mlp_tp", "vocab_tp")}
+        step = make_train_step(model, opt)
+        state = TrainState(params=params, opt=adamw_init(params))
+        zero_counts(wrappers.values())
+        col.reset_stats()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, wall, first = [], [], {}
+        with _first_grads(
+                lambda g: first.update(rel=_lm_rel(ctx, model, g, where))):
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+        rec["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+        rec["by_design"] = by_design(wrappers)
+        rec["collectives"] = {k: dict(v) for k, v in col.STATS.items()}
+        if dev.type == "cuda":
+            rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        worst, name = first["rel"]
+        if rank == 0:
+            rec.update(loss=losses[0],
+                       loss_err=abs(losses[0] - rec["ref_losses"][0]),
+                       grad_rel_err=worst, worst_param=name)
+        rec.update(losses=losses, step_s=wall)
+        del state, step, params, model
+    gc.collect()
+    _empty(dev)
+    return rec
+
+
+def _lm_ssd(rank: int, mesh, dev, small: bool, wrappers: dict,
+            ref_dir: Path, part: str) -> dict:
+    """28e (``part`` ssm) or 28f (hybrid) on this rank: the training, then
+    the serving (``_lm_serve``); the main path's launches are theirs
+    together."""
+    rec = {"rank": rank, "data": mesh.index("data"),
+           "model": mesh.index("model")}
+    t0 = time.perf_counter()
+    rec["train"] = _lm_ssd_train(rank, mesh, dev, small, wrappers, ref_dir,
+                                 part)
+    rec["train"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["serve"] = _lm_serve(rank, mesh, dev, small, wrappers, ref_dir, part)
+    rec["serve"]["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: rec["train"]["launches"][k]
+                       + rec["serve"]["launches"][k] for k in wrappers}
+    return rec
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The launches a rank's training steps imply under remat full (every
+    layer's forward run again in the backward): K5 and K7 twice a layer
+    and step, K6 once."""
+    per = 2 if cfg.remat != "none" else 1
+    out = {}
+    if cfg.has_attention:
+        out.update(K5=per * cfg.num_layers * steps,
+                   K6=cfg.num_layers * steps)
+    if cfg.ssm.enabled:
+        out["K7"] = per * cfg.num_layers * steps
+    return out
+
+
+def ssd_report(rs: list, part: str, tag: str, small: bool, card: str,
+               cuda: bool) -> list:
+    """28e or 28f: print and hold each rank's training and serving."""
+    run = SMALL_LM_SSD if small else LM_SSD_RUN
+    cfg = _lm_cfg(LM_SERVE[part]["arch"], run, small)
+    t0 = rs[0]["train"]
+    log(f"phase {tag}: {cfg.name} at {'reduced' if small else 'full'} width "
+        f"({_cfg_line(cfg)}) with {cfg.num_layers} layers, layout "
+        f"{t0['profile']}, {t0['local_ssd_heads']} SSD heads a rank, "
+        f"{run['batch']} x {run['seq']} tokens a step, bf16 compute; "
+        f"one-process reference in {t0['ref_s']:.1f} s, training "
+        f"{t0['wall_s']:.1f} s, serving {rs[0]['serve']['wall_s']:.1f} s "
+        f"({card})")
+    log(f"phase {tag}: the first step on the mesh against the one-process "
+        f"step: loss {t0['loss']:.6f} (off by {t0['loss_err']:.3g}, limit "
+        f"{LOSS_TOL}), the worst gradient {t0['worst_param']} off by "
+        f"{t0['grad_rel_err']:.3g} of its norm (limit {GRAD_RTOL})")
+    check(t0["loss_err"] <= LOSS_TOL, f"{tag}: loss off by {t0['loss_err']}")
+    check(t0["grad_rel_err"] <= GRAD_RTOL,
+          f"{tag}: {t0['worst_param']} off by {t0['grad_rel_err']:.3g}")
+    for a, b in zip(t0["losses"], t0["ref_losses"]):
+        check(math.isfinite(a) and abs(a - b) <= 10 * LOSS_TOL * max(
+            1.0, abs(b)), f"{tag}: step loss {a} against one process {b}")
+    timed = t0["step_s"][1:] or t0["step_s"]
+    log(f"phase {tag}: {run['steps']} steps: losses "
+        f"{[round(x, 4) for x in t0['losses']]} (one process "
+        f"{[round(x, 4) for x in t0['ref_losses']]}), step seconds "
+        f"{[round(x, 3) for x in t0['step_s']]}, "
+        f"{run['batch'] * run['seq'] * len(timed) / sum(timed):.1f} "
+        f"tokens/s ({card})")
+    for r in rs:
+        t = r["train"]
+        check(t["losses"] == t0["losses"], f"{tag}: rank {r['rank']} reads "
+              f"losses {t['losses']}, rank 0 {t0['losses']}")
+        log(f"  rank {r['rank']}: training: {t['local_params'] / 1e6:.1f} M "
+            f"local parameters, max_memory_allocated "
+            f"{t.get('max_memory_allocated', 0) / 1e9:.2f} GB, launches "
+            f"{t['launches']}; collectives: "
+            + _collective_line(t["collectives"]) + f" ({card})")
+        if cuda:
+            check_designs(f"{tag} training", t, train_launches(
+                cfg, run["steps"]))
+    serve = [dict(r["serve"], rank=r["rank"], data=r["data"],
+                  model=r["model"]) for r in rs]
+    serve_report(serve, part, tag, small, card, cuda)
+    return rs
 
 
 def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str,
                   parts: tuple = tuple(LM_PARTS)) -> dict:
     """One rank of phase 28's world: the (2, 2) mesh over the four ranks,
-    then 28a, 28b, 28c and 28d (those of ``parts``)."""
+    then 28a-28f (those of ``parts``)."""
     import torch
     from repro_torch.configs.base import MeshConfig
     from repro_torch.launch.mesh import make_mesh_from_config
@@ -6436,7 +6744,11 @@ def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str,
             "28c": lambda: _lm_serve(rank, mesh, dev, small, wrappers,
                                      Path(ref_dir), "dense"),
             "28d": lambda: _lm_serve(rank, mesh, dev, small, wrappers,
-                                     Path(ref_dir), "moe")}
+                                     Path(ref_dir), "moe"),
+            "28e": lambda: _lm_ssd(rank, mesh, dev, small, wrappers,
+                                   Path(ref_dir), "ssm"),
+            "28f": lambda: _lm_ssd(rank, mesh, dev, small, wrappers,
+                                   Path(ref_dir), "hybrid")}
     out = {}
     for tag in parts:
         t0 = time.perf_counter()
@@ -6572,24 +6884,76 @@ def lm_world_phase(dev, card: str, small: bool = False,
             out[f"serve_{part}"] = serve_report(
                 [r[f"serve_{part}"] for r in ranks], part, tag, small, card,
                 cuda)
+    for part, tag in (("ssm", "28e"), ("hybrid", "28f")):
+        if part in ranks[0]:
+            out[part] = ssd_report([r[part] for r in ranks], part, tag,
+                                   small, card, cuda)
     return out
+
+
+def _cfg_line(cfg) -> str:
+    """A config's widths for a log line."""
+    parts = [f"{cfg.d_model} wide"]
+    if cfg.has_attention:
+        parts.append(f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads"
+                     + (f", window {cfg.attn_window}" if cfg.attn_window
+                        else ""))
+    if cfg.ssm.enabled:
+        nh = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        parts.append(f"{nh} SSD heads of {cfg.ssm.head_dim}, state "
+                     f"{cfg.ssm.state_size}")
+    if cfg.d_ff:
+        parts.append(f"d_ff {cfg.d_ff}")
+    parts.append(f"vocab {cfg.vocab_size}")
+    return ", ".join(parts)
+
+
+def serve_launches(cfg, run: dict) -> dict:
+    """The launches a rank's bf16 serving path implies: K5 once a layer in
+    the prefill; K7 once a layer in the prefill and in each chunk of the
+    streamed one (the decode steps launch neither)."""
+    out = {}
+    if cfg.has_attention:
+        out["K5"] = cfg.num_layers
+    if cfg.ssm.enabled:
+        out["K7"] = cfg.num_layers * (1 + run.get("chunks", 0))
+    return out
+
+
+#: the design each counted kernel of phase 28 must take in bf16
+MESH_DESIGNS = {"K5": "wgmma", "K6": "wgmma", "K7": "tensor"}
+
+
+def check_designs(tag: str, r: dict, want: dict) -> None:
+    """Each kernel of ``want`` launched exactly that many times on rank
+    ``r``, all on its bf16 design."""
+    for k, n in want.items():
+        check(r["launches"][k] == n, f"{tag}: rank {r['rank']}: {k} launched "
+              f"{r['launches'][k]} times, the path implies {n}")
+        design = r["by_design"][k]
+        check(design.get(MESH_DESIGNS[k]) == n and sum(design.values()) == n,
+              f"{tag}: rank {r['rank']}: {k} by design {design}")
 
 
 def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
                  cuda: bool) -> list:
-    """28c or 28d: print and hold what each rank read."""
+    """28c-28f's serving: print and hold what each rank read."""
     run = (SMALL_LM_SERVE if small else LM_SERVE)[part]
     cfg = _serve_cfg(run, small, run["layers"], "bfloat16")
     r0 = rs[0]
     kv = r0["bf16"]["kv_repeat"]
+    layout = (f"the cache handed over to the decode rules' layout "
+              f"({run['cap']} slots, {r0['bf16']['cache_slots']} a rank, KV "
+              f"repeat {kv[1]})" if "cache_slots" in r0["bf16"] else
+              "the state handed over to the decode rules' layout")
     log(f"phase {tag}: {cfg.name} at {'reduced' if small else 'full'} "
-        f"width ({cfg.d_model} wide, {cfg.num_heads} heads, "
-        f"{cfg.num_kv_heads} KV heads, vocab {cfg.vocab_size}) with "
-        f"{cfg.num_layers} layers, bf16 weights and compute: a prefill of "
-        f"{run['batch']} x {run['seq']} under the prefill rules (KV "
-        f"repeat {kv[0]}), the cache handed over to the decode rules' "
-        f"layout ({run['cap']} slots, {r0['bf16']['cache_slots']} a rank, "
-        f"KV repeat {kv[1]}), then {run['steps']} decode steps on rank 0's "
+        f"width ({_cfg_line(cfg)}) with {cfg.num_layers} layers, bf16 "
+        f"weights and compute, layout {r0['bf16']['profile']}: a prefill "
+        f"of {run['batch']} x {run['seq']} under the prefill rules (KV "
+        f"repeat {kv[0]})"
+        + (f", streamed again in {run['chunks']} chunks" if run.get("chunks")
+           else "")
+        + f", {layout}, then {run['steps']} decode steps on rank 0's "
         f"greedy tokens; the one-process references in "
         f"{r0['ref_s']:.1f} s, in {r0['wall_s']:.1f} s in all ({card})")
     rows = sum(r["bf16"]["rows"] for r in rs if r["model"] == 0)
@@ -6598,37 +6962,50 @@ def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
     for r in rs:
         b, f = r["bf16"], r["fp32"]
         mem = r.get("max_memory_allocated", 0) / 1e9
+        extra = ""
+        if "state_rel" in b:
+            extra += (f"; SSM state off by {b['state_rel']:.4g} of its "
+                      f"norm (float32 {f['state_rel']:.3g})")
+        if "stream_rel" in b:
+            extra += (f"; streamed prefill logits {b['stream_rel']:.4g}, "
+                      f"state {b['stream_state_rel']:.4g} (float32 "
+                      f"{f['stream_rel']:.3g}, {f['stream_state_rel']:.3g})"
+                      f", {b['stream_s']:.3f} s")
         log(f"  rank {r['rank']} (data {r['data']}, model {r['model']}): "
             f"bf16 prefill logits off by {b['prefill_rel']:.4g} of their "
             f"row's norm, the worst decode step {max(b['main_rels']):.4g} "
             f"(limit {TF_RTOL}); float32 at {run['check_layers']} layers: "
             f"prefill {f['prefill_rel']:.3g}, steps "
             f"{[f'{x:.3g}' for x in f['main_rels']]} (limit "
-            f"{TF_F32_RTOL}); prefill {b['prefill_s']:.3f} s, decode "
+            f"{TF_F32_RTOL}){extra}; prefill {b['prefill_s']:.3f} s, decode "
             f"steps {sum(b['main_s']):.3f} s, max_memory_allocated "
             f"{mem:.2f} GB, launches {r['launches']}, by design "
-            f"{r['by_design'].get('K5')}; collectives: "
-            + _collective_line(r["collectives"]) + f" ({card})")
-        check(b["prefill_rel"] <= TF_RTOL, f"{tag}: rank {r['rank']} "
-              f"prefill logits off by {b['prefill_rel']:.4g}")
-        check(max(b["main_rels"]) <= TF_RTOL, f"{tag}: rank {r['rank']} "
-              f"decode logits off by {max(b['main_rels']):.4g}")
-        check(f["prefill_rel"] <= TF_F32_RTOL and max(f["main_rels"])
-              <= TF_F32_RTOL, f"{tag}: rank {r['rank']} float32 logits off "
-              f"by {f['prefill_rel']:.3g}, {f['main_rels']}")
-        r["control_ratio"] = control_reads(
-            f"{tag}: rank {r['rank']}: the merge's model reduce dropped",
-            max(f["control_rels"]), TF_F32_RTOL)
+            f"{ {k: r['by_design'].get(k) for k in ('K5', 'K7')} }; "
+            "collectives: " + _collective_line(r["collectives"])
+            + f" ({card})")
+        reads = [("prefill logits", b["prefill_rel"], TF_RTOL),
+                 ("decode logits", max(b["main_rels"]), TF_RTOL),
+                 ("float32 prefill logits", f["prefill_rel"], TF_F32_RTOL),
+                 ("float32 decode logits", max(f["main_rels"]), TF_F32_RTOL)]
+        for key in ("state_rel", "stream_rel", "stream_state_rel"):
+            if key in b:
+                reads += [(key, b[key], TF_RTOL),
+                          (f"float32 {key}", f[key], TF_F32_RTOL)]
+        for what, reading, limit in reads:
+            check(reading <= limit, f"{tag}: rank {r['rank']} {what} off by "
+                                    f"{reading:.4g} (limit {limit})")
+        r["control_ratio"] = {
+            name: control_reads(
+                f"{tag}: rank {r['rank']}: "
+                + {"merge": "the merge's model reduce dropped",
+                   "ssd_o": "the SSD o projection's model reduce dropped",
+                   "ssd_norm": "the gated norm over the rank's heads alone"}
+                [name], reading, TF_F32_RTOL)
+            for name, reading in f["controls"].items()}
+        check(set(f["controls"]) == set(run["controls"]), f"{tag}: rank "
+              f"{r['rank']}: controls read {sorted(f['controls'])}")
         if cuda:
-            layers = cfg.num_layers
-            check(r["launches"]["K5"] == layers,
-                  f"{tag}: rank {r['rank']}: K5 launched "
-                  f"{r['launches']['K5']} times, the prefill implies "
-                  f"{layers}")
-            check(r["by_design"]["K5"] == {"wgmma": layers,
-                                            "cuda_core": 0},
-                  f"{tag}: rank {r['rank']}: K5 by design "
-                  f"{r['by_design']['K5']}")
+            check_designs(tag, r, serve_launches(cfg, run))
     prefill_s = max(r["bf16"]["prefill_s"] for r in rs)
     steps = r0["bf16"]["main_s"][1:] or r0["bf16"]["main_s"]
     log(f"phase {tag}: prefill {run['batch'] * run['seq'] / prefill_s:.1f} "
@@ -7251,10 +7628,11 @@ def main(argv=None) -> int:
         key = entry["name"].split("(")[1].split(",")[0]
         entry.setdefault("launches_by_run", {}).update(
             {run: n[key] for run, n in new_runs.items()})
-        if key in ("K5", "K6"):
+        if key in ("K5", "K6", "K7"):
             entry["launches_by_rank"] = {
                 tag: [r["launches"][key] for r in lm[part]]
                 for tag, part in LM_PARTS.items()}
+        if key in ("K5", "K6"):
             entry["replays_by_rank"] = [
                 r["replays"][key]["row_err"] for r in lm["dense"]
                 if key in r["replays"]]

@@ -33,7 +33,9 @@ dual collective:
   a row-parallel product, and for statistics every rank adds to its loss
   (the MoE aux's means, the vocab-parallel softmax sums);
 - ``gather`` (FSDP's use of a weight): all-gather forward, reduce-scatter
-  backward.
+  backward;
+- ``psum``: ``all_reduce`` both ways, for a sum that every rank then uses
+  on data of its own (the SSD block's mean of squares over its heads).
 
 ``STATS`` counts each collective's calls, bytes (of the reduced buffer,
 per rank) and host seconds, for ``chip_smoke.py`` phase 28.
@@ -257,6 +259,13 @@ def reduce_from(x: torch.Tensor, mesh: Optional[Mesh], axes: Axes
                 ) -> torch.Tensor:
     """Megatron's g: ``x`` summed over ``axes``, its gradient as it is."""
     return x if _trivial(mesh, axes) else _Reduce.apply(x, mesh, axes)
+
+
+def psum(x: torch.Tensor, mesh: Optional[Mesh], axes: Axes
+         ) -> torch.Tensor:
+    """``x`` summed over ``axes``, its gradient summed over ``axes`` too
+    (``reduce_from`` behind ``copy_to``)."""
+    return copy_to(reduce_from(x, mesh, axes), mesh, axes)
 
 
 def gather(x: torch.Tensor, mesh: Optional[Mesh], axes: Axes,

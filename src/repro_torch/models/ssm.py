@@ -18,10 +18,24 @@ JAX package has no kernel there either. Parameters keep the JAX layout
 and names: ``z``/``x`` [d, nh, p], ``B``/``C`` [d, n], ``dt`` [d, nh],
 ``o`` [nh, p, d], ``A_log``, ``D``, ``dt_bias`` [nh], ``conv_x``
 [cw, nh, p], ``conv_b``/``conv_c`` [cw, n], ``norm``; ``ssd_specs``
-gives their logical axes. SSD tensor parallelism (``ssd_tp``) is not
-ported: a model with an SSD block refuses a mesh of more than one rank
-(``models/transformer.py``), so the JAX sharding constraints of
-``ssd_forward`` have nothing to check yet.
+gives their logical axes.
+
+Under a mesh of more than one rank whose rules split ``SSD_HEADS``
+(``ssd_tp``: the heads divide ``model``), each rank holds its heads of
+the ``z``, ``x``, ``dt``, ``A_log``, ``D``, ``dt_bias``, ``conv_x`` and
+``o`` leaves and runs the block on them, where JAX's ``shd.constrain``
+lets GSPMD split it: the head projections take the block input through
+``copy_to``; ``B``, ``C`` and their convolutions are replicated (one
+group for every head), and their outputs pass ``copy_to`` before the
+scan, so that the gradient of those weights, and their share of the
+input's, sums every rank's heads; the gated RMSNorm spans every head
+(its mean of squares summed over ``model`` both ways, ``psum``), each
+rank applying its slice of the replicated ``scale`` behind ``copy_to``,
+which gives ``scale`` its whole gradient on every rank; ``o`` is
+row-parallel, summed over ``model`` by the block itself. Attention keys
+its own reduce on ``HEADS``, so the hybrid's mean of the two branches
+is right whichever of them is split. Where the heads do not divide
+``model`` the block runs whole on every rank (JAX's "SSM DP-only").
 """
 from __future__ import annotations
 
@@ -32,10 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-from repro_torch.models.layers import dense_apply, dense_init, rmsnorm_apply, \
-    rmsnorm_init
+from repro_torch.models.layers import dense_apply, dense_init, \
+    rmsnorm_apply, rmsnorm_init, row_parallel, tp
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -110,6 +125,34 @@ def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _mean_square(y: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The mean of squares of ``y`` [..., c] (float32) over every rank's
+    channels: this rank's sum, summed over ``axis`` forward and backward
+    (each rank normalises its own heads by it), over the global count."""
+    ss = col.psum(y.square().sum(-1, keepdim=True), mesh, axis)
+    return ss / (y.shape[-1] * mesh.size(axis))
+
+
+def _gated_norm(params, y: torch.Tensor, eps: float,
+                cd: torch.dtype) -> torch.Tensor:
+    """The RMSNorm of ``y`` [..., h, p] over all heads' h * p channels,
+    as the JAX block normalises ``y.reshape(..., nh * p)``. Under
+    ``ssd_tp`` the mean of squares spans every rank's heads
+    (``_mean_square``) and this rank applies its slice of the replicated
+    ``scale``."""
+    shape = y.shape
+    flat = y.reshape(*shape[:-2], shape[-2] * shape[-1])
+    mesh, axis = tp(shd.SSD_HEADS)
+    if axis is None:
+        return rmsnorm_apply(params, flat, eps, cd).reshape(shape)
+    n = flat.shape[-1]
+    scale = col.copy_to(params["scale"], mesh, axis).narrow(
+        0, mesh.index(axis) * n, n)
+    yf = flat.float()
+    out = yf * torch.rsqrt(_mean_square(yf, mesh, axis) + eps)
+    return (out * scale.float()).to(cd).reshape(shape)
+
+
 def ssd_scan(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, chunk: int,
              init_state: Optional[torch.Tensor] = None
@@ -141,15 +184,17 @@ def ssd_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     streaming or decode continuation. ``conv_state`` is such a tail,
     prepended so that the causal conv continues the stream."""
     cd = x.dtype
-    _, nh, p, _ = ssm_dims(cfg)
+    _, nh, _, _ = ssm_dims(cfg)
     cw = cfg.ssm.conv_width
-    b, s, _ = x.shape
+    s = x.shape[1]
+    mesh, axis = tp(shd.SSD_HEADS)
+    xh = col.copy_to(x, mesh, axis)         # into this rank's heads
 
-    z = dense_apply(params["z"], x, cd)                       # [B,S,H,P]
-    xs = dense_apply(params["x"], x, cd)
+    z = dense_apply(params["z"], xh, cd)                      # [B,S,H,P]
+    xs = dense_apply(params["x"], xh, cd)
     Bp = dense_apply(params["B"], x, cd)                      # [B,S,N]
     Cp = dense_apply(params["C"], x, cd)
-    dt = dense_apply(params["dt"], x, torch.float32)          # [B,S,H]
+    dt = dense_apply(params["dt"], xh, torch.float32)         # [B,S,H]
 
     if conv_state is not None:
         xs = torch.cat([conv_state["x"].to(cd), xs], dim=1)
@@ -165,6 +210,10 @@ def ssd_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         tail = cw - 1
         new_conv = {"x": xs[:, -tail:], "B": Bp[:, -tail:],
                     "C": Cp[:, -tail:]}
+    # every rank's heads read B and C: their gradient sums over the ranks
+    Bp_c, Cp_c = col.copy_to(Bp_c, mesh, axis), col.copy_to(Cp_c, mesh, axis)
+    xs_c = shd.constrain(xs_c, shd.BATCH, None, shd.SSD_HEADS, None,
+                         full=(None, None, nh, None))
 
     dt = F.softplus(dt + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())                  # [H]
@@ -174,10 +223,9 @@ def ssd_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     y, state = ssd_scan(xdt, a, Bp_c, Cp_c, cfg.ssm.chunk_size,
                         init_state=init_state)
     y = y + params["D"].to(cd)[None, None, :, None] * xs_c
-    y = y * F.silu(z)
-    y = rmsnorm_apply(params["norm"], y.reshape(b, s, nh * p),
-                      cfg.norm_eps, cd).reshape(b, s, nh, p)
-    out = dense_apply(params["o"], y, cd, contract_dims=2)
+    y = _gated_norm(params["norm"], y * F.silu(z), cfg.norm_eps, cd)
+    out = row_parallel(params["o"], y, cd, 2, mesh, axis)
+    out = shd.constrain(out, shd.BATCH, None, None)
     if return_state:
         return out, {"ssm": state, "conv": new_conv}
     return out, None
@@ -188,7 +236,7 @@ def ssd_decode(params, x: torch.Tensor, cfg: ModelConfig, *, state: dict):
     'conv': {'x': [B,cw-1,H,P], 'B': [B,cw-1,N], 'C': [B,cw-1,N]}}.
     Returns (y [B,1,D], new_state)."""
     cd = x.dtype
-    _, nh, p, _ = ssm_dims(cfg)
+    mesh, axis = tp(shd.SSD_HEADS)
 
     z = dense_apply(params["z"], x, cd)[:, 0]                 # [B,H,P]
     xs = dense_apply(params["x"], x, cd)                      # [B,1,H,P]
@@ -214,9 +262,6 @@ def ssd_decode(params, x: torch.Tensor, cfg: ModelConfig, *, state: dict):
     h_new = decay[:, :, None, None] * h + upd
     y = torch.einsum("bn,bhpn->bhp", Cc.float(), h_new)
     y = y.to(cd) + params["D"].to(cd)[None, :, None] * xc
-    y = y * F.silu(z)
-    b = x.shape[0]
-    y = rmsnorm_apply(params["norm"], y.reshape(b, nh * p), cfg.norm_eps, cd)
-    y = y.reshape(b, 1, nh, p)
-    out = dense_apply(params["o"], y, cd, contract_dims=2)
+    y = _gated_norm(params["norm"], y * F.silu(z), cfg.norm_eps, cd)
+    out = row_parallel(params["o"], y[:, None], cd, 2, mesh, axis)
     return out, {"ssm": h_new, "conv": new_conv}

@@ -66,13 +66,15 @@ logical axes, the JAX ``cache_specs`` with its stacked ``layers`` axis.
 
 Under a mesh of more than one rank (the ambient ``ShardCtx`` of
 ``distributed/sharding.py``, JAX's ``launch/dryrun.py`` construction of
-the train step), the dense and MoE families train sharded: ``init``
-keeps this rank's shard of each parameter (``specs()`` gives every
+the train step), the dense, MoE, SSM and hybrid families train sharded:
+``init`` keeps this rank's shard of each parameter (``specs()`` gives every
 parameter's logical axes, the JAX ``specs()`` under ``convert.py``'s
 naming, without the stacked layers axis); ``_split`` gathers the FSDP
 dims over ``data`` (the gradient is reduce-scattered back); the layers
 move their activations over ``model`` themselves (``models/layers.py``,
-``attention.py``, ``moe.py``); and ``loss`` is a vocab-parallel
+``attention.py``, ``moe.py``, ``ssm.py``; each branch of the hybrid
+reduces its own output, so a layout that splits one branch and keeps the
+other whole needs nothing more); and ``loss`` is a vocab-parallel
 cross-entropy (the max, the sum of exponentials and the gold logit
 reduced over ``model``) whose CE sum is divided by the *global* token
 count (reduced over the batch axes), so that the gradients summed over
@@ -90,7 +92,10 @@ cache reaches the decode layout by a gather and a re-placement
 (``convert.gather_cache``, ``convert.shard_cache``). Without autograd,
 a weight's FSDP gather is kept and reused while its shard is unchanged,
 so a decode step moves the step's activations and not the weights. The
-other families, and ``prefill_streaming`` (SSM-only), raise
+SSM state and conv tails are split by ``SSD_HEADS`` under every rule set,
+so they keep their layout from prefill to decode, and
+``prefill_streaming`` (SSM-only) runs under the prefill rules as
+``prefill`` does. The enc-dec, audio and VLM families raise
 ``NotImplementedError`` under such a mesh.
 
 A window arch keeps the last ``window`` keys of a longer prompt in slots
@@ -137,8 +142,8 @@ STUB_INPUTS = {FAMILY_AUDIO: "frame_embeds", FAMILY_ENCDEC: "frame_embeds",
 #: stacked over the layers there (``layers.<i>.`` and ``encoder.<i>.`` here)
 HEADS = ("embed", "layers", "encoder", "enc_norm", "final_norm")
 STACKED = ("layers", "encoder")
-#: the families that train under a mesh of more than one rank
-MESH_FAMILIES = (FAMILY_DENSE, FAMILY_MOE)
+#: the families that train and serve under a mesh of more than one rank
+MESH_FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID)
 
 
 def _layer_init(generator: torch.Generator, cfg: ModelConfig,
@@ -350,7 +355,7 @@ class _Params(nn.Module):
 
 class Model(nn.Module):
     """The model of one config, of any family, on one device or, for the
-    dense and MoE families, one rank of a mesh.
+    dense, MoE, SSM and hybrid families, one rank of a mesh.
 
     ``causal_skip`` is accepted and has nothing to switch: K5 and K6
     always skip the tiles that the causal mask empties; nor has
@@ -374,8 +379,8 @@ class Model(nn.Module):
         if shd.mesh_ctx() is not None and cfg.family not in MESH_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} under a mesh of more than one rank "
-                f"is not ported (tensor parallelism of the SSD block and "
-                f"the frontends; of {MESH_FAMILIES})")
+                f"is not ported (tensor parallelism of the enc-dec, audio "
+                f"and VLM frontends; of {MESH_FAMILIES})")
         self.cfg = cfg
         self.kv_repeat = kv_repeat
         self.remat_group = remat_group
@@ -788,8 +793,9 @@ class Model(nn.Module):
         in fixed-size chunks carrying the SSM state (through K7's
         ``init_state``) and the conv tail between them, so that peak
         activation memory is O(chunk). Returns (last-token logits,
-        decode-ready cache)."""
-        _no_mesh("prefill_streaming (SSM-only)")
+        decode-ready cache). Under a mesh (the prefill rules), as
+        ``prefill``: this data shard's rows, this rank's cache and vocab
+        shard of the logits."""
         cfg = self.cfg
         if cfg.family != FAMILY_SSM:
             raise ValueError("streaming prefill is SSM-only")
@@ -800,6 +806,9 @@ class Model(nn.Module):
         if s % chunk and s >= chunk:
             raise ValueError("prompt length must be a multiple of the chunk")
         chunk = min(chunk, s)
+        ctx = shd.mesh_ctx()
+        if ctx is not None:
+            b *= ctx.shards(ctx.rules.get(shd.BATCH))
         cache = self.init_cache(b, 1)
         cl = cache["layers"]
         x = None
@@ -851,8 +860,3 @@ def _global_ntok(ntok: torch.Tensor, mesh, batch_axes) -> torch.Tensor:
     batch axes."""
     return col.all_reduce(ntok.detach(), mesh, batch_axes)
 
-
-def _no_mesh(what: str) -> None:
-    if shd.mesh_ctx() is not None:
-        raise NotImplementedError(f"{what} under a mesh of more than one "
-                                  "rank is not ported")

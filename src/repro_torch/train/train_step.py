@@ -15,7 +15,9 @@ the batch axes; with micro-batches, its rows of each global micro-batch,
 as a batch-sharded ``lax.scan`` carries them), and after the backward it
 sums over the data-parallel axes the gradient of every parameter that is
 not sharded on them (an FSDP-sharded one was reduce-scattered by its
-gather's backward). AdamW then clips by the global norm
+gather's backward). A ``grad_transform`` then sees this rank's shards,
+each tagged with the axes that split it (``compression.tag_shards``).
+AdamW then clips by the global norm
 (``replicas``: each replicated tensor counted once) and updates the
 local shards and moments. ``make_train_state_specs``,
 ``choose_microbatches`` and ``choose_remat_group`` are the JAX
@@ -32,6 +34,7 @@ import torch
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import Model
+from repro_torch.train.compression import tag_shards
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
 METRICS = ("ce", "aux", "ntok", "loss")
@@ -162,7 +165,11 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
     averaged, for one optimizer step per call.
 
     ``grad_transform(grads) -> grads`` is where gradient compression
-    plugs in (``train/compression.py``)."""
+    plugs in (``train/compression.py``), on the reduced gradients before
+    AdamW, as in JAX. Under a mesh each gradient is this rank's shard,
+    its ``shard_axes`` set to the mesh axes that split it, and the
+    transform computes this rank's slice of the transform of the whole
+    gradient (``compression.py``)."""
     opt_cfg = opt_cfg or OptConfig()
 
     def grads_and_metrics(params, batch):
@@ -175,9 +182,6 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         ctx = shd.mesh_ctx()
         if ctx is not None:
-            if grad_transform is not None:
-                raise NotImplementedError("a grad_transform under a mesh of "
-                                          "more than one rank is not ported")
             batch = local_batch(batch, ctx, max(num_microbatches, 1))
         if num_microbatches <= 1:
             grads, metrics = grads_and_metrics(state.params, batch)
@@ -207,6 +211,10 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
         if ctx is not None:
             grads = reduce_grads(grads, model, ctx)
         if grad_transform is not None:
+            if ctx is not None:
+                specs = model.specs()
+                tag_shards(grads, {n: _axes_of(ctx, specs[n])
+                                   for n in grads})
             grads = grad_transform(grads)
         params, opt, stats = adamw_update(
             opt_cfg, state.params, grads, state.opt,

@@ -115,6 +115,65 @@ def test_compress_grads_matches_jax_over_steps(kind, ef):
         compress_grads(CompressorConfig(kind="fp8"), t_in, t_ef)
 
 
+def _stacked(seed, layers=3):
+    """A JAX tree with a stacked leaf whose layers differ in magnitude by
+    10x each (so that one scale a layer would quantize them otherwise),
+    and the port's dict of the same numbers, one tensor a layer."""
+    rng = np.random.default_rng(seed)
+    stack = np.stack([rng.normal(size=(6, 8)) * 10.0 ** i
+                      for i in range(layers)]).astype(np.float32)
+    table = rng.normal(size=(16, 4)).astype(np.float32)
+    jtree = {"layers": {"ssd": {"o": {"w": stack}}},
+             "embed": {"table": table}}
+    flat = {f"layers.{i}.ssd.o.w": stack[i] for i in range(layers)}
+    flat["embed.table"] = table
+    return jtree, flat
+
+
+@pytest.mark.parametrize("kind", ["int8", "topk"])
+def test_a_stacked_leaf_takes_one_scale_and_threshold(kind):
+    """JAX transforms each leaf of its tree, and a stacked leaf holds every
+    layer: one int8 scale, one top-k threshold for all of them. The
+    port's one tensor a layer is transformed by its JAX leaf
+    (``leaves``): ``compress_grads`` over two steps and ``int8_leaves``
+    (the dry-run's ``jax.tree.map(_int8_roundtrip, g)``) against JAX's
+    on the stacked tree; a transform layer by layer parts from it."""
+    cfg = CompressorConfig(kind=kind, topk_frac=0.05)
+    jcfg = JC.CompressorConfig(kind=kind, topk_frac=0.05)
+    jtree, flat = _stacked(3)
+    t_ef = init_error_feedback({k: _t(v) for k, v in flat.items()})
+    j_ef = JC.init_error_feedback(jax.tree.map(jnp.asarray, jtree))
+    for step in range(2):
+        jtree, flat = _stacked(20 + step)
+        t_sent, t_ef = compress_grads(
+            cfg, {k: _t(v) for k, v in flat.items()}, t_ef)
+        j_sent, j_ef = JC.compress_grads(
+            jcfg, jax.tree.map(jnp.asarray, jtree), j_ef)
+        for i in range(3):
+            _close(t_sent[f"layers.{i}.ssd.o.w"],
+                   j_sent["layers"]["ssd"]["o"]["w"][i])
+            _close(t_ef[f"layers.{i}.ssd.o.w"],
+                   j_ef["layers"]["ssd"]["o"]["w"][i])
+        _close(t_sent["embed.table"], j_sent["embed"]["table"])
+    assert TC.leaves(flat) == {
+        "layers.ssd.o.w": [f"layers.{i}.ssd.o.w" for i in range(3)],
+        "embed.table": ["embed.table"]}
+    stack = jnp.asarray(jtree["layers"]["ssd"]["o"]["w"])
+    if kind == "int8":
+        got = TC.int8_leaves({k: _t(v) for k, v in flat.items()})
+        want = JC._int8_roundtrip(stack)
+        alone = TC._int8_roundtrip(_t(flat["layers.0.ssd.o.w"]))
+    else:
+        got = dict(zip(TC.leaves(flat)["layers.ssd.o.w"], TC._topk_group(
+            [_t(flat[f"layers.{i}.ssd.o.w"]) for i in range(3)], 0.05)))
+        want = JC._topk_roundtrip(stack, 0.05)
+        alone = TC._topk_roundtrip(_t(flat["layers.0.ssd.o.w"]), 0.05)
+    for i in range(3):
+        _close(got[f"layers.{i}.ssd.o.w"], want[i])
+    with pytest.raises(AssertionError):
+        _close(alone, want[0])
+
+
 @pytest.mark.parametrize("kind,frac", [("int8", 0.01), ("topk", 0.01),
                                        ("topk", 0.2), ("none", 0.01)])
 def test_compression_ratio_matches_jax(kind, frac):

@@ -1,6 +1,7 @@
 """The LM half of multi-device training on the port: data-, tensor-,
-FSDP- and expert-parallel train steps over a process group, held to the
-JAX package's own sharded step and to the port's one-process step.
+FSDP- and expert-parallel train steps over a process group, for the
+dense, MoE, SSM and hybrid families, held to the JAX package's own
+sharded step and to the port's one-process step.
 
 One world of four gloo ranks on the CPU (``launch.mesh.spawn_world``: a
 ``FileStore`` under ``tmp_path``, one torch thread a rank, a deadline on
@@ -12,24 +13,41 @@ each mesh a ``Mesh`` over some of its ranks:
 - (1, 4), the same model (KV repeated x4);
 - (2, 1) on ranks 0-1, DP and FSDP only, two micro-batches a step;
 - (2, 2), the reduced qwen3-moe-30b with ``expert_tp``;
+- (2, 2) and (1, 4), the reduced mamba2-780m: SSD heads over ``model``
+  (8 and 4 a rank), vocab-TP with tied embeddings; (1, 4) trains with
+  the int8 ``grad_transform`` of JAX's dry-run, and (2, 2)'s gradients go
+  through ``compress_grads`` (int8 and top-k) beside the one-process
+  transform of the gathered gradients;
+- (2, 2) and (1, 4), a reduced hymba-1.5b with the published model's
+  divisibility (5 heads, 6 SSD heads): attention DP-only beside a split
+  SSD block and MLP on (2, 2), attention and SSD DP-only beside a split
+  MLP on (1, 4); and the reduced hymba-1.5b as ``reduced`` gives it on
+  (2, 2), both branches split (against the one-process step alone);
 - the elastic round trip: (2, 2)'s state after its two steps
   checkpointed, restored onto (1, 2) on ranks 0-1 through
   ``elastic_reshard``, and two more steps;
-- the controls on (2, 2): the ``o`` projection without its ``model``
-  reduce, and the CE over the local token count;
+- the controls: on the dense (2, 2), the ``o`` projection without its
+  ``model`` reduce, and the CE over the local token count; on the SSM
+  (2, 2), the SSD ``o`` projection without its reduce, and the gated norm
+  over each rank's heads alone; on the SSM (1, 4), the int8 scale of
+  each shard;
+- the refusals under (1, 2): the audio, enc-dec and VLM families, and
+  ``decode_step`` under the train rules; the SSM and hybrid build;
 - serving (``SERVE``) on (2, 2), (1, 4) and the MoE (2, 2): the sharded
   prefill under the prefill rules, then three decode steps under the
   decode rules (the context-parallel decode on a sequence-sharded
   cache), a replicated batch of 1, the 8-bit cache, a decode at
   ``pos == capacity`` and a capacity that does not divide ``model``;
-  their two controls, and the step factories end to end.
+  the SSM (2, 2) (its state split by SSD heads under both rules) and its
+  ``prefill_streaming`` in two chunks, and the hybrid (2, 2) on its
+  window ring; their three controls, and the step factories end to end.
 
 Each mesh runs the first batch's logits, loss and gradients, then two
 train steps from the JAX weights (``convert.shard_params_from_jax``), and
-gathers what it got. One subprocess with four forced host devices runs
-the JAX package's sharded step for the same meshes, built as
-``launch/dryrun.py:126-176`` builds it, and executes it. The port's
-one-process step runs here, beside the world.
+gathers what it got. Four subprocesses with four forced host devices
+each run the JAX package's sharded step for two meshes apiece
+(``JAX_GROUPS``), built as ``launch/dryrun.py:126-176`` builds it, and
+execute it. The port's one-process step runs here, beside the world.
 
 After its train step, each subprocess runs its share of JAX's serving
 cells (``SERVE_GROUPS``, ``_JAX_SERVE``): the prefill and decode cells
@@ -75,23 +93,59 @@ B, S, STEPS = 4, 32, 2
 DENSE = dict(arch="starcoder2-7b", compute_dtype="float32",
              mlp_variant="gelu", use_bias=True)
 MOE = dict(arch="qwen3-moe-30b-a3b", compute_dtype="float32")
-CONFIGS = {"dense": DENSE, "moe": MOE}
+#: the reduced mamba2-780m: 16 SSD heads, tied embeddings
+SSM = dict(arch="mamba2-780m", compute_dtype="float32")
+#: the reduced hymba-1.5b with the published model's divisibility: 5
+#: heads (attention DP-only at ``model`` 2 and 4), 6 SSD heads (split at 2,
+#: DP-only at 4), d_ff 512 (split at both)
+HYB = dict(arch="hymba-1.5b", compute_dtype="float32", d_model=192,
+           num_heads=5, ssm=dict(head_dim=64))
+#: the reduced hymba-1.5b as ``reduced`` gives it: 4 heads (one KV head,
+#: repeated x2 at ``model`` 2) and 16 SSD heads, both branches split
+HYBTP = dict(arch="hymba-1.5b", compute_dtype="float32")
+CONFIGS = {"dense": DENSE, "moe": MOE, "ssm": SSM, "hyb": HYB,
+           "hybtp": HYBTP}
 #: name -> (config, mesh shape, ranks, micro-batches)
 MESHES = {
     "dense22": ("dense", (2, 2), (0, 1, 2, 3), 1),
     "dense14": ("dense", (1, 4), (0, 1, 2, 3), 1),
     "dense21": ("dense", (2, 1), (0, 1), 2),
     "moe22": ("moe", (2, 2), (0, 1, 2, 3), 1),
+    "ssm22": ("ssm", (2, 2), (0, 1, 2, 3), 1),
+    "ssm14": ("ssm", (1, 4), (0, 1, 2, 3), 1),
+    "hyb22": ("hyb", (2, 2), (0, 1, 2, 3), 1),
+    "hyb14": ("hyb", (1, 4), (0, 1, 2, 3), 1),
+    "hybtp22": ("hybtp", (2, 2), (0, 1, 2, 3), 1),
 }
+#: the meshes that train with the int8 ``grad_transform`` as
+#: ``launch/dryrun.py:163-169`` builds it (no error feedback)
+INT8 = ("ssm14",)
+#: the meshes held against the port's one-process step alone
+WORLD_ONLY = ("hybtp22",)
+#: the meshes whose sharded gradients go through ``compress_grads`` (int8
+#: and top-k, error feedback over two rounds) beside their one-process
+#: transform
+COMPRESS = ("ssm22",)
+#: the meshes each JAX process runs the sharded step of, one process a key
+JAX_GROUPS = {"dense22": ("dense22", "ssm22"), "dense14": ("dense14", "ssm14"),
+              "dense21": ("dense21", "hyb22"), "moe22": ("moe22", "hyb14")}
 ELASTIC_MESH = (1, 2)
-CONTROLS = ("no_o_reduce", "local_ntok")
+#: control -> the mesh whose first batch it runs with one piece dropped
+CONTROLS = {"no_o_reduce": "dense22", "local_ntok": "dense22",
+            "no_ssd_o_reduce": "ssm22", "local_norm": "ssm22",
+            "int8_shard_scale": "ssm14"}
 TIMEOUT_S = 240.0
 #: serving: (mesh, case) -> the batch, the decode cache's capacity, its
-#: bits, the decode steps and whether the case holds a prefill (the
-#: prompt is S tokens). "full" decodes at pos == capacity, where the
-#: sequence-sharded JAX cache writes nothing; "seq41"'s capacity does not
-#: divide ``model``, so the decode cache is not sequence-sharded; their
-#: prefill is "base"'s
+#: bits, the decode steps, whether the case holds a prefill (the prompt is
+#: S tokens) and whether the decode cache is sequence-sharded. "full"
+#: decodes at pos == capacity, where the sequence-sharded JAX cache
+#: writes nothing; "seq41"'s capacity does not divide ``model``, so the
+#: decode cache is not sequence-sharded; their prefill is "base"'s. The
+#: SSM's state and the hybrid's window ring are never sequence-sharded,
+#: so JAX's two writes (``kv_dus``) are one program there and the case
+#: runs one (``dus``); "stream" is the SSM's ``prefill_streaming`` in
+#: ``chunks`` chunks, with no decode; the hybrid's prompt is a multiple
+#: of its window
 SERVE = {
     ("dense22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
     ("dense22", "int8"): dict(batch=B, cap=40, bits=8, steps=3),
@@ -99,22 +153,41 @@ SERVE = {
     ("dense22", "full"): dict(batch=B, cap=S, bits=16, steps=1,
                               prefill=False),
     ("dense22", "seq41"): dict(batch=B, cap=41, bits=16, steps=3,
-                               prefill=False),
+                               prefill=False, seq_shard=False),
     ("dense14", "base"): dict(batch=B, cap=40, bits=16, steps=3),
     ("moe22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
+    ("ssm22", "base"): dict(batch=B, cap=40, bits=16, steps=3,
+                            seq_shard=False, dus=(0,)),
+    ("ssm22", "stream"): dict(batch=B, cap=40, bits=16, steps=0, chunks=2,
+                              seq_shard=False),
+    ("hyb22", "base"): dict(batch=B, cap=40, bits=16, steps=3,
+                            seq_shard=False, dus=(0,)),
 }
-#: the serving cells each JAX process runs after its mesh's train step
-SERVE_GROUPS = {"dense22": [("dense22", "b1"), ("dense22", "full")],
-                "dense14": [("dense14", "base"), ("dense22", "seq41")],
-                "dense21": [("dense22", "base"), ("dense22", "int8")],
+#: the serving cells each JAX process runs after its meshes' train steps
+SERVE_GROUPS = {"dense22": [("dense22", "b1"), ("dense22", "full"),
+                            ("ssm22", "stream"), ("dense22", "int8")],
+                "dense14": [("dense14", "base"), ("dense22", "seq41"),
+                            ("ssm22", "base"), ("hyb22", "base")],
+                "dense21": [("dense22", "base")],
                 "moe22": [("moe22", "base")]}
-#: the serving controls, each on ("dense22", "base")'s decode
-SERVE_CONTROLS = ("no_merge_reduce", "clamped_write")
+#: the serving controls, each on a case's decode
+SERVE_CONTROLS = {"no_merge_reduce": ("dense22", "base"),
+                  "clamped_write": ("dense22", "base"),
+                  "no_ssd_o_reduce": ("hyb22", "base")}
+
+
+def _with(cfg, kw):
+    """``cfg`` with the overrides ``kw`` (an ``ssm`` dict overrides
+    fields of ``cfg.ssm``)."""
+    kw = dict(kw)
+    if "ssm" in kw:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, **kw["ssm"])
+    return dataclasses.replace(cfg, **kw)
 
 
 def port_cfg(kind):
     kw = dict(CONFIGS[kind])
-    return dataclasses.replace(reduced(get_config(kw.pop("arch"))), **kw)
+    return _with(reduced(get_config(kw.pop("arch"))), kw)
 
 
 def _nest(flat):
@@ -163,10 +236,40 @@ def _gather(ctx, t, pspec):
     return Placement(ctx.mesh, pspec).gather(t.detach()).numpy()
 
 
-def _first_batch(model, ctx, params, batch, moe_io=None):
-    """Logits, loss and reduced gradients of ``batch``, gathered."""
+def int8_transform(grads):
+    """The int8 ``grad_transform`` of ``launch/dryrun.py:163-169``: each
+    JAX leaf's round trip, no error feedback."""
+    from repro_torch.train.compression import int8_leaves
+    return int8_leaves(grads)
+
+
+#: the compressors ``COMPRESS`` runs, two rounds each
+COMPRESSORS = {"int8": dict(kind="int8"), "topk": dict(kind="topk",
+                                                       topk_frac=0.05)}
+
+
+def compress_rounds(grads, kind, ef=None):
+    """Two rounds of ``compress_grads`` from a zero error feedback: what
+    each sent, and the error feedback after them."""
+    from repro_torch.train.compression import CompressorConfig, \
+        compress_grads, init_error_feedback
+    cfg = CompressorConfig(**COMPRESSORS[kind])
+    ef = init_error_feedback(grads) if ef is None else ef
+    sent1, ef = compress_grads(cfg, grads, ef)
+    sent2, ef = compress_grads(cfg, grads, ef)
+    return {"sent1": sent1, "sent2": sent2, "ef": ef}
+
+
+def _first_batch(model, ctx, params, batch, moe_io=None, transform=None,
+                 compress=False):
+    """Logits, loss and reduced gradients of ``batch``, gathered; with
+    ``transform``, what it makes of the gradients (tagged as the train
+    step tags them); with ``compress``, ``compress_rounds`` of each
+    compressor."""
     from repro_torch.models import moe as moe_mod
-    from repro_torch.train.train_step import local_batch, reduce_grads
+    from repro_torch.train.compression import tag_shards
+    from repro_torch.train.train_step import _axes_of, local_batch, \
+        reduce_grads
     lb = local_batch(batch, ctx)
     plain = moe_mod.moe_forward
 
@@ -190,14 +293,26 @@ def _first_batch(model, ctx, params, batch, moe_io=None):
                                                  list(params.values()))))
     grads = reduce_grads(grads, model, ctx)
     specs = model.specs()
+
+    def gathered(tree):
+        return {n: _gather(ctx, g, ctx.pspec(*specs[n]))
+                for n, g in tree.items()}
+
     out["loss0"] = float(metrics["loss"])
-    out["grads"] = {n: _gather(ctx, g, ctx.pspec(*specs[n]))
-                    for n, g in grads.items()}
+    out["grads"] = gathered(grads)
+    tag_shards(grads, {n: _axes_of(ctx, specs[n]) for n in grads})
+    if transform is not None:
+        out["sent"] = gathered(transform(grads))
+    if compress:
+        out["compress"] = {kind: {k: gathered(t) for k, t in
+                                  compress_rounds(grads, kind).items()}
+                           for kind in COMPRESSORS}
     return out
 
 
-def _train(model, ctx, state, inputs, kind, first, mu):
-    step = make_train_step(model, num_microbatches=mu)
+def _train(model, ctx, state, inputs, kind, first, mu, transform=None):
+    step = make_train_step(model, num_microbatches=mu,
+                           grad_transform=transform)
     losses = []
     for i in range(first, first + STEPS):
         state, metrics = step(state, batch_at(inputs, kind, i))
@@ -215,15 +330,21 @@ def _run_mesh(name, inputs, rank, results):
     cfg, mesh, ctx = _context(kind, shape, ranks)
     if not mesh.member:
         return None
+    transform = int8_transform if name in INT8 else None
     with shd.use_ctx(ctx):
         model = build_model(cfg, kv_repeat=ctx.profile.kv_repeat,
                             device="cpu")
         params = convert.shard_params_from_jax(jax_tree(inputs, kind), model)
         moe_io = [] if kind == "moe" else None
         out = _first_batch(model, ctx, params, batch_at(inputs, kind, 0),
-                           moe_io)
+                           moe_io, transform, compress=name in COMPRESS)
+        out["profile"] = dict(attn_tp=ctx.profile.attn_tp,
+                              ssd_tp=ctx.profile.ssd_tp,
+                              mlp_tp=ctx.profile.mlp_tp,
+                              kv_repeat=ctx.profile.kv_repeat)
         state = TrainState(params=params, opt=adamw_init(params))
-        state, out["losses"] = _train(model, ctx, state, inputs, kind, 0, mu)
+        state, out["losses"] = _train(model, ctx, state, inputs, kind, 0, mu,
+                                      transform)
         out["params"] = _gathered_params(model, ctx, state.params)
     results[name] = out if mesh.rank == 0 else None
     if moe_io is not None:
@@ -262,20 +383,39 @@ def _elastic(inputs, first, ckpt_dir, rank, results):
         results["elastic"] = dict(losses=losses, params=params, step=step)
 
 
-def _controls(inputs, rank, results):
-    """The (2, 2) dense mesh's first batch with one collective dropped."""
-    from repro_torch.models import attention as attn_mod
+def _drop_reduce(p, x, cd, n, m, a):
+    """``row_parallel`` without its ``model`` reduce."""
     from repro_torch.models import layers as lyr
+    return lyr.row_parallel(p, x, cd, n, None, None)
+
+
+def _controls(inputs, rank, results):
+    """A mesh's first batch with one piece dropped: the attention or SSD
+    ``o`` projection's ``model`` reduce, the global token count, the gated
+    norm's sum over ``model`` (each rank's heads normalised alone), or the
+    int8 scale's max over the shards."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer as tr
-    for name in CONTROLS:
-        kind, shape, ranks, _ = MESHES["dense22"]
+    from repro_torch.train import compression
+    for name, mesh_name in CONTROLS.items():
+        kind, shape, ranks, _ = MESHES[mesh_name]
         cfg, mesh, ctx = _context(kind, shape, ranks)
-        saved = (attn_mod.row_parallel, tr._global_ntok)
+        saved = (attn_mod.row_parallel, tr._global_ntok, ssm_mod.row_parallel,
+                 ssm_mod._mean_square, compression._split)
+        transform = int8_transform if mesh_name in INT8 else None
         if name == "no_o_reduce":
-            attn_mod.row_parallel = lambda p, x, cd, n, m, a: \
-                lyr.row_parallel(p, x, cd, n, None, None)
-        else:
+            attn_mod.row_parallel = _drop_reduce
+        elif name == "local_ntok":
             tr._global_ntok = lambda ntok, mesh, axes: ntok.detach()
+        elif name == "no_ssd_o_reduce":
+            ssm_mod.row_parallel = _drop_reduce
+        elif name == "local_norm":
+            ssm_mod._mean_square = lambda y, mesh, axis: \
+                y.square().mean(-1, keepdim=True)
+        else:
+            # each shard quantized by its own largest |g|
+            compression._split = lambda x, axes: (None, (), 1)
         try:
             with shd.use_ctx(ctx):
                 model = build_model(cfg, kv_repeat=ctx.profile.kv_repeat,
@@ -283,27 +423,45 @@ def _controls(inputs, rank, results):
                 params = convert.shard_params_from_jax(
                     jax_tree(inputs, kind), model)
                 out = _first_batch(model, ctx, params,
-                                   batch_at(inputs, kind, 0))
+                                   batch_at(inputs, kind, 0),
+                                   transform=transform)
         finally:
-            attn_mod.row_parallel, tr._global_ntok = saved
+            (attn_mod.row_parallel, tr._global_ntok, ssm_mod.row_parallel,
+             ssm_mod._mean_square, compression._split) = saved
         if mesh.rank == 0:
             results[f"control/{name}"] = out
 
 
+#: the families that still refuse a mesh of more than one rank, by the
+#: reduced config of each: the audio family, the same config as the
+#: enc-dec family, and the VLM
+REFUSED = {"audio": ("seamless-m4t-medium", {}),
+           "encdec": ("seamless-m4t-medium", {"family": "encdec"}),
+           "vlm": ("internvl2-76b", {})}
+#: the families that build under one since the SSD block splits
+BUILT = {"ssm": "mamba2-780m", "hybrid": "hymba-1.5b"}
+
+
 def _refusals(results):
-    """Under a (1, 2) mesh on ranks 0-1: an SSM and a hybrid model refuse
-    to build, and a dense model's ``decode_step`` under the train rules
-    (the stored KV heads split over ``model``) refuses to run."""
+    """Under a (1, 2) mesh on ranks 0-1: the audio, enc-dec and VLM
+    families refuse to build, the SSM and hybrid families build, and a
+    dense model's ``decode_step`` under the train rules (the stored KV
+    heads split over ``model``) refuses to run."""
     cfg, mesh, ctx = _context("dense", (1, 2), (0, 1))
     if not mesh.member:
         return
-    raised = {}
+    raised, built = {}, {}
     with shd.use_ctx(ctx):
-        for arch, key in (("mamba2-780m", "ssm"), ("hymba-1.5b", "hybrid")):
+        for key, (arch, kw) in REFUSED.items():
             try:
-                build_model(reduced(get_config(arch)), device="cpu")
+                build_model(dataclasses.replace(reduced(get_config(arch)),
+                                                **kw), device="cpu")
             except NotImplementedError:
                 raised[key] = True
+        for key, arch in BUILT.items():
+            model = build_model(reduced(get_config(arch)), device="cpu")
+            built[key] = sorted(model.init(torch.Generator().manual_seed(0))
+                                ) == sorted(model.specs())
         model = build_model(cfg, kv_repeat=ctx.profile.kv_repeat,
                             device="cpu")
         model.init(torch.Generator().manual_seed(0))
@@ -315,6 +473,7 @@ def _refusals(results):
             raised["decode_step"] = True
     if mesh.rank == 0:
         results["refusals"] = raised
+        results["built"] = built
 
 
 # ---------------------------------------------------------------- serving
@@ -346,6 +505,8 @@ def _start_caches(arrays):
     """``start_cache``'s caches, as arrays of the inputs."""
     out = {}
     for (name, case), v in SERVE.items():
+        if not v["steps"]:
+            continue
         kind = MESHES[name][0]
         model = build_model(port_cfg(kind), kv_cache_bits=v["bits"],
                             device="cpu")
@@ -378,15 +539,17 @@ def _logits_pspec(ctx):
 
 
 def _serve_case(inputs, name, case, control=None):
-    """One serving case on this rank: the sharded prefill of S tokens (its
-    logits, next tokens and cache gathered), then the decode steps from
+    """One serving case on this rank: the sharded prefill of S tokens (or
+    ``prefill_streaming`` in the case's ``chunks``; its logits, next
+    tokens and cache gathered), then the decode steps from
     ``start_cache`` placed by ``cache_specs`` on the prompt's next tokens
     (each step's logits and tokens, the last cache, gathered): JAX's
     decode cell starts from the same cache, so that an 8-bit cache's
     codes are the same on both sides. ``control`` drops the merge's
-    reduce or writes the token on every rank at its clamped local
-    slot."""
+    reduce, writes the token on every rank at its clamped local slot, or
+    drops the SSD ``o`` projection's reduce."""
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.serve.serve_step import vocab_argmax
     from repro_torch.train.elastic import Placement
     from repro_torch.train.train_step import local_batch
@@ -404,15 +567,22 @@ def _serve_case(inputs, name, case, control=None):
             params = convert.shard_params_from_jax(jax_tree(inputs, kind),
                                                    model)
             lb = local_batch({"tokens": toks[:, :S]}, pctx)
-            logits, cache = model.prefill(params, lb, max_len=S)
+            if v.get("chunks"):
+                logits, cache = model.prefill_streaming(
+                    params, lb, chunk=S // v["chunks"])
+            else:
+                logits, cache = model.prefill(params, lb, max_len=S)
             out["prefill"] = dict(
                 logits=_gather(pctx, logits, _logits_pspec(pctx)),
                 tok=_gather(pctx, vocab_argmax(logits),
                             _logits_pspec(pctx)[:2]),
                 cache={k: t.numpy() for k, t in convert.gather_cache(
                     cache, model)["layers"].items()})
+    if not v["steps"]:
+        return out if mesh.rank == 0 else None
     full = start_cache(inputs, name, case)
-    saved = (attn_mod.merge_partials, attn_mod.shard_write)
+    saved = (attn_mod.merge_partials, attn_mod.shard_write,
+             ssm_mod.row_parallel)
     if control == "no_merge_reduce":
         attn_mod.merge_partials = lambda m, l, acc, rmax, rsum: saved[0](
             m, l, acc, lambda t: t, lambda t: t)
@@ -421,6 +591,8 @@ def _serve_case(inputs, name, case, control=None):
             local = min(max(slot - lo, 0), cache.shape[1] - 1)
             saved[1](cache, new, local, 0)
         attn_mod.shard_write = clamped
+    elif control == "no_ssd_o_reduce":
+        ssm_mod.row_parallel = _drop_reduce
     try:
         with shd.use_ctx(dctx):
             model = build_model(cfg, kv_repeat=dctx.profile.kv_repeat,
@@ -438,7 +610,8 @@ def _serve_case(inputs, name, case, control=None):
                                    _logits_pspec(dctx)[:2]))
             got = convert.gather_cache(cache, model)
     finally:
-        attn_mod.merge_partials, attn_mod.shard_write = saved
+        (attn_mod.merge_partials, attn_mod.shard_write,
+         ssm_mod.row_parallel) = saved
     out["decode"] = dict(logits=np.stack(lgs), tok=np.stack(tks),
                          pos=int(got["pos"]),
                          cache={k: t.numpy() for k, t in
@@ -488,9 +661,9 @@ def _serving(inputs, rank, results):
     """Every serving case, the controls and the end-to-end run."""
     for name, case in SERVE:
         results[f"serve/{name}/{case}"] = _serve_case(inputs, name, case)
-    for control in SERVE_CONTROLS:
+    for control, (name, case) in SERVE_CONTROLS.items():
         results[f"serve_control/{control}"] = _serve_case(
-            inputs, "dense22", "base", control)
+            inputs, name, case, control)
     results["serve_e2e"] = _serve_e2e(inputs)
 
 
@@ -565,9 +738,18 @@ def shardings(mesh, logical, rules):
         logical, is_leaf=lambda x: isinstance(x, tuple))
 
 
-for name, (kind, shape, mu) in spec.get("meshes", {}).items():
+def config(kind):
+    """The reduced config of ``kind`` with its overrides (an ``ssm`` dict
+    overrides fields of ``cfg.ssm``)."""
     kw = dict(spec["configs"][kind])
-    cfg = dataclasses.replace(reduced(get_config(kw.pop("arch"))), **kw)
+    cfg = reduced(get_config(kw.pop("arch")))
+    if "ssm" in kw:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, **kw["ssm"])
+    return dataclasses.replace(cfg, **kw)
+
+
+for name, (kind, shape, mu, compress) in spec.get("meshes", {}).items():
+    cfg = config(kind)
     b, s = spec["batch"], spec["seq"]
     mesh_cfg = MeshConfig(tuple(shape), ("data", "model"))
     n = int(np.prod(shape))
@@ -590,16 +772,23 @@ for name, (kind, shape, mu) in spec.get("meshes", {}).items():
         p_sh = shardings(mesh, model.specs(), rules)
         state_sh = shardings(mesh, make_train_state_specs(model), rules)
         batch_sh = {"tokens": bspec, "targets": bspec}
-        train_step = make_train_step(model, num_microbatches=mu)
+        grad_transform = None
+        if compress:
+            # launch/dryrun.py:163-169
+            from repro.train.compression import _int8_roundtrip
+            grad_transform = lambda g: jax.tree.map(_int8_roundtrip, g)
+        train_step = make_train_step(model, num_microbatches=mu,
+                                     grad_transform=grad_transform)
 
         def step_and_grads(state, batch):
-            # the step, and the logits and gradients it starts from: one
-            # program, one compile
+            # the step, and the logits and gradients it starts from (and
+            # what the transform makes of them): one program, one compile
             logits, _ = model.train_logits(state.params, batch)
             (loss, m), g = jax.value_and_grad(model.loss, has_aux=True)(
                 state.params, batch)
+            sent = grad_transform(g) if compress else {}
             new_state, metrics = train_step(state, batch)
-            return logits, loss, g, new_state, metrics
+            return logits, loss, g, sent, new_state, metrics
 
         params = jax.device_put(params, p_sh)
         batches = [{"tokens": jax.device_put(
@@ -608,7 +797,8 @@ for name, (kind, shape, mu) in spec.get("meshes", {}).items():
                         jnp.asarray(inputs[f"targets_{kind}"][i]), bspec)}
                    for i in range(spec["steps"])]
         step = jax.jit(step_and_grads, in_shardings=(state_sh, batch_sh),
-                       out_shardings=(None, None, p_sh, state_sh, None))
+                       out_shardings=(None, None, p_sh, None, state_sh,
+                                      None))
         # placed as the step's output is, so that the second call reuses
         # the first call's program
         state = jax.device_put(
@@ -617,14 +807,16 @@ for name, (kind, shape, mu) in spec.get("meshes", {}).items():
         for i, bt in enumerate(batches):
             got = step(state, bt)
             if i == 0:
-                logits, loss, grads = got[:3]
-            state, metrics = got[3:]
+                logits, loss, grads, sent = got[:4]
+            state, metrics = got[4:]
             losses.append(float(metrics["loss"]))
     out[f"{name}/logits"] = np.asarray(logits)
     out[f"{name}/loss0"] = np.asarray(loss)
     out[f"{name}/losses"] = np.asarray(losses)
     for k, v in flat(jax.tree.map(np.asarray, grads)).items():
         out[f"{name}/grads/{k}"] = v
+    for k, v in flat(jax.tree.map(np.asarray, sent)).items():
+        out[f"{name}/sent/{k}"] = v
     for k, v in flat(jax.tree.map(np.asarray, state.params)).items():
         out[f"{name}/params/{k}"] = v
 '''
@@ -660,6 +852,33 @@ def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre):
         out[f"{pre}/prefill/cache/{k}"] = np.asarray(a)
 
 
+def stream_cell(cfg, mesh, mesh_cfg, params, toks, b, s, chunks, pre):
+    """``prefill_streaming`` in ``chunks`` chunks under the prefill rules,
+    executed; the next tokens as the prefill step takes them."""
+    prof = shd.sharding_profile(cfg, mesh_cfg, b, s, "prefill")
+    rules = shd.make_rules(cfg, mesh_cfg, b, s, "prefill")
+    model = build_model(cfg, kv_repeat=prof.kv_repeat)
+    with shd.use_ctx(shd.ShardCtx(mesh=mesh, rules=rules, profile=prof)):
+        p_sh = shardings(mesh, model.specs(), rules)
+        bspec = NamedSharding(mesh, shd.logical_to_pspec(("batch", None),
+                                                         rules))
+
+        def stream(p, batch):
+            logits, cache = model.prefill_streaming(p, batch,
+                                                    chunk=s // chunks)
+            return jnp.argmax(logits, axis=-1).astype(jnp.int32), logits, \
+                cache
+
+        tok, logits, cache = jax.jit(stream, in_shardings=(
+            p_sh, {"tokens": bspec}))(jax.device_put(params, p_sh),
+                                      {"tokens": jax.device_put(
+                                          jnp.asarray(toks[:, :s]), bspec)})
+    out[f"{pre}/prefill/tok"] = np.asarray(tok)
+    out[f"{pre}/prefill/logits"] = np.asarray(logits)
+    for k, a in cache["layers"].items():
+        out[f"{pre}/prefill/cache/{k}"] = np.asarray(a)
+
+
 def decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre):
     """The decode cell, launch/dryrun.py:188-204, executed with each
     write from ``host``, the cache the port's decode starts from too."""
@@ -667,7 +886,7 @@ def decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre):
     dprof = shd.sharding_profile(cfg, mesh_cfg, b, cap, "decode")
     drules = shd.make_rules(cfg, mesh_cfg, b, cap, "decode")
     out[f"{pre}/kv_seq_shard"] = np.asarray(dprof.kv_seq_shard)
-    for dus in (False, True):
+    for dus in map(bool, v.get("dus", (0, 1))):
         dmodel = build_model(cfg, kv_repeat=dprof.kv_repeat,
                              kv_cache_bits=bits, kv_dus_write=dus)
         with shd.use_ctx(shd.ShardCtx(mesh=mesh, rules=drules,
@@ -702,8 +921,7 @@ def decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre):
 
 
 for name, kind, shape, v in spec.get("cells", []):
-    kw = dict(spec["configs"][kind])
-    cfg = dataclasses.replace(reduced(get_config(kw.pop("arch"))), **kw)
+    cfg = config(kind)
     b, s = v["batch"], spec["seq"]
     mesh_cfg = MeshConfig(tuple(shape), ("data", "model"))
     n = int(np.prod(shape))
@@ -713,13 +931,17 @@ for name, kind, shape, v in spec.get("cells", []):
                    if k.startswith(kind + "/")})
     toks = np.asarray(inputs[f"serve_tokens_{kind}"][:b])
     pre = f"{name}/{v['tag']}"
-    start = f"start/{pre}/"
-    host = {"pos": np.asarray(inputs[start + "pos"]),
-            "layers": {k[len(start):]: inputs[k] for k in inputs.files
-                       if k.startswith(start) and k != start + "pos"}}
-    if v.get("prefill", True):
+    if v.get("chunks"):
+        stream_cell(cfg, mesh, mesh_cfg, params, toks, b, s, v["chunks"],
+                    pre)
+    elif v.get("prefill", True):
         prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, v["bits"], pre)
-    decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre)
+    if v["steps"]:
+        start = f"start/{pre}/"
+        host = {"pos": np.asarray(inputs[start + "pos"]),
+                "layers": {k[len(start):]: inputs[k] for k in inputs.files
+                           if k.startswith(start) and k != start + "pos"}}
+        decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre)
 '''
 #: the end of the JAX program: everything it computed, saved
 _JAX_END = r'''
@@ -742,8 +964,7 @@ def world(tmp_path_factory):
     arrays = {}
     for kind, kw in CONFIGS.items():
         kw = dict(kw)
-        jcfg = dataclasses.replace(j_reduced(j_get_config(kw.pop("arch"))),
-                                   **kw)
+        jcfg = _with(j_reduced(j_get_config(kw.pop("arch"))), kw)
         jparams = jax.jit(j_build_model(jcfg).init)(jax.random.PRNGKey(7))
         arrays.update({f"{kind}/{k}": v for k, v in
                        _flat(jax.tree.map(np.asarray, jparams)).items()})
@@ -769,10 +990,12 @@ def world(tmp_path_factory):
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
     procs = []
     cores = sorted(os.sched_getaffinity(0))
-    # one process a mesh: its train step, then its SERVE_GROUPS cells
-    for i, n in enumerate(MESHES):
-        spec = {"meshes": {n: (MESHES[n][0], list(MESHES[n][1]),
-                               MESHES[n][3])},
+    # one process a JAX_GROUPS key: its meshes' train steps, then its
+    # SERVE_GROUPS cells
+    for i, n in enumerate(JAX_GROUPS):
+        spec = {"meshes": {m: (MESHES[m][0], list(MESHES[m][1]),
+                               MESHES[m][3], m in INT8)
+                           for m in JAX_GROUPS[n]},
                 "cells": [[m, MESHES[m][0], list(MESHES[m][1]),
                            dict(SERVE[(m, c)], tag=c)]
                           for m, c in SERVE_GROUPS[n]],
@@ -824,6 +1047,9 @@ def world(tmp_path_factory):
             want.update({k: z[k] for k in z.files})
     jax_ref = {}
     for name in MESHES:
+        if name in WORLD_ONLY:
+            continue
+
         def sub(tag):
             pre = f"{name}/{tag}/"
             return convert.model_params_from_jax(_nest(
@@ -833,6 +1059,7 @@ def world(tmp_path_factory):
             logits=want[f"{name}/logits"], loss0=float(want[f"{name}/loss0"]),
             losses=list(want[f"{name}/losses"]),
             grads={n: t.numpy() for n, t in sub("grads").items()},
+            sent={n: t.numpy() for n, t in sub("sent").items()},
             params={n: t.numpy() for n, t in sub("params").items()})
     for name, case in SERVE:
         pre = f"{name}/{case}/"
@@ -854,11 +1081,16 @@ def one_process(inputs):
         with torch.no_grad():
             logits, _ = model.train_logits(params, b0)
         loss, _ = model.loss(params, b0)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
         rec = dict(logits=logits.numpy(), loss0=float(loss),
-                   grads={n: g.numpy() for n, g in zip(params, grads)})
+                   grads={n: g.numpy() for n, g in grads.items()})
+        transform = int8_transform if name in INT8 else None
+        if transform is not None:
+            rec["sent"] = {n: g.numpy() for n, g in transform(grads).items()}
         state = TrainState(params=params, opt=adamw_init(params))
-        step = make_train_step(model, num_microbatches=mu)
+        step = make_train_step(model, num_microbatches=mu,
+                               grad_transform=transform)
         n_steps = 2 * STEPS if name == "dense22" else STEPS
         losses = []
         for i in range(n_steps):
@@ -935,13 +1167,85 @@ def _hold(world, got, want, what):
                    f"{what} parameters")
 
 
-@pytest.mark.parametrize("name", [n for n in MESHES if n != "moe22"])
-@pytest.mark.parametrize("ref", ["jax", "one"])
+@pytest.mark.parametrize("ref,name", [
+    (ref, n) for ref in ("jax", "one") for n in MESHES
+    if n != "moe22" and not (ref == "jax" and n in WORLD_ONLY)])
 def test_world_matches_reference(world, name, ref):
     """Logits, loss, gradients, the two steps' losses and the updated
-    parameters of each dense mesh against JAX's executed sharded step
-    and against the port's one-process step."""
+    parameters of each dense, SSM and hybrid mesh against JAX's executed
+    sharded step and against the port's one-process step (the both-TP
+    hybrid against the latter alone)."""
     _hold(world, world["got"][name], world[ref][name], f"{name} vs {ref}")
+
+
+#: each new mesh's layout, as ``sharding_profile`` gives it: attention,
+#: SSD and MLP split over ``model`` or whole on every rank, and the KV
+#: repeat
+LAYOUTS = {"ssm22": dict(attn_tp=False, ssd_tp=True, mlp_tp=False,
+                         kv_repeat=1),
+           "ssm14": dict(attn_tp=False, ssd_tp=True, mlp_tp=False,
+                         kv_repeat=1),
+           "hyb22": dict(attn_tp=False, ssd_tp=True, mlp_tp=True,
+                         kv_repeat=1),
+           "hyb14": dict(attn_tp=False, ssd_tp=False, mlp_tp=True,
+                         kv_repeat=1),
+           "hybtp22": dict(attn_tp=True, ssd_tp=True, mlp_tp=True,
+                           kv_repeat=2)}
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_ssm_and_hybrid_meshes_take_their_layouts(world, name):
+    """The layouts the published models need: the SSD block split, the
+    hybrid's attention DP-only beside a split SSD block (hyb22) or both
+    DP-only beside a split MLP (hyb14), and both branches split with the
+    KV head repeated (hybtp22)."""
+    assert world["got"][name]["profile"] == LAYOUTS[name]
+
+
+def _hold_int8(got, want, what):
+    """Each JAX leaf's int8 round trip against the reference's: the
+    largest magnitude of its layers (127 times the scale) within 1e-3 of
+    the reference's, the codes by the reference's scale equal but for
+    one-step moves on at most ``INT8_MOVED`` of them."""
+    from repro_torch.train.compression import leaves
+    assert set(got) == set(want), what
+    for names in leaves(want).values():
+        top = max(max(float(np.abs(want[n]).max()) for n in names), 1e-30)
+        mine = max(float(np.abs(got[n]).max()) for n in names)
+        assert abs(mine - top) <= 1e-3 * top, (what, names[0])
+        for n in names:
+            moved = np.abs(np.round(got[n] * 127 / top)
+                           - np.round(want[n] * 127 / top))
+            assert moved.max() <= 1 and moved.mean() <= INT8_MOVED, \
+                (what, n, float(moved.max()), float(moved.mean()))
+
+
+@pytest.mark.parametrize("ref", ["jax", "one"])
+@pytest.mark.parametrize("name", INT8)
+def test_int8_grad_transform_matches_reference(world, name, ref):
+    """The int8 ``grad_transform`` of the sharded first batch (each
+    rank's slice by the scale of the whole tensor) against JAX's
+    transform of its global gradient and the port's one-process one."""
+    _hold_int8(world["got"][name]["sent"], world[ref][name]["sent"],
+               f"{name} vs {ref}")
+
+
+@pytest.mark.parametrize("kind", list(COMPRESSORS))
+@pytest.mark.parametrize("name", COMPRESS)
+def test_sharded_compression_equals_the_transform_of_the_whole(world, name,
+                                                               kind):
+    """Two rounds of ``compress_grads`` on each rank's shards of the
+    reduced gradients (the int8 scale and the top-k threshold of the
+    whole tensor, the error feedback kept sharded), gathered: bit for bit
+    the one-process rounds on the gathered gradients."""
+    got = world["got"][name]
+    grads = {n: torch.from_numpy(g) for n, g in got["grads"].items()}
+    want = compress_rounds(grads, kind)
+    for key, tree in want.items():
+        assert set(got["compress"][kind][key]) == set(tree)
+        for n, t in tree.items():
+            np.testing.assert_array_equal(got["compress"][kind][key][n],
+                                          t.numpy(), err_msg=f"{key} {n}")
 
 
 def test_moe_world_matches_jax_sharded_step(world):
@@ -988,23 +1292,35 @@ def test_elastic_round_trip_equals_four_one_process_steps(world):
 
 
 def test_refusals_under_a_mesh(world):
-    """The SSM and hybrid families under a (1, 2) mesh, and
-    ``decode_step`` under the train rules, raise
+    """The audio family, the enc-dec family and the VLM under a (1, 2)
+    mesh, and ``decode_step`` under the train rules, raise
     ``NotImplementedError``."""
-    assert world["got"]["refusals"] == {"ssm": True, "hybrid": True,
-                                        "decode_step": True}
+    assert world["got"]["refusals"] == {"audio": True, "encdec": True,
+                                        "vlm": True, "decode_step": True}
+
+
+def test_ssm_and_hybrid_build_under_a_mesh(world):
+    """The SSM and hybrid families build under the same (1, 2) mesh and
+    draw a shard of every parameter that ``specs()`` names."""
+    assert world["got"]["built"] == {"ssm": True, "hybrid": True}
 
 
 @pytest.mark.parametrize("control", CONTROLS)
 def test_control_fails_the_comparison(world, control):
-    """The (2, 2) mesh without the ``o`` projection's ``model`` reduce, or
-    with the CE over the local token count, must not meet the one-process
-    gradients."""
+    """A mesh's first batch without the attention or SSD ``o``
+    projection's ``model`` reduce, with the CE over the local token count,
+    or with the gated norm over each rank's heads alone, must not meet
+    the one-process gradients; with the int8 scale of each shard, the
+    transform must not meet JAX's."""
+    name = CONTROLS[control]
+    got = world["got"][f"control/{control}"]
     with pytest.raises(AssertionError):
-        got = world["got"][f"control/{control}"]
-        want = world["one"]["dense22"]
-        assert abs(got["loss0"] - want["loss0"]) <= 1e-5
-        _close(got["grads"], want["grads"], control)
+        if name in INT8:
+            _hold_int8(got["sent"], world["jax"][name]["sent"], control)
+        else:
+            want = world["one"][name]
+            assert abs(got["loss0"] - want["loss0"]) <= 1e-5
+            _close(got["grads"], want["grads"], control)
 
 
 #: the share of an 8-bit cache's codes that may sit one step from the
@@ -1045,14 +1361,15 @@ def _jax_cells(world, name, case):
                              for k, a in want.items()
                              if k.startswith("prefill/cache/")}}
     decode = {}
-    for dus in (0, 1):
+    for dus in SERVE[(name, case)].get("dus", (0, 1)) \
+            if SERVE[(name, case)]["steps"] else ():
         pre = f"dus{dus}/"
         decode[dus] = {"logits": want[pre + "logits"],
                        "tok": want[pre + "tok"], "pos": int(want[pre + "pos"]),
                        "cache": {k[len(pre + "cache/"):]: a
                                  for k, a in want.items()
                                  if k.startswith(pre + "cache/")}}
-    return prefill, decode, bool(want["kv_seq_shard"])
+    return prefill, decode, bool(want.get("kv_seq_shard", False))
 
 
 @pytest.mark.parametrize("name,case", [k for k, v in SERVE.items()
@@ -1067,8 +1384,9 @@ def test_sharded_prefill_matches_jax(world, name, case):
     _hold_serving(got, prefill, f"{name} {case} prefill")
 
 
-@pytest.mark.parametrize("dus", [0, 1])
-@pytest.mark.parametrize("name,case", list(SERVE))
+@pytest.mark.parametrize("name,case,dus", [
+    (*k, dus) for dus in (0, 1) for k, v in SERVE.items()
+    if v["steps"] and dus in v.get("dus", (0, 1))])
 def test_context_parallel_decode_matches_jax(world, name, case, dus):
     """The decode steps under the decode rules (the cache sequence-sharded
     over ``model``, the partials merged across it; whole on every rank
@@ -1078,7 +1396,8 @@ def test_context_parallel_decode_matches_jax(world, name, case, dus):
     and tokens, the last cache and ``pos``."""
     got = world["got"][f"serve/{name}/{case}"]["decode"]
     _, decode, kv_seq_shard = _jax_cells(world, name, case)
-    assert got["kv_seq_shard"] == kv_seq_shard == (case != "seq41")
+    assert got["kv_seq_shard"] == kv_seq_shard == \
+        SERVE[(name, case)].get("seq_shard", True)
     assert got["pos"] == decode[dus]["pos"] == S + SERVE[(name, case)]["steps"]
     _hold_serving(got, decode[dus], f"{name} {case} decode dus={dus}")
 
@@ -1108,9 +1427,10 @@ def test_decode_past_capacity_writes_nothing(world):
 def test_serving_control_fails_the_comparison(world, control):
     """(2, 2)'s decode with the merge's ``model`` reduce dropped (each
     rank attends only its slice), or with every rank writing the token at
-    its clamped local slot, must not meet JAX's decode cell."""
+    its clamped local slot, and the hybrid's with the SSD ``o``
+    projection's reduce dropped, must not meet JAX's decode cell."""
     got = world["got"][f"serve_control/{control}"]["decode"]
-    _, decode, _ = _jax_cells(world, "dense22", "base")
+    _, decode, _ = _jax_cells(world, *SERVE_CONTROLS[control])
     with pytest.raises(AssertionError):
         _hold_serving(got, decode[0], control)
 
