@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--windows 2] [--splitk-windows 2]
                           [--lrb-windows 2] [--pipeline-windows 2]
                           [--failure-windows 2] [--tenant-seconds 45]
-                          [--chaos-windows 2] [--recovery-windows 2]
+                          [--chaos-windows 2] [--recovery-windows 1.5]
                           [--sharded-windows 3]
                           [--sharded-splitk-windows 2]
                           [--sharded-lrb-windows 1.5]
@@ -293,8 +293,8 @@ Phases (the first failed check exits non-zero, with no result line):
    ``token_batches`` of 2 x 4,096 through ``PrefetchPipeline``: every loss
    finite and every aux positive, K5 launched 2 x 2 times a step and K6
    twice, all on wgmma.
-19. The four examples, each in its own process with ``PYTHONPATH=src``
-   (``EXAMPLE_BOOT`` sets the kernels' counters to 0, runs the script as
+19. The four examples, each in its own process with ``PYTHONPATH=src``,
+   the four started at once (``EXAMPLE_BOOT`` sets the kernels' counters to 0, runs the script as
    ``__main__`` and prints the counts) at their defaults,
    ``torch_train_lm.py`` with ``--steps 40``: each must exit 0 and print
    its closing lines (the quickstart's executions with late > 0, the
@@ -369,9 +369,9 @@ Phases (the first failed check exits non-zero, with no result line):
    every loss finite, K5 2 x 36 times and K6 36 times a step, all on
    wgmma; tokens/s and the forward / backward / AdamW split on CUDA
    events.
-25. VLM serving at internvl2-76b's full width with 24 of its 80 layers
+25. VLM serving at internvl2-76b's full width with 8 of its 80 layers
    (``configs/internvl2_76b.py``: d_model 8,192, 64 heads with 8 KV
-   heads of 128, d_ff 28,672, vocab 128,256; bf16 parameters, 45.3 GB):
+   heads of 128, d_ff 28,672, vocab 128,256; bf16 parameters, 17.9 GB):
    4 x (256 stub patch embeddings + 1,792 tokens), K5 once a layer on
    wgmma at G 8, D 128, 32 greedy steps, a profiled prefill and decode
    step; 25b as 23b on 2 x (256 + 1,791) + one decode, ``pos`` counting
@@ -429,7 +429,7 @@ Phases (the first failed check exits non-zero, with no result line):
    later losses beside the one-process steps', and each rank's first K5
    and K6 launch replayed against the plain version within
    ``kernels/flash_limits.py``.
-   28b: qwen3-moe-30b at full width with 2 layers, the experts over
+   28b: qwen3-moe-30b at full width with 1 layer, the experts over
    ``model`` (64 a rank): each rank's MoE layer outputs against the
    one-process ``moe_forward`` of its data shard's tokens with the
    layer's full weights (JAX's expert parallelism: the capacity from
@@ -438,13 +438,13 @@ Phases (the first failed check exits non-zero, with no result line):
    steps whose losses must be finite and equal on every rank.
    28c and 28d, serving under the same mesh on the same ranks
    (``LM_SERVE``, bf16 weights and compute): 28c starcoder2-7b at full
-   width with 4 layers, a prefill of 2 x 4,096 under the prefill rules
+   width with 2 layers, a prefill of 2 x 4,096 under the prefill rules
    (the batch over ``data``, K5 once a layer on each rank's 18 query and
    2 KV heads), the cache handed over to the decode rules' layout (all 4
    KV heads over each rank's 2,080 of 4,160 slots), then 32 decode
    steps (context-parallel: q gathered over ``model``, the partial
    softmax merged across it, each rank writing the token only where its
-   slice holds the slot); 28d qwen3-moe-30b with 2 layers (64 experts a
+   slice holds the slot); 28d qwen3-moe-30b with 1 layer (64 experts a
    rank), 2 x 2,048, 2,064 slots, 16 steps. Rank 0 first runs the
    one-process prefill and greedy decode on the same weights and saves
    its logits and tokens; the mesh decodes those tokens, and every
@@ -456,11 +456,11 @@ Phases (the first failed check exits non-zero, with no result line):
    that. The main path (bf16 prefill and steps) is counted: K5 once a
    layer on every rank, on wgmma.
    28e and 28f, the SSM and hybrid families under the same mesh at full
-   width with 4 layers (``LM_SSD_RUN``, ``LM_SERVE``): 28e mamba2-780m
+   width with 2 layers (``LM_TRAIN``, ``LM_SERVE``): 28e mamba2-780m
    (24 of 48 SSD heads a rank, vocab-parallel tied embeddings), 28f
    hymba-1.5b (25 of 50 SSD heads a rank beside DP-only attention on all
    25 heads, window 1,024, and an MLP split over ``model``). Each trains
-   ``LM_SSD_RUN["steps"]`` steps of 2 x 4,096 tokens held as 28a holds
+   ``LM_TRAIN[part]["steps"]`` steps of 2 x 4,096 tokens held as 28a holds
    its first step (loss within LOSS_TOL, each gradient within GRAD_RTOL
    of its norm), then serves as 28c does: a prefill of 2 x 4,096, 28e
    also streamed in 2 chunks, 16 decode steps, each rank's SSM state
@@ -471,6 +471,28 @@ Phases (the first failed check exits non-zero, with no result line):
    steps, the prefills and the steps) is counted: K7 twice a layer and
    step in training and once a layer a prefill or chunk, on tensor; in
    28f K5 and K6 as in 28a and K5 once a layer a prefill, on wgmma.
+   28g, seamless-m4t-medium (the audio family) at full width with 4
+   encoder and 4 decoder layers (8 of 16 heads a rank in each attention,
+   d_ff 2,048 and vocab 128,128 a rank): 2 training steps of 2 x (1,024
+   stub frames, 2,048 tokens) (fp32 parameters, bf16 compute, remat
+   full), the first held as 28e is but for the loss, within
+   SSM_LOSS_TOL (24a's bf16 limit); the control drops the cross K/V's
+   ``copy_to`` on the first batch and is read on the encoder's
+   gradients; then served as 28c is: a prefill of 16 x 128 tokens over
+   1,024 frames, the cross cache handed over from each rank's 8 heads to
+   all 16, 32 decode steps on 160 slots (80 a rank), float32 at 2 + 2
+   layers, cross-attention's ``o`` reduce dropped as the control (read
+   on the float32 steps). The main path: K5 twice and K6 once an
+   attention block (4 encoder, 4 self, 4 cross) and step, K5 once a
+   block a prefill, on wgmma. 28h, internvl2-76b (the VLM) at full
+   width with 2 of its 80 layers, bf16 weights (each rank keeps its
+   shard as each layer is drawn): served as 28c is, a prefill of 2 x
+   (256 stub patches + 1,792 tokens) and 16 decode steps on 2,064 slots
+   (1,032 a rank), the decode at the text's position (25b's control)
+   read on the float32 steps; K5 once a layer a prefill, on wgmma. Its
+   training under a mesh is held in tier-1 only (at full width one
+   layer's fp32 weights and gradients gathered on four ranks would pass
+   the card's memory).
    Printed for every part: tokens/s on the
    host clock, each rank's peak memory, each collective's calls, bytes
    and host seconds, with the card's name and power limit; four ranks on
@@ -484,8 +506,8 @@ readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16,
 27a-27e, 4, 6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
-and 25a (and 28a-28f on each rank) and read just after; every bf16
-launch of K5 and K6 in phases 4, 28a, 28c-28f,
+and 25a (and 28a-28h on each rank) and read just after; every bf16
+launch of K5 and K6 in phases 4, 28a, 28c-28h,
 6b, 10, 17a, 18, 19, 21b, 23a, 24b and 25a must have gone through the
 wgmma design, and every K7 launch of 20b, 21b, 28e and 28f through
 the tensor design. A segment kernel's
@@ -496,8 +518,8 @@ in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a), and
 ``launches_by_shard`` each shard's launches in phase 27 by design); K4's
 and K5's are their counts in phase 4, K6's in phase 6b, K7's in phase
 9a; K5's and K6's ``non_causal`` hold phase 26's replays, and K5's,
-K6's and K7's ``launches_by_rank`` each rank's count in phases 28a-28f
-(28e's and 28f's training and serving together). The
+K6's and K7's ``launches_by_rank`` each rank's count in phases 28a-28h
+(28e's, 28f's and 28g's training and serving together). The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -4631,23 +4653,30 @@ def moe_phases(dev, every: dict) -> dict:
     return runs
 
 
-def run_example(name: str, args) -> dict:
-    """One example in its own process (``PYTHONPATH=src``) through
-    EXAMPLE_BOOT; it must exit 0. Returns its output, seconds and launch
-    counts."""
+def start_example(name: str, args) -> tuple:
+    """One example started in its own process (``PYTHONPATH=src``)
+    through EXAMPLE_BOOT: (the process, its start time)."""
     import os
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-c", EXAMPLE_BOOT,
          str(ROOT / "examples" / name), *args],
         cwd=ROOT, env={**os.environ, "PYTHONPATH": "src"},
-        capture_output=True, text=True, timeout=600)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def finish_example(name: str, started: tuple) -> dict:
+    """``start_example``'s process waited for; it must exit 0. Returns
+    its output, seconds from its start and launch counts."""
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
     seconds = time.perf_counter() - t0
     check(proc.returncode == 0, f"19: {name} exited {proc.returncode}: "
-                                f"{proc.stderr[-2000:]}")
-    out, _, tail = proc.stdout.rpartition(LAUNCH_TAG)
+                                f"{stderr[-2000:]}")
+    out, _, tail = stdout.rpartition(LAUNCH_TAG)
     check(bool(out), f"19: {name} printed no launch counts")
     return dict(json.loads(tail), out=out, seconds=seconds)
+
 
 
 def example_lines(name: str, out: str) -> str:
@@ -4674,12 +4703,24 @@ def example_lines(name: str, out: str) -> str:
 
 
 def examples_phase() -> dict:
-    """Phase 19: the four examples on the card, each with the kernels
-    EXAMPLES names launched (K5 and K6 on wgmma, K4 on the CUDA-core
-    design its float32 pages take) and no other but K1."""
+    """Phase 19: the four examples on the card, each in its own process,
+    the four at once (their startups overlap; each prints its own
+    rates, which the others' share of the card and the host moves), each
+    with the kernels EXAMPLES names launched (K5 and K6 on wgmma, K4 on
+    the CUDA-core design its float32 pages take) and no other but K1."""
     runs = {}
+    started = {name: start_example(name, args)
+               for name, (args, _) in EXAMPLES.items()}
+    try:
+        done = {name: finish_example(name, st)
+                for name, st in started.items()}
+    finally:
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     for name, (args, need) in EXAMPLES.items():
-        r = run_example(name, args)
+        r = done[name]
         line = example_lines(name, r.pop("out"))
         n = r["launches"]
         log(f"phase 19: {name} {' '.join(args)} in {r['seconds']:.1f} s: "
@@ -5460,11 +5501,12 @@ ENCDEC_SERVE_RUN = dict(batch=16, seq=128, decode=128, check_batch=2,
 ENCDEC_TRAIN_RUN = dict(batch=2, seq=2048, steps=6, grad_seq=1024,
                         grad_layers=4, control="cross_dkv",
                         loss_tol=SSM_LOSS_TOL)
-#: phase 25: VLM_ARCH at full width with 24 of its 80 layers (bf16
-#: parameters: 24 x 1.711 GB of layers and 4.20 GB of embeddings, 45.3
-#: GB): 4 x (256 patches + 1,792 tokens), 32 greedy decode steps; 25b's
-#: teacher forcing on check_batch x (256 + check_seq)
-VLM_SERVE_RUN = dict(layers=24, batch=4, seq=1792, decode=32,
+#: phase 25: VLM_ARCH at full width with 8 of its 80 layers (bf16
+#: parameters: 8 x 1.711 GB of layers and 4.20 GB of embeddings, 17.9
+#: GB; cut from 24 layers to pay for 28g and 28h): 4 x (256 patches +
+#: 1,792 tokens), 32 greedy decode steps; 25b's teacher forcing on
+#: check_batch x (256 + check_seq)
+VLM_SERVE_RUN = dict(layers=8, batch=4, seq=1792, decode=32,
                      check_batch=2, check_seq=1792)
 #: their CPU rehearsals (the reduced configs)
 SMALL_ENCDEC_SERVE = dict(batch=2, seq=24, decode=3, check_batch=2,
@@ -5652,9 +5694,7 @@ def frontend_serve(device, cfg, run: dict, seed: int, every: dict,
         f"max_memory_allocated {serve['max_memory_allocated'] / 1e9:.2f} GB"
         f"; sample ids {serve['sample']}")
     if device.type == "cuda":             # on the CPU nothing launches
-        serve_counts(f"{phase}a", serve, every,
-                     c.encoder_layers + c.num_layers * (
-                         2 if c.encoder_layers else 1))
+        serve_counts(f"{phase}a", serve, every, attentions(c))
     serve["busy_share"] = {
         "prefill": profile_prefill(model, params, run["batch"], run["seq"],
                                    seed + 1),
@@ -5747,8 +5787,7 @@ def encdec_train(device, cfg, run: dict, seed: int, every: dict) -> dict:
         f"{w:.3f} / {f:.3f} / {b:.3f} / {o:.3f}" for w, f, b, o in zip(
             train["step_s"], train["forward_s"], train["backward_s"],
             train["optimizer_s"])))
-    attns = cfg.encoder_layers + 2 * cfg.num_layers
-    per_step = {"K5": 2 * attns, "K6": attns}
+    per_step = {"K5": 2 * attentions(cfg), "K6": attentions(cfg)}
     if device.type == "cuda":             # on the CPU nothing launches
         for k, got in train["launches"].items():
             want = per_step.get(k, 0) * run["steps"]
@@ -5841,11 +5880,14 @@ def frontend_phases(device, every: dict, small: bool = False) -> dict:
 #: phase 28: the LM half of multi-device training on one card, a (2, 2)
 #: mesh of four ranks on cuda:0 joined by gloo (NCCL refuses two ranks on
 #: one device). 28a: TRAIN_ARCH at full width with 4 layers, bf16 compute;
-#: 28b: MOE_ARCH at full width with 2 layers, experts over ``model``
+#: 28b: MOE_ARCH at full width with 1 layer, experts over ``model``
 LM_MESH = (2, 2)
-#: (28a takes 2 steps, cut from 3 to pay for 28c and 28d)
-LM_DENSE_RUN = dict(layers=4, batch=2, seq=4096, steps=2)
-LM_MOE_RUN = dict(layers=2, batch=2, seq=4096, steps=2)
+#: (28a takes 1 step, cut from 3 to 2 to pay for 28c and 28d and to 1
+#: to pay for 28g and 28h: at 2 layers its control read 8.1x, below
+#: CONTROL_FACTOR; 28b 1 layer and 1 step, cut from 2 and 2 to pay for
+#: 28g and 28h)
+LM_DENSE_RUN = dict(layers=4, batch=2, seq=4096, steps=1)
+LM_MOE_RUN = dict(layers=1, batch=2, seq=4096, steps=1)
 #: the CPU rehearsal's runs: the reduced configs
 SMALL_LM_DENSE = dict(layers=2, batch=2, seq=128, steps=2)
 SMALL_LM_MOE = dict(layers=2, batch=2, seq=128, steps=2)
@@ -5858,19 +5900,35 @@ LM_THREADS = 2
 LM_TIMEOUT_S = 600.0
 #: phase 28's parts, each by the key of its ranks' records
 LM_PARTS = {"28a": "dense", "28b": "moe", "28c": "serve_dense",
-            "28d": "serve_moe", "28e": "ssm", "28f": "hybrid"}
-#: 28e/28f: the SSM and hybrid families under the same mesh, each at full
-#: width with 4 of its layers: ``LM_SSD_RUN["steps"]`` training steps
-#: (bf16 compute, fp32 parameters, remat full) held as 28a holds its
-#: first step, then served as 28c is (``LM_SERVE``), the SSD block split
-#: over ``model`` (28e mamba2-780m: 24 of 48 heads a rank; 28f
-#: hymba-1.5b: 25 of 50, its attention DP-only on all 25 heads beside
-#: it, the MLP split)
-LM_SSD_RUN = dict(layers=4, batch=2, seq=4096, steps=2)
-SMALL_LM_SSD = dict(layers=2, batch=2, seq=128, steps=2)
-#: the cache leaves that hold KV heads (the hand-over drops a repeat)
-KV_LEAVES = ("k", "v", "k_scale", "v_scale")
-#: 28c-28f: serving under the (2, 2) mesh, bf16 weights and compute. The
+            "28d": "serve_moe", "28e": "ssm", "28f": "hybrid",
+            "28g": "audio", "28h": "serve_vlm"}
+#: 28e-28g: the SSM, hybrid and audio families under the same mesh, each
+#: at full width with ``layers`` of its layers (28g: as many encoder
+#: layers; 28e and 28f cut from 4 layers and 2 steps to 2 layers and 1
+#: step to pay for 28g and 28h): ``steps`` training steps of batch x seq tokens (bf16
+#: compute, fp32 parameters, remat full; 28g over 1,024 stub frames a
+#: row, 24b's shape), the first held as 28a holds its first step with
+#: the loss within ``loss_tol`` (28g: 24a's bf16 limit), then served as
+#: 28c is (``LM_SERVE``). 28e mamba2-780m: 24 of 48 SSD heads a rank;
+#: 28f hymba-1.5b: 25 of 50, its attention DP-only on all 25 heads beside
+#: them, the MLP split; 28g seamless-m4t-medium: 8 of 16 heads a rank in
+#: the encoder, the decoder and the cross-attention, whose ``control``
+#: drops the cross K/V's ``copy_to`` on the first batch (each rank's
+#: encoder gradients then hold only its heads' share), read on the
+#: encoder's gradients
+LM_TRAIN = {"ssm": dict(layers=2, batch=2, seq=4096, steps=1,
+                        seed=SEED + 32, loss_tol=LOSS_TOL),
+            "hybrid": dict(layers=2, batch=2, seq=4096, steps=1,
+                           seed=SEED + 33, loss_tol=LOSS_TOL),
+            "audio": dict(layers=4, batch=2, seq=2048, steps=2,
+                          seed=SEED + 34, loss_tol=SSM_LOSS_TOL,
+                          control="cross_copy_to")}
+SMALL_LM_TRAIN = {part: dict(run, layers=2, seq=128)
+                  for part, run in LM_TRAIN.items()}
+#: the cache leaves that hold KV heads (the hand-over drops a repeat):
+#: the self and the cross K/V
+KV_LEAVES = ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v")
+#: 28c-28h: serving under the (2, 2) mesh, bf16 weights and compute. The
 #: prefill of ``batch`` x ``seq`` under the prefill rules (the batch over
 #: ``data``, each rank's heads through K5 and K7), with ``chunks`` a
 #: streamed prefill of the same prompt, the cache handed over to the
@@ -5881,28 +5939,54 @@ KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 #: ``check_steps`` steps in float32 compute at ``check_layers`` layers,
 #: with ``controls`` dropped: the merge's ``model`` reduce (read on the
 #: steps), the SSD ``o`` projection's reduce, the gated norm's sum over
-#: ``model`` (each read on the prefill). 28c: TRAIN_ARCH with 4 layers;
-#: 28d: MOE_ARCH with 2 (64 experts a rank); 28e and 28f: SSM_ARCH and
-#: HYBRID_ARCH with 4 (the hybrid's prompt a multiple of its window)
+#: ``model`` (each read on the prefill), cross-attention's ``o`` reduce
+#: (``cross_o``) or the patches in ``pos`` (``text_pos``: 25b's control,
+#: the decode at the text's position), each read on the steps. 28c:
+#: TRAIN_ARCH with 2 layers; 28d: MOE_ARCH with 1 (64 experts a rank);
+#: 28e and 28f: SSM_ARCH and HYBRID_ARCH with 2 (the hybrid's prompt a
+#: multiple of its window; 28c, 28e and 28f cut from 4 layers and 28d
+#: from 2 to pay for 28g and 28h; each float32 check at 2 layers); 28g: ENCDEC_ARCH with 4 encoder and 4
+#: decoder layers, 16 x 128 tokens over 1,024 frames, the cross cache
+#: handed over from each rank's 8 heads to all 16 (float32 at 2 + 2);
+#: 28h: VLM_ARCH with 2 of its 80 layers, 2 x (256 patches + 1,792
+#: tokens), 2,064 slots counting the patches, 1,032 a rank
 LM_SERVE = {
-    "dense": dict(arch=TRAIN_ARCH, layers=4, batch=2, seq=4096, cap=4160,
+    "dense": dict(arch=TRAIN_ARCH, layers=2, batch=2, seq=4096, cap=4160,
                   steps=32, check_layers=2, check_steps=2,
                   controls=("merge",)),
-    "moe": dict(arch=MOE_ARCH, layers=2, batch=2, seq=2048, cap=2064,
+    "moe": dict(arch=MOE_ARCH, layers=1, batch=2, seq=2048, cap=2064,
                 steps=16, check_layers=2, check_steps=2,
                 controls=("merge",)),
-    "ssm": dict(arch=SSM_ARCH, layers=4, batch=2, seq=4096, cap=4112,
+    "ssm": dict(arch=SSM_ARCH, layers=2, batch=2, seq=4096, cap=4112,
                 steps=16, check_layers=2, check_steps=2, chunks=2,
                 controls=("ssd_o", "ssd_norm")),
-    "hybrid": dict(arch=HYBRID_ARCH, layers=4, batch=2, seq=4096, cap=4112,
+    "hybrid": dict(arch=HYBRID_ARCH, layers=2, batch=2, seq=4096, cap=4112,
                    steps=16, check_layers=2, check_steps=2,
-                   controls=("ssd_o", "ssd_norm"))}
+                   controls=("ssd_o", "ssd_norm")),
+    "audio": dict(arch=ENCDEC_ARCH, layers=4, batch=16, seq=128, cap=160,
+                  steps=32, check_layers=2, check_steps=2,
+                  controls=("cross_o",)),
+    "vlm": dict(arch=VLM_ARCH, layers=2, batch=2, seq=1792, cap=2064,
+                steps=16, check_layers=2, check_steps=2,
+                controls=("text_pos",))}
 SMALL_LM_SERVE = {
     "dense": dict(LM_SERVE["dense"], layers=2, seq=128, cap=136, steps=3),
     "moe": dict(LM_SERVE["moe"], seq=128, cap=136, steps=3),
     "ssm": dict(LM_SERVE["ssm"], layers=2, seq=128, cap=136, steps=3),
     "hybrid": dict(LM_SERVE["hybrid"], layers=2, seq=128, cap=136,
-                   steps=3)}
+                   steps=3),
+    "audio": dict(LM_SERVE["audio"], layers=2, batch=4, seq=24, cap=32,
+                  steps=3),
+    "vlm": dict(LM_SERVE["vlm"], seq=24, cap=48, steps=3)}
+
+
+def _cut(cfg, layers: int):
+    """``cfg`` with ``layers`` decoder layers (and as many encoder
+    layers where it has an encoder)."""
+    kw = dict(num_layers=layers)
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
 
 
 def _lm_cfg(arch: str, run: dict, small: bool):
@@ -5910,7 +5994,7 @@ def _lm_cfg(arch: str, run: dict, small: bool):
     cfg = get_config(arch)
     if small:
         cfg = reduced(cfg)
-    return dataclasses.replace(cfg, num_layers=run["layers"])
+    return _cut(cfg, run["layers"])
 
 
 def _lm_barrier(mesh) -> None:
@@ -5921,12 +6005,14 @@ def _lm_barrier(mesh) -> None:
 
 
 def _lm_batches(cfg, run: dict, n: int, seed: int, dev) -> list:
-    """``n`` global batches, the same on every rank."""
+    """``n`` global batches, the same on every rank, each with the
+    family's stub embeddings (``stub_inputs``)."""
     import torch
     from repro_torch.data.generators import token_batches
     gen = token_batches(cfg.vocab_size, run["batch"], run["seq"], seed=seed)
-    return [{k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()}
-            for _ in range(n)]
+    return [{**{k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()},
+             **stub_inputs(cfg, run["batch"], seed + 1 + i, dev)}
+            for i in range(n)]
 
 
 def _lm_grads(model, params, batch):
@@ -6276,15 +6362,19 @@ def _serve_cfg(run: dict, small: bool, layers: int, compute: str):
     cfg = get_config(run["arch"])
     if small:
         cfg = reduced(cfg)
-    return dataclasses.replace(cfg, num_layers=layers,
-                               param_dtype="bfloat16", compute_dtype=compute)
+    return dataclasses.replace(_cut(cfg, layers), param_dtype="bfloat16",
+                               compute_dtype=compute)
 
 
-def _serve_prompt(cfg, run: dict, dev):
+def _serve_prompt(cfg, run: dict, dev) -> dict:
+    """The prompt batch: batch x seq tokens, with the family's stub
+    embeddings (``stub_inputs``)."""
     import torch
     g = torch.Generator().manual_seed(SEED + 30)
-    return torch.randint(0, cfg.vocab_size, (run["batch"], run["seq"]),
-                         generator=g).to(dev)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (run["batch"], run["seq"]),
+                                    generator=g).to(dev),
+            **stub_inputs(cfg, run["batch"], SEED + 35, dev)}
 
 
 def _serve_ref(cfg, run: dict, dev, steps: int, where: Path) -> None:
@@ -6302,13 +6392,12 @@ def _serve_ref(cfg, run: dict, dev, steps: int, where: Path) -> None:
     prompt = _serve_prompt(cfg, run, dev)
     if run.get("chunks"):
         logits, cache = model.prefill_streaming(
-            params, {"tokens": prompt}, chunk=run["seq"] // run["chunks"])
+            params, prompt, chunk=run["seq"] // run["chunks"])
         np.save(where / "stream_logits.npy", logits.float().cpu().numpy())
         np.save(where / "stream_ssm.npy",
                 cache["layers"]["ssm"].float().cpu().numpy())
         del logits, cache
-    logits, cache = model.prefill(params, {"tokens": prompt},
-                                  max_len=run["cap"])
+    logits, cache = model.prefill(params, prompt, max_len=run["cap"])
     if cfg.ssm.enabled:
         np.save(where / "ssm.npy", cache["layers"]["ssm"].float().cpu()
                 .numpy())
@@ -6388,6 +6477,35 @@ def _ssd_control(name: str):
         ssm_mod.row_parallel, ssm_mod._mean_square = real
 
 
+@contextlib.contextmanager
+def _decode_control(name: str):
+    """The decode with one piece dropped: the merge's ``model`` reduce
+    (``merge``: each rank attends only its slice), cross-attention's
+    ``o`` reduce (``cross_o``), or nothing (``text_pos``: the caller
+    moves ``pos``)."""
+    attn_mod = importlib.import_module("repro_torch.models.attention")
+    lyr = importlib.import_module("repro_torch.models.layers")
+    real = (attn_mod.merge_partials, attn_mod._cross_decode,
+            attn_mod.row_parallel)
+    if name == "merge":
+        attn_mod.merge_partials = lambda m, l, acc, rmax, rsum: real[0](
+            m, l, acc, lambda x: x, lambda x: x)
+    elif name == "cross_o":
+        def cross(*args, **kwargs):
+            attn_mod.row_parallel = lambda p, x, cd, n, m, a: \
+                lyr.row_parallel(p, x, cd, n, None, None)
+            try:
+                return real[1](*args, **kwargs)
+            finally:
+                attn_mod.row_parallel = real[2]
+        attn_mod._cross_decode = cross
+    try:
+        yield
+    finally:
+        (attn_mod.merge_partials, attn_mod._cross_decode,
+         attn_mod.row_parallel) = real
+
+
 def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
                 controls: tuple = ()) -> dict:
     """The mesh's serving of ``run`` on this rank (module comment of
@@ -6398,13 +6516,14 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
     synchronised prefills and steps; ``controls`` rerun the prefill with
     one of the SSD block's sums dropped (``ssd_o``, ``ssd_norm``) or
     decode the steps again with the merge's ``model`` reduce dropped
-    (``merge``), each read in ``out["controls"]``."""
+    (``merge``), cross-attention's ``o`` reduce dropped (``cross_o``) or
+    the decode at the text's position, the VLM's patches not counted
+    (``text_pos``), each read in ``out["controls"]``."""
     import numpy as np
     import torch
     from repro_torch import convert
     from repro_torch.configs.base import MeshConfig
     from repro_torch.distributed import sharding as shd
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models.model import build_model
     from repro_torch.serve.serve_step import vocab_argmax
     from repro_torch.train.train_step import local_batch
@@ -6434,12 +6553,10 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
         model = build_model(cfg, kv_repeat=pctx.profile.kv_repeat,
                             device=dev)
         params = model.init(torch.Generator(dev).manual_seed(SEED + 31))
-        prompt = local_batch({"tokens": _serve_prompt(cfg, run, dev)},
-                             pctx)["tokens"]
+        prompt = local_batch(_serve_prompt(cfg, run, dev), pctx)
         sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompt},
-                                      max_len=run["cap"])
+        logits, cache = model.prefill(params, prompt, max_len=run["cap"])
         sync()
         out["prefill_s"] = time.perf_counter() - t0
         out["prefill_rel"] = _shard_rows_rel(pctx, logits, ref_logits[0],
@@ -6454,8 +6571,7 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
             sync()
             t0 = time.perf_counter()
             logits, cache = model.prefill_streaming(
-                params, {"tokens": prompt},
-                chunk=run["seq"] // run["chunks"])
+                params, prompt, chunk=run["seq"] // run["chunks"])
             sync()
             out["stream_s"] = time.perf_counter() - t0
             out["stream_rel"] = _shard_rows_rel(
@@ -6464,11 +6580,10 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
                 pctx, model, cache["layers"]["ssm"], where / "stream_ssm.npy")
             del logits, cache
         for name in controls:
-            if name == "merge":
+            if name not in ("ssd_o", "ssd_norm"):
                 continue
             with _ssd_control(name):
-                lg, _ = model.prefill(params, {"tokens": prompt},
-                                      max_len=run["cap"])
+                lg, _ = model.prefill(params, prompt, max_len=run["cap"])
             out["controls"][name] = _shard_rows_rel(pctx, lg, ref_logits[0],
                                                     vocab)
             del lg
@@ -6484,6 +6599,8 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
 
         def decode(tag):
             cache = convert.shard_cache(full, dmodel)
+            if tag == "text_pos":
+                cache["pos"] = torch.full_like(cache["pos"], run["seq"])
             rels, secs = [], []
             for i in range(steps):
                 t = local_batch({"tokens": ref_toks[i]}, dctx)["tokens"]
@@ -6503,16 +6620,13 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
             return rels, secs
 
         out["main_rels"], out["main_s"] = decode("main")
-        if "merge" in controls:
-            real = attn_mod.merge_partials
-            attn_mod.merge_partials = lambda m, l, acc, rmax, rsum: real(
-                m, l, acc, lambda x: x, lambda x: x)
-            try:
-                out["controls"]["merge"] = max(decode("control")[0])
-            finally:
-                attn_mod.merge_partials = real
+        for name in controls:
+            if name in ("ssd_o", "ssd_norm"):
+                continue
+            with _decode_control(name):
+                out["controls"][name] = max(decode(name)[0])
     out["agree"] = agree
-    out["rows"] = int(prompt.shape[0])
+    out["rows"] = int(prompt["tokens"].shape[0])
     del model, dmodel, params, full
     gc.collect()
     if dev.type == "cuda":
@@ -6560,13 +6674,14 @@ def _lm_serve(rank: int, mesh, dev, small: bool, wrappers: dict,
     return rec
 
 
-def _lm_ssd_train(rank: int, mesh, dev, small: bool, wrappers: dict,
-                  ref_dir: Path, part: str) -> dict:
-    """28e/28f's training on this rank: rank 0's one-process steps on the
-    same weights (the first step's gradients saved), then
-    ``LM_SSD_RUN["steps"]`` steps on the mesh (counted and timed; the
-    first step's loss and gradients held against the one-process
-    step's)."""
+def _lm_train(rank: int, mesh, dev, small: bool, wrappers: dict,
+              ref_dir: Path, part: str) -> dict:
+    """28e-28g's training on this rank (``LM_TRAIN[part]``): rank 0's
+    one-process steps on the same weights (the first step's gradients
+    saved), the run's ``control`` on the mesh's first batch (read on the
+    encoder's gradients), then ``steps`` steps on the mesh (counted and
+    timed; the first step's loss and gradients held against the
+    one-process step's)."""
     import torch
     from repro_torch.configs.base import MeshConfig
     from repro_torch.distributed import collectives as col
@@ -6575,10 +6690,10 @@ def _lm_ssd_train(rank: int, mesh, dev, small: bool, wrappers: dict,
     from repro_torch.train import OptConfig, make_train_step
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.train_step import TrainState
-    run = SMALL_LM_SSD if small else LM_SSD_RUN
+    run = (SMALL_LM_TRAIN if small else LM_TRAIN)[part]
     cfg = _lm_cfg(LM_SERVE[part]["arch"], run, small)
     mesh_cfg = MeshConfig(LM_MESH, ("data", "model"))
-    seed = SEED + 32 + (part == "hybrid")
+    seed = run["seed"]
     batches = _lm_batches(cfg, run, run["steps"], seed, dev)
     opt = OptConfig(warmup_steps=1, total_steps=run["steps"])
     where = ref_dir / f"train_{part}"
@@ -6606,9 +6721,21 @@ def _lm_ssd_train(rank: int, mesh, dev, small: bool, wrappers: dict,
         model = build_model(cfg, kv_repeat=prof.kv_repeat, device=dev)
         params = model.init(torch.Generator(dev).manual_seed(seed))
         rec["local_params"] = sum(p.numel() for p in params.values())
-        rec["local_ssd_heads"] = params["layers.0.ssd.A_log"].shape[0]
+        rec["local_heads"] = {
+            "SSD": params["layers.0.ssd.A_log"].shape[0] if cfg.ssm.enabled
+            else 0, "attention": params["layers.0.attn.q.w"].shape[1]
+            if cfg.has_attention else 0}
         rec["profile"] = {k: getattr(prof, k) for k in
                           ("attn_tp", "ssd_tp", "mlp_tp", "vocab_tp")}
+        if run.get("control"):
+            with _cross_copy_dropped():
+                _, c_grads = _lm_grads(model, params, batches[0])
+            enc = {n: g for n, g in c_grads.items()
+                   if n.split(".")[0] in ("encoder", "enc_norm")}
+            rec["control_rel_err"], rec["control_param"] = _lm_rel(
+                ctx, model, enc, where)
+            del c_grads, enc
+            gc.collect()
         step = make_train_step(model, opt)
         state = TrainState(params=params, opt=adamw_init(params))
         zero_counts(wrappers.values())
@@ -6643,16 +6770,39 @@ def _lm_ssd_train(rank: int, mesh, dev, small: bool, wrappers: dict,
     return rec
 
 
-def _lm_ssd(rank: int, mesh, dev, small: bool, wrappers: dict,
-            ref_dir: Path, part: str) -> dict:
-    """28e (``part`` ssm) or 28f (hybrid) on this rank: the training, then
-    the serving (``_lm_serve``); the main path's launches are theirs
-    together."""
+@contextlib.contextmanager
+def _cross_copy_dropped():
+    """28g's training control: the cross K/V's ``copy_to`` (the encoder
+    output's into each rank's heads) the identity while the model
+    projects them."""
+    tr = importlib.import_module("repro_torch.models.transformer")
+    col = importlib.import_module("repro_torch.distributed.collectives")
+    real = tr.Model._cross_kv
+
+    def cross_kv(*args, **kwargs):
+        copy = col.copy_to
+        col.copy_to = lambda x, mesh, axes: x
+        try:
+            return real(*args, **kwargs)
+        finally:
+            col.copy_to = copy
+    tr.Model._cross_kv = cross_kv
+    try:
+        yield
+    finally:
+        tr.Model._cross_kv = real
+
+
+def _lm_train_serve(rank: int, mesh, dev, small: bool, wrappers: dict,
+                    ref_dir: Path, part: str) -> dict:
+    """28e (``part`` ssm), 28f (hybrid) or 28g (audio) on this rank: the
+    training, then the serving (``_lm_serve``); the main path's launches
+    are theirs together."""
     rec = {"rank": rank, "data": mesh.index("data"),
            "model": mesh.index("model")}
     t0 = time.perf_counter()
-    rec["train"] = _lm_ssd_train(rank, mesh, dev, small, wrappers, ref_dir,
-                                 part)
+    rec["train"] = _lm_train(rank, mesh, dev, small, wrappers, ref_dir,
+                             part)
     rec["train"]["wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rec["serve"] = _lm_serve(rank, mesh, dev, small, wrappers, ref_dir, part)
@@ -6662,42 +6812,63 @@ def _lm_ssd(rank: int, mesh, dev, small: bool, wrappers: dict,
     return rec
 
 
+def attentions(cfg) -> int:
+    """The attention blocks a forward runs: one a decoder layer, and an
+    encoder-decoder's encoder layers and cross-attention besides."""
+    if not cfg.has_attention:
+        return 0
+    if cfg.encoder_layers:
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
 def train_launches(cfg, steps: int) -> dict:
     """The launches a rank's training steps imply under remat full (every
     layer's forward run again in the backward): K5 and K7 twice a layer
-    and step, K6 once."""
+    (an attention block) and step, K6 once."""
     per = 2 if cfg.remat != "none" else 1
     out = {}
     if cfg.has_attention:
-        out.update(K5=per * cfg.num_layers * steps,
-                   K6=cfg.num_layers * steps)
+        out.update(K5=per * attentions(cfg) * steps,
+                   K6=attentions(cfg) * steps)
     if cfg.ssm.enabled:
         out["K7"] = per * cfg.num_layers * steps
     return out
 
 
-def ssd_report(rs: list, part: str, tag: str, small: bool, card: str,
-               cuda: bool) -> list:
-    """28e or 28f: print and hold each rank's training and serving."""
-    run = SMALL_LM_SSD if small else LM_SSD_RUN
+def train_report(rs: list, part: str, tag: str, small: bool, card: str,
+                 cuda: bool) -> list:
+    """28e, 28f or 28g: print and hold each rank's training and
+    serving."""
+    run = (SMALL_LM_TRAIN if small else LM_TRAIN)[part]
     cfg = _lm_cfg(LM_SERVE[part]["arch"], run, small)
+    tol = run["loss_tol"]
     t0 = rs[0]["train"]
+    frames = (f" over {cfg.frontend_tokens} stub frames a row"
+              if cfg.encoder_layers else "")
     log(f"phase {tag}: {cfg.name} at {'reduced' if small else 'full'} width "
-        f"({_cfg_line(cfg)}) with {cfg.num_layers} layers, layout "
-        f"{t0['profile']}, {t0['local_ssd_heads']} SSD heads a rank, "
-        f"{run['batch']} x {run['seq']} tokens a step, bf16 compute; "
-        f"one-process reference in {t0['ref_s']:.1f} s, training "
-        f"{t0['wall_s']:.1f} s, serving {rs[0]['serve']['wall_s']:.1f} s "
-        f"({card})")
+        f"({_cfg_line(cfg)}) with {cfg.num_layers} layers"
+        + (f" and {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else "")
+        + f", layout {t0['profile']}, heads a rank {t0['local_heads']}, "
+        f"{run['batch']} x {run['seq']} tokens a step{frames}, bf16 "
+        f"compute, remat {cfg.remat!r}; one-process reference in "
+        f"{t0['ref_s']:.1f} s, training {t0['wall_s']:.1f} s, serving "
+        f"{rs[0]['serve']['wall_s']:.1f} s ({card})")
     log(f"phase {tag}: the first step on the mesh against the one-process "
         f"step: loss {t0['loss']:.6f} (off by {t0['loss_err']:.3g}, limit "
-        f"{LOSS_TOL}), the worst gradient {t0['worst_param']} off by "
+        f"{tol}), the worst gradient {t0['worst_param']} off by "
         f"{t0['grad_rel_err']:.3g} of its norm (limit {GRAD_RTOL})")
-    check(t0["loss_err"] <= LOSS_TOL, f"{tag}: loss off by {t0['loss_err']}")
+    check(t0["loss_err"] <= tol, f"{tag}: loss off by {t0['loss_err']}")
     check(t0["grad_rel_err"] <= GRAD_RTOL,
           f"{tag}: {t0['worst_param']} off by {t0['grad_rel_err']:.3g}")
+    if run.get("control"):
+        t0["control_ratio"] = control_reads(
+            f"{tag}: the cross K/V's copy_to dropped, read on the encoder's "
+            f"gradients ({t0['control_param']})", t0["control_rel_err"],
+            GRAD_RTOL)
     for a, b in zip(t0["losses"], t0["ref_losses"]):
-        check(math.isfinite(a) and abs(a - b) <= 10 * LOSS_TOL * max(
+        check(math.isfinite(a) and abs(a - b) <= 10 * tol * max(
             1.0, abs(b)), f"{tag}: step loss {a} against one process {b}")
     timed = t0["step_s"][1:] or t0["step_s"]
     log(f"phase {tag}: {run['steps']} steps: losses "
@@ -6713,8 +6884,10 @@ def ssd_report(rs: list, part: str, tag: str, small: bool, card: str,
         log(f"  rank {r['rank']}: training: {t['local_params'] / 1e6:.1f} M "
             f"local parameters, max_memory_allocated "
             f"{t.get('max_memory_allocated', 0) / 1e9:.2f} GB, launches "
-            f"{t['launches']}; collectives: "
-            + _collective_line(t["collectives"]) + f" ({card})")
+            f"{t['launches']}, by design "
+            f"{ {k: t['by_design'].get(k) for k in ('K5', 'K6', 'K7')} }; "
+            "collectives: " + _collective_line(t["collectives"])
+            + f" ({card})")
         if cuda:
             check_designs(f"{tag} training", t, train_launches(
                 cfg, run["steps"]))
@@ -6727,7 +6900,7 @@ def ssd_report(rs: list, part: str, tag: str, small: bool, card: str,
 def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str,
                   parts: tuple = tuple(LM_PARTS)) -> dict:
     """One rank of phase 28's world: the (2, 2) mesh over the four ranks,
-    then 28a-28f (those of ``parts``)."""
+    then 28a-28h (those of ``parts``)."""
     import torch
     from repro_torch.configs.base import MeshConfig
     from repro_torch.launch.mesh import make_mesh_from_config
@@ -6745,15 +6918,22 @@ def lm_world_rank(rank: int, device: str, small: bool, ref_dir: str,
                                      Path(ref_dir), "dense"),
             "28d": lambda: _lm_serve(rank, mesh, dev, small, wrappers,
                                      Path(ref_dir), "moe"),
-            "28e": lambda: _lm_ssd(rank, mesh, dev, small, wrappers,
-                                   Path(ref_dir), "ssm"),
-            "28f": lambda: _lm_ssd(rank, mesh, dev, small, wrappers,
-                                   Path(ref_dir), "hybrid")}
+            "28e": lambda: _lm_train_serve(rank, mesh, dev, small, wrappers,
+                                           Path(ref_dir), "ssm"),
+            "28f": lambda: _lm_train_serve(rank, mesh, dev, small, wrappers,
+                                           Path(ref_dir), "hybrid"),
+            "28g": lambda: _lm_train_serve(rank, mesh, dev, small, wrappers,
+                                           Path(ref_dir), "audio"),
+            "28h": lambda: _lm_serve(rank, mesh, dev, small, wrappers,
+                                     Path(ref_dir), "vlm")}
     out = {}
     for tag in parts:
         t0 = time.perf_counter()
         out[LM_PARTS[tag]] = runs[tag]()
         out[LM_PARTS[tag]]["wall_s"] = time.perf_counter() - t0
+        if rank == 0:
+            log(f"phase {tag}: {out[LM_PARTS[tag]]['wall_s']:.1f} s of rank "
+                "time (rank 0)")
     return out
 
 
@@ -6879,15 +7059,15 @@ def lm_world_phase(dev, card: str, small: bool = False,
         log(f"phase 28b: {run['batch'] * run['seq'] * len(timed) / sum(timed):.1f}"
             f" tokens/s ({card})")
         out["moe"] = m
-    for part, tag in (("dense", "28c"), ("moe", "28d")):
+    for part, tag in (("dense", "28c"), ("moe", "28d"), ("vlm", "28h")):
         if f"serve_{part}" in ranks[0]:
             out[f"serve_{part}"] = serve_report(
                 [r[f"serve_{part}"] for r in ranks], part, tag, small, card,
                 cuda)
-    for part, tag in (("ssm", "28e"), ("hybrid", "28f")):
+    for part, tag in (("ssm", "28e"), ("hybrid", "28f"), ("audio", "28g")):
         if part in ranks[0]:
-            out[part] = ssd_report([r[part] for r in ranks], part, tag,
-                                   small, card, cuda)
+            out[part] = train_report([r[part] for r in ranks], part, tag,
+                                     small, card, cuda)
     return out
 
 
@@ -6909,12 +7089,12 @@ def _cfg_line(cfg) -> str:
 
 
 def serve_launches(cfg, run: dict) -> dict:
-    """The launches a rank's bf16 serving path implies: K5 once a layer in
-    the prefill; K7 once a layer in the prefill and in each chunk of the
-    streamed one (the decode steps launch neither)."""
+    """The launches a rank's bf16 serving path implies: K5 once an
+    attention block in the prefill; K7 once a layer in the prefill and in
+    each chunk of the streamed one (the decode steps launch neither)."""
     out = {}
     if cfg.has_attention:
-        out["K5"] = cfg.num_layers
+        out["K5"] = attentions(cfg)
     if cfg.ssm.enabled:
         out["K7"] = cfg.num_layers * (1 + run.get("chunks", 0))
     return out
@@ -6937,7 +7117,7 @@ def check_designs(tag: str, r: dict, want: dict) -> None:
 
 def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
                  cuda: bool) -> list:
-    """28c-28f's serving: print and hold what each rank read."""
+    """28c-28h's serving: print and hold what each rank read."""
     run = (SMALL_LM_SERVE if small else LM_SERVE)[part]
     cfg = _serve_cfg(run, small, run["layers"], "bfloat16")
     r0 = rs[0]
@@ -6946,11 +7126,19 @@ def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
               f"({run['cap']} slots, {r0['bf16']['cache_slots']} a rank, KV "
               f"repeat {kv[1]})" if "cache_slots" in r0["bf16"] else
               "the state handed over to the decode rules' layout")
+    stub = importlib.import_module(
+        "repro_torch.models.transformer").STUB_INPUTS.get(cfg.family)
+    front = (f" over {cfg.frontend_tokens} stub frames a row"
+             if stub == "frame_embeds" else
+             f" behind {cfg.frontend_tokens} stub patches a row"
+             if stub else "")
     log(f"phase {tag}: {cfg.name} at {'reduced' if small else 'full'} "
-        f"width ({_cfg_line(cfg)}) with {cfg.num_layers} layers, bf16 "
-        f"weights and compute, layout {r0['bf16']['profile']}: a prefill "
-        f"of {run['batch']} x {run['seq']} under the prefill rules (KV "
-        f"repeat {kv[0]})"
+        f"width ({_cfg_line(cfg)}) with {cfg.num_layers} layers"
+        + (f" and {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else "")
+        + f", bf16 weights and compute, layout {r0['bf16']['profile']}: a "
+        f"prefill of {run['batch']} x {run['seq']}{front} under the prefill "
+        f"rules (KV repeat {kv[0]})"
         + (f", streamed again in {run['chunks']} chunks" if run.get("chunks")
            else "")
         + f", {layout}, then {run['steps']} decode steps on rank 0's "
@@ -6999,7 +7187,10 @@ def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
                 f"{tag}: rank {r['rank']}: "
                 + {"merge": "the merge's model reduce dropped",
                    "ssd_o": "the SSD o projection's model reduce dropped",
-                   "ssd_norm": "the gated norm over the rank's heads alone"}
+                   "ssd_norm": "the gated norm over the rank's heads alone",
+                   "cross_o": "cross-attention's o reduce dropped",
+                   "text_pos": "the decode at the text's position, the "
+                               "patches not counted"}
                 [name], reading, TF_F32_RTOL)
             for name, reading in f["controls"].items()}
         check(set(f["controls"]) == set(run["controls"]), f"{tag}: rank "
@@ -7038,8 +7229,10 @@ def main(argv=None) -> int:
     ap.add_argument("--chaos-windows", type=float, default=2.0,
                     help="windows of processing time streamed by each run of "
                     "phase 15")
-    ap.add_argument("--recovery-windows", type=float, default=2.0,
-                    help="windows of processing time streamed in phase 16")
+    ap.add_argument("--recovery-windows", type=float, default=1.5,
+                    help="windows of processing time streamed in phase 16 "
+                    "(1.5 since phase 28g/28h: four checkpoints in place "
+                    "of six)")
     ap.add_argument("--sharded-windows", type=float, default=3.0,
                     help="windows of processing time streamed in phase 27a")
     ap.add_argument("--sharded-splitk-windows", type=float, default=2.0,

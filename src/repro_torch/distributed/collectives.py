@@ -22,7 +22,10 @@ CUDA tensors under gloo; one card can host a world only through gloo
 
 Each moves (n-1)/n more than the dedicated collective would. Low
 precision floats are reduced in float32 (cast, reduce, cast back), so a
-bf16 partial sum rounds once, as the one-device product does.
+bf16 partial sum rounds once, as the one-device product does; an
+all-gather's sum adds each element to zeros, exact in any type, so it
+reduces in the tensor's own type (half the bytes of a bf16 weight's
+float32 buffer).
 
 Megatron's regions are ``torch.autograd.Function``s whose backward is the
 dual collective:
@@ -160,15 +163,17 @@ def _count(kind: str, t: torch.Tensor, t0: float) -> None:
 
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes,
-               op: str = "sum", kind: str = "all_reduce") -> torch.Tensor:
+               op: str = "sum", kind: str = "all_reduce",
+               exact: bool = False) -> torch.Tensor:
     """The sum (or ``max``, ``min``) of ``x`` over the mesh axes
     ``axes``, as a new tensor on every rank of each group; low precision
-    floats reduce in float32."""
+    floats reduce in float32, unless the caller knows the sum ``exact``
+    in ``x``'s own type."""
     axes = [a for a in _axes(axes) if mesh.size(a) > 1]
     if not axes:
         return x.clone()
-    buf = x.float() if x.is_floating_point() and x.element_size() < 4 \
-        else x
+    upcast = not exact and x.is_floating_point() and x.element_size() < 4
+    buf = x.float() if upcast else x
     buf = buf.clone().contiguous()
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
            "min": dist.ReduceOp.MIN}[op]
@@ -193,7 +198,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes,
         shape[dim] = step * n
         buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
         buf.narrow(dim, mesh.index(ax) * step, step).copy_(x)
-        x = all_reduce(buf, mesh, ax, kind="all_gather")
+        x = all_reduce(buf, mesh, ax, kind="all_gather", exact=True)
     return x
 
 

@@ -23,7 +23,9 @@ hands ``attn_forward`` the decoder layer's K/V of the encoder output
 ``_cross_kv``); q is RoPE'd at the decoder's positions and attends every
 frame, non-causal, through the same K5/K6 call (Sq != Sk). Decode
 attends them with ``decode_attention`` under ``xattn_len``'s mask of the
-valid frames. ``kv_repeat`` (K/V heads repeated so that a
+valid frames (``_cross_decode``; under a mesh each rank's q heads attend
+the stored heads their global indices map to, and ``o`` is reduced over
+``model``). ``kv_repeat`` (K/V heads repeated so that a
 tensor-parallel head axis shards evenly) is ``_repeat_kv``, a
 ``repeat_interleave`` on the head axis, as ``jnp.repeat``.
 
@@ -38,7 +40,8 @@ of them, repeats them, and takes its slice of the repeated heads behind
 sum of every slice's share. K5 and K6 run unchanged on the local heads;
 ``o`` is row-parallel (summed over ``model``, its bias added once).
 Without ``attn_tp`` attention is replicated over ``model``, the DP-only
-fallback.
+fallback. ``kv_heads`` is that projection, for self-attention and for
+the model's cross K/V of the encoder output.
 
 ``attn_decode`` under a mesh (the decode rules of ``sharding_profile``:
 ``KV_HEADS`` unsplit, ``KV_SEQ -> model`` where the profile shards the
@@ -126,6 +129,38 @@ def _repeat_kv(kv: torch.Tensor, repeat: int) -> torch.Tensor:
     return torch.repeat_interleave(kv, repeat, dim=2)
 
 
+def kv_heads(params, x: torch.Tensor, cfg: ModelConfig, *,
+             positions: torch.Tensor, kv_repeat: int = 1
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k, v) [B, S, Hs, dh] projected from x [B, S, D]: K RoPE'd at
+    ``positions``, both repeated by ``kv_repeat``; under a mesh with
+    ``attn_tp``, this rank's slice of the stored heads (module
+    docstring): its own parameter heads behind ``copy_to`` on x, or, where
+    the parameter heads do not shard, all of them repeated and sliced
+    behind ``copy_to`` on the heads. Self-attention's K/V, and the
+    model's cross K/V of the encoder output."""
+    cd = x.dtype
+    mesh, axis = tp(shd.HEADS)
+    hs = cfg.num_kv_heads * kv_repeat
+    whole = axis is not None and tp(shd.KV_PARAM_HEADS)[1] is None
+    xk = x if whole else col.copy_to(x, mesh, axis)
+    k = dense_apply(params["k"], xk, cd)
+    v = dense_apply(params["v"], xk, cd)
+    if cfg.rope_theta > 0:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = _repeat_kv(k, kv_repeat), _repeat_kv(v, kv_repeat)
+    if whole:
+        n = hs // mesh.size(axis)
+        lo = mesh.index(axis) * n
+        k = col.copy_to(k, mesh, axis)[:, :, lo:lo + n]
+        v = col.copy_to(v, mesh, axis)[:, :, lo:lo + n]
+    k = shd.constrain(k, shd.BATCH, None, shd.KV_HEADS, None,
+                      full=(None, None, hs, None))
+    v = shd.constrain(v, shd.BATCH, None, shd.KV_HEADS, None,
+                      full=(None, None, hs, None))
+    return k, v
+
+
 def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor, kv_repeat: int = 1,
                  causal: bool = True, window: int = 0,
@@ -146,37 +181,16 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                                   "K5/K6) is not ported")
     cd = x.dtype
     mesh, axis = tp(shd.HEADS)
-    hs = cfg.num_kv_heads * kv_repeat
     q = dense_apply(params["q"], col.copy_to(x, mesh, axis), cd)
     q = shd.constrain(q, shd.BATCH, None, shd.HEADS, None,
                       full=(None, None, cfg.num_heads, None))
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
     if xattn_kv is None:
-        if axis is not None and tp(shd.KV_PARAM_HEADS)[1] is None:
-            # the parameter heads do not shard: all of them, repeated,
-            # then this rank's slice of the stored heads
-            k = dense_apply(params["k"], x, cd)
-            v = dense_apply(params["v"], x, cd)
-        else:
-            xk = col.copy_to(x, mesh, axis)
-            k = dense_apply(params["k"], xk, cd)
-            v = dense_apply(params["v"], xk, cd)
-        if cfg.rope_theta > 0:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        k, v = _repeat_kv(k, kv_repeat), _repeat_kv(v, kv_repeat)
-        if axis is not None and k.shape[2] == hs:
-            n = hs // mesh.size(axis)
-            lo = mesh.index(axis) * n
-            k = col.copy_to(k, mesh, axis)[:, :, lo:lo + n]
-            v = col.copy_to(v, mesh, axis)[:, :, lo:lo + n]
-        k = shd.constrain(k, shd.BATCH, None, shd.KV_HEADS, None,
-                          full=(None, None, hs, None))
-        v = shd.constrain(v, shd.BATCH, None, shd.KV_HEADS, None,
-                          full=(None, None, hs, None))
+        k, v = kv_heads(params, x, cfg, positions=positions,
+                        kv_repeat=kv_repeat)
     else:
         k, v = xattn_kv
-        if cfg.rope_theta > 0:
-            q = apply_rope(q, positions, cfg.rope_theta)
     out = ops.flash_attention_vjp(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
                                   window=window)
@@ -299,7 +313,11 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
     rows); ``dus_write`` selects nothing.
 
     Returns (out, cache_k, cache_v, scales_or_None)."""
-    if shd.mesh_ctx() is not None and xattn_kv is None:
+    if xattn_kv is not None:
+        return _cross_decode(params, x, cfg, cache_pos=cache_pos,
+                             xattn_kv=xattn_kv, xattn_len=xattn_len), \
+            cache_k, cache_v, None
+    if shd.mesh_ctx() is not None:
         return _attn_decode_mesh(params, x, cfg, cache_k=cache_k,
                                  cache_v=cache_v, cache_pos=cache_pos,
                                  kv_repeat=kv_repeat, window=window,
@@ -310,16 +328,6 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
     q = dense_apply(params["q"], x, cd)
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos, cfg.rope_theta)
-    if xattn_kv is not None:
-        k_all, v_all = xattn_kv
-        f = k_all.shape[1]
-        lens = torch.full((b,), f, device=x.device) if xattn_len is None \
-            else torch.as_tensor(xattn_len, device=x.device)
-        valid = torch.arange(f, device=x.device)[None, :] < lens[:, None]
-        out = decode_attention(q, k_all, v_all, valid)
-        y = dense_apply(params["o"], out, cd, contract_dims=2)
-        return y, cache_k, cache_v, None
-
     k_new = dense_apply(params["k"], x, cd)
     v_new = dense_apply(params["v"], x, cd)
     if cfg.rope_theta > 0:
@@ -352,6 +360,41 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
     out = decode_attention(q, k_att, v_att, valid)
     y = dense_apply(params["o"], out, cd, contract_dims=2)
     return y, cache_k, cache_v, new_scales
+
+
+def _cross_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
+                  cache_pos: int, xattn_kv, xattn_len) -> torch.Tensor:
+    """Cross-attention's decode: q RoPE'd at ``cache_pos`` against the
+    cross (k, v) [B, F, Hs, dh] under ``xattn_len``'s mask. Under a mesh
+    q holds this rank's heads (``HEADS``) and the cross heads are every
+    stored head (the decode rules: ``KV_HEADS`` unsplit) or this rank's
+    (the prefill rules): each local q head attends the stored head that
+    its global index maps to, and ``o`` is row-parallel over ``model``.
+    On one device that is every q head against its group's head."""
+    ctx = shd.mesh_ctx()
+    mesh = ctx.mesh if ctx is not None else None
+    qa = ctx.axis(shd.HEADS) if ctx is not None else None
+    ka = ctx.axis(shd.KV_HEADS) if ctx is not None else None
+    cd = x.dtype
+    b = x.shape[0]
+    pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
+    q = dense_apply(params["q"], x, cd)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos, cfg.rope_theta)
+    k_all, v_all = xattn_kv
+    hq, hs = q.shape[2], k_all.shape[2]
+    # the query heads of one stored head, by the global head counts
+    g = cfg.num_heads // (hs * (mesh.size(ka) if ka else 1))
+    lo = (mesh.index(qa) * hq if qa else 0) // g \
+        - (mesh.index(ka) * hs if ka else 0)
+    n = max(hq // g, 1)
+    f = k_all.shape[1]
+    lens = torch.full((b,), f, device=x.device) if xattn_len is None \
+        else torch.as_tensor(xattn_len, device=x.device)
+    valid = torch.arange(f, device=x.device)[None, :] < lens[:, None]
+    out = decode_attention(q, k_all[:, :, lo:lo + n], v_all[:, :, lo:lo + n],
+                           valid)
+    return row_parallel(params["o"], out, cd, 2, mesh, qa)
 
 
 def _attn_decode_mesh(params, x: torch.Tensor, cfg: ModelConfig, *,

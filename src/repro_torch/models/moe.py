@@ -33,9 +33,17 @@ that their gradient sums every rank's experts. The aux loss uses the
 *global* means: the router's mean probability, the routed fraction and
 the z-loss's mean are sums over the data shards (``reduce_from`` over the
 batch axes) over the global token count, as the JAX program computes
-them on the global batch. A mesh that shards the batch without
-``expert_tp`` would have each expert take its top-C among the global
-tokens, and raises.
+them on the global batch.
+
+Under a mesh without ``expert_tp`` (the experts do not divide ``model``)
+every rank runs every expert, its weights replicated over ``model``, on
+the *global* tokens, as JAX's local branch runs on the global batch: the
+data shard's tokens, expert choices and routing weights are gathered
+over the batch axes (``collectives.gather``, whose backward
+reduce-scatters), the capacity is ``_capacity`` of the global token
+count, each expert takes its top-C among every token of the batch, and
+the shard keeps its own rows of the output, so that the gradient reaches
+only its own tokens.
 """
 from __future__ import annotations
 
@@ -144,12 +152,8 @@ def moe_forward(params, x: torch.Tensor,
         return y.reshape(b, s, d), aux
 
     mesh, batch_axes = ctx.mesh, ctx.profile.batch_axes
-    if not ctx.profile.expert_tp:
-        raise NotImplementedError(
-            "moe_forward under a mesh without expert_tp (each expert's "
-            "top-C among the global tokens) is not ported")
     # the global means: sums over the data shards over the global count
-    t_all = float(b * s * ctx.shards(batch_axes))
+    t_all = b * s * ctx.shards(batch_axes)
     me = col.reduce_from(probs.sum(dim=(0, 1)), mesh, batch_axes) / t_all
     ce_frac = col.all_reduce(F.one_hot(idx, e).float().sum(dim=(0, 1, 2)),
                              mesh, batch_axes) / t_all
@@ -158,6 +162,18 @@ def moe_forward(params, x: torch.Tensor,
     zloss = cfg.moe.router_z_weight * col.reduce_from(
         lse2, mesh, batch_axes) / t_all
     aux = aux + zloss
+
+    if not ctx.profile.expert_tp:
+        # every expert on every rank, each taking its top-C among the
+        # global tokens; this shard keeps its own rows
+        y = _expert_ffn(col.gather(x_flat, mesh, batch_axes, 0),
+                        col.gather(idx_flat, mesh, batch_axes, 0),
+                        col.gather(wts_flat, mesh, batch_axes, 0),
+                        params["wg"].to(cd), params["wu"].to(cd),
+                        params["wd"].to(cd), _capacity(t_all, cfg),
+                        cfg.mlp_variant)
+        rows = shd.shard_slices(y.shape, (batch_axes or None,), mesh)[0]
+        return y[rows].reshape(b, s, d), aux
 
     axis = ctx.axis(shd.EXPERTS)
     wg = params["wg"]

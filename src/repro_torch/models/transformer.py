@@ -66,8 +66,9 @@ logical axes, the JAX ``cache_specs`` with its stacked ``layers`` axis.
 
 Under a mesh of more than one rank (the ambient ``ShardCtx`` of
 ``distributed/sharding.py``, JAX's ``launch/dryrun.py`` construction of
-the train step), the dense, MoE, SSM and hybrid families train sharded:
-``init`` keeps this rank's shard of each parameter (``specs()`` gives every
+the train step), every family trains sharded: ``init`` keeps this
+rank's shard of each parameter, cut as each layer is drawn (``specs()``
+gives every
 parameter's logical axes, the JAX ``specs()`` under ``convert.py``'s
 naming, without the stacked layers axis); ``_split`` gathers the FSDP
 dims over ``data`` (the gradient is reduce-scattered back); the layers
@@ -95,8 +96,14 @@ so a decode step moves the step's activations and not the weights. The
 SSM state and conv tails are split by ``SSD_HEADS`` under every rule set,
 so they keep their layout from prefill to decode, and
 ``prefill_streaming`` (SSM-only) runs under the prefill rules as
-``prefill`` does. The enc-dec, audio and VLM families raise
-``NotImplementedError`` under such a mesh.
+``prefill`` does. The encoder runs its block on this data shard's
+frames, head- and MLP-parallel as a decoder layer is; ``_cross_kv``
+projects each decoder layer's cross K/V of this rank's stored heads,
+the encoder output entering them through ``copy_to``. The prefill's
+``cross_k``/``cross_v`` hold this rank's heads (``KV_HEADS -> model``),
+the decode layout every stored head, against which each rank's q heads
+attend their own (``attention._cross_decode``). The VLM's patch prefix
+is this shard's rows, and its text-tail loss is the vocab-parallel one.
 
 A window arch keeps the last ``window`` keys of a longer prompt in slots
 ``0..window-1`` and decodes position ``pos`` into slot ``pos % window``,
@@ -142,8 +149,6 @@ STUB_INPUTS = {FAMILY_AUDIO: "frame_embeds", FAMILY_ENCDEC: "frame_embeds",
 #: stacked over the layers there (``layers.<i>.`` and ``encoder.<i>.`` here)
 HEADS = ("embed", "layers", "encoder", "enc_norm", "final_norm")
 STACKED = ("layers", "encoder")
-#: the families that train and serve under a mesh of more than one rank
-MESH_FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID)
 
 
 def _layer_init(generator: torch.Generator, cfg: ModelConfig,
@@ -340,6 +345,21 @@ def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
     return x
 
 
+def _shard_tree(tree: dict, prefix: str, specs: dict,
+                ctx: shd.ShardCtx) -> dict:
+    """``tree`` (parameters named under ``prefix``) with each tensor cut to
+    this rank's shard by its logical axes in ``specs``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _shard_tree(v, f"{prefix}{k}.", specs, ctx)
+        else:
+            sl = shd.shard_slices(v.shape, ctx.pspec(*specs[prefix + k]),
+                                  ctx.mesh)
+            out[k] = v[sl].clone()
+    return out
+
+
 class _Params(nn.Module):
     """A parameter tree whose nodes hold tensors, subtrees or both (the
     SSD block's ``A_log`` beside its ``z.w``), named as the JAX tree."""
@@ -354,8 +374,8 @@ class _Params(nn.Module):
 
 
 class Model(nn.Module):
-    """The model of one config, of any family, on one device or, for the
-    dense, MoE, SSM and hybrid families, one rank of a mesh.
+    """The model of one config, of any family, on one device or one rank
+    of a mesh.
 
     ``causal_skip`` is accepted and has nothing to switch: K5 and K6
     always skip the tiles that the causal mask empties; nor has
@@ -376,11 +396,6 @@ class Model(nn.Module):
         if kv_cache_bits not in (8, 16):
             raise ValueError(f"kv_cache_bits must be 8 or 16, got "
                              f"{kv_cache_bits}")
-        if shd.mesh_ctx() is not None and cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} under a mesh of more than one rank "
-                f"is not ported (tensor parallelism of the enc-dec, audio "
-                f"and VLM frontends; of {MESH_FAMILIES})")
         self.cfg = cfg
         self.kv_repeat = kv_repeat
         self.remat_group = remat_group
@@ -406,26 +421,31 @@ class Model(nn.Module):
         cfg, dev = self.cfg, self.device
         dtype = lyr.dtype_of(cfg.param_dtype)
         cross = cfg.family in CROSS
-        self.embed = _Params(lyr.embed_init(generator, cfg, dtype, dev))
+        ctx = shd.mesh_ctx()
+        specs = self.specs() if ctx is not None else None
+
+        def keep(tree: dict, prefix: str) -> dict:
+            # under a mesh each tensor is cut to this rank's shard as soon
+            # as its subtree is drawn: a rank never holds more than one
+            # layer (or the embeddings) whole, whatever the depth
+            return tree if ctx is None else _shard_tree(tree, prefix,
+                                                        specs, ctx)
+
+        self.embed = _Params(keep(lyr.embed_init(generator, cfg, dtype, dev),
+                                  "embed."))
         self.layers = nn.ModuleList(
-            _Params(_layer_init(generator, cfg, dtype, dev, cross=cross))
-            for _ in range(cfg.num_layers))
+            _Params(keep(_layer_init(generator, cfg, dtype, dev, cross=cross),
+                         f"layers.{i}."))
+            for i in range(cfg.num_layers))
         if cfg.encoder_layers:
             self.encoder = nn.ModuleList(
-                _Params(_layer_init(generator, cfg, dtype, dev))
-                for _ in range(cfg.encoder_layers))
-            self.enc_norm = _Params(lyr.rmsnorm_init(cfg.d_model, dtype,
-                                                     dev))
-        self.final_norm = _Params(lyr.rmsnorm_init(cfg.d_model, dtype, dev))
-        ctx = shd.mesh_ctx()
-        if ctx is not None:
-            # the same draws as on one device; this rank keeps its shard
-            specs = self.specs()
-            with torch.no_grad():
-                for name, p in self.named_parameters():
-                    sl = shd.shard_slices(p.shape, ctx.pspec(*specs[name]),
-                                          ctx.mesh)
-                    p.data = p.data[sl].clone()
+                _Params(keep(_layer_init(generator, cfg, dtype, dev),
+                             f"encoder.{i}."))
+                for i in range(cfg.encoder_layers))
+            self.enc_norm = _Params(keep(lyr.rmsnorm_init(
+                cfg.d_model, dtype, dev), "enc_norm."))
+        self.final_norm = _Params(keep(lyr.rmsnorm_init(cfg.d_model, dtype,
+                                                        dev), "final_norm."))
         return dict(self.named_parameters())
 
     def specs(self) -> Dict[str, tuple]:
@@ -539,21 +559,17 @@ class Model(nn.Module):
     def _cross_kv(self, tree: dict, enc_out: torch.Tensor) -> list:
         """Every decoder layer's cross (k, v) [B, F, Hs, dh] from the
         encoder output: K RoPE'd at the encoder's positions, both
-        repeated by ``kv_repeat``."""
-        cfg = self.cfg
-        cd = enc_out.dtype
+        repeated by ``kv_repeat``; under a mesh this rank's stored heads
+        (``attention.kv_heads``: the encoder output behind ``copy_to``, or
+        the heads where the parameter heads do not shard, so that the
+        encoder's gradient sums every rank's heads)."""
         b, f = enc_out.shape[:2]
         positions = torch.arange(f, dtype=torch.int32,
                                  device=enc_out.device).expand(b, f)
-        out = []
-        for lp in tree["layers"]:
-            k = lyr.dense_apply(lp["xattn"]["k"], enc_out, cd)
-            v = lyr.dense_apply(lp["xattn"]["v"], enc_out, cd)
-            if cfg.rope_theta > 0:
-                k = lyr.apply_rope(k, positions, cfg.rope_theta)
-            out.append((attn_mod._repeat_kv(k, self.kv_repeat),
-                        attn_mod._repeat_kv(v, self.kv_repeat)))
-        return out
+        return [attn_mod.kv_heads(lp["xattn"], enc_out, self.cfg,
+                                  positions=positions,
+                                  kv_repeat=self.kv_repeat)
+                for lp in tree["layers"]]
 
     def _decoder_inputs(self, tree: dict, batch) -> tuple:
         """(embeds, positions, each decoder layer's cross K/V or None)."""

@@ -32,6 +32,17 @@ pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 2e-5, torch.bfloat16: None}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():

@@ -22,6 +22,17 @@ CAP, W = 16, 1
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block(key_val=1, fill=CAP):
     b = Block.new(CAP, W)
     b.host_data["keys"][:] = key_val

@@ -17,6 +17,18 @@ from test_torch_soak import (
     CHAOS_OPS, MAX_LATE, N_EVENTS, SEED, WINDOW, cleanup, drive,
     final_sweep, hold_average, oracle_average, package,
 )
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("pipelined", [True, False])

@@ -23,10 +23,22 @@ import repro_torch.core.cleanup as tcleanup
 import repro_torch.core.events as tev
 import repro_torch.core.proactive as tpro
 import repro_torch.core.windows as twin
+import torch
 
 PKGS = {"jax": (jbuckets, jcleanup, jev, jpro, jwin),
         "torch": (tbuckets, tcleanup, tev, tpro, twin)}
 RTOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _both(fn):

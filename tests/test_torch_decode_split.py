@@ -25,6 +25,17 @@ from repro_torch.kernels import decode_attention as da
 TILE, WARPS = 64, 4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _emulate(q, kp, vp, table, lens, per):
     """K4's split-KV order of work in float32: q [B, H, D], pages
     [P, page, Hkv, D], table [B, pps], lens [B] -> [B, H, D]."""

@@ -46,6 +46,17 @@ PKGS = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _schedule():
     """The stream: (now, keys, timestamps, values, watermark or None)
     steps, made once from the seed so both engines see the same one."""

@@ -43,6 +43,17 @@ PKGS = {"jax": (jcfg, jcore, jbx, jcleanup, jev, jops),
         "torch": (tcfg, tcore, tbx, tcleanup, tev, tops)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _schedule():
     """(now, keys, timestamps, values, watermark or None) steps from the
     seed: speeds ~ N(55, 20) clipped at 0 with 1.5% stopped (0), lanes

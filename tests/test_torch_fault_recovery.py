@@ -9,6 +9,18 @@ import pytest
 
 from repro.distributed.fault import HeartbeatMonitor as JaxHeartbeatMonitor
 from repro_torch.distributed import EngineRecovery, HeartbeatMonitor
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_heartbeat_detects_dead_worker():

@@ -33,6 +33,18 @@ from repro_torch.storage import (
     make_store,
 )
 from repro_torch.testing import FaultInjector, FaultyBlockStore
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _batch(n, width=1, seed=0, lo=0.0, hi=10.0):

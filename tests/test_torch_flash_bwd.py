@@ -46,6 +46,17 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, b, sq, sk, h, hkv, d):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(b, sq, h, d)).astype(np.float32),

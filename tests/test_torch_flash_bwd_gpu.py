@@ -29,6 +29,17 @@ FT = importlib.import_module("repro_torch.kernels.flash_tiles")
 pytestmark = pytest.mark.gpu
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():

@@ -35,6 +35,17 @@ from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_plain
 S, H = 1024, 4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(rng, *shape):
     return torch.tensor(rng.normal(size=shape),
                         dtype=torch.float32).bfloat16()

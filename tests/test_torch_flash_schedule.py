@@ -33,6 +33,17 @@ PASSES = {"forward": (T.FWD_TILES, False), "dq": (T.DQ_TILES, False),
           "dkv": (T.DKV_TILES, True)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mask(sq, sk, causal, window):
     q = np.arange(sq)[:, None]
     k = np.arange(sk)[None, :]

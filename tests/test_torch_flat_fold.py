@@ -44,6 +44,17 @@ SIGN = np.uint32(0x80000000)
 ALL_ONES = np.uint32(0xFFFFFFFF)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------- the keys of min and max
 def ordered(x: np.ndarray) -> np.ndarray:
     u = np.asarray(x, np.float32).view(np.uint32)

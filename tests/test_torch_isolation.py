@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 import repro_torch
+import torch
 
 PKG_DIR = Path(repro_torch.__file__).resolve().parent
 
@@ -55,6 +56,17 @@ SLICE_CLASSES = [
     ("repro_torch.distributed", "use_ctx"),
     ("repro_torch.distributed", "make_rules"),
 ]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _modules():

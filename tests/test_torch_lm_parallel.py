@@ -1,7 +1,7 @@
 """The LM half of multi-device training on the port: data-, tensor-,
-FSDP- and expert-parallel train steps over a process group, for the
-dense, MoE, SSM and hybrid families, held to the JAX package's own
-sharded step and to the port's one-process step.
+FSDP- and expert-parallel train steps over a process group, for every
+family, held to the JAX package's own sharded step and to the port's
+one-process step.
 
 One world of four gloo ranks on the CPU (``launch.mesh.spawn_world``: a
 ``FileStore`` under ``tmp_path``, one torch thread a rank, a deadline on
@@ -23,6 +23,16 @@ each mesh a ``Mesh`` over some of its ranks:
   SSD block and MLP on (2, 2), attention and SSD DP-only beside a split
   MLP on (1, 4); and the reduced hymba-1.5b as ``reduced`` gives it on
   (2, 2), both branches split (against the one-process step alone);
+- (2, 2), the reduced seamless-m4t-medium (audio: two encoder and two
+  decoder layers over 16 stub frames, 4 heads and 4 KV heads, 2 a rank);
+  (1, 4), a GQA variant of it with 2 KV heads, so that every rank
+  projects both cross K/V heads, repeats them x2 and takes its slice;
+  the same model as the enc-dec family on (2, 2) (against the
+  one-process step alone); (2, 2), the reduced internvl2-76b (the VLM:
+  16 stub patches ahead of the text, the loss on the text tail, one KV
+  head repeated x2); and (2, 2), a reduced qwen3-moe-30b with 5 experts,
+  which do not divide ``model``: every rank runs every expert over the
+  tokens gathered from both data shards;
 - the elastic round trip: (2, 2)'s state after its two steps
   checkpointed, restored onto (1, 2) on ranks 0-1 through
   ``elastic_reshard``, and two more steps;
@@ -30,9 +40,11 @@ each mesh a ``Mesh`` over some of its ranks:
   ``model`` reduce, and the CE over the local token count; on the SSM
   (2, 2), the SSD ``o`` projection without its reduce, and the gated norm
   over each rank's heads alone; on the SSM (1, 4), the int8 scale of
-  each shard;
-- the refusals under (1, 2): the audio, enc-dec and VLM families, and
-  ``decode_step`` under the train rules; the SSM and hybrid build;
+  each shard; on the audio (2, 2), the cross K/V's ``copy_to`` dropped
+  (the encoder's gradient then holds only each rank's heads' share);
+- the refusals under (1, 2) that remain: ``kv_valid_len``,
+  ``decode_step`` under the train rules and ``prefill`` into a
+  sequence-sharded cache; every family builds;
 - serving (``SERVE``) on (2, 2), (1, 4) and the MoE (2, 2): the sharded
   prefill under the prefill rules, then three decode steps under the
   decode rules (the context-parallel decode on a sequence-sharded
@@ -40,12 +52,17 @@ each mesh a ``Mesh`` over some of its ranks:
   ``pos == capacity`` and a capacity that does not divide ``model``;
   the SSM (2, 2) (its state split by SSD heads under both rules) and its
   ``prefill_streaming`` in two chunks, and the hybrid (2, 2) on its
-  window ring; their three controls, and the step factories end to end.
+  window ring; the audio (2, 2) (the cross cache handed over from the
+  prefill's heads to every head) and the VLM (2, 2) (a capacity that
+  counts the patches); their four controls (the fourth: the
+  cross-attention's ``o`` reduce dropped in the audio decode), and the
+  step factories end to end on the dense (2, 2) and the audio GQA
+  (1, 4), whose prefill repeats the cross heads.
 
 Each mesh runs the first batch's logits, loss and gradients, then two
 train steps from the JAX weights (``convert.shard_params_from_jax``), and
 gathers what it got. Four subprocesses with four forced host devices
-each run the JAX package's sharded step for two meshes apiece
+each run the JAX package's sharded step for three meshes apiece
 (``JAX_GROUPS``), built as ``launch/dryrun.py:126-176`` builds it, and
 execute it. The port's one-process step runs here, beside the world.
 
@@ -71,6 +88,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -103,8 +121,19 @@ HYB = dict(arch="hymba-1.5b", compute_dtype="float32", d_model=192,
 #: the reduced hymba-1.5b as ``reduced`` gives it: 4 heads (one KV head,
 #: repeated x2 at ``model`` 2) and 16 SSD heads, both branches split
 HYBTP = dict(arch="hymba-1.5b", compute_dtype="float32")
+#: the reduced seamless-m4t-medium (audio), its GQA variant (2 KV heads:
+#: repeated x2 at ``model`` 4) and the same model as the enc-dec family
+AUD = dict(arch="seamless-m4t-medium", compute_dtype="float32")
+AUDGQA = dict(AUD, num_kv_heads=2)
+ENCDEC = dict(AUD, family="encdec")
+#: the reduced internvl2-76b: 4 heads, one KV head (repeated x2 at
+#: ``model`` 2), 16 stub patches
+VLM = dict(arch="internvl2-76b", compute_dtype="float32")
+#: a reduced qwen3-moe-30b whose 5 experts do not divide ``model``
+MOE5 = dict(MOE, moe=dict(num_experts=5))
 CONFIGS = {"dense": DENSE, "moe": MOE, "ssm": SSM, "hyb": HYB,
-           "hybtp": HYBTP}
+           "hybtp": HYBTP, "aud": AUD, "audgqa": AUDGQA, "encdec": ENCDEC,
+           "vlm": VLM, "moe5": MOE5}
 #: name -> (config, mesh shape, ranks, micro-batches)
 MESHES = {
     "dense22": ("dense", (2, 2), (0, 1, 2, 3), 1),
@@ -116,24 +145,31 @@ MESHES = {
     "hyb22": ("hyb", (2, 2), (0, 1, 2, 3), 1),
     "hyb14": ("hyb", (1, 4), (0, 1, 2, 3), 1),
     "hybtp22": ("hybtp", (2, 2), (0, 1, 2, 3), 1),
+    "aud22": ("aud", (2, 2), (0, 1, 2, 3), 1),
+    "audgqa14": ("audgqa", (1, 4), (0, 1, 2, 3), 1),
+    "encdec22": ("encdec", (2, 2), (0, 1, 2, 3), 1),
+    "vlm22": ("vlm", (2, 2), (0, 1, 2, 3), 1),
+    "moe522": ("moe5", (2, 2), (0, 1, 2, 3), 1),
 }
 #: the meshes that train with the int8 ``grad_transform`` as
 #: ``launch/dryrun.py:163-169`` builds it (no error feedback)
 INT8 = ("ssm14",)
 #: the meshes held against the port's one-process step alone
-WORLD_ONLY = ("hybtp22",)
+WORLD_ONLY = ("hybtp22", "encdec22")
 #: the meshes whose sharded gradients go through ``compress_grads`` (int8
 #: and top-k, error feedback over two rounds) beside their one-process
 #: transform
 COMPRESS = ("ssm22",)
 #: the meshes each JAX process runs the sharded step of, one process a key
-JAX_GROUPS = {"dense22": ("dense22", "ssm22"), "dense14": ("dense14", "ssm14"),
-              "dense21": ("dense21", "hyb22"), "moe22": ("moe22", "hyb14")}
+JAX_GROUPS = {"dense22": ("dense22", "ssm22", "aud22"),
+              "dense14": ("dense14", "ssm14", "audgqa14"),
+              "dense21": ("dense21", "hyb22", "vlm22"),
+              "moe22": ("moe22", "hyb14", "moe522")}
 ELASTIC_MESH = (1, 2)
 #: control -> the mesh whose first batch it runs with one piece dropped
 CONTROLS = {"no_o_reduce": "dense22", "local_ntok": "dense22",
             "no_ssd_o_reduce": "ssm22", "local_norm": "ssm22",
-            "int8_shard_scale": "ssm14"}
+            "int8_shard_scale": "ssm14", "no_cross_copy_to": "aud22"}
 TIMEOUT_S = 240.0
 #: serving: (mesh, case) -> the batch, the decode cache's capacity, its
 #: bits, the decode steps, whether the case holds a prefill (the prompt is
@@ -145,7 +181,9 @@ TIMEOUT_S = 240.0
 #: so JAX's two writes (``kv_dus``) are one program there and the case
 #: runs one (``dus``); "stream" is the SSM's ``prefill_streaming`` in
 #: ``chunks`` chunks, with no decode; the hybrid's prompt is a multiple
-#: of its window
+#: of its window. The audio case's prompt is S tokens over its frames;
+#: the VLM's capacity counts its 16 patches (16 + S + 3 steps <= 56, a
+#: multiple of ``model``)
 SERVE = {
     ("dense22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
     ("dense22", "int8"): dict(batch=B, cap=40, bits=8, steps=3),
@@ -162,26 +200,50 @@ SERVE = {
                               seq_shard=False),
     ("hyb22", "base"): dict(batch=B, cap=40, bits=16, steps=3,
                             seq_shard=False, dus=(0,)),
+    ("aud22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
+    ("vlm22", "base"): dict(batch=B, cap=56, bits=16, steps=3),
 }
 #: the serving cells each JAX process runs after its meshes' train steps
 SERVE_GROUPS = {"dense22": [("dense22", "b1"), ("dense22", "full"),
                             ("ssm22", "stream"), ("dense22", "int8")],
                 "dense14": [("dense14", "base"), ("dense22", "seq41"),
                             ("ssm22", "base"), ("hyb22", "base")],
-                "dense21": [("dense22", "base")],
-                "moe22": [("moe22", "base")]}
+                "dense21": [("dense22", "base"), ("aud22", "base")],
+                "moe22": [("moe22", "base"), ("vlm22", "base")]}
 #: the serving controls, each on a case's decode
 SERVE_CONTROLS = {"no_merge_reduce": ("dense22", "base"),
                   "clamped_write": ("dense22", "base"),
-                  "no_ssd_o_reduce": ("hyb22", "base")}
+                  "no_ssd_o_reduce": ("hyb22", "base"),
+                  "no_cross_o_reduce": ("aud22", "base")}
+#: the meshes whose greedy serving runs through the step factories end
+#: to end (``_serve_e2e``), each at the dense "base" case's batch and
+#: capacity, by the key of its result: the dense (2, 2), and the audio
+#: GQA (1, 4), whose prefill repeats the cross heads x2 and whose
+#: hand-over takes every second one
+E2E = {"dense22": "serve_e2e", "audgqa14": "serve_e2e/audgqa14"}
+#: the batch key of each frontend family's stub embeddings
+STUBS = {"aud": "frame_embeds", "audgqa": "frame_embeds",
+         "encdec": "frame_embeds", "vlm": "patch_embeds"}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _with(cfg, kw):
-    """``cfg`` with the overrides ``kw`` (an ``ssm`` dict overrides
-    fields of ``cfg.ssm``)."""
+    """``cfg`` with the overrides ``kw`` (an ``ssm`` or ``moe`` dict
+    overrides fields of ``cfg.ssm`` or ``cfg.moe``)."""
     kw = dict(kw)
-    if "ssm" in kw:
-        kw["ssm"] = dataclasses.replace(cfg.ssm, **kw["ssm"])
+    for sub in ("ssm", "moe"):
+        if sub in kw:
+            kw[sub] = dataclasses.replace(getattr(cfg, sub), **kw[sub])
     return dataclasses.replace(cfg, **kw)
 
 
@@ -217,8 +279,28 @@ def jax_tree(inputs, kind):
 
 
 def batch_at(inputs, kind, i):
-    return {"tokens": torch.from_numpy(inputs[f"tokens_{kind}"][i]),
-            "targets": torch.from_numpy(inputs[f"targets_{kind}"][i])}
+    out = {"tokens": torch.from_numpy(inputs[f"tokens_{kind}"][i]),
+           "targets": torch.from_numpy(inputs[f"targets_{kind}"][i])}
+    if kind in STUBS:
+        out[STUBS[kind]] = torch.from_numpy(inputs[f"stub_{kind}"][i])
+    return out
+
+
+def prompt_batch(inputs, kind, rows):
+    """(the serving prompt of ``rows`` rows: S tokens, behind the
+    family's stub embeddings; the rows' S + 8 tokens)."""
+    toks = torch.from_numpy(inputs[f"serve_tokens_{kind}"][:rows])
+    out = {"tokens": toks[:, :S]}
+    if kind in STUBS:
+        out[STUBS[kind]] = torch.from_numpy(
+            inputs[f"serve_stub_{kind}"][:rows])
+    return out, toks
+
+
+def prefix_len(kind):
+    """The positions ahead of the text: the VLM's patches."""
+    return port_cfg(kind).frontend_tokens if STUBS.get(kind) == \
+        "patch_embeds" else 0
 
 
 # ------------------------------------------------------------- the ranks
@@ -342,6 +424,7 @@ def _run_mesh(name, inputs, rank, results):
                               ssd_tp=ctx.profile.ssd_tp,
                               mlp_tp=ctx.profile.mlp_tp,
                               kv_repeat=ctx.profile.kv_repeat)
+        out["expert_tp"] = ctx.profile.expert_tp
         state = TrainState(params=params, opt=adamw_init(params))
         state, out["losses"] = _train(model, ctx, state, inputs, kind, 0, mu,
                                       transform)
@@ -389,11 +472,26 @@ def _drop_reduce(p, x, cd, n, m, a):
     return lyr.row_parallel(p, x, cd, n, None, None)
 
 
+def _without_copy_to(fn):
+    """``fn`` with ``collectives.copy_to`` the identity while it runs."""
+    from repro_torch.distributed import collectives as col
+
+    def run(*args, **kwargs):
+        real = col.copy_to
+        col.copy_to = lambda x, mesh, axes: x
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            col.copy_to = real
+    return run
+
+
 def _controls(inputs, rank, results):
     """A mesh's first batch with one piece dropped: the attention or SSD
     ``o`` projection's ``model`` reduce, the global token count, the gated
-    norm's sum over ``model`` (each rank's heads normalised alone), or the
-    int8 scale's max over the shards."""
+    norm's sum over ``model`` (each rank's heads normalised alone), the
+    int8 scale's max over the shards, or the cross K/V's ``copy_to`` (the
+    encoder output's, or the repeated heads')."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer as tr
@@ -402,7 +500,8 @@ def _controls(inputs, rank, results):
         kind, shape, ranks, _ = MESHES[mesh_name]
         cfg, mesh, ctx = _context(kind, shape, ranks)
         saved = (attn_mod.row_parallel, tr._global_ntok, ssm_mod.row_parallel,
-                 ssm_mod._mean_square, compression._split)
+                 ssm_mod._mean_square, compression._split,
+                 tr.Model._cross_kv)
         transform = int8_transform if mesh_name in INT8 else None
         if name == "no_o_reduce":
             attn_mod.row_parallel = _drop_reduce
@@ -413,6 +512,8 @@ def _controls(inputs, rank, results):
         elif name == "local_norm":
             ssm_mod._mean_square = lambda y, mesh, axis: \
                 y.square().mean(-1, keepdim=True)
+        elif name == "no_cross_copy_to":
+            tr.Model._cross_kv = _without_copy_to(saved[-1])
         else:
             # each shard quantized by its own largest |g|
             compression._split = lambda x, axes: (None, (), 1)
@@ -427,66 +528,91 @@ def _controls(inputs, rank, results):
                                    transform=transform)
         finally:
             (attn_mod.row_parallel, tr._global_ntok, ssm_mod.row_parallel,
-             ssm_mod._mean_square, compression._split) = saved
+             ssm_mod._mean_square, compression._split,
+             tr.Model._cross_kv) = saved
         if mesh.rank == 0:
             results[f"control/{name}"] = out
 
 
-#: the families that still refuse a mesh of more than one rank, by the
-#: reduced config of each: the audio family, the same config as the
-#: enc-dec family, and the VLM
-REFUSED = {"audio": ("seamless-m4t-medium", {}),
-           "encdec": ("seamless-m4t-medium", {"family": "encdec"}),
-           "vlm": ("internvl2-76b", {})}
+#: the families that refused a mesh of more than one rank before they
+#: were ported under one, by the reduced config of each: the audio
+#: family, the same config as the enc-dec family, and the VLM
+FRONTENDS = {"audio": ("seamless-m4t-medium", {}),
+             "encdec": ("seamless-m4t-medium", {"family": "encdec"}),
+             "vlm": ("internvl2-76b", {})}
 #: the families that build under one since the SSD block splits
 BUILT = {"ssm": "mamba2-780m", "hybrid": "hymba-1.5b"}
 
 
+def _raises(fn):
+    try:
+        fn()
+    except NotImplementedError:
+        return True
+    return False
+
+
 def _refusals(results):
-    """Under a (1, 2) mesh on ranks 0-1: the audio, enc-dec and VLM
-    families refuse to build, the SSM and hybrid families build, and a
-    dense model's ``decode_step`` under the train rules (the stored KV
-    heads split over ``model``) refuses to run."""
+    """Under a (1, 2) mesh on ranks 0-1: every family builds and draws a
+    shard of every parameter that ``specs()`` names; what still refuses
+    to run: ``kv_valid_len``, a dense model's ``decode_step`` under the
+    train rules (the stored KV heads split over ``model``) and its
+    ``prefill`` into a sequence-sharded cache (the decode rules)."""
+    from repro_torch.models.attention import attn_forward
     cfg, mesh, ctx = _context("dense", (1, 2), (0, 1))
     if not mesh.member:
         return
-    raised, built = {}, {}
-    with shd.use_ctx(ctx):
-        for key, (arch, kw) in REFUSED.items():
-            try:
-                build_model(dataclasses.replace(reduced(get_config(arch)),
+    raised, built, frontends = {}, {}, {}
+
+    def draws(arch, kw):
+        model = build_model(dataclasses.replace(reduced(get_config(arch)),
                                                 **kw), device="cpu")
-            except NotImplementedError:
-                raised[key] = True
+        return sorted(model.init(torch.Generator().manual_seed(0))) == \
+            sorted(model.specs())
+    with shd.use_ctx(ctx):
+        for key, (arch, kw) in FRONTENDS.items():
+            frontends[key] = draws(arch, kw)
         for key, arch in BUILT.items():
-            model = build_model(reduced(get_config(arch)), device="cpu")
-            built[key] = sorted(model.init(torch.Generator().manual_seed(0))
-                                ) == sorted(model.specs())
+            built[key] = draws(arch, {})
         model = build_model(cfg, kv_repeat=ctx.profile.kv_repeat,
                             device="cpu")
         model.init(torch.Generator().manual_seed(0))
         cache = model.init_cache(2, S)
-        try:
-            model.decode_step(None, torch.zeros((2, 1), dtype=torch.long),
-                              cache)
-        except NotImplementedError:
-            raised["decode_step"] = True
+        raised["decode_step"] = _raises(lambda: model.decode_step(
+            None, torch.zeros((2, 1), dtype=torch.long), cache))
+        x = torch.zeros((2, S, cfg.d_model))
+        pos = torch.arange(S).expand(2, S)
+        raised["kv_valid_len"] = _raises(lambda: attn_forward(
+            {}, x, cfg, positions=pos, kv_valid_len=torch.full((2,), S)))
+    mesh_cfg = MeshConfig((1, 2), AXES)
+    dctx = shd.ShardCtx(mesh, shd.make_rules(cfg, mesh_cfg, 2, S, "decode"),
+                        shd.sharding_profile(cfg, mesh_cfg, 2, S, "decode"))
+    with shd.use_ctx(dctx):
+        model = build_model(cfg, device="cpu")
+        raised["prefill_seq_sharded"] = dctx.profile.kv_seq_shard and \
+            _raises(lambda: model.prefill(None, {"tokens": torch.zeros(
+                (2, S - 8), dtype=torch.long)}, max_len=S))
     if mesh.rank == 0:
         results["refusals"] = raised
         results["built"] = built
+        results["built_frontends"] = frontends
 
 
 # ---------------------------------------------------------------- serving
 def hand_over(cache, repeat, cap):
     """A gathered prefill cache in the decode layout: its stored KV heads
-    without the prefill profile's repeat (``repeat_interleave``d heads,
-    so every ``repeat``-th), its slots zero-padded to ``cap``."""
+    (the self and the cross K/V's) without the prefill profile's repeat
+    (``repeat_interleave``d heads, so every ``repeat``-th), the self
+    cache's slots zero-padded to ``cap`` (the cross cache holds the
+    frames)."""
     layers = {}
     for k, t in cache["layers"].items():
         t = t[:, :, :, ::repeat]
-        pad = torch.zeros((*t.shape[:2], cap - t.shape[2], *t.shape[3:]),
-                          dtype=t.dtype)
-        layers[k] = torch.cat([t, pad], dim=2)
+        if not k.startswith("cross_"):
+            pad = torch.zeros((*t.shape[:2], cap - t.shape[2],
+                               *t.shape[3:]), dtype=t.dtype)
+            t = torch.cat([t, pad], dim=2)
+        layers[k] = t
     return {"pos": cache["pos"].clone(), "layers": layers}
 
 
@@ -513,9 +639,8 @@ def _start_caches(arrays):
         tree = _nest({k[len(kind) + 1:]: a for k, a in arrays.items()
                       if k.startswith(kind + "/")})
         params = convert.shard_params_from_jax(tree, model)
-        toks = torch.from_numpy(arrays[f"serve_tokens_{kind}"][:v["batch"]])
-        _, cache = model.prefill(params, {"tokens": toks[:, :S]},
-                                 max_len=v["cap"])
+        prompt, _ = prompt_batch(arrays, kind, v["batch"])
+        _, cache = model.prefill(params, prompt, max_len=v["cap"])
         pre = f"start/{name}/{case}/"
         out[pre + "pos"] = cache["pos"].numpy()
         out.update({pre + k: t.numpy() for k, t in cache["layers"].items()})
@@ -539,15 +664,17 @@ def _logits_pspec(ctx):
 
 
 def _serve_case(inputs, name, case, control=None):
-    """One serving case on this rank: the sharded prefill of S tokens (or
+    """One serving case on this rank: the sharded prefill of S tokens
+    (behind the family's stub embeddings; or
     ``prefill_streaming`` in the case's ``chunks``; its logits, next
     tokens and cache gathered), then the decode steps from
     ``start_cache`` placed by ``cache_specs`` on the prompt's next tokens
     (each step's logits and tokens, the last cache, gathered): JAX's
     decode cell starts from the same cache, so that an 8-bit cache's
     codes are the same on both sides. ``control`` drops the merge's
-    reduce, writes the token on every rank at its clamped local slot, or
-    drops the SSD ``o`` projection's reduce."""
+    reduce, writes the token on every rank at its clamped local slot,
+    drops the SSD ``o`` projection's reduce, or drops cross-attention's
+    ``o`` reduce."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.serve.serve_step import vocab_argmax
@@ -558,7 +685,7 @@ def _serve_case(inputs, name, case, control=None):
     cfg, mesh, pctx, dctx = _serve_contexts(kind, shape, ranks, v)
     if not mesh.member:
         return None
-    toks = torch.from_numpy(inputs[f"serve_tokens_{kind}"][:v["batch"]])
+    prompt, toks = prompt_batch(inputs, kind, v["batch"])
     out = {}
     if v.get("prefill", True):
         with shd.use_ctx(pctx):
@@ -566,12 +693,13 @@ def _serve_case(inputs, name, case, control=None):
                                 kv_cache_bits=v["bits"], device="cpu")
             params = convert.shard_params_from_jax(jax_tree(inputs, kind),
                                                    model)
-            lb = local_batch({"tokens": toks[:, :S]}, pctx)
+            lb = local_batch(prompt, pctx)
             if v.get("chunks"):
                 logits, cache = model.prefill_streaming(
                     params, lb, chunk=S // v["chunks"])
             else:
-                logits, cache = model.prefill(params, lb, max_len=S)
+                logits, cache = model.prefill(params, lb,
+                                              max_len=S + prefix_len(kind))
             out["prefill"] = dict(
                 logits=_gather(pctx, logits, _logits_pspec(pctx)),
                 tok=_gather(pctx, vocab_argmax(logits),
@@ -582,7 +710,7 @@ def _serve_case(inputs, name, case, control=None):
         return out if mesh.rank == 0 else None
     full = start_cache(inputs, name, case)
     saved = (attn_mod.merge_partials, attn_mod.shard_write,
-             ssm_mod.row_parallel)
+             ssm_mod.row_parallel, attn_mod._cross_decode)
     if control == "no_merge_reduce":
         attn_mod.merge_partials = lambda m, l, acc, rmax, rsum: saved[0](
             m, l, acc, lambda t: t, lambda t: t)
@@ -593,6 +721,15 @@ def _serve_case(inputs, name, case, control=None):
         attn_mod.shard_write = clamped
     elif control == "no_ssd_o_reduce":
         ssm_mod.row_parallel = _drop_reduce
+    elif control == "no_cross_o_reduce":
+        def cross(*args, **kwargs):
+            attn_mod.row_parallel = _drop_reduce
+            try:
+                return saved[3](*args, **kwargs)
+            finally:
+                attn_mod.row_parallel = real_row
+        real_row = attn_mod.row_parallel
+        attn_mod._cross_decode = cross
     try:
         with shd.use_ctx(dctx):
             model = build_model(cfg, kv_repeat=dctx.profile.kv_repeat,
@@ -611,7 +748,7 @@ def _serve_case(inputs, name, case, control=None):
             got = convert.gather_cache(cache, model)
     finally:
         (attn_mod.merge_partials, attn_mod.shard_write,
-         ssm_mod.row_parallel) = saved
+         ssm_mod.row_parallel, attn_mod._cross_decode) = saved
     out["decode"] = dict(logits=np.stack(lgs), tok=np.stack(tks),
                          pos=int(got["pos"]),
                          cache={k: t.numpy() for k, t in
@@ -620,24 +757,27 @@ def _serve_case(inputs, name, case, control=None):
     return out if mesh.rank == 0 else None
 
 
-def _serve_e2e(inputs, steps=3):
-    """The dense (2, 2) mesh's greedy serving through the step factories:
-    ``make_prefill_step`` at capacity 40, the cache handed over, then
-    ``steps`` ``make_decode_step`` steps on the tokens they return."""
+def _serve_e2e(inputs, name, steps=3):
+    """A mesh's greedy serving through the step factories:
+    ``make_prefill_step`` at the dense "base" case's capacity, the cache
+    handed over, then ``steps`` ``make_decode_step`` steps on the tokens
+    they return."""
     from repro_torch.serve.serve_step import make_decode_step, \
         make_prefill_step
     from repro_torch.train.train_step import local_batch
     v = SERVE[("dense22", "base")]
-    kind, shape, ranks, _ = MESHES["dense22"]
+    kind, shape, ranks, _ = MESHES[name]
     cfg, mesh, pctx, dctx = _serve_contexts(kind, shape, ranks, v)
-    toks = torch.from_numpy(inputs[f"serve_tokens_{kind}"][:v["batch"]])
+    if not mesh.member:
+        return None
+    prompt, _ = prompt_batch(inputs, kind, v["batch"])
     tokens = []
     with shd.use_ctx(pctx):
         model = build_model(cfg, kv_repeat=pctx.profile.kv_repeat,
                             device="cpu")
         params = convert.shard_params_from_jax(jax_tree(inputs, kind), model)
         t, cache = make_prefill_step(model, max_len=v["cap"])(
-            params, local_batch({"tokens": toks[:, :S]}, pctx))
+            params, local_batch(prompt, pctx))
         full = hand_over(convert.gather_cache(cache, model),
                          pctx.profile.kv_repeat, v["cap"])
     with shd.use_ctx(dctx):
@@ -653,6 +793,7 @@ def _serve_e2e(inputs, steps=3):
         got = convert.gather_cache(cache, model)
     if mesh.rank == 0:
         return dict(tokens=np.stack(tokens), pos=int(got["pos"]),
+                    kv_repeat=pctx.profile.kv_repeat,
                     cache={k: t.numpy() for k, t in got["layers"].items()})
     return None
 
@@ -664,7 +805,8 @@ def _serving(inputs, rank, results):
     for control, (name, case) in SERVE_CONTROLS.items():
         results[f"serve_control/{control}"] = _serve_case(
             inputs, name, case, control)
-    results["serve_e2e"] = _serve_e2e(inputs)
+    for name, key in E2E.items():
+        results[key] = _serve_e2e(inputs, name)
 
 
 def world_rank(rank, inputs_path, ckpt_dir):
@@ -739,13 +881,30 @@ def shardings(mesh, logical, rules):
 
 
 def config(kind):
-    """The reduced config of ``kind`` with its overrides (an ``ssm`` dict
-    overrides fields of ``cfg.ssm``)."""
+    """The reduced config of ``kind`` with its overrides (an ``ssm`` or
+    ``moe`` dict overrides fields of ``cfg.ssm`` or ``cfg.moe``)."""
     kw = dict(spec["configs"][kind])
     cfg = reduced(get_config(kw.pop("arch")))
-    if "ssm" in kw:
-        kw["ssm"] = dataclasses.replace(cfg.ssm, **kw["ssm"])
+    for sub in ("ssm", "moe"):
+        if sub in kw:
+            kw[sub] = dataclasses.replace(getattr(cfg, sub), **kw[sub])
     return dataclasses.replace(cfg, **kw)
+
+
+def stub_sharding(mesh, rules, kind):
+    """{the batch key of the family's stub embeddings: their sharding},
+    (BATCH, None, None) as ``models/model.py:50-57`` places them; {} for
+    a family without them."""
+    stub = spec["stubs"].get(kind)
+    if stub is None:
+        return {}
+    return {stub: NamedSharding(mesh, shd.logical_to_pspec(
+        ("batch", None, None), rules))}
+
+
+def placed(arr, sh):
+    """``arr`` on the mesh under each sharding of ``sh``, by its key."""
+    return {k: jax.device_put(jnp.asarray(arr), v) for k, v in sh.items()}
 
 
 for name, (kind, shape, mu, compress) in spec.get("meshes", {}).items():
@@ -771,7 +930,8 @@ for name, (kind, shape, mu, compress) in spec.get("meshes", {}).items():
     with shd.use_ctx(ctx):
         p_sh = shardings(mesh, model.specs(), rules)
         state_sh = shardings(mesh, make_train_state_specs(model), rules)
-        batch_sh = {"tokens": bspec, "targets": bspec}
+        stub_sh = stub_sharding(mesh, rules, kind)
+        batch_sh = {"tokens": bspec, "targets": bspec, **stub_sh}
         grad_transform = None
         if compress:
             # launch/dryrun.py:163-169
@@ -794,7 +954,9 @@ for name, (kind, shape, mu, compress) in spec.get("meshes", {}).items():
         batches = [{"tokens": jax.device_put(
                         jnp.asarray(inputs[f"tokens_{kind}"][i]), bspec),
                     "targets": jax.device_put(
-                        jnp.asarray(inputs[f"targets_{kind}"][i]), bspec)}
+                        jnp.asarray(inputs[f"targets_{kind}"][i]), bspec),
+                    **placed(inputs[f"stub_{kind}"][i]
+                             if stub_sh else None, stub_sh)}
                    for i in range(spec["steps"])]
         step = jax.jit(step_and_grads, in_shardings=(state_sh, batch_sh),
                        out_shardings=(None, None, p_sh, None, state_sh,
@@ -826,8 +988,10 @@ _JAX_SERVE = r'''
 from repro.serve.serve_step import make_decode_step, make_prefill_step
 
 
-def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre):
-    """The prefill cell, launch/dryrun.py:179-187, executed."""
+def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre, kind):
+    """The prefill cell, launch/dryrun.py:179-187, executed; the prompt
+    behind the family's stub embeddings, the capacity its embedding
+    length (the VLM's counts the patches)."""
     prof = shd.sharding_profile(cfg, mesh_cfg, b, s, "prefill")
     rules = shd.make_rules(cfg, mesh_cfg, b, s, "prefill")
     model = build_model(cfg, kv_repeat=prof.kv_repeat, kv_cache_bits=bits)
@@ -835,17 +999,22 @@ def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre):
         p_sh = shardings(mesh, model.specs(), rules)
         bspec = NamedSharding(mesh, shd.logical_to_pspec(("batch", None),
                                                          rules))
-        pstep = make_prefill_step(model, max_len=s)
+        stub_sh = stub_sharding(mesh, rules, kind)
+        stub = placed(inputs[f"serve_stub_{kind}"][:b] if stub_sh else None,
+                      stub_sh)
+        cap = s + (cfg.frontend_tokens if "patch_embeds" in stub else 0)
+        pstep = make_prefill_step(model, max_len=cap)
 
         def prefill(p, batch):
             tok, cache = pstep(p, batch)
-            logits, _ = model.prefill(p, batch, max_len=s)
+            logits, _ = model.prefill(p, batch, max_len=cap)
             return tok, logits, cache
 
         tok, logits, cache = jax.jit(prefill, in_shardings=(
-            p_sh, {"tokens": bspec}))(jax.device_put(params, p_sh),
-                                      {"tokens": jax.device_put(
-                                          jnp.asarray(toks[:, :s]), bspec)})
+            p_sh, {"tokens": bspec, **stub_sh}))(
+                jax.device_put(params, p_sh),
+                {"tokens": jax.device_put(jnp.asarray(toks[:, :s]), bspec),
+                 **stub})
     out[f"{pre}/prefill/tok"] = np.asarray(tok)
     out[f"{pre}/prefill/logits"] = np.asarray(logits)
     for k, a in cache["layers"].items():
@@ -935,7 +1104,8 @@ for name, kind, shape, v in spec.get("cells", []):
         stream_cell(cfg, mesh, mesh_cfg, params, toks, b, s, v["chunks"],
                     pre)
     elif v.get("prefill", True):
-        prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, v["bits"], pre)
+        prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, v["bits"], pre,
+                     kind)
     if v["steps"]:
         start = f"start/{pre}/"
         host = {"pos": np.asarray(inputs[start + "pos"]),
@@ -961,11 +1131,17 @@ def world(tmp_path_factory):
     from repro_torch.data.generators import token_batches
 
     tmp = tmp_path_factory.mktemp("lm_world")
-    arrays = {}
-    for kind, kw in CONFIGS.items():
-        kw = dict(kw)
+
+    def jax_init(kind):
+        kw = dict(CONFIGS[kind])
         jcfg = _with(j_reduced(j_get_config(kw.pop("arch"))), kw)
-        jparams = jax.jit(j_build_model(jcfg).init)(jax.random.PRNGKey(7))
+        return jcfg, jax.jit(j_build_model(jcfg).init)(jax.random.PRNGKey(7))
+
+    # the configs' compiles overlap (XLA compiles outside the GIL)
+    with ThreadPoolExecutor(4) as pool:
+        inits = dict(zip(CONFIGS, pool.map(jax_init, CONFIGS)))
+    arrays = {}
+    for kind, (jcfg, jparams) in inits.items():
         arrays.update({f"{kind}/{k}": v for k, v in
                        _flat(jax.tree.map(np.asarray, jparams)).items()})
         gen = token_batches(jcfg.vocab_size, B, S, seed=11)
@@ -976,6 +1152,14 @@ def world(tmp_path_factory):
         arrays[f"tokens_{kind}"], arrays[f"targets_{kind}"] = toks, tgts
         arrays[f"serve_tokens_{kind}"] = np.random.default_rng(5).integers(
             0, jcfg.vocab_size, (B, S + 8)).astype(np.int32)
+        if kind in STUBS:
+            # normal x 0.02, as test_torch_encdec.py draws the frames
+            rng = np.random.default_rng(13)
+            f = (B, jcfg.frontend_tokens, jcfg.d_model)
+            arrays[f"stub_{kind}"] = (rng.normal(size=(2 * STEPS, *f))
+                                      * 0.02).astype(np.float32)
+            arrays[f"serve_stub_{kind}"] = (rng.normal(size=f)
+                                            * 0.02).astype(np.float32)
     arrays.update(_start_caches(arrays))
     inputs_path = tmp / "inputs.npz"
     np.savez(inputs_path, **arrays)
@@ -985,9 +1169,12 @@ def world(tmp_path_factory):
     script = tmp / "jax_step.py"
     script.write_text(_JAX_STEP + _JAX_SERVE + _JAX_END)
     root = Path(__file__).resolve().parents[1]
+    # the JAX programs compile with LLVM's backend optimizations off:
+    # compiling, not running, is most of their processes' time
     env = {**os.environ, "PYTHONPATH": str(root / "src"),
            "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                        "--xla_backend_optimization_level=0"}
     procs = []
     cores = sorted(os.sched_getaffinity(0))
     # one process a JAX_GROUPS key: its meshes' train steps, then its
@@ -999,7 +1186,8 @@ def world(tmp_path_factory):
                 "cells": [[m, MESHES[m][0], list(MESHES[m][1]),
                            dict(SERVE[(m, c)], tag=c)]
                           for m, c in SERVE_GROUPS[n]],
-                "configs": CONFIGS, "batch": B, "seq": S, "steps": STEPS}
+                "configs": CONFIGS, "stubs": STUBS, "batch": B, "seq": S,
+                "steps": STEPS}
         procs.append(subprocess.Popen(
             [sys.executable, str(script), str(inputs_path),
              str(tmp / f"jax{i}.npz"), json.dumps(spec)],
@@ -1104,20 +1292,20 @@ def one_process(inputs):
             rec["elastic"] = dict(losses=losses[STEPS:], params={
                 n: t.detach().numpy() for n, t in state.params.items()})
         out[name] = rec
-    out["serve_e2e"] = _serve_e2e_one_process(inputs)
+    for name, key in E2E.items():
+        out[key] = _serve_e2e_one_process(inputs, MESHES[name][0])
     return out
 
 
-def _serve_e2e_one_process(inputs, steps=3):
+def _serve_e2e_one_process(inputs, kind, steps=3):
     """``_serve_e2e`` in one process: the same factories, one model."""
     from repro_torch.serve.serve_step import make_decode_step, \
         make_prefill_step
     v = SERVE[("dense22", "base")]
-    model = build_model(port_cfg("dense"), device="cpu")
-    params = convert.shard_params_from_jax(jax_tree(inputs, "dense"), model)
-    toks = torch.from_numpy(inputs["serve_tokens_dense"][:v["batch"]])
-    t, cache = make_prefill_step(model, max_len=v["cap"])(
-        params, {"tokens": toks[:, :S]})
+    model = build_model(port_cfg(kind), device="cpu")
+    params = convert.shard_params_from_jax(jax_tree(inputs, kind), model)
+    prompt, _ = prompt_batch(inputs, kind, v["batch"])
+    t, cache = make_prefill_step(model, max_len=v["cap"])(params, prompt)
     tokens = []
     step = make_decode_step(model)
     for _ in range(steps):
@@ -1292,11 +1480,36 @@ def test_elastic_round_trip_equals_four_one_process_steps(world):
 
 
 def test_refusals_under_a_mesh(world):
-    """The audio family, the enc-dec family and the VLM under a (1, 2)
-    mesh, and ``decode_step`` under the train rules, raise
-    ``NotImplementedError``."""
-    assert world["got"]["refusals"] == {"audio": True, "encdec": True,
-                                        "vlm": True, "decode_step": True}
+    """Under a (1, 2) mesh what is still not ported raises
+    ``NotImplementedError``: ``kv_valid_len``, ``decode_step`` under the
+    train rules and ``prefill`` into a sequence-sharded cache; the audio,
+    enc-dec and VLM families no longer refuse (they build and draw every
+    parameter's shard)."""
+    assert world["got"]["refusals"] == {"kv_valid_len": True,
+                                        "decode_step": True,
+                                        "prefill_seq_sharded": True}
+    assert world["got"]["built_frontends"] == {"audio": True,
+                                               "encdec": True, "vlm": True}
+
+
+#: each frontend and MoE mesh's layout, as ``sharding_profile`` gives it:
+#: the GQA audio's cross heads and the VLM's KV head repeated x2
+FRONTEND_LAYOUTS = {
+    "aud22": dict(attn_tp=True, ssd_tp=False, mlp_tp=True, kv_repeat=1),
+    "audgqa14": dict(attn_tp=True, ssd_tp=False, mlp_tp=True, kv_repeat=2),
+    "encdec22": dict(attn_tp=True, ssd_tp=False, mlp_tp=True, kv_repeat=1),
+    "vlm22": dict(attn_tp=True, ssd_tp=False, mlp_tp=True, kv_repeat=2),
+    "moe522": dict(attn_tp=True, ssd_tp=False, mlp_tp=True, kv_repeat=2)}
+
+
+@pytest.mark.parametrize("name", list(FRONTEND_LAYOUTS))
+def test_frontend_and_moe_meshes_take_their_layouts(world, name):
+    """The frontend meshes split attention and the MLP over ``model``,
+    repeating the KV heads where they do not divide it; the MoE mesh with
+    5 experts takes no expert parallelism (JAX's global-token branch)."""
+    got = world["got"][name]
+    assert got["profile"] == FRONTEND_LAYOUTS[name]
+    assert got["expert_tp"] is False
 
 
 def test_ssm_and_hybrid_build_under_a_mesh(world):
@@ -1398,7 +1611,8 @@ def test_context_parallel_decode_matches_jax(world, name, case, dus):
     _, decode, kv_seq_shard = _jax_cells(world, name, case)
     assert got["kv_seq_shard"] == kv_seq_shard == \
         SERVE[(name, case)].get("seq_shard", True)
-    assert got["pos"] == decode[dus]["pos"] == S + SERVE[(name, case)]["steps"]
+    assert got["pos"] == decode[dus]["pos"] == \
+        prefix_len(MESHES[name][0]) + S + SERVE[(name, case)]["steps"]
     _hold_serving(got, decode[dus], f"{name} {case} decode dus={dus}")
 
 
@@ -1443,6 +1657,22 @@ def test_serving_end_to_end_matches_one_process(world):
     got, want = world["got"]["serve_e2e"], world["one"]["serve_e2e"]
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
     assert got["pos"] == want["pos"] == S + 3
+    _close(got["cache"], want["cache"], "end-to-end cache")
+
+
+def test_cross_cache_hand_over_end_to_end_matches_one_process(world):
+    """The audio GQA (1, 4) through the step factories: its prefill
+    repeats the 2 cross K/V heads x2 and keeps one repeated head a rank;
+    the hand-over gathers them by ``cache_specs`` and takes every second
+    one, the decode layout holds them whole on every rank. The greedy
+    tokens, ``pos`` and the last cache (the cross K/V among it) are the
+    port's one-process run's."""
+    got = world["got"][E2E["audgqa14"]]
+    want = world["one"][E2E["audgqa14"]]
+    assert got["kv_repeat"] == 2
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    assert got["pos"] == want["pos"] == S + 3
+    assert {"cross_k", "cross_v"} <= set(want["cache"])
     _close(got["cache"], want["cache"], "end-to-end cache")
 
 

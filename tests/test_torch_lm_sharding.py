@@ -42,6 +42,17 @@ CASES = [(arch, shape.name, mesh) for arch in sorted(ARCHS)
          for shape in applicable_shapes(ARCHS[arch]) for mesh in MESHES]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(arch, size):
     cfg, jcfg = ARCHS[arch], J_ARCHS[arch]
     if size == "reduced":

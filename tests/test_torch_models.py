@@ -35,6 +35,17 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(**kw):
     """The reduced starcoder2-7b config in both packages, with ``kw``."""
     return (dataclasses.replace(j_reduced(j_get_config("starcoder2-7b")),

@@ -34,6 +34,17 @@ from repro_torch.models import moe as TM
 ARCHS = ["qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch="qwen3-moe-30b-a3b", **kw):
     return (dataclasses.replace(j_reduced(j_get_config(arch)), **kw),
             dataclasses.replace(reduced(get_config(arch)), **kw))

@@ -32,6 +32,18 @@ from repro_torch.obs import (
     BoundedSeries, MetricsRegistry, NULL_SPAN, StatsMap, Tracer,
 )
 from repro_torch.storage.blockstore import TransientStoreError
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _batch(n, width=1, seed=0, lo=0.0, hi=10.0, keys=8):

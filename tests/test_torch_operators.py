@@ -31,6 +31,17 @@ CAP, W, KEYS, B, P = 32, 3, 8, 7, 12
 OPS = ("average", "bigrams", "stock", "lrb", "percentile")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kw(op_name):
     return {"stock": {"num_keys": KEYS}, "lrb": {"num_segments": KEYS},
             "bigrams": {"vocab": 16}}.get(op_name, {})

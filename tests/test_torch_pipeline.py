@@ -40,11 +40,23 @@ import repro_torch.core.triggers as ttrig
 import repro_torch.distributed.fault as tfault
 import repro_torch.storage as tstorage
 from repro_torch.core.pipeline import EnginePipeline, PipelineError
+import torch
 
 PKGS = {"jax": (jcfg, jcore, jbx, jcleanup, jtrig),
         "torch": (tcfg, tcore, tbx, tcleanup, ttrig)}
 BatchWorkItem = tbx.BatchWorkItem
 MEAN_ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _dev(pkg):

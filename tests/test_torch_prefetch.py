@@ -37,10 +37,22 @@ from repro_torch.prefetch import (
     SegmentPrefetchPlanner,
 )
 from repro_torch.storage import LogBlockStore
+import torch
 
 W1 = (0.0, 10.0)
 W2 = (10.0, 20.0)
 MODEL_TOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _arrays(fill, cap=64, width=1, seed=0):

@@ -39,6 +39,17 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 OUT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _caches(pages=8, page=16, hkv=2, d=32, layers=1, dtype="float32"):
     kw = dict(num_device_pages=pages, page_size=page, num_kv_heads=hkv,
               head_dim=d, num_layers=layers)

@@ -30,6 +30,17 @@ from repro_torch.models.model import build_model
 from repro_torch.serve import serve_step
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stacked(fn):
     """A reducer over the slices stacked on a leading dim: every slice
     gets the reduction, as every rank gets an all-reduce's."""

@@ -50,6 +50,17 @@ STUBS = {"audio": "frame_embeds", "encdec": "frame_embeds",
          "vlm": "patch_embeds"}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()

@@ -65,6 +65,17 @@ MESH_SIZES = [2, 4, 8]
 STATS = ("sum", "count", "min", "max")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def cpu_mesh(n: int) -> SlotMesh:
     return make_slot_mesh(devices=["cpu"] * n)
 

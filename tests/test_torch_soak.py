@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 import test_soak_differential as J
+import torch
 
 WINDOW, N_EVENTS, CHUNK, MAX_LATE, SEED = (J.WINDOW, J.N_EVENTS, J.CHUNK,
                                            J.MAX_LATE, J.SEED)
@@ -26,6 +27,17 @@ REL = ABS = 2e-4
 #: entries of the port's slot mesh in the sharded rows (one CPU, named
 #: this many times)
 SHARDS = 4
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def package(name: str) -> SimpleNamespace:

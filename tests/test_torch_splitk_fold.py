@@ -31,6 +31,17 @@ sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
 IDENT = {"sum": 0.0, "count": 0.0, "min": np.inf, "max": -np.inf}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _emulate(arena, ids, table, valid, slots, s, chunk, ns, stats,
              num_cols, merge):
     """K3's smem order of work in numpy float32."""

@@ -42,6 +42,17 @@ PARTS = 3
 H100_SMS = 132
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(x: np.ndarray) -> np.ndarray:
     """x rounded to bf16 values (kept as float32)."""
     return torch.from_numpy(x).to(torch.bfloat16).float().numpy()

@@ -17,8 +17,20 @@ import repro.core.cleanup as jcleanup
 import repro.core.staleness as jst
 import repro_torch.core.cleanup as tcleanup
 import repro_torch.core.staleness as tst
+import torch
 
 HORIZON = 40.0
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _delays(dist, n=2000, seed=0):

@@ -10,8 +10,20 @@ import pytest
 
 from repro import storage as jstorage
 from repro_torch import storage as tstorage
+import torch
 
 W1, W2 = (0.0, 10.0), (10.0, 20.0)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _arrays(fill, cap=64, width=3, seed=0):

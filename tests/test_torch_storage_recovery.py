@@ -18,12 +18,24 @@ from repro_torch.core.events import EventBatch
 from repro_torch.core.operators import make_operator
 from repro_torch.core.triggers import DeltaTTrigger
 from repro_torch.core.windows import WindowId
+import torch
 
 WINDOW = 10.0
 N_EVENTS = 12_000
 CHUNK = 500
 MAX_LATE = 25.0
 SEED = 77
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class _NoPurgeCleanup(PredictiveCleanup):

@@ -21,9 +21,21 @@ import repro_torch.configs.workloads as twl
 import repro_torch.core as tcore
 import repro_torch.core.batch_exec as tbx
 from repro_torch.core.buckets import MemoryBudget, TenantBudget
+import torch
 
 PKGS = {"jax": (jcfg, jcore, jbx, jwl), "torch": (tcfg, tcore, tbx, twl)}
 ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _dev(pkg):

@@ -15,6 +15,19 @@ from repro_torch.core.time import PeriodicWatermarkGenerator, \
 from repro_torch.core.windows import (
     CountWindows, SessionWindows, SlidingWindows, TumblingWindows, WindowId,
 )
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch while a test runs: the suite's
+    workers share the cores, and torch's own threads would oversubscribe
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _same(got, want):
