@@ -269,7 +269,7 @@ Phases (the first failed check exits non-zero, with no result line):
    float32): 30.5 B parameters, 61 GB, from a seeded generator, after the
    earlier phases' tensors are released. 17a: ``make_prefill_step`` on 4 x
    2,048 tokens (8,192 routed: an expert keeps 640, so experts overflow),
-   K5 once per layer, every launch on wgmma, then 32 greedy
+   K5 once per layer, every launch on wgmma, then 16 greedy
    ``make_decode_step`` steps (each reads every weight); then one prefill
    under ``torch.profiler`` (the device's busy share, the largest device
    operations), and one decode step so profiled. 17b: the prefill's last
@@ -348,7 +348,7 @@ Phases (the first failed check exits non-zero, with no result line):
    0.02 from a seeded generator, as the JAX entry point draws them), K5
    once for every attention (12 encoder, non-causal at 1,024 x 1,024; 12
    decoder self; 12 cross, non-causal at 128 x 1,024), all on wgmma,
-   then 128 greedy steps; a profiled prefill and decode step (busy
+   then 32 greedy steps; a profiled prefill and decode step (busy
    share). 23b: a prefill of 2 x 127 tokens and one decode against
    ``train_logits`` of 2 x 128 (``teacher_forcing``: argmax equal, rows
    within TF_RTOL in bf16 and TF_F32_RTOL in float32 compute), the
@@ -381,7 +381,20 @@ Phases (the first failed check exits non-zero, with no result line):
    batch 16, K6 at 2) and the cross-attention's 2,048 x 1,024 (batch 2),
    each against the fp32 plain version within ``kernels/flash_limits.py``
    with its last key tile dropped as a control, timed beside the plain
-   version, SDPA (a yardstick) and its bound.
+   version, SDPA (a yardstick) and its bound. Then the masked replays
+   (``MASKED``): K5 and K6 with a per-row key length (``kv_valid_len``)
+   on seamless-m4t-medium's cross shape as a padded audio batch (2 x
+   2,048 queries over 1,024 frames, frame lengths (1,024, 611)), causal
+   at starcoder2-7b's 36 heads and 4 KV heads of 128 (2 x 4,096, lengths
+   (4,096, 2,500)), both bf16 on wgmma, and the cross shape in float32
+   on the CUDA-core design: each against its plain version with the same
+   lengths within the flash limits (float32 also within FP32_ATTN_TOL and
+   FP32_GRAD_TOL), the keys past a row's length with exactly zero dK and
+   dV, each kernel with the lengths ignored as the control (at least
+   CONTROL_FACTOR x the row limit), timed beside the same launch without
+   lengths (the ratio printed beside the share of K5's key tiles the
+   lengths keep), the plain version, SDPA with the mask and the bound of
+   the kept pairs; their errors fold into K5's and K6's entries.
 27. Slot sharding (run after phase 13b, before phase 3): ``StreamEngine``
    with ``AionConfig(slot_sharding=True)`` over a 4-entry slot mesh (the
    first four cards where there are four, else ``cuda:0`` named four
@@ -453,8 +466,20 @@ Phases (the first failed check exits non-zero, with no result line):
    A float32-compute rerun at 2 layers (prefill and 2 steps) must lie
    within TF_F32_RTOL, and with the merge's ``model`` reduce dropped
    (each rank attending only its slice) read at least CONTROL_FACTOR x
-   that. The main path (bf16 prefill and steps) is counted: K5 once a
-   layer on every rank, on wgmma.
+   that. 28c also runs each step under the other kind's rules: the
+   prefill's cache decoded 4 steps head-parallel under the prefill rules
+   (each rank's q heads against its 2 stored heads, every slot, ``o``
+   reduced over ``model``), and the prompt prefilled under the decode
+   rules straight into the sequence-sharded cache (each rank's 18 q
+   heads against the 2 of the 4 stored heads they map to, its 2,080
+   slots filled, held against the one-process cache's slots of K) and
+   decoded there 4 steps, held as the main path (2 steps each in
+   float32), with two more controls in float32: the head-parallel
+   decode's ``o`` reduce dropped, read on the steps, and each rank's
+   prefill keeping its neighbour's slot range, read on the slots of K
+   (attention does not see the order of its keys). The main
+   path (bf16 prefills and steps) is counted: K5 once a layer and
+   prefill on every rank (28c's two prefills), on wgmma.
    28e and 28f, the SSM and hybrid families under the same mesh at full
    width with 2 layers (``LM_TRAIN``, ``LM_SERVE``): 28e mamba2-780m
    (24 of 48 SSD heads a rank, vocab-parallel tied embeddings), 28f
@@ -473,9 +498,9 @@ Phases (the first failed check exits non-zero, with no result line):
    28f K5 and K6 as in 28a and K5 once a layer a prefill, on wgmma.
    28g, seamless-m4t-medium (the audio family) at full width with 4
    encoder and 4 decoder layers (8 of 16 heads a rank in each attention,
-   d_ff 2,048 and vocab 128,128 a rank): 2 training steps of 2 x (1,024
+   d_ff 2,048 and vocab 128,128 a rank): 1 training step of 2 x (1,024
    stub frames, 2,048 tokens) (fp32 parameters, bf16 compute, remat
-   full), the first held as 28e is but for the loss, within
+   full), held as 28e is but for the loss, within
    SSM_LOSS_TOL (24a's bf16 limit); the control drops the cross K/V's
    ``copy_to`` on the first batch and is read on the encoder's
    gradients; then served as 28c is: a prefill of 16 x 128 tokens over
@@ -3111,8 +3136,10 @@ def train_run(model, params, run: dict, after=None) -> dict:
 
     def keep_first(q, k, v, o, do, lse, **kw):
         if not kept:
+            # the model passes no key lengths (kv_valid_len None)
             kept.update(args=tuple(t.detach().clone()
-                                   for t in (q, k, v, o, do, lse)), kw=kw)
+                                   for t in (q, k, v, o, do, lse)),
+                        kw={n: x for n, x in kw.items() if x is not None})
         return real_bwd(q, k, v, o, do, lse, **kw)
 
     state = ts_mod.TrainState(params=params, opt=adamw_init(params))
@@ -4296,10 +4323,12 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 #: phase 17: MOE_ARCH at full width and depth with bf16 parameters (the
 #: router float32, as ``moe_init`` draws it whatever the type): 4 prompts
 #: of 2,048 tokens (8,192 routed: each expert keeps 640, so experts
-#: overflow and tokens are dropped), 32 greedy decode steps; 17b on the
+#: overflow and tokens are dropped), 16 greedy decode steps (32 until
+#: phase 26's masked replays and 28c's swapped layouts took their time);
+#: 17b on the
 #: same prompts; 17c teacher forcing on 2 x 32 tokens, where the capacity
 #: clamps to T and no token can be dropped
-MOE_SERVE_RUN = dict(batch=4, seq=2048, decode=32, tf_batch=2, tf_seq=32)
+MOE_SERVE_RUN = dict(batch=4, seq=2048, decode=16, tf_batch=2, tf_seq=32)
 #: phase 18: MOE_ARCH at full width with 2 of its 48 layers (fp32
 #: parameters, bf16 compute, ``remat="full"``): phase 6a's gradient check
 #: on 1 x 1,024, then six AdamW steps of 2 x 4,096
@@ -5483,10 +5512,11 @@ ENCDEC_ARCH = "seamless-m4t-medium"
 VLM_ARCH = "internvl2-76b"
 #: phase 23: ENCDEC_ARCH at full width and depth (12 encoder and 12
 #: decoder layers) with bf16 parameters: 16 prompts of 128 tokens, each
-#: over 1,024 stub audio frames, and 128 greedy decode steps; 23b's
-#: teacher forcing on check_batch x check_seq, and the int8 cache against
-#: the 16-bit one over int8_decode steps
-ENCDEC_SERVE_RUN = dict(batch=16, seq=128, decode=128, check_batch=2,
+#: over 1,024 stub audio frames, and 32 greedy decode steps (128 until
+#: phase 26's masked replays and 28c's swapped layouts took their time);
+#: 23b's teacher forcing on check_batch x check_seq, and the int8 cache
+#: against the 16-bit one over int8_decode steps
+ENCDEC_SERVE_RUN = dict(batch=16, seq=128, decode=32, check_batch=2,
                         check_seq=128, int8_decode=8)
 #: phase 24: ENCDEC_ARCH trained at full width and depth (fp32
 #: parameters, bf16 compute, ``remat="full"``): 24a the gradient check on
@@ -5534,6 +5564,22 @@ NONCAUSAL = {"encoder": dict(k5_batch=16, k6_batch=2, sq=1024, sk=1024),
              "cross": dict(k5_batch=2, k6_batch=2, sq=2048, sk=1024)}
 SMALL_NONCAUSAL = {"encoder": dict(k5_batch=2, k6_batch=1, sq=256, sk=256),
                    "cross": dict(k5_batch=1, k6_batch=1, sq=192, sk=256)}
+#: phase 26's masked replays: K5 and K6 with a per-row key length
+#: (``kv_valid_len``) at each arch's heads: ENCDEC_ARCH's cross shape as a
+#: padded audio batch (2 x 2,048 queries over 1,024 frames, frame lengths
+#: (1,024, 611)), causal at TRAIN_ARCH's (2 x 4,096, lengths (4,096,
+#: 2,500)), both bf16 on wgmma, and the cross shape in float32 on the
+#: CUDA-core design; the rehearsal's shapes on the CPU
+MASKED = {"cross": dict(arch=ENCDEC_ARCH, batch=2, sq=2048, sk=1024,
+                        causal=False, lens=(1024, 611), dtype="bfloat16"),
+          "causal": dict(arch=TRAIN_ARCH, batch=2, sq=4096, sk=4096,
+                         causal=True, lens=(4096, 2500), dtype="bfloat16"),
+          "fp32": dict(arch=ENCDEC_ARCH, batch=2, sq=2048, sk=1024,
+                       causal=False, lens=(1024, 611), dtype="float32")}
+SMALL_MASKED = {
+    "cross": dict(MASKED["cross"], sq=192, sk=256, lens=(256, 77)),
+    "causal": dict(MASKED["causal"], sq=256, sk=256, lens=(256, 100)),
+    "fp32": dict(MASKED["fp32"], sq=192, sk=256, lens=(256, 77))}
 
 
 def teacher_forcing(model, params, run: dict, seed: int, tag: str,
@@ -5842,22 +5888,194 @@ def noncausal_replays(device, shapes: dict) -> dict:
     return out
 
 
-def frontend_phases(device, every: dict, small: bool = False) -> dict:
+def _key_tiles(sq: int, sk: int, causal: bool, lens) -> tuple:
+    """(key tiles of K5's wgmma schedule that the lengths leave, those
+    without them), summed over the rows: the share a masked launch
+    should take of the unmasked one's time."""
+    import numpy as np
+    tiles = importlib.import_module("repro_torch.kernels.flash_tiles")
+    sched = tiles.tile_schedule(sq, sk, causal, 0, *tiles.FWD_TILES)
+    cols = tiles.FWD_TILES[1]
+    full = int((sched[:, 2] - sched[:, 1]).sum()) * len(lens)
+    kept = sum(int((np.minimum(sched[:, 2], -(-min(max(n, 0), sk) // cols))
+                    - sched[:, 1]).clip(min=0).sum()) for n in lens)
+    return kept, full
+
+
+def masked_record(q, k, v, lens, causal: bool, iters: int) -> dict:
+    """Phase 26 for one masked input: K5 and K6 with ``kv_valid_len``
+    ``lens`` against their plain versions on the float32 values of the
+    same inputs with the same lengths: bf16 (wgmma) by ``flash_close``
+    within FWD_ROW_RTOL / BWD_ROW_RTOL, float32 (the CUDA-core design)
+    within FP32_ATTN_TOL / FP32_GRAD_TOL and the same row limits; every
+    row here keeps a key, and the keys past a row's length get exactly 0
+    in dk and dv. As a control, each kernel with the lengths ignored
+    must read at least CONTROL_FACTOR times its row limit. Each timed
+    beside the same launch without lengths, the plain version, SDPA with
+    the mask (a yardstick) and the bound of the pairs the lengths
+    keep."""
+    import torch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fb = importlib.import_module("repro_torch.kernels.flash_attention_bwd")
+    FL = flash_limits()
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    n = torch.tensor(lens, dtype=torch.int32, device=q.device)
+    kw = dict(causal=causal, window=0)
+    wide = tuple(x.float() for x in (q, k, v))
+    out = {}
+    # K5
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                     kv_valid_len=n, **kw)
+    ro, rlse = fa.flash_attention_plain(*wide, return_lse=True,
+                                        kv_valid_len=n, **kw)
+    if bf16:
+        r = flash_close(o, ro, FL.FWD_ROW_RTOL, ATTN_ULP_FLOOR)
+    else:
+        r = {"max_abs_err": fp32_close(o, ro, FP32_ATTN_TOL),
+             "row_err": FL.row_error(o, ro)}
+        check(r["row_err"] <= FL.FWD_ROW_RTOL, f"float32 K5 masked: worst "
+              f"row {r['row_err']:.3g} beyond {FL.FWD_ROW_RTOL}")
+    r["lse_err"] = lse_close(lse, rlse)
+    r["control_ratio"] = control_reads(
+        f"K5 with the key lengths {tuple(lens)} ignored",
+        FL.row_error(fa.flash_attention_cuda(q, k, v, **kw), ro),
+        FL.FWD_ROW_RTOL)
+    kept, full = _key_tiles(sq, sk, causal, lens)
+    pairs = sum(_attended_pairs(sq, min(max(m, 0), sk), causal, 0)
+                for m in lens) * h
+    elt = q.element_size()
+    t_b = elt * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S * 1e3 \
+        + 4 * b * h * sq / HBM_BYTES_PER_S * 1e3
+    rate = BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S
+    t_o = 4 * pairs * d / rate * 1e3
+    kpos = torch.arange(sk, device=q.device)
+    mask = (kpos[None, :] < n[:, None].long())[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones((sq, sk), dtype=torch.bool,
+                                 device=q.device).tril()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    r.update(ms=_sync_time_ms(lambda: fa.flash_attention_cuda(
+                 q, k, v, kv_valid_len=n, **kw), iters),
+             unmasked_ms=_sync_time_ms(lambda: fa.flash_attention_cuda(
+                 q, k, v, **kw), iters),
+             plain_ms=_sync_time_ms(lambda: fa.flash_attention_plain(
+                 q, k, v, kv_valid_len=n, **kw), max(iters // 5, 1)),
+             library_ms=_sdpa_ms(qt, kt, vt, iters, attn_mask=mask),
+             bound_ms=max(t_b, t_o),
+             bound_by="bytes" if t_b >= t_o else "operations",
+             tile_share=kept / full)
+    del qt, kt, vt
+    out["K5"] = r
+    # K6 on K5's o and lse, a seeded dO
+    g = torch.Generator(q.device).manual_seed(SEED + 29)
+    do = torch.randn(q.shape, generator=g, device=q.device, dtype=q.dtype)
+    got = fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, kv_valid_len=n,
+                                      **kw)
+    want = fb.flash_attention_bwd_plain(*wide, o.float(), do.float(), lse,
+                                        kv_valid_len=n, **kw)
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          "K6 masked: a gradient is not finite")
+    for i, m in enumerate(lens):
+        m = min(max(m, 0), sk)
+        check(not any(bool(x[i, m:].any()) for x in got[1:]),
+              f"K6 masked: a key of row {i} past its length {m} has a "
+              "gradient")
+    if bf16:
+        reads = [flash_close(a, w, FL.BWD_ROW_RTOL,
+                             max(float(w.abs().max()), 1e-30)
+                             * GRAD_ULP_FLOOR) for a, w in zip(got, want)]
+        r = {key: max(x[key] for x in reads)
+             for key in ("max_abs_err", "row_err", "ulps")}
+    else:
+        r = {"max_abs_err": max(fp32_close(a, w, FP32_GRAD_TOL)
+                                for a, w in zip(got, want)),
+             "row_err": max(FL.row_error(a, w) for a, w in zip(got, want))}
+        check(r["row_err"] <= FL.BWD_ROW_RTOL, f"float32 K6 masked: worst "
+              f"row {r['row_err']:.3g} beyond {FL.BWD_ROW_RTOL}")
+    ignored = fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    r["control_ratio"] = control_reads(
+        f"K6 with the key lengths {tuple(lens)} ignored",
+        max(FL.row_error(a, w) for a, w in zip(ignored, want)),
+        FL.BWD_ROW_RTOL)
+    del got, want, ignored
+    t_b = elt * (4 * q.numel() + 4 * k.numel()) / HBM_BYTES_PER_S * 1e3 \
+        + 4 * lse.numel() / HBM_BYTES_PER_S * 1e3
+    t_o = 10 * pairs * d / rate * 1e3
+    r.update(ms=_sync_time_ms(lambda: fb.flash_attention_bwd_cuda(
+                 q, k, v, o, do, lse, kv_valid_len=n, **kw), iters),
+             unmasked_ms=_sync_time_ms(lambda: fb.flash_attention_bwd_cuda(
+                 q, k, v, o, do, lse, **kw), iters),
+             plain_ms=_sync_time_ms(lambda: fb.flash_attention_bwd_plain(
+                 q, k, v, o, do, lse, kv_valid_len=n, **kw), 1),
+             library_ms=_sdpa_bwd_ms(q, k, v, do, iters, attn_mask=mask),
+             bound_ms=max(t_b, t_o),
+             bound_by="bytes" if t_b >= t_o else "operations")
+    out["K6"] = r
+    shape = (f"q [{b}, {sq}, {h}, {d}], k/v [{b}, {sk}, {hkv}, {d}] "
+             f"{str(q.dtype).split('.')[-1]}, causal={causal}, "
+             f"kv_valid_len {tuple(lens)}, {pairs} attended pairs")
+    for r in out.values():
+        r["shape"] = shape
+    return out
+
+
+def masked_replays(device, shapes: dict, card: str) -> dict:
+    """Phase 26's masked replays (``masked_record``) on seeded inputs at
+    ``shapes`` (MASKED), each arch's heads from its config; each logged
+    with its error, its control and its time against the unmasked
+    launch's and the key-tile share that predicts it, beside ``card``."""
+    import torch
+    from repro_torch.configs import get_config
+    FL = flash_limits()
+    g = torch.Generator(device).manual_seed(SEED + 28)
+    out = {}
+    for name, sh in shapes.items():
+        cfg = get_config(sh["arch"])
+        dt = getattr(torch, sh["dtype"])
+        h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        b = sh["batch"]
+        q = torch.randn((b, sh["sq"], h, d), generator=g, device=device,
+                        dtype=dt)
+        k, v = (torch.randn((b, sh["sk"], hkv, d), generator=g,
+                            device=device, dtype=dt) for _ in range(2))
+        out[name] = masked_record(q, k, v, sh["lens"], sh["causal"],
+                                  iters=5)
+        del q, k, v
+        for key, r in out[name].items():
+            row = FL.FWD_ROW_RTOL if key == "K5" else FL.BWD_ROW_RTOL
+            share = out[name]["K5"]["tile_share"]
+            log(f"phase 26: {key} masked {name}: worst row "
+                f"{r['row_err']:.3g} of its norm (limit {row}), "
+                f"max_abs_err {r['max_abs_err']:.3g}, control "
+                f"{r['control_ratio']:.1f} x | kernel {r['ms']:.4f} ms "
+                f"against {r['unmasked_ms']:.4f} ms unmasked "
+                f"({r['ms'] / r['unmasked_ms']:.3f}; the lengths keep "
+                f"{share:.3f} of K5's key tiles), plain {r['plain_ms']:.4f}"
+                f" ms, SDPA {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {r['shape']} "
+                f"({card})")
+    return out
+
+
+def frontend_phases(device, every: dict, small: bool = False,
+                    card: str = "cpu") -> dict:
     """Phases 23-26 (``small``: their CPU rehearsal, the reduced configs
     and the SMALL_* sizes): ENCDEC_ARCH served (23) and trained (24) at
-    full width and depth, VLM_ARCH served at full width with 24 of its
-    layers (25), then K5's and K6's non-causal replays (26). ``every``
-    holds the kernels' counting wrappers. Returns the runs' records and
-    the replays."""
+    full width and depth, VLM_ARCH served at full width with 8 of its
+    layers (25), then K5's and K6's non-causal and masked replays (26).
+    ``every`` holds the kernels' counting wrappers. Returns the runs'
+    records and the replays."""
     from repro_torch.configs import get_config, reduced
     enc, vlm = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
     serve, train, vlm_run = ENCDEC_SERVE_RUN, ENCDEC_TRAIN_RUN, VLM_SERVE_RUN
-    shapes = NONCAUSAL
+    shapes, masked = NONCAUSAL, MASKED
     if small:
         enc, vlm = reduced(enc), reduced(vlm)
         serve, train, vlm_run = (SMALL_ENCDEC_SERVE, SMALL_ENCDEC_TRAIN,
                                  SMALL_VLM_SERVE)
-        shapes = SMALL_NONCAUSAL
+        shapes, masked = SMALL_NONCAUSAL, SMALL_MASKED
     runs = {
         "encdec_serve": frontend_serve(
             device, enc, serve, SEED + 27, every, 23, swap_cross_kv,
@@ -5872,8 +6090,11 @@ def frontend_phases(device, every: dict, small: bool = False) -> dict:
         "counted")
     t0 = time.perf_counter()
     replays = noncausal_replays(device, shapes)
+    gc.collect()
+    _empty(device)
+    masked_out = masked_replays(device, masked, card)
     log(f"phase 26: {time.perf_counter() - t0:.1f} s")
-    return {"runs": runs, "replays": replays}
+    return {"runs": runs, "replays": replays, "masked": masked_out}
 
 
 # ------------------------------------------------------------------ phase 28
@@ -5905,7 +6126,9 @@ LM_PARTS = {"28a": "dense", "28b": "moe", "28c": "serve_dense",
 #: 28e-28g: the SSM, hybrid and audio families under the same mesh, each
 #: at full width with ``layers`` of its layers (28g: as many encoder
 #: layers; 28e and 28f cut from 4 layers and 2 steps to 2 layers and 1
-#: step to pay for 28g and 28h): ``steps`` training steps of batch x seq tokens (bf16
+#: step to pay for 28g and 28h, 28g from 2 steps to 1 to pay for phase
+#: 26's masked replays and 28c's swapped layouts): ``steps`` training
+#: steps of batch x seq tokens (bf16
 #: compute, fp32 parameters, remat full; 28g over 1,024 stub frames a
 #: row, 24b's shape), the first held as 28a holds its first step with
 #: the loss within ``loss_tol`` (28g: 24a's bf16 limit), then served as
@@ -5920,7 +6143,7 @@ LM_TRAIN = {"ssm": dict(layers=2, batch=2, seq=4096, steps=1,
                         seed=SEED + 32, loss_tol=LOSS_TOL),
             "hybrid": dict(layers=2, batch=2, seq=4096, steps=1,
                            seed=SEED + 33, loss_tol=LOSS_TOL),
-            "audio": dict(layers=4, batch=2, seq=2048, steps=2,
+            "audio": dict(layers=4, batch=2, seq=2048, steps=1,
                           seed=SEED + 34, loss_tol=SSM_LOSS_TOL,
                           control="cross_copy_to")}
 SMALL_LM_TRAIN = {part: dict(run, layers=2, seq=128)
@@ -5949,11 +6172,21 @@ KV_LEAVES = ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v")
 #: decoder layers, 16 x 128 tokens over 1,024 frames, the cross cache
 #: handed over from each rank's 8 heads to all 16 (float32 at 2 + 2);
 #: 28h: VLM_ARCH with 2 of its 80 layers, 2 x (256 patches + 1,792
-#: tokens), 2,064 slots counting the patches, 1,032 a rank
+#: tokens), 2,064 slots counting the patches, 1,032 a rank. With
+#: ``swap_steps`` (28c) each kind's rules also take the other's step: the
+#: prefill's own cache decoded head-parallel under the prefill rules, and
+#: the prompt prefilled under the decode rules straight into the
+#: sequence-sharded cache, then decoded there, ``swap_steps`` steps each
+#: (``check_steps`` in float32), this rank's slots of K held against the
+#: one-process cache's, with two more controls: the head-parallel
+#: decode's ``o`` reduce dropped (``heads_o``, read on the steps) and each
+#: rank's prefill keeping its neighbour's slot range (``neighbour_slots``,
+#: read on the slots of K: attention does not see the order of its keys,
+#: and on the steps this fault read 4.4 x the limit)
 LM_SERVE = {
     "dense": dict(arch=TRAIN_ARCH, layers=2, batch=2, seq=4096, cap=4160,
-                  steps=32, check_layers=2, check_steps=2,
-                  controls=("merge",)),
+                  steps=32, check_layers=2, check_steps=2, swap_steps=4,
+                  controls=("merge", "heads_o", "neighbour_slots")),
     "moe": dict(arch=MOE_ARCH, layers=1, batch=2, seq=2048, cap=2064,
                 steps=16, check_layers=2, check_steps=2,
                 controls=("merge",)),
@@ -6082,12 +6315,15 @@ class _KeepLargest:
         self.real = (fa._launch, fa.flash_attention_bwd_cuda)
         real_fwd, real_bwd = self.real
 
-        def fwd(q, k, v, causal, window, want_lse, design):
+        def fwd(q, k, v, causal, window, want_lse, design,
+                kv_valid_len=None):
             if "K5" not in kept and q.is_cuda:
                 kept["K5"] = dict(args=tuple(t.detach().clone()
                                              for t in (q, k, v)),
-                                  kw=dict(causal=causal, window=window))
-            return real_fwd(q, k, v, causal, window, want_lse, design)
+                                  kw=dict(causal=causal, window=window,
+                                          kv_valid_len=kv_valid_len))
+            return real_fwd(q, k, v, causal, window, want_lse, design,
+                            kv_valid_len)
 
         def bwd(q, k, v, o, do, lse, **kw):
             if "K6" not in kept and q.is_cuda:
@@ -6401,6 +6637,8 @@ def _serve_ref(cfg, run: dict, dev, steps: int, where: Path) -> None:
     if cfg.ssm.enabled:
         np.save(where / "ssm.npy", cache["layers"]["ssm"].float().cpu()
                 .numpy())
+    if run.get("swap_steps"):
+        np.save(where / "k.npy", cache["layers"]["k"].float().cpu().numpy())
     lgs, toks = [logits], [logits.argmax(-1)]
     for _ in range(steps):
         logits, cache = model.decode_step(params, toks[-1], cache)
@@ -6440,18 +6678,19 @@ def _shard_rows_rel(ctx, got, want, vocab: int) -> float:
     return float((sums[0].sqrt() / sums[1].sqrt()).max())
 
 
-def _state_rel(ctx, model, got, where: Path) -> float:
-    """This rank's piece of a cache's SSM state [L, B, H, P, N] against
-    the same slice of the whole saved one, in units of that slice's
+def _state_rel(ctx, model, got, where: Path, leaf: str = "ssm") -> float:
+    """This rank's piece of a cache leaf (the SSM state [L, B, H, P, N],
+    or ``leaf``) against the same slice of the whole saved one, by the
+    leaf's ``cache_specs`` under ``ctx``, in units of that slice's
     norm."""
     import numpy as np
     import torch
     from repro_torch.distributed import sharding as shd
     ref = np.load(where, mmap_mode="r")
-    spec = model.cache_specs()["layers"]["ssm"]
+    spec = model.cache_specs()["layers"][leaf]
     sl = shd.shard_slices(ref.shape, ctx.pspec(*spec), ctx.mesh)
     w = torch.from_numpy(np.array(ref[sl])).to(got.device)
-    check(bool(torch.isfinite(got).all()), "SSM state not finite")
+    check(bool(torch.isfinite(got).all()), f"cache {leaf} not finite")
     return float(torch.linalg.vector_norm(got.float() - w)
                  / torch.linalg.vector_norm(w).clamp(min=1e-30))
 
@@ -6475,6 +6714,105 @@ def _ssd_control(name: str):
         yield
     finally:
         ssm_mod.row_parallel, ssm_mod._mean_square = real
+
+
+@contextlib.contextmanager
+def _neighbour_slots():
+    """``Model._fill_kv`` filling each rank's slice of a sequence-sharded
+    cache with its neighbour's slot range over ``KV_SEQ``'s axis."""
+    tr = importlib.import_module("repro_torch.models.transformer")
+    shd = importlib.import_module("repro_torch.distributed.sharding")
+    real = tr.Model._fill_kv
+
+    def fill(self, cl, i, k, v, s):
+        ctx = shd.mesh_ctx()
+        sa, mesh = ctx.axis(shd.KV_SEQ), ctx.mesh
+        nb = (mesh.index(sa) + 1) % mesh.size(sa)
+        own = type(mesh).index
+        mesh.index = lambda ax: nb if ax == sa else own(mesh, ax)
+        try:
+            real(self, cl, i, k, v, s)
+        finally:
+            del mesh.index
+
+    tr.Model._fill_kv = fill
+    try:
+        yield
+    finally:
+        tr.Model._fill_kv = real
+
+
+def _decode_rels(model, params, cache, ctx, toks, ref_logits, vocab: int,
+                 n: int) -> list:
+    """``n`` decode steps of ``model`` under ``ctx`` from ``cache`` on the
+    reference's tokens: each step's logits against the reference's
+    (``_shard_rows_rel``)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import local_batch
+    rels = []
+    with shd.use_ctx(ctx):
+        for i in range(n):
+            t = local_batch({"tokens": toks[i]}, ctx)["tokens"]
+            lg, cache = model.decode_step(params, t, cache)
+            rels.append(_shard_rows_rel(ctx, lg, ref_logits[i + 1], vocab))
+    return rels
+
+
+def _swap_layouts(model, dmodel, params, cache, cfg, run: dict, dev,
+                  pctx, dctx, toks, ref_logits, steps: int,
+                  controls: tuple, where: Path, out: dict) -> None:
+    """28c's swapped layouts (LM_SERVE's comment) into ``out``: the
+    prefill's ``cache`` decoded ``steps`` steps head-parallel under the
+    prefill rules, then the prompt prefilled under the decode rules into
+    the sequence-sharded cache (this rank's slots of K against the
+    one-process cache's, ``swap_cache_rel``) and decoded there, each
+    against rank 0's one-process run; the controls of ``controls`` among
+    ``heads_o`` (read on the steps) and ``neighbour_slots`` (read on the
+    slots of K: attention does not see the order of its keys, so the
+    steps hardly move)."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import local_batch
+    lyr = importlib.import_module("repro_torch.models.layers")
+    attn_mod = importlib.import_module("repro_torch.models.attention")
+    vocab = cfg.vocab_size
+    kept = None
+    if "heads_o" in controls:
+        kept = {"pos": cache["pos"].clone(),
+                "layers": {k: t.clone() for k, t in cache["layers"].items()}}
+    t0 = time.perf_counter()
+    out["swap_heads_rels"] = _decode_rels(model, params, cache, pctx, toks,
+                                          ref_logits, vocab, steps)
+    if kept is not None:
+        real = attn_mod.row_parallel
+        attn_mod.row_parallel = lambda p, x, cd, n, m, a: \
+            lyr.row_parallel(p, x, cd, n, None, None)
+        try:
+            out["controls"]["heads_o"] = max(_decode_rels(
+                model, params, kept, pctx, toks, ref_logits, vocab, steps))
+        finally:
+            attn_mod.row_parallel = real
+    with shd.use_ctx(dctx):
+        prompt = local_batch(_serve_prompt(cfg, run, dev), dctx)
+        lg, dcache = dmodel.prefill(params, prompt, max_len=run["cap"])
+        out["swap_prefill_rel"] = _shard_rows_rel(dctx, lg, ref_logits[0],
+                                                  vocab)
+        out["swap_cache_slots"] = int(dcache["layers"]["k"].shape[2])
+        out["swap_cache_rel"] = _state_rel(dctx, dmodel, dcache["layers"]
+                                           ["k"], where / "k.npy", "k")
+        del lg
+    out["swap_seq_rels"] = _decode_rels(dmodel, params, dcache, dctx, toks,
+                                        ref_logits, vocab, steps)
+    if "neighbour_slots" in controls:
+        with shd.use_ctx(dctx), _neighbour_slots():
+            _, bad = dmodel.prefill(params, prompt, max_len=run["cap"])
+        out["controls"]["neighbour_slots"] = _state_rel(
+            dctx, dmodel, bad["layers"]["k"], where / "k.npy", "k")
+        del bad
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["swap_s"] = time.perf_counter() - t0
+    del dcache, kept
 
 
 @contextlib.contextmanager
@@ -6566,19 +6904,20 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
                                           where / "ssm.npy")
         tok = vocab_argmax(logits)
         full = convert.gather_cache(cache, model)
-        del cache, logits
+        del logits
         if run.get("chunks"):
             sync()
             t0 = time.perf_counter()
-            logits, cache = model.prefill_streaming(
+            logits, streamed = model.prefill_streaming(
                 params, prompt, chunk=run["seq"] // run["chunks"])
             sync()
             out["stream_s"] = time.perf_counter() - t0
             out["stream_rel"] = _shard_rows_rel(
                 pctx, logits, np.load(where / "stream_logits.npy"), vocab)
             out["stream_state_rel"] = _state_rel(
-                pctx, model, cache["layers"]["ssm"], where / "stream_ssm.npy")
-            del logits, cache
+                pctx, model, streamed["layers"]["ssm"],
+                where / "stream_ssm.npy")
+            del logits, streamed
         for name in controls:
             if name not in ("ssd_o", "ssd_norm"):
                 continue
@@ -6596,6 +6935,12 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
     with shd.use_ctx(dctx):
         dmodel = model if r == 1 else build_model(
             cfg, kv_repeat=dctx.profile.kv_repeat, device=dev)
+    if run.get("swap_steps"):
+        _swap_layouts(model, dmodel, params, cache, cfg, run, dev, pctx,
+                      dctx, ref_toks, ref_logits,
+                      min(run["swap_steps"], steps), controls, where, out)
+    del cache
+    with shd.use_ctx(dctx):
 
         def decode(tag):
             cache = convert.shard_cache(full, dmodel)
@@ -6621,7 +6966,7 @@ def _serve_mesh(cfg, run: dict, mesh, dev, steps: int, where: Path,
 
         out["main_rels"], out["main_s"] = decode("main")
         for name in controls:
-            if name in ("ssd_o", "ssd_norm"):
+            if name in ("ssd_o", "ssd_norm", "heads_o", "neighbour_slots"):
                 continue
             with _decode_control(name):
                 out["controls"][name] = max(decode(name)[0])
@@ -7090,11 +7435,13 @@ def _cfg_line(cfg) -> str:
 
 def serve_launches(cfg, run: dict) -> dict:
     """The launches a rank's bf16 serving path implies: K5 once an
-    attention block in the prefill; K7 once a layer in the prefill and in
-    each chunk of the streamed one (the decode steps launch neither)."""
+    attention block in the prefill, and again in the prefill under the
+    decode rules with ``swap_steps``; K7 once a layer in the prefill and
+    in each chunk of the streamed one (the decode steps launch
+    neither)."""
     out = {}
     if cfg.has_attention:
-        out["K5"] = attentions(cfg)
+        out["K5"] = attentions(cfg) * (2 if run.get("swap_steps") else 1)
     if cfg.ssm.enabled:
         out["K7"] = cfg.num_layers * (1 + run.get("chunks", 0))
     return out
@@ -7179,6 +7526,30 @@ def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
             if key in b:
                 reads += [(key, b[key], TF_RTOL),
                           (f"float32 {key}", f[key], TF_F32_RTOL)]
+        if "swap_s" in b:
+            log(f"  rank {r['rank']}: swapped layouts: the decode under the "
+                f"prefill rules (head-parallel, {len(b['swap_heads_rels'])} "
+                f"steps "
+                f"on the prefill's cache) off by "
+                f"{max(b['swap_heads_rels']):.4g}, the prefill under the "
+                f"decode rules (straight into {b['swap_cache_slots']} of "
+                f"{run['cap']} slots) {b['swap_prefill_rel']:.4g}, its "
+                f"slots of K {b['swap_cache_rel']:.4g} and its steps "
+                f"{max(b['swap_seq_rels']):.4g} (limit {TF_RTOL}); "
+                f"float32 {max(f['swap_heads_rels']):.3g}, "
+                f"{f['swap_prefill_rel']:.3g}, {f['swap_cache_rel']:.3g}, "
+                f"{max(f['swap_seq_rels']):.3g} (limit {TF_F32_RTOL}); "
+                f"{b['swap_s']:.3f} s ({card})")
+            for key, what in (("swap_heads_rels", "head-parallel decode"),
+                              ("swap_prefill_rel", "prefill under the "
+                               "decode rules"),
+                              ("swap_cache_rel", "the slots of K it "
+                               "filled"),
+                              ("swap_seq_rels", "steps on the "
+                               "sequence-sharded prefill cache")):
+                worst = (lambda x: max(x) if isinstance(x, list) else x)
+                reads += [(what, worst(b[key]), TF_RTOL),
+                          (f"float32 {what}", worst(f[key]), TF_F32_RTOL)]
         for what, reading, limit in reads:
             check(reading <= limit, f"{tag}: rank {r['rank']} {what} off by "
                                     f"{reading:.4g} (limit {limit})")
@@ -7189,6 +7560,11 @@ def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
                    "ssd_o": "the SSD o projection's model reduce dropped",
                    "ssd_norm": "the gated norm over the rank's heads alone",
                    "cross_o": "cross-attention's o reduce dropped",
+                   "heads_o": "the head-parallel decode's o reduce "
+                              "dropped",
+                   "neighbour_slots": "each rank's prefill under the "
+                                      "decode rules keeping its "
+                                      "neighbour's slot range",
                    "text_pos": "the decode at the text's position, the "
                                "patches not counted"}
                 [name], reading, TF_F32_RTOL)
@@ -7784,9 +8160,10 @@ def main(argv=None) -> int:
     # internvl2-76b's full width, then K5's and K6's non-causal replays
     gc.collect()
     torch.cuda.empty_cache()
-    front = frontend_phases(dev, every)
+    front = frontend_phases(dev, every, card=card)
     runs.update(front["runs"])
     report["noncausal_replays"] = front["replays"]
+    report["masked_replays"] = front["masked"]
     for entry in kernels:
         key = entry["name"].split("(")[1].split(",")[0]
         if key in front["replays"]:
@@ -7796,6 +8173,19 @@ def main(argv=None) -> int:
                     "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "shape")}
                 for name, r in front["replays"][key].items()}
+            # the masked replays (per-row key lengths) fold into the
+            # kernel's error, as phase 5's window replay does
+            masked = {name: rec[key] for name, rec in front["masked"].items()}
+            entry["masked"] = {
+                name: {k: r[k] for k in (
+                    "max_abs_err", "row_err", "control_ratio", "ms",
+                    "unmasked_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}
+                for name, r in masked.items()}
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+                r["max_abs_err"] for r in masked.values()])
+            entry["row_err"] = max([entry["row_err"]] + [
+                r["row_err"] for r in masked.values()])
     new_runs = {"moe_serve": runs["moe_serve"]["launches"],
                 "moe_train": runs["moe_train"]["launches"],
                 **{name: r["launches"]

@@ -64,10 +64,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # pages_per_seq, dtype, stream
         "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _P],
-        # q, k, v, o, lse (may be null), B, Sq, Sk, H, Hkv, D, causal,
-        # window, dtype, stream
-        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _P],
+        # q, k, v, o, lse (may be null), kv_len (may be null), B, Sq, Sk,
+        # H, Hkv, D, causal, window, dtype, stream
+        "flash_attention_fwd": [_P] * 6 + [_I] * 9 + [_P],
     },
     "decode_hopper.cu": {
         # q, k_pages, v_pages, table, lens, scratch, out, B, H, Hkv, D, P,
@@ -75,19 +74,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "decode_split_kv": [_P] * 7 + [_I] * 9 + [_P],
     },
     "flash_attention_bwd.cu": {
-        # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, Sq, Sk, H,
-        # Hkv, D, causal, window, dtype, stream
-        "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
+        # q, k, v, o, dO, lse, kv_len (may be null), delta (scratch), dq,
+        # dk, dv, B, Sq, Sk, H, Hkv, D, causal, window, dtype, stream
+        "flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_P],
     },
     "flash_fwd_hopper.cu": {
-        # q, k, v, o, lse (may be null), sched, n_sched, B, Sq, Sk, H, Hkv,
-        # D, causal, window, stream
-        "flash_fwd_wgmma": [_P] * 6 + [_I] * 9 + [_P],
+        # q, k, v, o, lse (may be null), kv_len (may be null), sched,
+        # n_sched, B, Sq, Sk, H, Hkv, D, causal, window, stream
+        "flash_fwd_wgmma": [_P] * 7 + [_I] * 9 + [_P],
     },
     "flash_bwd_hopper.cu": {
-        # q, k, v, o, dO, lse, scratch, dq, dk, dv, sched_q, n_q, sched_k,
-        # n_k, B, Sq, Sk, H, Hkv, D, causal, window, stream
-        "flash_bwd_wgmma": [_P] * 11 + [_I, _P] + [_I] * 9 + [_P],
+        # q, k, v, o, dO, lse, kv_len (may be null), scratch, dq, dk, dv,
+        # sched_q, n_q, sched_k, n_k, B, Sq, Sk, H, Hkv, D, causal, window,
+        # stream
+        "flash_bwd_wgmma": [_P] * 12 + [_I, _P] + [_I] * 9 + [_P],
     },
     "ssd_scan.cu": {
         # xdt, a, B, C, init_state (may be null), y, final_state, b, s, h,

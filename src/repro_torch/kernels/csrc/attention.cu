@@ -50,9 +50,12 @@
 // the products, in one buffer); 256 threads each own 4 query rows x 4 keys
 // of the score tile and 4 rows x D / 16 columns of the output. An fp32
 // online softmax keeps (m, l) per row; causal and window masks apply per
-// element, and key tiles that every row of the tile masks are skipped.
-// This runs on the fp32 CUDA cores, so it sits far below the tensor-core
-// bound; wgmma, TMA and warp specialisation are later work.
+// element, and key tiles that every row of the tile masks are skipped. An
+// optional per-row key length (kv_len [B] int32, clamped to [0, Sk]) ends
+// a row's keys there: the key-tile loop stops at its tile, and the keys
+// past it are masked (a row with none left is NaN, lse -inf). This runs
+// on the fp32 CUDA cores, so it sits far below the tensor-core bound;
+// wgmma, TMA and warp specialisation are later work.
 //
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -329,8 +332,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
-                 int causal, int window, float scale) {
+                 float* __restrict__ lse, const int* __restrict__ kv_len,
+                 int Sq, int Sk, int H, int Hkv, int causal, int window,
+                 float scale) {
     constexpr int NJ = D / 16;        // output columns per thread
     constexpr int LD = D + 1;         // padded rows: conflict-free columns
     constexpr int LDP = kBK + 1;
@@ -369,9 +373,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
     }
 
-    // the keys some row of this tile may attend to: [k_lo, k_hi)
+    // this row's keys end at its length (Sk without kv_len); the keys
+    // some row of this tile may attend to: [k_lo, k_hi)
+    const int len = kv_len == nullptr ? Sk : min(max(kv_len[b], 0), Sk);
     const int q_last = min(q0 + kBQ, Sq) - 1;
-    const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+    const int k_hi = causal ? min(len, q_last + 1) : len;
     const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
     const int t_lo = k_lo / kBK;
     const int t_hi = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : t_lo;
@@ -383,8 +389,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int r = i / D;
             const int d = i - r * D;
             kv_s[r * LD + d] =
-                k0 + r < Sk ? to_f32(kb[(long long)(k0 + r) * kv_pos + d])
-                            : 0.f;
+                k0 + r < len ? to_f32(kb[(long long)(k0 + r) * kv_pos + d])
+                             : 0.f;
         }
         __syncthreads();
 
@@ -414,7 +420,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
                 const int kj = k0 + tx + 16 * c;
-                bool ok = kj < Sk && qi < Sq;
+                bool ok = kj < len && qi < Sq;
                 if (causal) ok = ok && qi >= kj;
                 if (window > 0) ok = ok && qi - kj < window;
                 s[r][c] = ok ? s[r][c] * scale : -CUDART_INF_F;
@@ -448,8 +454,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int r = i / D;
             const int d = i - r * D;
             kv_s[r * LD + d] =
-                k0 + r < Sk ? to_f32(vb[(long long)(k0 + r) * kv_pos + d])
-                            : 0.f;
+                k0 + r < len ? to_f32(vb[(long long)(k0 + r) * kv_pos + d])
+                             : 0.f;
         }
         __syncthreads();
 
@@ -484,9 +490,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, int Sq, int Sk, int H,
-                         int Hkv, int causal, int window,
-                         cudaStream_t stream) {
+                         void* o, float* lse, const int* kv_len, int B,
+                         int Sq, int Sk, int H, int Hkv, int causal,
+                         int window, cudaStream_t stream) {
     auto kern = flash_fwd_kernel<T, D>;
     constexpr size_t smem = flash_smem_bytes<D>();
     if (smem > 48 * 1024) {
@@ -498,25 +504,25 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
     const float scale = 1.0f / sqrtf((float)D);
     kern<<<grid, kFlashThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, Hkv,
-        causal, window, scale);
+        static_cast<const T*>(v), static_cast<T*>(o), lse, kv_len, Sq, Sk,
+        H, Hkv, causal, window, scale);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t flash_by_dim(int D, const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, int Sq, int Sk, int H,
-                         int Hkv, int causal, int window,
+                         void* o, float* lse, const int* n, int B, int Sq,
+                         int Sk, int H, int Hkv, int causal, int window,
                          cudaStream_t stream) {
     switch (D) {
-        case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, Sq, Sk, H,
+        case 32: return launch_flash<T, 32>(q, k, v, o, lse, n, B, Sq, Sk, H,
                                             Hkv, causal, window, stream);
-        case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, Sq, Sk, H,
+        case 64: return launch_flash<T, 64>(q, k, v, o, lse, n, B, Sq, Sk, H,
                                             Hkv, causal, window, stream);
-        case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, Sq, Sk, H,
-                                              Hkv, causal, window, stream);
-        case 256: return launch_flash<T, 256>(q, k, v, o, lse, B, Sq, Sk, H,
-                                              Hkv, causal, window, stream);
+        case 128: return launch_flash<T, 128>(q, k, v, o, lse, n, B, Sq, Sk,
+                                              H, Hkv, causal, window, stream);
+        case 256: return launch_flash<T, 256>(q, k, v, o, lse, n, B, Sq, Sk,
+                                              H, Hkv, causal, window, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -543,19 +549,23 @@ extern "C" int decode_attention_paged(
     return (int)cudaErrorInvalidValue;
 }
 
+// kv_len: int32 [B] (each row's count of valid keys, clamped to [0, Sk])
+// or null for Sk.
 extern "C" int flash_attention_fwd(
         const void* q, const void* k, const void* v, void* o, void* lse,
-        int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int window,
-        int dtype, void* stream) {
+        const void* kv_len, int B, int Sq, int Sk, int H, int Hkv, int D,
+        int causal, int window, int dtype, void* stream) {
     if (B <= 0 || Sq <= 0 || Hkv <= 0 || H % Hkv != 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
+    const int* n = static_cast<const int*>(kv_len);
     if (dtype == 0)
-        return (int)flash_by_dim<float>(D, q, k, v, o, l, B, Sq, Sk, H, Hkv,
-                                        causal, window, s);
+        return (int)flash_by_dim<float>(D, q, k, v, o, l, n, B, Sq, Sk, H,
+                                        Hkv, causal, window, s);
     if (dtype == 1)
-        return (int)flash_by_dim<__nv_bfloat16>(D, q, k, v, o, l, B, Sq, Sk,
-                                                H, Hkv, causal, window, s);
+        return (int)flash_by_dim<__nv_bfloat16>(D, q, k, v, o, l, n, B, Sq,
+                                                Sk, H, Hkv, causal, window,
+                                                s);
     return (int)cudaErrorInvalidValue;
 }

@@ -28,6 +28,10 @@
 // ref_flash_attention). A key or query outside the mask contributes
 // nothing: a row with nothing to attend to (its lse -inf, its o NaN) gets
 // dq = 0 and adds nothing to dk or dv, as the plain version defines it.
+// An optional per-row key length (kv_len [B] int32, null for Sk, clamped
+// to [0, Sk]) masks the keys j >= kv_len[b], as the forward does: the dq
+// pass ends a block's key tiles at the length, and a dk/dv block of keys
+// wholly past it walks no query tile and writes its zeros.
 //
 // What bounds it: operations. 10 * D flops per attended (q, k) pair and
 // head (the recomputed scores, dP, dV, dQ and dK) at the 989 TFLOP/s bf16
@@ -105,9 +109,10 @@ __device__ __forceinline__ void stage(float* __restrict__ tile,
     }
 }
 
-__device__ __forceinline__ bool attends(int qi, int kj, int Sq, int Sk,
+// the row's keys end at len (Sk, or the row's clamped kv_len)
+__device__ __forceinline__ bool attends(int qi, int kj, int Sq, int len,
                                         int causal, int window) {
-    bool ok = qi < Sq && kj < Sk;
+    bool ok = qi < Sq && kj < len;
     if (causal) ok = ok && qi >= kj;
     if (window > 0) ok = ok && qi - kj < window;
     return ok;
@@ -144,8 +149,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dO,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int causal,
-              int window, float scale) {
+              T* __restrict__ dq, const int* __restrict__ kv_len, int Sq,
+              int Sk, int H, int Hkv, int causal, int window, float scale) {
     constexpr int NJ = D / 16;        // dq columns per thread
     constexpr int LD = D + 1;         // padded rows: conflict-free columns
     constexpr int LDP = kBK + 1;
@@ -181,9 +186,11 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
     }
 
-    // the keys some row of this tile may attend to: [k_lo, k_hi)
+    // this row's keys end at its length (Sk without kv_len); the keys
+    // some row of this tile may attend to: [k_lo, k_hi)
+    const int len = kv_len == nullptr ? Sk : min(max(kv_len[b], 0), Sk);
     const int q_last = min(q0 + kBQ, Sq) - 1;
-    const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+    const int k_hi = causal ? min(len, q_last + 1) : len;
     const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
     const int t_lo = k_lo / kBK;
     const int t_hi = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : t_lo;
@@ -191,7 +198,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = t_lo; t < t_hi; ++t) {
         const int k0 = t * kBK;
         __syncthreads();              // the last tile's dq products are done
-        stage<T, D>(kv_s, vb, k0, Sk, kv_pos);
+        stage<T, D>(kv_s, vb, k0, len, kv_pos);
         __syncthreads();
         float dp[4][4];
 #pragma unroll
@@ -212,7 +219,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     dp[r][c] = fmaf(a[r], bv[c], dp[r][c]);
         }
         __syncthreads();              // V is read
-        stage<T, D>(kv_s, kb, k0, Sk, kv_pos);
+        stage<T, D>(kv_s, kb, k0, len, kv_pos);
         __syncthreads();
         float s[4][4];
 #pragma unroll
@@ -240,7 +247,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int kj = k0 + tx + 16 * c;
                 float ds = 0.f;       // outside the mask: nothing, even
                                       // where lse is -inf or D is NaN
-                if (attends(qi, kj, Sq, Sk, causal, window)) {
+                if (attends(qi, kj, Sq, len, causal, window)) {
                     const float p = expf(s[r][c] * scale - lse_r[r]);
                     ds = p * (dp[r][c] - dl_r[r]);
                 }
@@ -280,8 +287,8 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dO,
                const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-               int causal, int window, float scale) {
+               T* __restrict__ dv, const int* __restrict__ kv_len, int Sq,
+               int Sk, int H, int Hkv, int causal, int window, float scale) {
     constexpr int NJ = D / 16;        // dk / dv columns per thread
     constexpr int LD = D + 1;
     constexpr int LDQ = kBQ + 1;
@@ -305,8 +312,10 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long kv_pos = (long long)Hkv * D;
     const long long kv_off = (long long)b * Sk * kv_pos + (long long)hk * D;
 
-    stage<T, D>(k_s, k + kv_off, k0, Sk, kv_pos);
-    stage<T, D>(v_s, v + kv_off, k0, Sk, kv_pos);
+    // this row's keys end at its length (Sk without kv_len)
+    const int len = kv_len == nullptr ? Sk : min(max(kv_len[b], 0), Sk);
+    stage<T, D>(k_s, k + kv_off, k0, len, kv_pos);
+    stage<T, D>(v_s, v + kv_off, k0, len, kv_pos);
     float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -316,10 +325,12 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             dv_acc[r][j] = 0.f;
         }
 
-    // the queries that may attend some key of this tile: [q_lo, q_hi)
+    // the queries that may attend some key of this tile: [q_lo, q_hi);
+    // none where the tile lies wholly past the length (its zeros written)
     const int k_last = min(k0 + kBK, Sk) - 1;
     const int q_lo = causal ? k0 : 0;
-    const int q_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+    const int q_hi = k0 >= len ? q_lo
+        : window > 0 ? min(Sq, k_last + window) : Sq;
     const int t_lo = q_lo / kBQ;
     const int t_hi = q_hi > q_lo ? (q_hi + kBQ - 1) / kBQ : t_lo;
 
@@ -362,7 +373,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
                 for (int c = 0; c < 4; ++c) {
                     const int qi = q0 + tx + 16 * c;
-                    ok[r][c] = attends(qi, kj, Sq, Sk, causal, window);
+                    ok[r][c] = attends(qi, kj, Sq, len, causal, window);
                     p[r][c] = ok[r][c]
                         ? expf(p[r][c] * scale - lse_s[tx + 16 * c]) : 0.f;
                 }
@@ -455,9 +466,9 @@ cudaError_t allow_smem(K kern, size_t smem) {
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dO, const float* lse,
-                       float* delta, void* dq, void* dk, void* dv, int B,
-                       int Sq, int Sk, int H, int Hkv, int causal,
-                       int window, cudaStream_t stream) {
+                       const int* kv_len, float* delta, void* dq, void* dk,
+                       void* dv, int B, int Sq, int Sk, int H, int Hkv,
+                       int causal, int window, cudaStream_t stream) {
     const long long rows = (long long)B * Sq * H;
     const unsigned delta_blocks =
         (unsigned)((rows + kDeltaWarps - 1) / kDeltaWarps);
@@ -474,7 +485,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     dq_kern<<<dim3((Sq + kBQ - 1) / kBQ, B * H), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
-        static_cast<T*>(dq), Sq, Sk, H, Hkv, causal, window, scale);
+        static_cast<T*>(dq), kv_len, Sq, Sk, H, Hkv, causal, window, scale);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
     auto dkv_kern = bwd_dkv_kernel<T, D>;
@@ -483,29 +494,29 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, Hkv, causal,
-        window, scale);
+        static_cast<T*>(dk), static_cast<T*>(dv), kv_len, Sq, Sk, H, Hkv,
+        causal, window, scale);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t bwd_by_dim(int D, const void* q, const void* k, const void* v,
                        const void* o, const void* dO, const float* lse,
-                       float* delta, void* dq, void* dk, void* dv, int B,
-                       int Sq, int Sk, int H, int Hkv, int causal,
-                       int window, cudaStream_t stream) {
+                       const int* n, float* delta, void* dq, void* dk,
+                       void* dv, int B, int Sq, int Sk, int H, int Hkv,
+                       int causal, int window, cudaStream_t stream) {
     switch (D) {
-        case 32: return launch_bwd<T, 32>(q, k, v, o, dO, lse, delta, dq, dk,
-                                          dv, B, Sq, Sk, H, Hkv, causal,
+        case 32: return launch_bwd<T, 32>(q, k, v, o, dO, lse, n, delta, dq,
+                                          dk, dv, B, Sq, Sk, H, Hkv, causal,
                                           window, stream);
-        case 64: return launch_bwd<T, 64>(q, k, v, o, dO, lse, delta, dq, dk,
-                                          dv, B, Sq, Sk, H, Hkv, causal,
+        case 64: return launch_bwd<T, 64>(q, k, v, o, dO, lse, n, delta, dq,
+                                          dk, dv, B, Sq, Sk, H, Hkv, causal,
                                           window, stream);
-        case 128: return launch_bwd<T, 128>(q, k, v, o, dO, lse, delta, dq,
-                                            dk, dv, B, Sq, Sk, H, Hkv,
+        case 128: return launch_bwd<T, 128>(q, k, v, o, dO, lse, n, delta,
+                                            dq, dk, dv, B, Sq, Sk, H, Hkv,
                                             causal, window, stream);
-        case 256: return launch_bwd<T, 256>(q, k, v, o, dO, lse, delta, dq,
-                                            dk, dv, B, Sq, Sk, H, Hkv,
+        case 256: return launch_bwd<T, 256>(q, k, v, o, dO, lse, n, delta,
+                                            dq, dk, dv, B, Sq, Sk, H, Hkv,
                                             causal, window, stream);
         default: return cudaErrorInvalidValue;
     }
@@ -513,22 +524,23 @@ cudaError_t bwd_by_dim(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16. kv_len: int32 [B] or null.
 extern "C" int flash_attention_bwd(
         const void* q, const void* k, const void* v, const void* o,
-        const void* dO, const void* lse, void* delta, void* dq, void* dk,
-        void* dv, int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
-        int window, int dtype, void* stream) {
+        const void* dO, const void* lse, const void* kv_len, void* delta,
+        void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int Hkv,
+        int D, int causal, int window, int dtype, void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* l = static_cast<const float*>(lse);
+    const int* n = static_cast<const int*>(kv_len);
     float* dl = static_cast<float*>(delta);
     if (dtype == 0)
-        return (int)bwd_by_dim<float>(D, q, k, v, o, dO, l, dl, dq, dk, dv, B,
-                                      Sq, Sk, H, Hkv, causal, window, s);
+        return (int)bwd_by_dim<float>(D, q, k, v, o, dO, l, n, dl, dq, dk, dv,
+                                      B, Sq, Sk, H, Hkv, causal, window, s);
     if (dtype == 1)
-        return (int)bwd_by_dim<__nv_bfloat16>(D, q, k, v, o, dO, l, dl, dq,
+        return (int)bwd_by_dim<__nv_bfloat16>(D, q, k, v, o, dO, l, n, dl, dq,
                                               dk, dv, B, Sq, Sk, H, Hkv,
                                               causal, window, s);
     return (int)cudaErrorInvalidValue;

@@ -23,7 +23,11 @@
 // of their KV head in the same fp32 accumulators (the JAX wrapper rounds
 // each head to bf16 before its sum). A row with nothing to attend to (lse
 // -inf, o NaN) gets dq = 0 and adds nothing to dk or dv: every masked
-// product is a select.
+// product is a select. An optional per-row key length (kv_len [B] int32,
+// null for Sk, clamped to [0, Sk]) masks the keys j >= kv_len[b] as K5
+// does: the dq pass ends each block's key tiles at the length, and a
+// dk/dv block of keys wholly past it reads no query tile and writes its
+// zeros (the wrapper's dk and dv are not zeroed beforehand).
 //
 // What bounds it: operations. 10 * D flops per attended (q, k) pair and
 // head (S, dP, dV, dQ, dK): 0.78 ms for starcoder2-7b's training shape
@@ -81,9 +85,10 @@ constexpr int kK_BK = 128;        // dk/dv pass: keys per block
 constexpr int kK_BQ = 64;         //             query rows per tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ bool attends(int qi, int kj, int Sq, int Sk,
+// the row's keys end at len (Sk, or the row's clamped kv_len)
+__device__ __forceinline__ bool attends(int qi, int kj, int Sq, int len,
                                         int causal, int window) {
-    bool ok = qi < Sq && kj < Sk;
+    bool ok = qi < Sq && kj < len;
     if (causal) ok = ok && qi >= kj;
     if (window > 0) ok = ok && qi - kj < window;
     return ok;
@@ -148,6 +153,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tv,
                     const float* __restrict__ lse2,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const int* __restrict__ kv_len,
                     const int* __restrict__ sched, int Sq, int Sqp, int Sk,
                     int H, int Hkv, int causal, int window, float scale_log2,
                     float scale) {
@@ -165,7 +171,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int hk = h / (H / Hkv);
     const int q0 = sched[3 * blockIdx.y] * kQ_BQ;
     const int t_lo = sched[3 * blockIdx.y + 1];
-    const int t_hi = sched[3 * blockIdx.y + 2];
+    // this row's keys end at its length: the masks' tile range cut there
+    const int len = kv_len == nullptr ? Sk : min(max(kv_len[b], 0), Sk);
+    const int t_hi = min(sched[3 * blockIdx.y + 2],
+                         (len + kQ_BK - 1) / kQ_BK);
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
@@ -237,7 +246,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 mbar_arrive(&empty[s]);
                 continue;
             }
-            const bool edge = k0 + kQ_BK > Sk
+            const bool edge = k0 + kQ_BK > len
                 || (causal && k0 + kQ_BK - 1 > qw)
                 || (window > 0 && qw + 63 - k0 >= window);
             const uint8_t* ks = smem + L::k + s * L::kTile;
@@ -277,7 +286,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         fmaf(sc[i + e], scale_log2, -lr[hi]));
                     x[e] = p * (dp[i + e] - dl[hi]);
                     if (edge && !attends(r0 + 8 * hi,
-                                         k0 + 8 * (i / 4) + c0 + e, Sq, Sk,
+                                         k0 + 8 * (i / 4) + c0 + e, Sq, len,
                                          causal, window))
                         x[e] = 0.f;
                 }
@@ -337,9 +346,10 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse2,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, const int* __restrict__ sched,
-                     int Sq, int Sqp, int Sk, int H, int Hkv, int causal,
-                     int window, float scale_log2, float scale) {
+                     bf16* __restrict__ dv, const int* __restrict__ kv_len,
+                     const int* __restrict__ sched, int Sq, int Sqp, int Sk,
+                     int H, int Hkv, int causal, int window,
+                     float scale_log2, float scale) {
     using L = DkvSmem<D>;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -355,7 +365,10 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     const int k0 = sched[3 * blockIdx.y] * kK_BK;
     const int t_lo = sched[3 * blockIdx.y + 1];
     const int n_t = sched[3 * blockIdx.y + 2] - t_lo;
-    const int steps = G * n_t;          // (head of the group, query tile)
+    // keys wholly past this row's length: no query tile is read, and the
+    // consumers write their zeros
+    const int len = kv_len == nullptr ? Sk : min(max(kv_len[b], 0), Sk);
+    const int steps = k0 < len ? G * n_t : 0;   // (head of the group, tile)
 
     if (threadIdx.x == 0) {
         mbar_init(kv_full, 1);
@@ -423,14 +436,14 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
             const int qt0 = (t_lo + it % n_t) * kK_BQ;
             const int s = it % kStages;
             mbar_wait(&full[s], (it / kStages) & 1);
-            const bool none = kw >= Sk
+            const bool none = kw >= len
                 || (causal && qt0 + kK_BQ - 1 < kw)
                 || (window > 0 && qt0 - (kw + 63) >= window);
             if (none) {
                 mbar_arrive(&empty[s]);
                 continue;
             }
-            const bool edge = kw + 64 > Sk || qt0 + kK_BQ > Sq
+            const bool edge = kw + 64 > len || qt0 + kK_BQ > Sq
                 || (causal && qt0 < kw + 63)
                 || (window > 0 && qt0 + kK_BQ - 1 - kw >= window);
             const uint8_t* qs = smem + L::q + s * L::kTile;
@@ -476,7 +489,7 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                     p[e] = exp2_approx(fmaf(st[i + e], scale_log2,
                                             -(e ? lq.y : lq.x)));
                     x[e] = p[e] * (dpt[i + e] - (e ? dq2.y : dq2.x));
-                    if (edge && !attends(qt0 + c + e, key, Sq, Sk, causal,
+                    if (edge && !attends(qt0 + c + e, key, Sq, len, causal,
                                          window)) {
                         p[e] = 0.f;
                         x[e] = 0.f;
@@ -530,10 +543,10 @@ cudaError_t allow_smem(K kern, int bytes) {
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dO, const float* lse, float* scratch, void* dq,
-           void* dk, void* dv, const int* sched_q, int n_q,
-           const int* sched_k, int n_k, int B, int Sq, int Sk, int H,
-           int Hkv, int causal, int window, cudaStream_t stream) {
+           const void* dO, const float* lse, const int* kv_len,
+           float* scratch, void* dq, void* dk, void* dv, const int* sched_q,
+           int n_q, const int* sched_k, int n_k, int B, int Sq, int Sk,
+           int H, int Hkv, int causal, int window, cudaStream_t stream) {
     const int Sqp = (Sq + kPad - 1) / kPad * kPad;
     const long long rows = (long long)B * H * Sqp;
     float* delta = scratch;
@@ -562,8 +575,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     if ((c = allow_smem(dq_kern, DqSmem<D>::bytes)) != cudaSuccess)
         return (int)c;
     dq_kern<<<dim3(B * H, n_q), kThreads, DqSmem<D>::bytes, stream>>>(
-        q128, do128, k64, v64, lse2, delta, static_cast<bf16*>(dq), sched_q,
-        Sq, Sqp, Sk, H, Hkv, causal, window, scale_log2, scale);
+        q128, do128, k64, v64, lse2, delta, static_cast<bf16*>(dq), kv_len,
+        sched_q, Sq, Sqp, Sk, H, Hkv, causal, window, scale_log2, scale);
     if ((c = cudaGetLastError()) != cudaSuccess) return (int)c;
 
     auto dkv_kern = bwd_dkv_wgmma_kernel<D>;
@@ -571,8 +584,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
         return (int)c;
     dkv_kern<<<dim3(B * Hkv, n_k), kThreads, DkvSmem<D>::bytes, stream>>>(
         k128, v128, q64, do64, lse2, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), sched_k, Sq, Sqp, Sk, H, Hkv, causal, window,
-        scale_log2, scale);
+        static_cast<bf16*>(dv), kv_len, sched_k, Sq, Sqp, Sk, H, Hkv, causal,
+        window, scale_log2, scale);
     return (int)cudaGetLastError();
 }
 
@@ -582,12 +595,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // then lse * log2(e)). sched_q: int32 [n_q, 3] (query tile of 128, first
 // and end key tile of 64), every query tile once; sched_k: int32
 // [n_k, 3] (key tile of 128, first and end query tile of 64), every key
-// tile once.
+// tile once. kv_len: int32 [B] or null.
 extern "C" int flash_bwd_wgmma(const void* q, const void* k, const void* v,
                                const void* o, const void* dO,
-                               const void* lse, void* scratch, void* dq,
-                               void* dk, void* dv, const void* sched_q,
-                               int n_q, const void* sched_k, int n_k, int B,
+                               const void* lse, const void* kv_len,
+                               void* scratch, void* dq, void* dk, void* dv,
+                               const void* sched_q, int n_q,
+                               const void* sched_k, int n_k, int B,
                                int Sq, int Sk, int H, int Hkv, int D,
                                int causal, int window, void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0
@@ -599,11 +613,12 @@ extern "C" int flash_bwd_wgmma(const void* q, const void* k, const void* v,
     float* w = static_cast<float*>(scratch);
     const int* sq = static_cast<const int*>(sched_q);
     const int* sk = static_cast<const int*>(sched_k);
+    const int* n = static_cast<const int*>(kv_len);
     if (D == 64)
-        return launch<64>(q, k, v, o, dO, l, w, dq, dk, dv, sq, n_q, sk, n_k,
-                          B, Sq, Sk, H, Hkv, causal, window, s);
+        return launch<64>(q, k, v, o, dO, l, n, w, dq, dk, dv, sq, n_q, sk,
+                          n_k, B, Sq, Sk, H, Hkv, causal, window, s);
     if (D == 128)
-        return launch<128>(q, k, v, o, dO, l, w, dq, dk, dv, sq, n_q, sk,
+        return launch<128>(q, k, v, o, dO, l, n, w, dq, dk, dv, sq, n_q, sk,
                            n_k, B, Sq, Sk, H, Hkv, causal, window, s);
     return (int)cudaErrorInvalidValue;
 }

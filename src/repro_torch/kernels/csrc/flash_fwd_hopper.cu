@@ -14,8 +14,12 @@
 // `p.astype(v.dtype)`), the row sum l over the unrounded p, o = acc / l
 // rounded once. Masks count q and k positions from 0 (so Sq != Sk);
 // causal keeps k <= q, window > 0 keeps q - k < window; a key past Sk is
-// masked (the TMA load fills it with zeros, which would score 0). A row
-// with nothing to attend to is NaN with lse -inf, as the float32 oracle.
+// masked (the TMA load fills it with zeros, which would score 0). An
+// optional per-row key length (kv_len [B] int32, null for Sk, clamped to
+// [0, Sk] here) masks the keys j >= kv_len[b] as well: the key-tile loop
+// of a block ends at the length's tile, so the tiles past it are never
+// loaded, and the tile that crosses it is masked as an edge. A row with
+// nothing to attend to is NaN with lse -inf, as the float32 oracle.
 //
 // What bounds it: operations. 4 * D flops per attended (q, k) pair and
 // head at the 989 TFLOP/s bf16 dense rate: 0.61 ms for an 8,192-token
@@ -70,9 +74,10 @@ struct FwdSmem {
     static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-__device__ __forceinline__ bool attends(int qi, int kj, int Sk, int causal,
+// the row's keys end at len (Sk, or the row's clamped kv_len)
+__device__ __forceinline__ bool attends(int qi, int kj, int len, int causal,
                                         int window) {
-    bool ok = kj < Sk;
+    bool ok = kj < len;
     if (causal) ok = ok && qi >= kj;
     if (window > 0) ok = ok && qi - kj < window;
     return ok;
@@ -84,6 +89,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        bf16* __restrict__ o, float* __restrict__ lse,
+                       const int* __restrict__ kv_len,
                        const int* __restrict__ sched, int Sq, int Sk, int H,
                        int Hkv, int causal, int window, float scale_log2) {
     using L = FwdSmem<D>;
@@ -100,7 +106,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int hk = h / (H / Hkv);
     const int q0 = sched[3 * blockIdx.y] * kBQ;
     const int t_lo = sched[3 * blockIdx.y + 1];
-    const int t_hi = sched[3 * blockIdx.y + 2];
+    // this row's keys end at its length: the masks' tile range cut there
+    const int len = kv_len == nullptr ? Sk : min(max(kv_len[b], 0), Sk);
+    const int t_hi = min(sched[3 * blockIdx.y + 2], (len + kBK - 1) / kBK);
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
@@ -166,7 +174,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 mbar_arrive(&empty[s]);
                 continue;
             }
-            const bool edge = k0 + kBK > Sk
+            const bool edge = k0 + kBK > len
                 || (causal && k0 + kBK - 1 > qw)
                 || (window > 0 && qw + 63 - k0 >= window);
 
@@ -193,7 +201,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const int hi = (i / 2) % 2;
                 float x = sc[i] * scale_log2;
                 const int kj = k0 + 8 * (i / 4) + c0 + i % 2;
-                if (edge && !attends(r0 + 8 * hi, kj, Sk, causal, window))
+                if (edge && !attends(r0 + 8 * hi, kj, len, causal, window))
                     x = -CUDART_INF_F;
                 sc[i] = x;
                 mx[hi] = fmaxf(mx[hi], x);
@@ -263,8 +271,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const int* sched, int n_sched, int B, int Sq, int Sk, int H,
-           int Hkv, int causal, int window, cudaStream_t stream) {
+           const int* kv_len, const int* sched, int n_sched, int B, int Sq,
+           int Sk, int H, int Hkv, int causal, int window,
+           cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
     int e;
     if ((e = make_map(&tq, q, B, Sq, H, D, kBQ)) != 0) return e;
@@ -277,31 +286,32 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (c != cudaSuccess) return (int)c;
     const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
     kern<<<dim3(B * H, n_sched), kThreads, smem, stream>>>(
-        tq, tk, tv, static_cast<bf16*>(o), lse, sched, Sq, Sk, H, Hkv,
-        causal, window, scale_log2);
+        tq, tk, tv, static_cast<bf16*>(o), lse, kv_len, sched, Sq, Sk, H,
+        Hkv, causal, window, scale_log2);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // sched: int32 [n_sched, 3] (query tile, first key tile, end key tile),
-// every query tile of ceil(Sq / 128) once.
+// every query tile of ceil(Sq / 128) once. kv_len: int32 [B] or null.
 extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
-                               void* o, void* lse, const void* sched,
-                               int n_sched, int B, int Sq, int Sk, int H,
-                               int Hkv, int D, int causal, int window,
-                               void* stream) {
+                               void* o, void* lse, const void* kv_len,
+                               const void* sched, int n_sched, int B, int Sq,
+                               int Sk, int H, int Hkv, int D, int causal,
+                               int window, void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0
         || n_sched != (Sq + kBQ - 1) / kBQ)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
     const int* t = static_cast<const int*>(sched);
+    const int* n = static_cast<const int*>(kv_len);
     if (D == 64)
-        return launch<64>(q, k, v, o, l, t, n_sched, B, Sq, Sk, H, Hkv,
+        return launch<64>(q, k, v, o, l, n, t, n_sched, B, Sq, Sk, H, Hkv,
                           causal, window, s);
     if (D == 128)
-        return launch<128>(q, k, v, o, l, t, n_sched, B, Sq, Sk, H, Hkv,
+        return launch<128>(q, k, v, o, l, n, t, n_sched, B, Sq, Sk, H, Hkv,
                            causal, window, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,12 @@ k/v [B, Sk, Hkv, D] (GQA: H a multiple of Hkv), o [B, Sq, H, D] in q's
 dtype, and the optional log-sum-exp [B*H, Sq] float32 flattened in
 (b, hkv, g) order, the layout the backward reads. The causal mask counts
 q and k positions from 0 (so Sq != Sk works as in JAX); ``window > 0``
-keeps keys with ``q - k < window``.
+keeps keys with ``q - k < window``. ``kv_valid_len`` [B] int32 keeps
+the keys ``j < kv_valid_len[b]`` of row b as well (the padding mask of
+the JAX package's ``blocked_attention``): both kernels end a row's key
+loop at its length, so the key tiles past it are skipped, not masked;
+the lengths are clamped in the kernel to [0, Sk], and a row left with no
+key is NaN with an lse of -inf.
 
 Both paths go through one ``torch.autograd.Function``, differentiable in
 q, k and v: its forward is K5 (keeping the log-sum-exp whenever a gradient
@@ -31,18 +36,20 @@ from repro_torch.kernels import flash_tiles
 # one source holds K4 and K5, instantiated for the same types and head dims
 from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS
 from repro_torch.kernels.flash_attention_bwd import (
-    flash_attention_bwd_cuda, flash_attention_bwd_plain,
+    _ptr, check_lengths, flash_attention_bwd_cuda, flash_attention_bwd_plain,
 )
 from repro_torch.kernels.ref import ref_flash_attention
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          kv_valid_len: torch.Tensor | None = None):
     """K5's function in plain torch: the oracle's materialized softmax in
     fp32 (one KV head's group at a time), with its log-sum-exp."""
     return ref_flash_attention(q, k, v, causal=causal, window=window,
-                               return_lse=return_lse)
+                               return_lse=return_lse,
+                               kv_valid_len=kv_valid_len)
 
 
 def _check(q, k, v):
@@ -70,8 +77,9 @@ def _check(q, k, v):
 
 
 def _launch(q, k, v, causal: bool, window: int, return_lse: bool,
-            design: str | None):
+            design: str | None, kv_valid_len=None):
     _check(q, k, v)
+    check_lengths(kv_valid_len, q.shape[0], q.device)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     design = flash_tiles.design(q.dtype, d, design)
@@ -90,35 +98,40 @@ def _launch(q, k, v, causal: bool, window: int, return_lse: bool,
                                             q.device)
         library("flash_fwd_hopper.cu").call(
             "flash_fwd_wgmma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse_ptr, sched.data_ptr(), sched.shape[0], b, sq,
-            sk, h, hkv, d, int(bool(causal)), int(window), stream)
+            o.data_ptr(), lse_ptr, _ptr(kv_valid_len), sched.data_ptr(),
+            sched.shape[0], b, sq, sk, h, hkv, d, int(bool(causal)),
+            int(window), stream)
     else:
         library("attention.cu").call(
             "flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse_ptr, b, sq, sk, h, hkv, d, int(bool(causal)),
-            int(window), DTYPES[q.dtype], stream)
+            o.data_ptr(), lse_ptr, _ptr(kv_valid_len), b, sq, sk, h, hkv, d,
+            int(bool(causal)), int(window), DTYPES[q.dtype], stream)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_design[design] += 1
     return o, lse
 
 
 class _FlashForward(torch.autograd.Function):
-    """K5 forward, K6 backward. It saves q, k, v, o and lse for the
-    backward; with ``plain`` both passes take the plain versions, on
-    whatever device the tensors are."""
+    """K5 forward, K6 backward. It saves q, k, v, o, lse and the key
+    lengths for the backward; with ``plain`` both passes take the plain
+    versions, on whatever device the tensors are. The lengths (the last
+    argument, or None) get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, return_lse, plain, design):
+    def forward(ctx, q, k, v, causal, window, return_lse, plain, design,
+                kv_valid_len=None):
         want_lse = return_lse or any(ctx.needs_input_grad[:3])
         if q.is_cuda and not plain:
-            o, lse = _launch(q, k, v, causal, window, want_lse, design)
+            o, lse = _launch(q, k, v, causal, window, want_lse, design,
+                             kv_valid_len)
         else:
             out = flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, return_lse=want_lse)
+                                        window=window, return_lse=want_lse,
+                                        kv_valid_len=kv_valid_len)
             o, lse = out if want_lse else (out, None)
         ctx.causal, ctx.window, ctx.plain = causal, window, plain
         if any(ctx.needs_input_grad[:3]):
-            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.save_for_backward(q, k, v, o, lse, kv_valid_len)
         if not return_lse:
             return o, None
         ctx.mark_non_differentiable(lse)
@@ -126,28 +139,32 @@ class _FlashForward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, kv_valid_len = ctx.saved_tensors
         fn = flash_attention_bwd_plain if ctx.plain \
             else flash_attention_bwd_cuda
         dq, dk, dv = fn(q, k, v, o, do.contiguous(), lse, causal=ctx.causal,
-                        window=ctx.window)
-        return dq, dk, dv, None, None, None, None, None
+                        window=ctx.window, kv_valid_len=kv_valid_len)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          return_lse: bool = False,
-                         design: str | None = None):
+                         design: str | None = None,
+                         kv_valid_len: torch.Tensor | None = None):
     """K5: attention forward. q [B, Sq, H, D], k/v [B, Sk, Hkv, D]
     contiguous, float32 or bfloat16 -> o [B, Sq, H, D] in q's dtype (and
     lse [B*H, Sq] float32 with ``return_lse``), on the current stream. A
     CPU tensor takes ``flash_attention_plain``. A row with nothing to
-    attend to is NaN (its lse -inf). Differentiable in q, k and v through
-    K6 (``flash_attention_bwd_cuda``). ``design`` None takes the design of
+    attend to is NaN (its lse -inf). ``kv_valid_len``: int32 [B] on the
+    inputs' device, each row's count of valid keys (None: Sk).
+    Differentiable in q, k and v through K6
+    (``flash_attention_bwd_cuda``). ``design`` None takes the design of
     ``flash_tiles``' table; a name forces that design (for measurements)
     and raises where it does not take the inputs."""
     o, lse = _FlashForward.apply(q, k, v, bool(causal), int(window),
-                                 bool(return_lse), False, design)
+                                 bool(return_lse), False, design,
+                                 kv_valid_len)
     return (o, lse) if return_lse else o
 
 

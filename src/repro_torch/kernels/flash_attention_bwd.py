@@ -25,7 +25,11 @@ the wgmma design the Pallas kernels' rounding of P and dS.
 A row with nothing to attend to (lse -inf, o NaN: only ``Sq > Sk`` with a
 window makes one) gets dq = 0 and adds nothing to dk or dv, in the plain
 version and the kernel alike, as in the JAX package (whose forward masks
-with -1e30, so its o there is a mean of V). The wrapper counts its
+with -1e30, so its o there is a mean of V). ``kv_valid_len`` [B] int32
+masks the keys ``j >= kv_valid_len[b]`` of row b, as the forward does:
+their dk and dv are exactly 0 (a dk/dv block of keys wholly past the
+length writes its zeros and reads no query tile), and a row with no key
+left gets dq = 0. The wrapper counts its
 launches in ``flash_attention_bwd_cuda.launches``, and by design in
 ``flash_attention_bwd_cuda.launches_by_design``.
 """
@@ -43,7 +47,8 @@ from repro_torch.kernels.ref import _mask
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, *,
-                              causal: bool = True, window: int = 0):
+                              causal: bool = True, window: int = 0,
+                              kv_valid_len: torch.Tensor | None = None):
     """K6's function in plain torch, one KV head's group at a time (the
     [B, G, Sq, Sk] scores of one group are the largest temporary), in
     float32 (float64 for float64 inputs):
@@ -64,7 +69,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     delta = (dof * o.to(wide).reshape(b, sq, hkv, g, d)).sum(-1)
     kf, vf = k.to(wide), v.to(wide)
     lsef = lse.to(wide).reshape(b, hkv, g, sq)
-    mask = _mask(sq, sk, causal, window, q.device)
+    mask = _mask(sq, sk, causal, window, q.device, kv_valid_len)
     dq = torch.empty((b, sq, hkv, g, d), dtype=wide, device=q.device)
     dk = torch.empty((b, sk, hkv, d), dtype=wide, device=q.device)
     dv = torch.empty_like(dk)
@@ -80,6 +85,26 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         dv[:, :, j] = torch.einsum("bgqk,bqgd->bkd", p, dof[:, :, j])
     return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def check_lengths(kv_valid_len, b: int, device) -> None:
+    """A per-row key length for a kernel: int32 [B], contiguous, on the
+    inputs' device. Its values are not read here (that would be a host
+    sync a launch): the kernels clamp them to [0, Sk]."""
+    if kv_valid_len is None:
+        return
+    if kv_valid_len.dtype != torch.int32 \
+            or tuple(kv_valid_len.shape) != (b,) \
+            or kv_valid_len.device != device \
+            or not kv_valid_len.is_contiguous():
+        raise ValueError(f"kv_valid_len must be int32 [{b}], contiguous on "
+                         f"{device}, got {kv_valid_len.dtype} "
+                         f"{tuple(kv_valid_len.shape)} on "
+                         f"{kv_valid_len.device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check(q, k, v, o, do, lse):
@@ -119,18 +144,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
-                             design: str | None = None):
+                             design: str | None = None,
+                             kv_valid_len: torch.Tensor | None = None):
     """K6: attention backward. q, o, do [B, Sq, H, D] and k, v
     [B, Sk, Hkv, D] contiguous, one type of float32 or bfloat16; lse
     [B*H, Sq] float32 -> (dq, dk, dv) in the inputs' type, on the current
-    stream. A CPU tensor takes ``flash_attention_bwd_plain``. ``design``
-    None takes the design of ``flash_tiles``' table; a name forces that
-    design (for measurements) and raises where it does not take the
-    inputs."""
+    stream. A CPU tensor takes ``flash_attention_bwd_plain``.
+    ``kv_valid_len``: int32 [B] on the inputs' device, each row's count of
+    valid keys (None: Sk), as the forward took it. ``design`` None takes
+    the design of ``flash_tiles``' table; a name forces that design (for
+    measurements) and raises where it does not take the inputs."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
-                                         window=window)
+                                         window=window,
+                                         kv_valid_len=kv_valid_len)
     _check(q, k, v, o, do, lse)
+    check_lengths(kv_valid_len, q.shape[0], q.device)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     design = flash_tiles.design(q.dtype, d, design)
@@ -154,17 +183,18 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             sq, sk, causal, window, *flash_tiles.DKV_TILES, True, q.device)
         library("flash_bwd_hopper.cu").call(
             "flash_bwd_wgmma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sched_q.data_ptr(),
-            sched_q.shape[0], sched_k.data_ptr(), sched_k.shape[0], b, sq, sk,
-            h, hkv, d, int(causal), window, stream)
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(kv_valid_len),
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            sched_q.data_ptr(), sched_q.shape[0], sched_k.data_ptr(),
+            sched_k.shape[0], b, sq, sk, h, hkv, d, int(causal), window,
+            stream)
     else:
         delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
         library("flash_attention_bwd.cu").call(
             "flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, d,
-            int(causal), window, DTYPES[q.dtype], stream)
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(kv_valid_len),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            sq, sk, h, hkv, d, int(causal), window, DTYPES[q.dtype], stream)
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.launches_by_design[design] += 1
     return dq, dk, dv

@@ -273,30 +273,47 @@ def _on(x, dev: torch.device, name: str, dtype=None) -> torch.Tensor:
     return as_tensor(x, dev, dtype)
 
 
+def _lengths(kv_valid_len, dev: torch.device):
+    """A per-row key length as the kernels take it: int32 on the K/V's
+    device (None stays None)."""
+    if kv_valid_len is None:
+        return None
+    return _on(kv_valid_len, dev, "kv_valid_len", torch.int32).contiguous()
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     backend: str = "auto", block_q: int = 512,
-                    block_k: int = 512, device=None):
+                    block_k: int = 512, device=None, *, kv_valid_len=None):
     """Attention forward (K5): q [B, Sq, H, D], k/v [B, Sk, Hkv, D] ->
-    [B, Sq, H, D], on k's device (``device`` places array-likes; q or v on
-    another device raises). ``block_q`` and ``block_k`` are the JAX entry
-    point's Pallas tile sizes, accepted for signature parity and read by
-    neither path here: the CUDA kernels tile by their own sizes
+    [B, Sq, H, D], on k's device (``device`` places array-likes; q, v or
+    the lengths on another device raise). ``kv_valid_len`` [B]: each
+    row's count of valid keys (``blocked_attention``'s padding mask), put
+    to int32. ``block_q`` and ``block_k`` are the JAX entry point's
+    Pallas tile sizes, accepted for signature parity and read by neither
+    path here: the CUDA kernels tile by their own sizes
     (``kernels/flash_tiles.py``), and the plain version does not tile."""
     _check(backend)
     dev = _kv_device(k, device)
     k = _on(k, dev, "k")
     q, v = _on(q, dev, "q"), _on(v, dev, "v")
+    lens = _lengths(kv_valid_len, dev)
     if backend == "ref":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     kv_valid_len=lens)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                kv_valid_len=lens)
 
 
 def flash_attention_vjp(q, k, v, causal: bool = True, window: int = 0,
                         block_q: int = 512, block_k: int = 512,
-                        backend: str = "auto", device=None):
+                        backend: str = "auto", device=None, *,
+                        kv_valid_len=None):
     """Attention differentiable in q, k and v (K5 forward, K6 backward):
     q [B, Sq, H, D], k/v [B, Sk, Hkv, D] -> [B, Sq, H, D], on k's device
-    (``device`` places array-likes; q or v on another device raises).
+    (``device`` places array-likes; q, v or the lengths on another device
+    raise). ``kv_valid_len`` [B]: each row's count of valid keys, as
+    ``flash_attention`` takes it; it gets no gradient, and a key past its
+    row's length gets a gradient of exactly 0.
     Neither pass materializes the [Sq, Sk] probabilities on the card.
     ``backend="ref"`` takes both passes' plain versions on any device.
 
@@ -311,7 +328,8 @@ def flash_attention_vjp(q, k, v, causal: bool = True, window: int = 0,
     k = _on(k, dev, "k")
     q, v = _on(q, dev, "q"), _on(v, dev, "v")
     o, _ = _FlashForward.apply(q, k, v, bool(causal), int(window), False,
-                               backend == "ref", None)
+                               backend == "ref", None,
+                               _lengths(kv_valid_len, dev))
     return o
 
 

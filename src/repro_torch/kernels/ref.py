@@ -16,9 +16,11 @@ import torch
 NEG_INF = float("-inf")
 
 
-def _mask(sq: int, sk: int, causal: bool, window: int,
-          device) -> torch.Tensor:
-    """[Sq, Sk] attendable positions; q and k both count from 0."""
+def _mask(sq: int, sk: int, causal: bool, window: int, device,
+          kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[Sq, Sk] attendable positions; q and k both count from 0. With
+    ``kv_valid_len`` [B] (keys ``j < kv_valid_len[b]`` of row b kept,
+    ANDed with the causal and window masks): [B, 1, Sq, Sk]."""
     qpos = torch.arange(sq, device=device)[:, None]
     kpos = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
@@ -26,18 +28,25 @@ def _mask(sq: int, sk: int, causal: bool, window: int,
         mask &= qpos >= kpos
     if window > 0:
         mask &= qpos - kpos < window
+    if kv_valid_len is not None:
+        lens = kv_valid_len.to(device=device, dtype=torch.int64)
+        mask = mask & (kpos < lens[:, None, None, None])
     return mask
 
 
 def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False,
+                        kv_valid_len: Optional[torch.Tensor] = None):
     """q [B, Sq, H, D]; k, v [B, Sk, Hkv, D] -> [B, Sq, H, D] in q's dtype.
     Plain materialized softmax attention (fp32 math; float64 for float64
     inputs, so that ``torch.autograd.gradcheck`` can hold a backward
     against it), one KV head's group at a time so that the [G, Sq, Sk]
     scores of one group are the largest temporary. A row with nothing to
-    attend to is NaN.
+    attend to is NaN. ``kv_valid_len`` [B] keeps the keys
+    ``j < kv_valid_len[b]`` of row b (``blocked_attention``'s padding
+    mask): a length of 0 or less leaves the row nothing, one above Sk
+    keeps every key.
 
     ``return_lse`` also returns the log-sum-exp of each row's scaled,
     masked scores, [B*H, Sq] float32 (float64 for float64 inputs) in
@@ -49,7 +58,7 @@ def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.to(wide).reshape(b, sq, hkv, g, d)
     kf = k.to(wide)
     vf = v.to(wide)
-    mask = _mask(sq, sk, causal, window, q.device)
+    mask = _mask(sq, sk, causal, window, q.device, kv_valid_len)
     o = torch.empty((b, sq, hkv, g, d), dtype=wide, device=q.device)
     lse = torch.empty((b, hkv, g, sq), dtype=wide, device=q.device)
     for j in range(hkv):

@@ -41,7 +41,19 @@ sum of every slice's share. K5 and K6 run unchanged on the local heads;
 ``o`` is row-parallel (summed over ``model``, its bias added once).
 Without ``attn_tp`` attention is replicated over ``model``, the DP-only
 fallback. ``kv_heads`` is that projection, for self-attention and for
-the model's cross K/V of the encoder output.
+the model's cross K/V of the encoder output. Under the decode rules
+(``KV_HEADS`` whole, a prefill into the decode layout) it gives every
+stored head, the parameter heads' shards gathered over ``model``, and
+each rank's query heads attend the stored heads that their global
+indices map to (``stored_for_q``), sliced before K5: K5 groups its query
+heads by the *local* counts.
+
+``kv_valid_len`` [B] is a per-row count of valid keys, the padding mask
+of JAX's ``blocked_attention``, ANDed with the causal and window masks
+in K5 and K6 (they end a row's key tiles at its length); the
+cross-attention of ``_layer_forward`` takes ``xattn_len`` as it. A row
+with no key left is NaN here, where JAX's finite -1e30 mask gives a
+weighting of V over the blocks it scanned (ROADMAP Queue 3, item 27).
 
 ``attn_decode`` under a mesh (the decode rules of ``sharding_profile``:
 ``KV_HEADS`` unsplit, ``KV_SEQ -> model`` where the profile shards the
@@ -65,12 +77,11 @@ holds the slot writes the token (``shard_write``, the counterpart of
 JAX's ``_shard_map_dus_write`` and of its masked write, whose results
 are equal, so ``dus_write`` selects nothing); past the last slot of a
 sequence-sharded cache no rank writes, as no JAX shard is in range,
-where one device clamps the slot and overwrites the last one. Decode
-under the train/prefill rules (``KV_HEADS`` split) raises.
-
-Not ported here: ``kv_valid_len`` of ``attn_forward`` (a per-row key
-length, which no caller of the JAX package passes and the Pallas flash
-kernel has no argument for) raises.
+where one device clamps the slot and overwrites the last one. Under the
+train/prefill rules (``KV_HEADS`` split, every slot on each rank) the
+decode is head-parallel (``_attn_decode_heads``, one device's decode on
+each rank's q heads and stored heads): the token written at the slot on
+every rank, nothing merged, ``o`` row-parallel.
 """
 from __future__ import annotations
 
@@ -134,15 +145,22 @@ def kv_heads(params, x: torch.Tensor, cfg: ModelConfig, *,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(k, v) [B, S, Hs, dh] projected from x [B, S, D]: K RoPE'd at
     ``positions``, both repeated by ``kv_repeat``; under a mesh with
-    ``attn_tp``, this rank's slice of the stored heads (module
-    docstring): its own parameter heads behind ``copy_to`` on x, or, where
-    the parameter heads do not shard, all of them repeated and sliced
-    behind ``copy_to`` on the heads. Self-attention's K/V, and the
-    model's cross K/V of the encoder output."""
+    ``attn_tp``, the stored heads that ``KV_HEADS`` gives this rank
+    (module docstring). Under the train/prefill rules (``KV_HEADS``
+    split) that is this rank's slice: its own parameter heads behind
+    ``copy_to`` on x, or, where the parameter heads do not shard, all of
+    them repeated and sliced behind ``copy_to`` on the heads. Under the
+    decode rules (``KV_HEADS`` whole) it is every stored head: the
+    parameter heads' shards gathered over ``model`` (each rank's gradient
+    reduce-scattered back), or all of them behind ``copy_to``.
+    Self-attention's K/V, and the model's cross K/V of the encoder
+    output."""
     cd = x.dtype
     mesh, axis = tp(shd.HEADS)
     hs = cfg.num_kv_heads * kv_repeat
-    whole = axis is not None and tp(shd.KV_PARAM_HEADS)[1] is None
+    pa = tp(shd.KV_PARAM_HEADS)[1]
+    split = axis is not None and tp(shd.KV_HEADS)[1] is not None
+    whole = axis is not None and pa is None
     xk = x if whole else col.copy_to(x, mesh, axis)
     k = dense_apply(params["k"], xk, cd)
     v = dense_apply(params["v"], xk, cd)
@@ -150,15 +168,45 @@ def kv_heads(params, x: torch.Tensor, cfg: ModelConfig, *,
         k = apply_rope(k, positions, cfg.rope_theta)
     k, v = _repeat_kv(k, kv_repeat), _repeat_kv(v, kv_repeat)
     if whole:
-        n = hs // mesh.size(axis)
-        lo = mesh.index(axis) * n
-        k = col.copy_to(k, mesh, axis)[:, :, lo:lo + n]
-        v = col.copy_to(v, mesh, axis)[:, :, lo:lo + n]
+        k, v = col.copy_to(k, mesh, axis), col.copy_to(v, mesh, axis)
+        if split:
+            n = hs // mesh.size(axis)
+            lo = mesh.index(axis) * n
+            k, v = k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    elif axis is not None and not split:
+        k, v = col.gather(k, mesh, pa, 2), col.gather(v, mesh, pa, 2)
     k = shd.constrain(k, shd.BATCH, None, shd.KV_HEADS, None,
                       full=(None, None, hs, None))
     v = shd.constrain(v, shd.BATCH, None, shd.KV_HEADS, None,
                       full=(None, None, hs, None))
     return k, v
+
+
+def stored_for_q(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                 hq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stored heads of (k, v) [B, S, Hs, dh] (this rank's, by
+    ``KV_HEADS``) that this rank's ``hq`` query heads (by ``HEADS``)
+    attend, by the *global* head counts: each query head's group is
+    ``num_heads / (Hs x the KV_HEADS shards)`` heads. Where the local
+    query heads' groups are whole (or all within one group), the stored
+    heads they map to, in place; else one stored head per query head.
+    On one device, or where both axes split alike, (k, v) as given."""
+    ctx = shd.mesh_ctx()
+    if ctx is None:
+        return k, v
+    mesh = ctx.mesh
+    qa, ka = ctx.axis(shd.HEADS), ctx.axis(shd.KV_HEADS)
+    hs = k.shape[2]
+    g = cfg.num_heads // (hs * (mesh.size(ka) if ka else 1))
+    first = mesh.index(qa) * hq if qa else 0
+    base = mesh.index(ka) * hs if ka else 0
+    if hq % g == 0 or g % hq == 0:
+        lo, n = first // g - base, max(hq // g, 1)
+        if lo == 0 and n == hs:
+            return k, v
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = (torch.arange(first, first + hq, device=k.device) // g) - base
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -171,14 +219,16 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     ``xattn_kv``: the precomputed (k, v) [B, F, Hs, dh] of
     cross-attention, attended as they come (no K/V of x is computed).
-    Returns (out, (k, v)): (k, v) are the stored heads (post-RoPE,
-    repeated by ``kv_repeat``) when ``return_kv`` or for
-    cross-attention, else None. ``causal_skip`` is accepted and has
-    nothing to switch: K5 and K6 always skip the tiles that the mask
-    empties."""
-    if kv_valid_len is not None:
-        raise NotImplementedError("kv_valid_len (a per-row key length in "
-                                  "K5/K6) is not ported")
+    ``kv_valid_len`` [B]: each row's count of valid keys (frames), a
+    padding mask ANDed with the causal and window masks through K5/K6
+    (under a mesh, this data shard's rows); it gets no gradient. Returns
+    (out, (k, v)): (k, v) are the stored heads (post-RoPE, repeated by
+    ``kv_repeat``) when ``return_kv`` or for cross-attention, else None.
+    Under the decode rules (``KV_HEADS`` whole, ``HEADS`` split: a prefill
+    into the decode layout) they are every stored head, and this rank's
+    query heads attend the ones they map to (``stored_for_q``).
+    ``causal_skip`` is accepted and has nothing to switch: K5 and K6
+    always skip the tiles that the mask empties."""
     cd = x.dtype
     mesh, axis = tp(shd.HEADS)
     q = dense_apply(params["q"], col.copy_to(x, mesh, axis), cd)
@@ -191,9 +241,10 @@ def attn_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                         kv_repeat=kv_repeat)
     else:
         k, v = xattn_kv
-    out = ops.flash_attention_vjp(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal,
-                                  window=window)
+    ka, va = stored_for_q(k, v, cfg, q.shape[2])
+    out = ops.flash_attention_vjp(q.contiguous(), ka.contiguous(),
+                                  va.contiguous(), causal=causal,
+                                  window=window, kv_valid_len=kv_valid_len)
     out = shd.constrain(out, shd.BATCH, None, shd.HEADS, None,
                         full=(None, None, cfg.num_heads, None))
     y = row_parallel(params["o"], out, cd, 2, mesh, axis)
@@ -317,22 +368,26 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
         return _cross_decode(params, x, cfg, cache_pos=cache_pos,
                              xattn_kv=xattn_kv, xattn_len=xattn_len), \
             cache_k, cache_v, None
-    if shd.mesh_ctx() is not None:
-        return _attn_decode_mesh(params, x, cfg, cache_k=cache_k,
-                                 cache_v=cache_v, cache_pos=cache_pos,
-                                 kv_repeat=kv_repeat, window=window,
-                                 kv_scales=kv_scales)
-    cd = x.dtype
-    b = x.shape[0]
-    pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
-    q = dense_apply(params["q"], x, cd)
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, pos, cfg.rope_theta)
-    k_new = dense_apply(params["k"], x, cd)
-    v_new = dense_apply(params["v"], x, cd)
-    if cfg.rope_theta > 0:
-        k_new = apply_rope(k_new, pos, cfg.rope_theta)
-    k_new, v_new = _repeat_kv(k_new, kv_repeat), _repeat_kv(v_new, kv_repeat)
+    kw = dict(cache_k=cache_k, cache_v=cache_v, cache_pos=cache_pos,
+              kv_repeat=kv_repeat, window=window, kv_scales=kv_scales)
+    ctx = shd.mesh_ctx()
+    if ctx is not None and ctx.axis(shd.KV_HEADS) is None:
+        return _attn_decode_mesh(params, x, cfg, **kw)
+    return _attn_decode_heads(params, x, cfg, **kw)
+
+
+def _write_and_attend(q: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, cfg: ModelConfig, *,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      cache_pos: int, window: int, kv_scales):
+    """The decode of one token against a cache that holds every slot:
+    the new K/V [B, 1, Hs, dh] written at the slot (quantized with their
+    scales for an int8 cache), then q [B, 1, Hq, dh] against the first
+    ``min(cache_pos + 1, S_cache)`` slots, each query head against the
+    stored head it maps to (``stored_for_q``). Returns (out, the scales or
+    None)."""
+    cd = q.dtype
+    b = q.shape[0]
     s_cache = cache_k.shape[1]
     # past the last slot, a full-attention cache overwrites that slot, as
     # the JAX dynamic_update_slice clamps its index
@@ -355,11 +410,10 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
         k_att, v_att = cache_k, cache_v
 
     n_written = min(cache_pos + 1, s_cache)
-    valid = (torch.arange(s_cache, device=x.device) < n_written)[None, :] \
+    valid = (torch.arange(s_cache, device=q.device) < n_written)[None, :] \
         .expand(b, s_cache)
-    out = decode_attention(q, k_att, v_att, valid)
-    y = dense_apply(params["o"], out, cd, contract_dims=2)
-    return y, cache_k, cache_v, new_scales
+    k_att, v_att = stored_for_q(k_att, v_att, cfg, q.shape[2])
+    return decode_attention(q, k_att, v_att, valid), new_scales
 
 
 def _cross_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -371,10 +425,7 @@ def _cross_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
     (the prefill rules): each local q head attends the stored head that
     its global index maps to, and ``o`` is row-parallel over ``model``.
     On one device that is every q head against its group's head."""
-    ctx = shd.mesh_ctx()
-    mesh = ctx.mesh if ctx is not None else None
-    qa = ctx.axis(shd.HEADS) if ctx is not None else None
-    ka = ctx.axis(shd.KV_HEADS) if ctx is not None else None
+    mesh, qa = tp(shd.HEADS)
     cd = x.dtype
     b = x.shape[0]
     pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
@@ -382,17 +433,11 @@ def _cross_decode(params, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos, cfg.rope_theta)
     k_all, v_all = xattn_kv
-    hq, hs = q.shape[2], k_all.shape[2]
-    # the query heads of one stored head, by the global head counts
-    g = cfg.num_heads // (hs * (mesh.size(ka) if ka else 1))
-    lo = (mesh.index(qa) * hq if qa else 0) // g \
-        - (mesh.index(ka) * hs if ka else 0)
-    n = max(hq // g, 1)
     f = k_all.shape[1]
     lens = torch.full((b,), f, device=x.device) if xattn_len is None \
         else torch.as_tensor(xattn_len, device=x.device)
     valid = torch.arange(f, device=x.device)[None, :] < lens[:, None]
-    out = decode_attention(q, k_all[:, :, lo:lo + n], v_all[:, :, lo:lo + n],
+    out = decode_attention(q, *stored_for_q(k_all, v_all, cfg, q.shape[2]),
                            valid)
     return row_parallel(params["o"], out, cd, 2, mesh, qa)
 
@@ -401,15 +446,11 @@ def _attn_decode_mesh(params, x: torch.Tensor, cfg: ModelConfig, *,
                       cache_k: torch.Tensor, cache_v: torch.Tensor,
                       cache_pos: int, kv_repeat: int, window: int,
                       kv_scales):
-    """``attn_decode`` under a mesh: context-parallel decode (module
+    """``attn_decode`` under a mesh whose rules keep the stored KV heads
+    whole (the decode rules): the context-parallel decode (module
     docstring)."""
     ctx = shd.mesh_ctx()
     mesh = ctx.mesh
-    if ctx.axis(shd.KV_HEADS) is not None:
-        raise NotImplementedError(
-            "attn_decode under rules that split the stored KV heads (the "
-            "train/prefill rules) is not ported: decode under the decode "
-            "rules, the cache handed over to their layout")
     qa, pa, sa = (ctx.axis(shd.HEADS), ctx.axis(shd.KV_PARAM_HEADS),
                   ctx.axis(shd.KV_SEQ))
     cd = x.dtype
@@ -472,5 +513,33 @@ def _attn_decode_mesh(params, x: torch.Tensor, cfg: ModelConfig, *,
     if qa is not None:
         lo_h = mesh.index(qa) * q_local
         out = out[:, :, lo_h:lo_h + q_local]
+    y = row_parallel(params["o"], out, cd, 2, mesh, qa)
+    return y, cache_k, cache_v, new_scales
+
+
+def _attn_decode_heads(params, x: torch.Tensor, cfg: ModelConfig, *,
+                       cache_k: torch.Tensor, cache_v: torch.Tensor,
+                       cache_pos: int, kv_repeat: int, window: int,
+                       kv_scales):
+    """``attn_decode`` on one device, and under the train/prefill rules
+    (``KV_HEADS`` split, no ``KV_SEQ``) head-parallel: each rank projects
+    its q heads and the new token's K/V of its stored heads
+    (``kv_heads``), writes them at the slot of its cache (its stored
+    heads, every slot: nothing to merge, the window ring and the int8
+    scales as on one device), attends as one device does, each q head
+    against the stored head that its global index maps to, and ``o`` is
+    row-parallel over ``model``."""
+    mesh, qa = tp(shd.HEADS)
+    cd = x.dtype
+    pos = torch.full((x.shape[0], 1), cache_pos, dtype=torch.int32,
+                     device=x.device)
+    q = dense_apply(params["q"], x, cd)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos, cfg.rope_theta)
+    k_new, v_new = kv_heads(params, x, cfg, positions=pos,
+                            kv_repeat=kv_repeat)
+    out, new_scales = _write_and_attend(
+        q, k_new, v_new, cfg, cache_k=cache_k, cache_v=cache_v,
+        cache_pos=cache_pos, window=window, kv_scales=kv_scales)
     y = row_parallel(params["o"], out, cd, 2, mesh, qa)
     return y, cache_k, cache_v, new_scales

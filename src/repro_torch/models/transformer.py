@@ -82,14 +82,17 @@ count (reduced over the batch axes), so that the gradients summed over
 the data shards are those of JAX's global mean. They serve sharded too:
 ``init_cache`` takes the *global* batch and allocates this rank's piece of
 each leaf by ``cache_specs`` under the ambient rules (``pos``
-replicated); ``prefill`` takes this data shard's rows under the prefill
-rules of ``sharding_profile`` and fills a cache of this rank's stored KV
-heads (``KV_HEADS -> model``), its logits this rank's vocab shard;
-``decode_step`` runs under the decode rules, the cache holding every KV
-head over this rank's slice of the sequence (``KV_SEQ -> model`` where
-the profile shards it; ``attention.py``'s context-parallel decode), each
-rank writing the token only where its slice holds the slot. A prefill
-cache reaches the decode layout by a gather and a re-placement
+replicated); ``prefill`` takes this data shard's rows and fills this
+rank's piece, its logits this rank's vocab shard: under the prefill
+rules of ``sharding_profile`` its stored KV heads (``KV_HEADS ->
+model``), under the decode rules every KV head over its slice of the
+sequence (``KV_SEQ -> model`` where the profile shards it).
+``decode_step`` runs under the decode rules context-parallel
+(``attention.py``), each rank writing the token only where its slice
+holds the slot, and under the prefill rules head-parallel, each rank
+writing it into its stored heads. As JAX's dry-run pairs them, serving
+prefills under the prefill rules and decodes under the decode rules: a
+prefill cache reaches the decode layout by a gather and a re-placement
 (``convert.gather_cache``, ``convert.shard_cache``). Without autograd,
 a weight's FSDP gather is kept and reused while its shard is unchanged,
 so a decode step moves the step's activations and not the weights. The
@@ -206,16 +209,19 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
                    positions: torch.Tensor, window: int,
                    causal: bool = True, kv_repeat: int = 1,
                    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                   = None, collect_kv: bool = False,
-                   collect_state: bool = False
+                   = None, xattn_len=None, kv_valid_len=None,
+                   collect_kv: bool = False, collect_state: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """One layer over the full sequence: attention and/or the SSD block on
     the RMS-normed input (their mean for the hybrid), added to the
     residual; where ``cross_kv`` is given, cross-attention from the
     ``ln_x``-normed x to those K/V (q at ``positions``, non-causal), added
-    to the residual; then the MoE FFN or the MLP. Returns (x, aux,
-    collected): the MoE aux loss (a float32 0 for the other families), and
-    the post-RoPE K/V and the SSM state and conv tail, as asked."""
+    to the residual; then the MoE FFN or the MLP. ``kv_valid_len`` [B]
+    masks self-attention's keys past each row's length, ``xattn_len`` [B]
+    cross-attention's frames (its ``kv_valid_len``), as the JAX layer
+    takes them. Returns (x, aux, collected): the MoE aux loss (a float32 0
+    for the other families), and the post-RoPE K/V and the SSM state and
+    conv tail, as asked."""
     cd = x.dtype
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collected: dict = {}
@@ -224,7 +230,8 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
     if "attn" in lp:
         delta, kv = attn_mod.attn_forward(
             lp["attn"], h, cfg, positions=positions, kv_repeat=kv_repeat,
-            causal=causal, window=window, return_kv=collect_kv)
+            causal=causal, window=window, return_kv=collect_kv,
+            kv_valid_len=kv_valid_len)
         if collect_kv:
             collected["k"], collected["v"] = kv
     if "ssd" in lp:
@@ -243,7 +250,7 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
         hx = lyr.rmsnorm_apply(lp["ln_x"], x, cfg.norm_eps, cd)
         x = x + attn_mod.attn_forward(
             lp["xattn"], hx, cfg, positions=positions, causal=False,
-            xattn_kv=cross_kv)[0]
+            xattn_kv=cross_kv, kv_valid_len=xattn_len)[0]
     if "moe" in lp:
         h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
         m_out, m_aux = moe_mod.moe_forward(lp["moe"], h2, cfg)
@@ -298,11 +305,11 @@ def _remat_wrap(fn, policy: str):
 
 def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
                   cache_layer: dict, cache_pos: int, window: int,
-                  kv_repeat: int = 1, dus_write: bool = False
-                  ) -> torch.Tensor:
+                  kv_repeat: int = 1, xattn_len=None,
+                  dus_write: bool = False) -> torch.Tensor:
     """Single-token layer step. ``cache_layer`` holds this layer's views
     of the stacked cache, which are updated in place (the cross K/V are
-    only read)."""
+    only read, under ``xattn_len``'s mask of each row's valid frames)."""
     cd = x.dtype
     h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
     delta = None
@@ -334,7 +341,8 @@ def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
         x = x + attn_mod.attn_decode(
             lp["xattn"], hx, cfg, cache_k=None, cache_v=None,
             cache_pos=cache_pos,
-            xattn_kv=(cache_layer["cross_k"], cache_layer["cross_v"]))[0]
+            xattn_kv=(cache_layer["cross_k"], cache_layer["cross_v"]),
+            xattn_len=xattn_len)[0]
     if "moe" in lp:
         # capacity from the B tokens of this step: none is dropped
         h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
@@ -747,16 +755,16 @@ class Model(nn.Module):
         ``0..window-1``. The cross K/V of every frame of the batch fill
         ``cross_k``/``cross_v``.
 
-        Under a mesh (the prefill rules): ``batch`` is this data shard's
-        rows, the cache this rank's piece (its stored KV heads) and the
-        logits this rank's vocab shard."""
+        Under a mesh: ``batch`` is this data shard's rows, the cache this
+        rank's piece by ``cache_specs`` and the logits this rank's vocab
+        shard. Under the prefill rules the piece is this rank's stored KV
+        heads, every slot; under the decode rules (a prefill straight into
+        the decode layout) every stored head over this rank's ``KV_SEQ``
+        slice of the slots (all of them where the profile does not shard
+        the sequence): each rank's q heads attend the stored heads they map
+        to, and the cross K/V are every stored head."""
         cfg = self.cfg
         ctx = shd.mesh_ctx()
-        if ctx is not None and ctx.axis(shd.KV_SEQ) is not None:
-            raise NotImplementedError(
-                "prefill into a sequence-sharded cache (the decode rules) "
-                "is not ported: prefill under the prefill rules, then "
-                "hand the cache over to the decode layout")
         cd = lyr.dtype_of(cfg.compute_dtype)
         tree = self._split(params)
         x, positions, cross = self._decoder_inputs(tree, batch)
@@ -791,16 +799,23 @@ class Model(nn.Module):
     def _fill_kv(self, cl: dict, i: int, k: torch.Tensor, v: torch.Tensor,
                  s: int) -> None:
         """Layer ``i``'s prompt K/V [B, S, Hs, dh] into the cache: all of
-        them, or the last S_cache of a window arch's longer prompt."""
-        s_c = cl["k"].shape[2]
+        them, or the last S_cache of a window arch's longer prompt; where
+        ``KV_SEQ`` splits the slots, this rank's slice of them."""
+        s_loc = cl["k"].shape[2]
+        ctx = shd.mesh_ctx()
+        sa = ctx.axis(shd.KV_SEQ) if ctx is not None else None
+        s_c = s_loc * (ctx.mesh.size(sa) if sa else 1)
+        first = ctx.mesh.index(sa) * s_loc if sa else 0
+        # global slots [0, n) hold prompt positions lo..: this slice's part
         lo = s - s_c if s_c < s else 0
-        n = min(s, s_c)
+        n = max(min(min(s, s_c) - first, s_loc), 0)
+        src = slice(lo + first, lo + first + n)
         for name, t in (("k", k), ("v", v)):
             if self.kv_cache_bits == 8:
                 t, scale = attn_mod._quantize_kv(t)
-                cl[f"{name}_scale"][i, :, :n] = scale[:, lo:].to(
+                cl[f"{name}_scale"][i, :, :n] = scale[:, src].to(
                     cl[f"{name}_scale"].dtype)
-            cl[name][i, :, :n] = t[:, lo:].to(cl[name].dtype)
+            cl[name][i, :, :n] = t[:, src].to(cl[name].dtype)
 
     @torch.no_grad()
     def prefill_streaming(self, params: Optional[Mapping[str, torch.Tensor]],

@@ -18,6 +18,8 @@ second product); lse within 1e-5.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 from repro.kernels import (
@@ -381,7 +383,8 @@ def test_attn_forward_self_and_cross_match_jax(kv_repeat, hkv):
     repeated on the head axis, as ``jnp.repeat``), and cross-attention of
     24 decoder positions onto 16 frames' K/V (q RoPE'd at the decoder's
     positions, K/V taken as they come, non-causal: Sq != Sk through K5's
-    plain version). ``kv_valid_len`` raises."""
+    plain version). The per-row key length is held in
+    ``test_attn_forward_with_kv_valid_len_matches_jax``."""
     from repro.models import attention as JA
     from repro_torch.models import attention as TA
     jcfg, tcfg, jp, tp = _attn_pair(hkv)
@@ -410,10 +413,167 @@ def test_attn_forward_self_and_cross_match_jax(kv_repeat, hkv):
     moved, _ = TA.attn_forward(tp, _t(x), tcfg, positions=_t(pos + 7),
                                causal=False, xattn_kv=(_t(ck), _t(cv)))
     assert float((moved - ty).abs().max()) > 1e-3
-    with pytest.raises(NotImplementedError, match="kv_valid_len"):
-        TA.attn_forward(tp, _t(x), tcfg, positions=_t(pos), causal=False,
-                        xattn_kv=(_t(ck), _t(cv)),
-                        kv_valid_len=torch.full((2,), 8))
+
+
+#: ``attn_forward`` with a per-row key length: (case, kv_repeat, KV heads,
+#: window, lengths); "cross" attends 16 frames
+KV_LEN_CASES = [("causal", 1, 4, 0, (24, 13)),
+                ("repeat", 2, 2, 0, (24, 13)),
+                ("window", 1, 4, 8, (24, 20)),
+                ("cross", 1, 4, 0, (16, 9))]
+
+
+@pytest.mark.parametrize("case,kv_repeat,hkv,window,lens", KV_LEN_CASES)
+def test_attn_forward_with_kv_valid_len_matches_jax(case, kv_repeat, hkv,
+                                                    window, lens):
+    """``attn_forward`` with ``kv_valid_len`` (K5/K6's per-row key length;
+    their plain versions here) against the JAX function
+    (``blocked_attention``'s padding mask) in float32: causal
+    self-attention with lengths (24, 13), with ``kv_repeat`` 2, under a
+    window of 8 with lengths that leave no row empty, and
+    cross-attention over 16 frames with lengths (16, 9). The output and
+    the gradients of the summed squares with respect to x and every
+    parameter (and the cross K/V) meet ``jax.grad``'s within F32: rtol
+    F32, and atol F32 of the gradient's largest magnitude where that
+    passes 1 (a weight's gradient sums 48 rows: 2e-5 of values up to 23,
+    as ``test_torch_models.py`` scales its atol); the gradients of the
+    keys past a row's length are exactly 0."""
+    import jax
+    from repro.models import attention as JA
+    from repro_torch.models import attention as TA
+    jcfg, tcfg, jp, tp = _attn_pair(hkv)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 24, 256)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24))
+    hs = hkv * kv_repeat
+    ck = rng.normal(size=(2, 16, hs, 64)).astype(np.float32)
+    cv = rng.normal(size=(2, 16, hs, 64)).astype(np.float32)
+    cross = case == "cross"
+    kw = dict(kv_repeat=kv_repeat, window=window, causal=not cross)
+
+    def jloss(p, x, ck, cv):
+        y, _ = JA.attn_forward(p, x, jcfg, positions=jnp.asarray(pos),
+                               xattn_kv=(ck, cv) if cross else None,
+                               kv_valid_len=jnp.asarray(lens, jnp.int32),
+                               **kw)
+        return jnp.sum(y * y), y
+    (_, jy), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                     has_aux=True)(
+        jp, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv))
+    leaves = {"x": _t(x), "ck": _t(ck), "cv": _t(cv),
+              **{f"{a}.{b}": t for a, sub in tp.items()
+                 for b, t in sub.items()}}
+    leaves = {n: t.clone().requires_grad_(True) for n, t in leaves.items()}
+    params = {a: {b: leaves[f"{a}.{b}"] for b in sub}
+              for a, sub in tp.items()}
+    ty, _ = TA.attn_forward(params, leaves["x"], tcfg, positions=_t(pos),
+                            xattn_kv=(leaves["ck"], leaves["cv"])
+                            if cross else None,
+                            kv_valid_len=torch.tensor(lens), **kw)
+    np.testing.assert_allclose(_np(ty.detach()), _np(jy), rtol=F32,
+                               atol=F32)
+    # cross-attention takes the K/V as given: its k and v weights are unused
+    used = [n for n in leaves if (n.split(".")[0] not in ("k", "v")
+                                  if cross else n not in ("ck", "cv"))]
+    got = dict(zip(used, torch.autograd.grad(
+        ty.square().sum(), [leaves[n] for n in used])))
+    want = {"x": jg[1], "ck": jg[2], "cv": jg[3],
+            **{f"{a}.{b}": jg[0][a][b] for a, sub in tp.items()
+               for b in sub}}
+    for n, g in got.items():
+        w = np.asarray(want[n])
+        scale = max(float(np.abs(w).max()), 1.0)
+        np.testing.assert_allclose(_np(g), w, rtol=F32, atol=F32 * scale,
+                                   err_msg=n)
+    if cross:
+        for n in ("ck", "cv"):
+            for b, n_valid in enumerate(lens):
+                assert torch.equal(got[n][b, n_valid:],
+                                   torch.zeros_like(got[n][b, n_valid:]))
+            assert float(got[n][1, :lens[1]].abs().max()) > 0
+
+
+def test_a_row_with_no_key_is_nan_in_the_port_and_finite_in_jax():
+    """ROADMAP Queue 3, item 27: a row whose length is 0 has nothing to
+    attend to. K5 and its plain version give NaN there (an lse of -inf),
+    the port's rule (Queue 3, item 12); JAX masks with a finite -1e30,
+    so its row is a weighting of V over the blocks it scanned. The other
+    row meets JAX's; K6 gives the empty row's query and its keys no
+    gradient."""
+    from repro.models.attention import blocked_attention
+    from repro_torch.kernels.ops import flash_attention_vjp
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.normal(size=(2, 16, 2, 32)).astype(np.float32)
+               for _ in range(3))
+    lens = (0, 11)
+    jo = np.asarray(blocked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+        kv_valid_len=jnp.asarray(lens, jnp.int32)))
+    o, lse = flash_attention_cuda(_t(q), _t(k), _t(v), causal=False,
+                                  return_lse=True,
+                                  kv_valid_len=torch.tensor(lens))
+    assert bool(torch.isnan(o[0]).all()) and np.isfinite(jo[0]).all()
+    assert bool(torch.isinf(lse[:2]).all()) and bool((lse[:2] < 0).all())
+    np.testing.assert_allclose(_np(o[1]), jo[1], rtol=F32, atol=F32)
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    out = flash_attention_vjp(*leaves, causal=False, kv_valid_len=lens)
+    dq, dk, dv = torch.autograd.grad(out[1].sum(), leaves)
+    for g in (dq[0], dk[0], dv[0], dk[1, 11:], dv[1, 11:]):
+        assert torch.equal(g, torch.zeros_like(g))
+
+
+@settings(max_examples=25, deadline=None)
+@given(lens=st.lists(st.integers(0, 18), min_size=2, max_size=2),
+       causal=st.booleans(), window=st.sampled_from([0, 5]))
+def test_plain_flash_with_lengths_is_attention_over_each_rows_keys(
+        lens, causal, window):
+    """K5's and K6's plain versions with a per-row key length (0..Sk + 2,
+    Sk = 16) against ``ref``'s masks without one, row by row on the
+    row's first ``min(len, Sk)`` keys: o, lse, dq, and dk/dv of those keys
+    equal; the keys past the length get exactly 0; a row of length 0 is
+    NaN with lse -inf and gets no gradient."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_plain,
+    )
+    rng = np.random.default_rng(sum(lens) + 31 * causal + window)
+    sq, sk, h, hkv, d = 12, 16, 4, 2, 32
+    q = _t(rng.normal(size=(2, sq, h, d)).astype(np.float32))
+    k, v = (_t(rng.normal(size=(2, sk, hkv, d)).astype(np.float32))
+            for _ in range(2))
+    do = _t(rng.normal(size=(2, sq, h, d)).astype(np.float32))
+    kw = dict(causal=causal, window=window)
+    n = torch.tensor(lens, dtype=torch.int32)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True,
+                                   kv_valid_len=n, **kw)
+    grads = flash_attention_bwd_plain(q, k, v, o, do, lse, kv_valid_len=n,
+                                      **kw)
+    lse = lse.reshape(2, h, sq)
+    for b, n_b in enumerate(lens):
+        m = min(n_b, sk)
+        if m == 0:
+            assert bool(torch.isnan(o[b]).all())
+            assert bool(torch.isneginf(lse[b]).all())
+            for g in grads:
+                assert torch.equal(g[b], torch.zeros_like(g[b]))
+            continue
+        ro, rl = TR.ref_flash_attention(q[b:b + 1], k[b:b + 1, :m],
+                                        v[b:b + 1, :m], return_lse=True,
+                                        **kw)
+        nan = torch.isnan(ro[0])
+        assert torch.equal(torch.isnan(o[b]), nan)
+        np.testing.assert_allclose(o[b][~nan].numpy(), ro[0][~nan].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(lse[b].numpy(), rl.reshape(h, sq).numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        rq, rk, rv = flash_attention_bwd_plain(
+            q[b:b + 1], k[b:b + 1, :m].contiguous(),
+            v[b:b + 1, :m].contiguous(), ro, do[b:b + 1], rl, **kw)
+        for got, want in ((grads[0][b], rq[0]), (grads[1][b, :m], rk[0]),
+                          (grads[2][b, :m], rv[0])):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+        for g in grads[1:]:
+            assert torch.equal(g[b, m:], torch.zeros_like(g[b, m:]))
 
 
 @pytest.mark.parametrize("kv_repeat,hkv", [(1, 4), (2, 2)])

@@ -320,6 +320,62 @@ def test_flash_wgmma_row_with_nothing_to_attend_is_nan(dev):
     assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
 
 
+#: per-row key lengths: b, sq, sk, h, hkv, d, causal, window, lengths
+#: (above Sk, 0 and negative among them: clamped in the kernel)
+LENGTH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, 0, (256, 131)),
+    (2, 200, 384, 4, 2, 128, False, 0, (384, 0)),      # cross, a row empty
+    (3, 300, 300, 10, 2, 64, True, 100, (300, 257, 129)),
+    (2, 2048, 1024, 16, 16, 64, False, 0, (1024, 611)),  # seamless cross
+    (2, 192, 192, 4, 2, 32, True, 0, (500, -3)),       # D 32: CUDA cores
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,window,lens", LENGTH_CASES)
+def test_flash_kernel_with_lengths_matches_plain(dev, dtype, b, sq, sk, h,
+                                                 hkv, d, causal, window,
+                                                 lens):
+    """K5 with ``kv_valid_len`` on both designs (bf16 at D 64 and 128 on
+    wgmma, the rest on the CUDA cores) against the plain version with the
+    same lengths: o within the design's limits (a row left with no key
+    NaN with lse -inf), lse within 1e-3; one launch, on the table's
+    design. The lengths ignored must not pass."""
+    q, k, v = _qkv(dev, dtype, b, sq, sk, h, hkv, d, seed=sq + sk + d)
+    n = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, window=window)
+    design = FT.design(dtype, d)
+    before = fa.flash_attention_cuda.launches_by_design[design]
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                     kv_valid_len=n, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches_by_design[design] == before + 1
+    wide = (q, k, v) if design != "wgmma" else (q.float(), k.float(),
+                                                 v.float())
+    ro, rlse = fa.flash_attention_plain(*wide, return_lse=True,
+                                        kv_valid_len=n, **kw)
+    close = (lambda a: _close_wgmma(a, ro)) if design == "wgmma" else \
+        (lambda a: _close(a, ro.to(dtype), TOL[dtype]))
+    close(o)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
+    fin = torch.isfinite(rlse)
+    np.testing.assert_allclose(lse[fin].cpu().numpy(),
+                               rlse[fin].cpu().numpy(), rtol=1e-3, atol=1e-3)
+    with pytest.raises(AssertionError):
+        close(fa.flash_attention_cuda(q, k, v, **kw))
+
+
+def test_flash_wrappers_reject_bad_lengths(dev):
+    """The lengths must be int32 [B] on the inputs' device: anything else
+    raises before a launch (their values are not read on the host)."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 128, 128, 2, 2, 64, seed=1)
+    for bad in (torch.full((2,), 5, device=dev),          # int64
+                torch.full((3,), 5, dtype=torch.int32, device=dev),
+                torch.full((2,), 5, dtype=torch.int32)):  # on the CPU
+        with pytest.raises(ValueError, match="kv_valid_len"):
+            fa.flash_attention_cuda(q, k, v, kv_valid_len=bad)
+
+
 def test_flash_dispatch_follows_the_design_table(dev):
     """bf16 at D 128 launches the wgmma design, float32 the CUDA-core one;
     bf16 forced onto the CUDA-core design computes the all-fp32 function

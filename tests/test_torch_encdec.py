@@ -456,8 +456,10 @@ def test_chip_smoke_rehearses_phases_23_to_26(monkeypatch):
     zeroed read on the encoder (every decoder layer's held, the last
     layer's read), 24b's steps, 25b with the decode at the
     text's position rejected, and phase 26's replays with their dropped
-    key tiles. Here both sides of each kernel comparison are plain torch
-    (on the CPU nothing launches)."""
+    key tiles, and its masked replays (K5 and K6 with per-row key
+    lengths, bf16 and float32) with their lengths ignored rejected. Here
+    both sides of each kernel comparison are plain torch (on the CPU
+    nothing launches)."""
     import time
 
     import chip_smoke as cs
@@ -485,3 +487,9 @@ def test_chip_smoke_rehearses_phases_23_to_26(monkeypatch):
         assert set(out["replays"][key]) == {"encoder", "cross"}
         for r in out["replays"][key].values():
             assert r["control_ratio"] >= 10 and "causal=False" in r["shape"]
+    assert set(out["masked"]) == {"cross", "causal", "fp32"}
+    for name, rec in out["masked"].items():
+        for key in ("K5", "K6"):
+            r = rec[key]
+            assert r["control_ratio"] >= 10 and "kv_valid_len" in r["shape"]
+        assert 0 < rec["K5"]["tile_share"] < 1

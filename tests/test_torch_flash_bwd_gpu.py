@@ -172,6 +172,56 @@ def test_flash_bwd_wgmma_row_with_nothing_to_attend(dev):
     assert not bool(got[0][0, 100:].any())
 
 
+#: per-row key lengths: b, sq, sk, h, hkv, d, causal, window, lengths
+LENGTH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, 0, (256, 131)),
+    (2, 200, 384, 4, 2, 128, False, 0, (384, 0)),      # cross, a row empty
+    (3, 300, 300, 10, 2, 64, True, 100, (300, 257, 129)),
+    (2, 2048, 1024, 16, 16, 64, False, 0, (1024, 611)),  # seamless cross
+    (2, 192, 192, 4, 2, 32, True, 0, (500, -3)),       # D 32: CUDA cores
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,window,lens", LENGTH_CASES)
+def test_flash_bwd_kernel_with_lengths_matches_plain(dev, dtype, b, sq, sk,
+                                                     h, hkv, d, causal,
+                                                     window, lens):
+    """K6 with ``kv_valid_len`` on both designs against the plain version
+    with the same lengths (o and lse from K5 with them): dq, dk, dv within
+    the design's limits, the keys past a row's length exactly 0 (dk and
+    dv come from ``torch.empty``: a key block wholly past the length
+    writes its zeros), a row with no key no gradient; no NaN anywhere."""
+    g = np.random.default_rng(sq + sk + d)
+    n = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, window=window)
+    q = torch.tensor(g.normal(size=(b, sq, h, d)), dtype=dtype, device=dev)
+    k, v = (torch.tensor(g.normal(size=(b, sk, hkv, d)), dtype=dtype,
+                         device=dev) for _ in range(2))
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                     kv_valid_len=n, **kw)
+    do = torch.tensor(g.normal(size=(b, sq, h, d)), dtype=dtype, device=dev)
+    args = (q, k, v, o, do, lse)
+    design = FT.design(dtype, d)
+    before = fb.flash_attention_bwd_cuda.launches_by_design[design]
+    # poison the allocator's next blocks: skipped keys must still be zeros
+    torch.full((4 * k.numel(),), float("nan"), dtype=dtype, device=dev)
+    got = fb.flash_attention_bwd_cuda(*args, kv_valid_len=n, **kw)
+    torch.cuda.synchronize()
+    assert fb.flash_attention_bwd_cuda.launches_by_design[design] == \
+        before + 1
+    want = fb.flash_attention_bwd_plain(*_oracle(args, design),
+                                        kv_valid_len=n, **kw)
+    for x, y in zip(got, want):
+        _close(x, y, dtype, design)
+    for i, m in enumerate(lens):
+        m = min(max(m, 0), sk)
+        for x in got[1:]:
+            assert not bool(x[i, m:].any())
+        if m == 0:
+            assert not bool(got[0][i].any())
+
+
 def test_flash_bwd_dispatch_follows_the_design_table(dev):
     """bf16 at D 128 launches the wgmma design and float32 the CUDA-core
     one; bf16 forced onto the CUDA-core design keeps its one-ulp

@@ -42,8 +42,9 @@ each mesh a ``Mesh`` over some of its ranks:
   over each rank's heads alone; on the SSM (1, 4), the int8 scale of
   each shard; on the audio (2, 2), the cross K/V's ``copy_to`` dropped
   (the encoder's gradient then holds only each rank's heads' share);
-- the refusals under (1, 2) that remain: ``kv_valid_len``,
-  ``decode_step`` under the train rules and ``prefill`` into a
+- under (1, 2), what the port once refused runs: ``kv_valid_len`` (a
+  dense layer's output and input gradient against the one-process
+  layer's), ``decode_step`` under the train rules and ``prefill`` into a
   sequence-sharded cache; every family builds;
 - serving (``SERVE``) on (2, 2), (1, 4) and the MoE (2, 2): the sharded
   prefill under the prefill rules, then three decode steps under the
@@ -57,7 +58,11 @@ each mesh a ``Mesh`` over some of its ranks:
   counts the patches); their four controls (the fourth: the
   cross-attention's ``o`` reduce dropped in the audio decode), and the
   step factories end to end on the dense (2, 2) and the audio GQA
-  (1, 4), whose prefill repeats the cross heads.
+  (1, 4), whose prefill repeats the cross heads; and each layout under
+  the other kind's rules ("swap": on the dense (2, 2) and (1, 4) and the
+  audio (2, 2), a prefill under the decode rules straight into the
+  sequence-sharded cache and three head-parallel decode steps under the
+  prefill rules, the stored heads repeated x4 on (1, 4)).
 
 Each mesh runs the first batch's logits, loss and gradients, then two
 train steps from the JAX weights (``convert.shard_params_from_jax``), and
@@ -183,7 +188,11 @@ TIMEOUT_S = 240.0
 #: ``chunks`` chunks, with no decode; the hybrid's prompt is a multiple
 #: of its window. The audio case's prompt is S tokens over its frames;
 #: the VLM's capacity counts its 16 patches (16 + S + 3 steps <= 56, a
-#: multiple of ``model``)
+#: multiple of ``model``). "swap" takes each step under the other kind's
+#: rules: the prefill under the decode rules (``max_len`` the capacity,
+#: straight into the sequence-sharded cache) and the decode steps under
+#: the prefill rules (head-parallel, from a start cache whose stored heads
+#: the prefill profile repeats)
 SERVE = {
     ("dense22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
     ("dense22", "int8"): dict(batch=B, cap=40, bits=8, steps=3),
@@ -202,14 +211,22 @@ SERVE = {
                             seq_shard=False, dus=(0,)),
     ("aud22", "base"): dict(batch=B, cap=40, bits=16, steps=3),
     ("vlm22", "base"): dict(batch=B, cap=56, bits=16, steps=3),
+    ("dense22", "swap"): dict(batch=B, cap=40, bits=16, steps=3,
+                              seq_shard=False, dus=(0,), swap=True),
+    ("dense14", "swap"): dict(batch=B, cap=40, bits=16, steps=3,
+                              seq_shard=False, dus=(0,), swap=True),
+    ("aud22", "swap"): dict(batch=B, cap=40, bits=16, steps=3,
+                            seq_shard=False, dus=(0,), swap=True),
 }
 #: the serving cells each JAX process runs after its meshes' train steps
 SERVE_GROUPS = {"dense22": [("dense22", "b1"), ("dense22", "full"),
                             ("ssm22", "stream"), ("dense22", "int8")],
                 "dense14": [("dense14", "base"), ("dense22", "seq41"),
                             ("ssm22", "base"), ("hyb22", "base")],
-                "dense21": [("dense22", "base"), ("aud22", "base")],
-                "moe22": [("moe22", "base"), ("vlm22", "base")]}
+                "dense21": [("dense22", "base"), ("aud22", "base"),
+                            ("dense22", "swap")],
+                "moe22": [("moe22", "base"), ("vlm22", "base"),
+                          ("dense14", "swap"), ("aud22", "swap")]}
 #: the serving controls, each on a case's decode
 SERVE_CONTROLS = {"no_merge_reduce": ("dense22", "base"),
                   "clamped_write": ("dense22", "base"),
@@ -552,13 +569,35 @@ def _raises(fn):
     return False
 
 
-def _refusals(results):
+#: ``kv_valid_len`` under the (1, 2) mesh: each row's count of valid keys
+KV_LENS = (S, 13)
+
+
+def _kv_len_layer(model, params, ctx):
+    """The dense model's layer 0 with ``kv_valid_len`` ``KV_LENS`` on
+    seeded inputs: (its output, the gradient of the summed squares with
+    respect to x), under ``ctx`` (None: one process)."""
+    from repro_torch.models import transformer as TT
+    x = torch.from_numpy(np.random.default_rng(17).normal(
+        size=(2, S, model.cfg.d_model)).astype(np.float32))
+    x.requires_grad_(True)
+    with shd.use_ctx(ctx):
+        lp = model._split(params)["layers"][0]
+        y, _, _ = TT._layer_forward(
+            lp, x, cfg=model.cfg, positions=torch.arange(S).expand(2, S),
+            window=0, kv_repeat=model.kv_repeat,
+            kv_valid_len=torch.tensor(KV_LENS))
+        gx, = torch.autograd.grad(y.square().sum(), [x])
+    return y.detach().numpy(), gx.numpy()
+
+
+def _refusals(inputs, results):
     """Under a (1, 2) mesh on ranks 0-1: every family builds and draws a
-    shard of every parameter that ``specs()`` names; what still refuses
-    to run: ``kv_valid_len``, a dense model's ``decode_step`` under the
-    train rules (the stored KV heads split over ``model``) and its
-    ``prefill`` into a sequence-sharded cache (the decode rules)."""
-    from repro_torch.models.attention import attn_forward
+    shard of every parameter that ``specs()`` names; what refused to run
+    before runs: ``kv_valid_len`` (its layer's output and input gradient
+    beside the one-process layer's), a dense model's ``decode_step``
+    under the train rules (the stored KV heads split over ``model``) and
+    its ``prefill`` into a sequence-sharded cache (the decode rules)."""
     cfg, mesh, ctx = _context("dense", (1, 2), (0, 1))
     if not mesh.member:
         return
@@ -580,22 +619,29 @@ def _refusals(results):
         cache = model.init_cache(2, S)
         raised["decode_step"] = _raises(lambda: model.decode_step(
             None, torch.zeros((2, 1), dtype=torch.long), cache))
-        x = torch.zeros((2, S, cfg.d_model))
-        pos = torch.arange(S).expand(2, S)
-        raised["kv_valid_len"] = _raises(lambda: attn_forward(
-            {}, x, cfg, positions=pos, kv_valid_len=torch.full((2,), S)))
+        params = convert.shard_params_from_jax(jax_tree(inputs, "dense"),
+                                               model)
+    raised["kv_valid_len"] = _raises(lambda: results.update(
+        kv_len_mesh=_kv_len_layer(model, params, ctx)))
     mesh_cfg = MeshConfig((1, 2), AXES)
     dctx = shd.ShardCtx(mesh, shd.make_rules(cfg, mesh_cfg, 2, S, "decode"),
                         shd.sharding_profile(cfg, mesh_cfg, 2, S, "decode"))
     with shd.use_ctx(dctx):
         model = build_model(cfg, device="cpu")
-        raised["prefill_seq_sharded"] = dctx.profile.kv_seq_shard and \
+        model.init(torch.Generator().manual_seed(0))
+        raised["prefill_seq_sharded"] = not dctx.profile.kv_seq_shard or \
             _raises(lambda: model.prefill(None, {"tokens": torch.zeros(
                 (2, S - 8), dtype=torch.long)}, max_len=S))
     if mesh.rank == 0:
+        whole = build_model(cfg, device="cpu")
+        results["kv_len_one"] = _kv_len_layer(
+            whole, convert.shard_params_from_jax(jax_tree(inputs, "dense"),
+                                                 whole), None)
         results["refusals"] = raised
         results["built"] = built
         results["built_frontends"] = frontends
+    else:
+        results.pop("kv_len_mesh", None)
 
 
 # ---------------------------------------------------------------- serving
@@ -633,9 +679,13 @@ def _start_caches(arrays):
     for (name, case), v in SERVE.items():
         if not v["steps"]:
             continue
-        kind = MESHES[name][0]
-        model = build_model(port_cfg(kind), kv_cache_bits=v["bits"],
-                            device="cpu")
+        kind, shape = MESHES[name][:2]
+        # a decode under the prefill rules starts from their stored heads
+        repeat = shd.sharding_profile(
+            port_cfg(kind), MeshConfig(shape, AXES), v["batch"], S,
+            "prefill").kv_repeat if v.get("swap") else 1
+        model = build_model(port_cfg(kind), kv_repeat=repeat,
+                            kv_cache_bits=v["bits"], device="cpu")
         tree = _nest({k[len(kind) + 1:]: a for k, a in arrays.items()
                       if k.startswith(kind + "/")})
         params = convert.shard_params_from_jax(tree, model)
@@ -671,9 +721,11 @@ def _serve_case(inputs, name, case, control=None):
     ``start_cache`` placed by ``cache_specs`` on the prompt's next tokens
     (each step's logits and tokens, the last cache, gathered): JAX's
     decode cell starts from the same cache, so that an 8-bit cache's
-    codes are the same on both sides. ``control`` drops the merge's
-    reduce, writes the token on every rank at its clamped local slot,
-    drops the SSD ``o`` projection's reduce, or drops cross-attention's
+    codes are the same on both sides. A "swap" case prefills under the
+    decode rules and decodes under the prefill rules. ``control`` drops
+    the merge's reduce, writes the token on every rank at its clamped
+    local slot, drops the SSD ``o`` projection's reduce, or drops
+    cross-attention's
     ``o`` reduce."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ssm as ssm_mod
@@ -685,6 +737,9 @@ def _serve_case(inputs, name, case, control=None):
     cfg, mesh, pctx, dctx = _serve_contexts(kind, shape, ranks, v)
     if not mesh.member:
         return None
+    cap = S + prefix_len(kind)
+    if v.get("swap"):
+        pctx, dctx, cap = dctx, pctx, v["cap"]
     prompt, toks = prompt_batch(inputs, kind, v["batch"])
     out = {}
     if v.get("prefill", True):
@@ -698,8 +753,7 @@ def _serve_case(inputs, name, case, control=None):
                 logits, cache = model.prefill_streaming(
                     params, lb, chunk=S // v["chunks"])
             else:
-                logits, cache = model.prefill(params, lb,
-                                              max_len=S + prefix_len(kind))
+                logits, cache = model.prefill(params, lb, max_len=cap)
             out["prefill"] = dict(
                 logits=_gather(pctx, logits, _logits_pspec(pctx)),
                 tok=_gather(pctx, vocab_argmax(logits),
@@ -821,7 +875,7 @@ def world_rank(rank, inputs_path, ckpt_dir):
             first = got
     _elastic(inputs, first, ckpt_dir, rank, results)
     _controls(inputs, rank, results)
-    _refusals(results)
+    _refusals(inputs, results)
     _serving(inputs, rank, results)
     return results
 
@@ -988,12 +1042,15 @@ _JAX_SERVE = r'''
 from repro.serve.serve_step import make_decode_step, make_prefill_step
 
 
-def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre, kind):
+def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre, kind,
+                 swap_cap=0):
     """The prefill cell, launch/dryrun.py:179-187, executed; the prompt
     behind the family's stub embeddings, the capacity its embedding
-    length (the VLM's counts the patches)."""
-    prof = shd.sharding_profile(cfg, mesh_cfg, b, s, "prefill")
-    rules = shd.make_rules(cfg, mesh_cfg, b, s, "prefill")
+    length (the VLM's counts the patches). ``swap_cap``: the same under
+    the decode rules of that capacity, into a cache of it."""
+    kind_rules, n = ("decode", swap_cap) if swap_cap else ("prefill", s)
+    prof = shd.sharding_profile(cfg, mesh_cfg, b, n, kind_rules)
+    rules = shd.make_rules(cfg, mesh_cfg, b, n, kind_rules)
     model = build_model(cfg, kv_repeat=prof.kv_repeat, kv_cache_bits=bits)
     with shd.use_ctx(shd.ShardCtx(mesh=mesh, rules=rules, profile=prof)):
         p_sh = shardings(mesh, model.specs(), rules)
@@ -1002,7 +1059,8 @@ def prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, bits, pre, kind):
         stub_sh = stub_sharding(mesh, rules, kind)
         stub = placed(inputs[f"serve_stub_{kind}"][:b] if stub_sh else None,
                       stub_sh)
-        cap = s + (cfg.frontend_tokens if "patch_embeds" in stub else 0)
+        cap = swap_cap or s + (cfg.frontend_tokens if "patch_embeds" in stub
+                               else 0)
         pstep = make_prefill_step(model, max_len=cap)
 
         def prefill(p, batch):
@@ -1050,10 +1108,12 @@ def stream_cell(cfg, mesh, mesh_cfg, params, toks, b, s, chunks, pre):
 
 def decode_cells(cfg, mesh, mesh_cfg, params, toks, b, s, v, host, pre):
     """The decode cell, launch/dryrun.py:188-204, executed with each
-    write from ``host``, the cache the port's decode starts from too."""
+    write from ``host``, the cache the port's decode starts from too; a
+    "swap" case's under the prefill rules."""
     cap, bits = v["cap"], v["bits"]
-    dprof = shd.sharding_profile(cfg, mesh_cfg, b, cap, "decode")
-    drules = shd.make_rules(cfg, mesh_cfg, b, cap, "decode")
+    kind_rules = "prefill" if v.get("swap") else "decode"
+    dprof = shd.sharding_profile(cfg, mesh_cfg, b, cap, kind_rules)
+    drules = shd.make_rules(cfg, mesh_cfg, b, cap, kind_rules)
     out[f"{pre}/kv_seq_shard"] = np.asarray(dprof.kv_seq_shard)
     for dus in map(bool, v.get("dus", (0, 1))):
         dmodel = build_model(cfg, kv_repeat=dprof.kv_repeat,
@@ -1105,7 +1165,7 @@ for name, kind, shape, v in spec.get("cells", []):
                     pre)
     elif v.get("prefill", True):
         prefill_cell(cfg, mesh, mesh_cfg, params, toks, b, s, v["bits"], pre,
-                     kind)
+                     kind, v["cap"] if v.get("swap") else 0)
     if v["steps"]:
         start = f"start/{pre}/"
         host = {"pos": np.asarray(inputs[start + "pos"]),
@@ -1480,16 +1540,22 @@ def test_elastic_round_trip_equals_four_one_process_steps(world):
 
 
 def test_refusals_under_a_mesh(world):
-    """Under a (1, 2) mesh what is still not ported raises
-    ``NotImplementedError``: ``kv_valid_len``, ``decode_step`` under the
-    train rules and ``prefill`` into a sequence-sharded cache; the audio,
-    enc-dec and VLM families no longer refuse (they build and draw every
-    parameter's shard)."""
-    assert world["got"]["refusals"] == {"kv_valid_len": True,
-                                        "decode_step": True,
-                                        "prefill_seq_sharded": True}
+    """Under a (1, 2) mesh nothing raises ``NotImplementedError`` any
+    more: ``kv_valid_len``, ``decode_step`` under the train rules and
+    ``prefill`` into a sequence-sharded cache all run (the layouts held
+    to JAX's cells in the "swap" serving cases); every family builds and
+    draws every parameter's shard. A dense layer with ``kv_valid_len``
+    ``KV_LENS`` (its key head repeated x2 and sliced) meets the
+    one-process layer: its output and its input's gradient at
+    ``_close``'s tolerance."""
+    assert world["got"]["refusals"] == {"kv_valid_len": False,
+                                        "decode_step": False,
+                                        "prefill_seq_sharded": False}
     assert world["got"]["built_frontends"] == {"audio": True,
                                                "encdec": True, "vlm": True}
+    got, want = world["got"]["kv_len_mesh"], world["got"]["kv_len_one"]
+    _close({"y": got[0], "gx": got[1]}, {"y": want[0], "gx": want[1]},
+           "kv_valid_len under (1, 2)")
 
 
 #: each frontend and MoE mesh's layout, as ``sharding_profile`` gives it:
@@ -1589,9 +1655,10 @@ def _jax_cells(world, name, case):
                                        if v.get("prefill", True)])
 def test_sharded_prefill_matches_jax(world, name, case):
     """The sharded prefill (the prefill rules: each rank's stored KV heads,
-    its vocab shard of the logits) against JAX's executed prefill cell:
-    the gathered logits, the vocab-parallel argmax's tokens and the
-    gathered cache."""
+    its vocab shard of the logits; a "swap" case's under the decode rules,
+    straight into the sequence-sharded cache of the case's capacity)
+    against JAX's executed prefill cell: the gathered logits, the
+    vocab-parallel argmax's tokens and the gathered cache."""
     got = world["got"][f"serve/{name}/{case}"]["prefill"]
     prefill, _, _ = _jax_cells(world, name, case)
     _hold_serving(got, prefill, f"{name} {case} prefill")
@@ -1606,7 +1673,9 @@ def test_context_parallel_decode_matches_jax(world, name, case, dus):
     where the capacity does not divide ``model``) from one start cache,
     against JAX's executed decode cell with the masked write (``kv_dus``
     False) and with ``_shard_map_dus_write`` (True): each step's logits
-    and tokens, the last cache and ``pos``."""
+    and tokens, the last cache and ``pos``. A "swap" case decodes under
+    the prefill rules (head-parallel, each rank's stored heads and every
+    slot) against JAX's decode cell built with those rules."""
     got = world["got"][f"serve/{name}/{case}"]["decode"]
     _, decode, kv_seq_shard = _jax_cells(world, name, case)
     assert got["kv_seq_shard"] == kv_seq_shard == \

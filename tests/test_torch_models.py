@@ -220,10 +220,12 @@ def test_model_matches_jax_bfloat16():
 def test_model_refuses_what_is_not_ported():
     """Every family of ``configs/base.py`` builds, the K/V repeat too
     (every reduced arch, and enc-dec, VLM and audio configs with
-    ``kv_repeat`` 1 and 2), and runs a loss; what stays refused is
-    ``attn_forward``'s ``kv_valid_len`` (a per-row key length in K5/K6)
-    and a cache of other than 8 or 16 bits. The serving half is held to
-    the JAX package in ``test_torch_serve_model.py``."""
+    ``kv_repeat`` 1 and 2), and runs a loss; ``attn_forward``'s
+    ``kv_valid_len`` (a per-row key length in K5/K6) runs, finite where
+    every row keeps a key; what stays refused is a cache of other than 8
+    or 16 bits. The serving half is held to the JAX package in
+    ``test_torch_serve_model.py``, the lengths in
+    ``test_layer_with_key_lengths_matches_jax``."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import ALL_FAMILIES
     from repro_torch.models import attention as TA
@@ -250,15 +252,123 @@ def test_model_refuses_what_is_not_ported():
     assert built == set(ALL_FAMILIES)
     lp = {k[len("layers.0.attn."):]: v for k, v in params.items()
           if k.startswith("layers.0.attn.")}
-    with pytest.raises(NotImplementedError, match="kv_valid_len"):
-        TA.attn_forward(TL.nest(lp), torch.zeros((2, 4, enc.d_model)), enc,
-                        positions=torch.zeros((2, 4), dtype=torch.int32),
-                        kv_valid_len=torch.full((2,), 3))
+    y, _ = TA.attn_forward(TL.nest(lp), torch.ones((2, 4, enc.d_model)),
+                           enc, positions=torch.zeros((2, 4),
+                                                      dtype=torch.int32),
+                           kv_valid_len=torch.full((2,), 3))
+    assert y.shape == (2, 4, enc.d_model) and bool(torch.isfinite(y).all())
     with pytest.raises(ValueError):
         build_model(cfg, kv_cache_bits=4, device="cpu")
     for arch in ("mamba2-780m", "hymba-1.5b"):
         build_model(reduced(get_config(arch)), kv_cache_bits=8,
                     kv_dus_write=True, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "seamless-m4t-medium"])
+def test_layer_with_key_lengths_matches_jax(arch):
+    """A dense layer (the reduced starcoder2-7b) and an audio decoder
+    layer (the reduced seamless-m4t-medium, cross-attending 16 frames)
+    against the JAX layer in float32: ``_layer_forward`` with
+    ``kv_valid_len`` (24, 13) and, for the audio layer, ``xattn_len``
+    (16, 9): the output and the gradients of its summed squares with
+    respect to x, every parameter of the layer and the cross K/V within
+    rtol 2e-5 and atol 2e-5 of the gradient's largest magnitude (at least
+    1), those of the frames past a row's length exactly 0; and
+    ``_layer_decode`` at position 11 with ``xattn_len``: its output and
+    the written cache."""
+    from repro.models import transformer as JT
+    jcfg = dataclasses.replace(j_reduced(j_get_config(arch)),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(reduced(get_config(arch)),
+                               compute_dtype="float32")
+    jparams = j_build_model(jcfg).init(jax.random.PRNGKey(0))
+    jlp = jax.tree.map(lambda a: a[0], jparams["layers"])
+    flat = convert.model_params_from_jax(jax.tree.map(np.asarray, jparams))
+    names = [n for n in flat if n.startswith("layers.0.")]
+    leaves = {n[len("layers.0."):]: flat[n].requires_grad_(True)
+              for n in names}
+    cross = "xattn" in TL.nest(dict(leaves))
+    rng = np.random.default_rng(21)
+    b, s, f = 2, 24, tcfg.frontend_tokens
+    hs, dh = tcfg.num_kv_heads, tcfg.resolved_head_dim
+    x = rng.normal(size=(b, s, tcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    ck, cv = (rng.normal(size=(b, f or 1, hs, dh)).astype(np.float32)
+              for _ in range(2))
+    kvl, xl = (24, 13), (16, 9)
+
+    def jfwd(lp, x, ck, cv):
+        y, _, _ = JT._layer_forward(
+            lp, x, jcfg, positions=jnp.asarray(pos), kv_repeat=1,
+            causal=True, window=jcfg.attn_window,
+            cross_kv=(ck, cv) if cross else None,
+            xattn_len=jnp.asarray(xl, jnp.int32) if cross else None,
+            kv_valid_len=jnp.asarray(kvl, jnp.int32))
+        return jnp.sum(y * y), y
+    (_, jy), jg = jax.value_and_grad(jfwd, argnums=(0, 1, 2, 3),
+                                     has_aux=True)(
+        jlp, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv))
+    tx, tck, tcv = (_t(a).requires_grad_(True) for a in (x, ck, cv))
+    ty, _, _ = TT._layer_forward(
+        TL.nest(dict(leaves)), tx, cfg=tcfg, positions=_t(pos),
+        window=tcfg.attn_window, cross_kv=(tck, tcv) if cross else None,
+        xattn_len=torch.tensor(xl) if cross else None,
+        kv_valid_len=torch.tensor(kvl))
+    np.testing.assert_allclose(_np(ty), _np(jy), rtol=2e-5, atol=2e-5)
+    # the layer takes its cross K/V as given: the model's _cross_kv reads
+    # the xattn k and v weights
+    wrt = {"x": tx, **{n: t for n, t in leaves.items()
+                       if not n.startswith(("xattn.k.", "xattn.v."))},
+           **({"ck": tck, "cv": tcv} if cross else {})}
+    got = dict(zip(wrt, torch.autograd.grad(ty.square().sum(),
+                                            list(wrt.values()))))
+    jflat = convert.model_params_from_jax(jax.tree.map(
+        np.asarray, {"layers": jax.tree.map(lambda a: a[None], jg[0])}))
+    want = {"x": jg[1], "ck": jg[2], "cv": jg[3],
+            **{n[len("layers.0."):]: t for n, t in jflat.items()}}
+    for n, g in got.items():
+        w = _np(want[n])
+        scale = max(float(np.abs(w).max()), 1.0)
+        np.testing.assert_allclose(_np(g), w, rtol=2e-5, atol=2e-5 * scale,
+                                   err_msg=n)
+    if cross:
+        for n in ("ck", "cv"):
+            assert torch.equal(got[n][1, xl[1]:],
+                               torch.zeros_like(got[n][1, xl[1]:]))
+    # one decode step at position 11 against a 20-slot cache
+    x1 = rng.normal(size=(b, 1, tcfg.d_model)).astype(np.float32)
+    cache = {"k": rng.normal(size=(b, 20, hs, dh)).astype(np.float32),
+             "v": rng.normal(size=(b, 20, hs, dh)).astype(np.float32)}
+    if cross:
+        cache.update(cross_k=ck, cross_v=cv)
+    jx, jcache = JT._layer_decode(
+        jlp, jnp.asarray(x1), jcfg,
+        cache_layer={k: jnp.asarray(a) for k, a in cache.items()},
+        cache_pos=11, kv_repeat=1, window=jcfg.attn_window,
+        xattn_len=jnp.asarray(xl, jnp.int32) if cross else None)
+    tcache = {k: _t(a.copy()) for k, a in cache.items()}
+    with torch.no_grad():
+        tx1 = TT._layer_decode(
+            TL.nest({k: t.detach() for k, t in leaves.items()}), _t(x1),
+            tcfg, cache_layer=tcache, cache_pos=11,
+            window=tcfg.attn_window,
+            xattn_len=torch.tensor(xl) if cross else None)
+    np.testing.assert_allclose(_np(tx1), _np(jx), rtol=2e-5, atol=2e-5)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache[k]), _np(jcache[k]),
+                                   rtol=2e-5, atol=2e-5)
+    if cross:
+        # a frame past row 1's length changes nothing there
+        tcache["cross_v"][:, xl[1]:] += 1.0
+        with torch.no_grad():
+            moved = TT._layer_decode(
+                TL.nest({k: t.detach() for k, t in leaves.items()}),
+                _t(x1), tcfg, cache_layer=dict(tcache, k=_t(cache["k"]),
+                                               v=_t(cache["v"])),
+                cache_pos=11, window=tcfg.attn_window,
+                xattn_len=torch.tensor(xl))
+        assert torch.equal(moved[1], tx1[1])
+        assert not torch.equal(moved[0], tx1[0])
 
 
 @pytest.mark.parametrize("arch,remat", [("qwen3-moe-30b-a3b", "full"),
