@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--windows 2] [--splitk-windows 2]
-                          [--lrb-windows 2] [--pipeline-windows 2]
-                          [--failure-windows 2] [--tenant-seconds 45]
-                          [--chaos-windows 2] [--recovery-windows 1.5]
+    python3 chip_smoke.py [--windows 1.5] [--splitk-windows 2]
+                          [--lrb-windows 1.5] [--pipeline-windows 1.5]
+                          [--failure-windows 1.5] [--tenant-seconds 45]
+                          [--chaos-windows 1.5] [--recovery-windows 1.25]
                           [--sharded-windows 3]
                           [--sharded-splitk-windows 2]
                           [--sharded-lrb-windows 1.5]
@@ -96,7 +96,7 @@ Phases (the first failed check exits non-zero, with no result line):
    and backward on 1 x 1,024 tokens through K5/K6 and again through their
    plain versions, the loss within LOSS_TOL and every parameter's gradient
    within GRAD_RTOL of its norm; the same with K6's dq of the last layer's
-   first query tile zeroed must be rejected (a planted control). 6b: six
+   first query tile zeroed must be rejected (a planted control). 6b: four
    steps of ``make_train_step`` (AdamW) on ``token_batches`` of 2 x 4,096
    tokens through ``PrefetchPipeline``: every loss finite, K5 launched
    2 x 8 times a step (forward and remat recompute) and K6 8 times; K6's
@@ -126,7 +126,7 @@ Phases (the first failed check exits non-zero, with no result line):
    seeded generator, bf16 compute), all on the card. 9a:
    ``make_prefill_step`` on 4 x 32,768 tokens (the prefill_32k cell's
    prompt, its batch of 32 cut to 4), K7 once per layer (every launch on
-   its tensor design), then 32 steps
+   its tensor design), then 16 steps
    of ``make_decode_step``; then one prefill of 1 x 32,768 under
    ``torch.profiler`` (device time by kernel, the device's busy share).
    9b, in bf16 and again in float32 compute: prefill of 2 x 4,096 then
@@ -139,11 +139,11 @@ Phases (the first failed check exits non-zero, with no result line):
    rejected; over a chunk of 4,096 the random model forgets a dropped
    state). 9c: ``prefill_streaming`` of
    1 x 131,072 tokens (long_500k's prompt cut to a quarter) in chunks of
-   4,096, then 16 decode steps.
+   4,096, then 8 decode steps.
 10. Hybrid serving at hymba-1.5b's full width and depth (32 layers,
    d_model 1,600, 25 heads with 5 KV heads of 64, window 1,024, 50 SSD
    heads of 64, state 16, d_ff 5,504): prefill of 4 x 4,096 tokens (K5
-   with the window, K7) and 32 decode steps through ``attn_decode``'s
+   with the window, K7) and 16 decode steps through ``attn_decode``'s
    ring, with the 16-bit cache, then with ``kv_cache_bits=8``, in float32
    compute, and in float32 compute with ``kv_cache_bits=8``, all fed the
    16-bit run's tokens: each int8 run's logits within the JAX int8
@@ -174,7 +174,7 @@ Phases (the first failed check exits non-zero, with no result line):
    lognormal lateness; ``configs/workloads.py: LRB``), through
    ``StreamEngine`` with the lrb operator and a 4,096-slot block pool
    (3.2 GB of window state on the card), over ``--lrb-windows`` windows
-   of processing time (1.2 M events at 2), as phase 1 runs and closes out
+   of processing time (0.9 M events at 1.5), as phase 1 runs and closes out
    stock. Every window against a numpy oracle over all events: count,
    accident (2 or more stopped vehicles) and toll exact, avg_speed within
    the mean's tolerance. The operator gathers each table row's full
@@ -186,7 +186,7 @@ Phases (the first failed check exits non-zero, with no result line):
 13. Phase 1's deployment, seed and pool, pipelined with learned
    prefetch (``AionConfig(pipelined_execution=True,
    prefetch_backend="learned")``) over ``--pipeline-windows`` windows
-   (default phase 1's): every fold round, the close-out's sweep too, on
+   (default 1.5 since phase 29): every fold round, the close-out's sweep too, on
    the engine's pipeline worker thread. Every window against the oracle
    as in phase 1; every K1-K3 launch must have gone out from the worker
    thread on the arena's stream (the recorder keeps each launch's thread
@@ -221,8 +221,8 @@ Phases (the first failed check exits non-zero, with no result line):
    (``fairness_stats``), and every fold launch must have gone out from
    the shared pipeline's worker thread.
 15. Aion's failure path on phase 1's deployment, seed, 3,072-slot pool
-   and budgets, each run over ``--chaos-windows`` windows (600,000 events
-   at the default 2): the log store behind a ``FaultyBlockStore`` whose
+   and budgets, each run over ``--chaos-windows`` windows (450,000 events
+   at the default 1.5): the log store behind a ``FaultyBlockStore`` whose
    ``FaultInjector`` (``repro_torch.testing``; seed 77, max_consecutive
    2) fails a quarter of the store's get, put, commit and readahead
    calls, with ``AionConfig(io_retry_backoff=0.0,
@@ -289,7 +289,7 @@ Phases (the first failed check exits non-zero, with no result line):
    1,024 tokens (the loss within LOSS_TOL, every gradient, the router's
    and the experts' included, within GRAD_RTOL of its norm, and its
    zeroed-dq control; the plain and control runs routed as the kernels'
-   run, the free run's loss read beside), then six ``make_train_step`` steps on
+   run, the free run's loss read beside), then four ``make_train_step`` steps on
    ``token_batches`` of 2 x 4,096 through ``PrefetchPipeline``: every loss
    finite and every aux positive, K5 launched 2 x 2 times a step and K6
    twice, all on wgmma.
@@ -363,7 +363,7 @@ Phases (the first failed check exits non-zero, with no result line):
    K6's dK and dV of every decoder layer's cross-attention zeroed, read
    on the encoder's gradients, which reach the encoder only through those
    K/V (the last decoder layer's alone is read beside, not held: it
-   carries a third of them); 24b, six
+   carries a third of them); 24b, four
    ``make_train_step`` steps of 2 x (1,024 frames, 2,048 tokens), the
    frames drawn on the card for each step (the entry point gives none):
    every loss finite, K5 2 x 36 times and K6 36 times a step, all on
@@ -422,7 +422,7 @@ Phases (the first failed check exits non-zero, with no result line):
    and SHARD_SUM_ATOL; pool slot 0 NaN and inert); printed beside phase
    1's events/s, the rows and launches by shard, and the close-out's
    device busy share.
-28. The LM half of multi-device training and serving (run last): a (2, 2) mesh
+28. The LM half of multi-device training and serving (after 26): a (2, 2) mesh
    (``data``, ``model``) of four ranks spawned on ``cuda:0`` and joined by
    gloo (NCCL refuses two ranks on one device), every collective an
    all-reduce across the host; the kernels are built
@@ -454,7 +454,7 @@ Phases (the first failed check exits non-zero, with no result line):
    width with 2 layers, a prefill of 2 x 4,096 under the prefill rules
    (the batch over ``data``, K5 once a layer on each rank's 18 query and
    2 KV heads), the cache handed over to the decode rules' layout (all 4
-   KV heads over each rank's 2,080 of 4,160 slots), then 32 decode
+   KV heads over each rank's 2,080 of 4,160 slots), then 16 decode
    steps (context-parallel: q gathered over ``model``, the partial
    softmax merged across it, each rank writing the token only where its
    slice holds the slot); 28d qwen3-moe-30b with 1 layer (64 experts a
@@ -505,7 +505,7 @@ Phases (the first failed check exits non-zero, with no result line):
    ``copy_to`` on the first batch and is read on the encoder's
    gradients; then served as 28c is: a prefill of 16 x 128 tokens over
    1,024 frames, the cross cache handed over from each rank's 8 heads to
-   all 16, 32 decode steps on 160 slots (80 a rank), float32 at 2 + 2
+   all 16, 16 decode steps on 160 slots (80 a rank), float32 at 2 + 2
    layers, cross-attention's ``o`` reduce dropped as the control (read
    on the float32 steps). The main path: K5 twice and K6 once an
    attention block (4 encoder, 4 self, 4 cross) and step, K5 once a
@@ -522,6 +522,37 @@ Phases (the first failed check exits non-zero, with no result line):
    host clock, each rank's peak memory, each collective's calls, bytes
    and host seconds, with the card's name and power limit; four ranks on
    one card share its SMs, so nothing here speaks of scaling.
+29. The dry-run (``repro_torch.launch.dryrun``, run after 28): one rank
+   of three production cells (``DRYRUN_CELLS``: seamless-m4t-medium
+   ``train_4k``, hymba-1.5b ``prefill_32k`` and internvl2-76b
+   ``decode_32k``, the first on the 2 x 16 x 16 mesh, the others on
+   16 x 16) in a process of its own, started together, as rank 0 of a
+   fake world of 512 or 256 ranks (the ``fake`` backend: every
+   collective returns at once, counted). Each process traces its cell on
+   meta (the traces overlap); once every trace has ended, it realizes
+   the cell on the card, holding a lock file so that the realized cells
+   run one at a time: the rank's weights drawn from a fixed seed, its
+   step run once through the hand kernels at the rank's shapes (values
+   mean nothing: a gather holds the rank's own slice). Then the step
+   runs again, uncounted and untimed, keeping the first K5 and K6 launch
+   of each signature (causal, window, shapes) and the first K7 launch,
+   and each is held against its plain version on the float32 values of
+   the same inputs (``dryrun_replays``: K5 and K6 within
+   ``kernels/flash_limits.py``'s limits, K7 within one bf16 ulp and its
+   state within K7_STATE_RTOL; a launch whose plain scores pass
+   REPLAY_SCORE_BYTES, hymba-1.5b's 32k prefill, on its first and last
+   batch row's first and last head; controls that must fail: K5 and K6
+   with keys and values swapped, K7 over the second half of its tokens
+   without the first half's state). Held: the realized state (and
+   cache) bytes equal the traced ones exactly, every collective's count
+   equal, the launches exactly those the step implies (the train cell's
+   4 micro-batches: K5 twice and K6 once an attention block each; the
+   prefill's K5 once an attention block and K7 once a layer; the decode
+   none), each on its bf16 design, every kernel the step launches held
+   against its plain version, and K5, K6 and K7 each launched. Printed:
+   the realized peak beside the traced one (the meta trace's counts the
+   plain versions' intermediates), the step's seconds on CUDA events,
+   the collectives' bytes.
 
 K4's and K7's outputs are held within one bf16 ulp of the plain
 version's (``attn_close``); K5's and K6's bf16 outputs on their wgmma
@@ -531,7 +562,8 @@ readings (``flash_close``); the prefill's log-sum-exp within LSE_TOL.
 The kernels' launch counters (and K5's and K6's counts by design) are
 set to 0 just before each of phases 1, 2, 12, 13, 14, 15a, 15b, 16,
 27a-27e, 4, 6b, 7, 7b, 9a, 9c, 10, 17a, 18, each example of 19, 20b, 21b, 23a, 24b
-and 25a (and 28a-28h on each rank) and read just after; every bf16
+and 25a (and 28a-28h on each rank, and each cell of 29 in its
+process) and read just after; every bf16
 launch of K5 and K6 in phases 4, 28a, 28c-28h,
 6b, 10, 17a, 18, 19, 21b, 23a, 24b and 25a must have gone through the
 wgmma design, and every K7 launch of 20b, 21b, 28e and 28f through
@@ -544,7 +576,8 @@ in phases 17a, 18, 19, 7b, 20b, 21b, 23a, 24b and 25a), and
 and K5's are their counts in phase 4, K6's in phase 6b, K7's in phase
 9a; K5's and K6's ``non_causal`` hold phase 26's replays, and K5's,
 K6's and K7's ``launches_by_rank`` each rank's count in phases 28a-28h
-(28e's, 28f's and 28g's training and serving together). The
+(28e's, 28f's and 28g's training and serving together), and
+``launches_by_run`` each phase-29 cell's counts. The
 last line of the output is ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as one JSON object, and the line
 before that the card's name and power limit as ``nvidia-smi`` gives
@@ -2178,13 +2211,8 @@ def flash_limits():
 
 
 def zero_counts(fns) -> None:
-    """Each wrapper's launch counter, and its counts by design and by
-    shard where it keeps them, to 0."""
-    for fn in fns:
-        fn.launches = 0
-        for key in getattr(fn, "launches_by_design", {}):
-            fn.launches_by_design[key] = 0
-        getattr(fn, "launches_by_shard", {}).clear()
+    """Each wrapper's launch counts to 0 (``kernels.zero_launches``)."""
+    importlib.import_module("repro_torch.kernels").zero_launches(fns)
 
 
 def by_design(fns: dict) -> dict:
@@ -2654,9 +2682,10 @@ BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 #: K6: its name, and the TPU kernel it replaces
 K6 = ("flash_bwd_wgmma (K6, flash attention backward)",
       "src/repro/kernels/flash_attention_bwd.py:112")
-#: phase 6: TRAIN_ARCH at full width with 8 of its layers, six steps of
-#: 2 x 4,096 tokens (6b) after a gradient check on 1 x 1,024 (6a)
-TRAIN_RUN = dict(layers=8, batch=2, seq=4096, steps=6, grad_seq=1024)
+#: phase 6: TRAIN_ARCH at full width with 8 of its layers, four steps of
+#: 2 x 4,096 tokens (6b; six until phase 29) after a gradient check on
+#: 1 x 1,024 (6a)
+TRAIN_RUN = dict(layers=8, batch=2, seq=4096, steps=4, grad_seq=1024)
 #: its CPU rehearsal (``run_train(..., small=True)``, reduced widths)
 SMALL_TRAIN = dict(layers=2, batch=2, seq=128, steps=3, grad_seq=64)
 #: phase 7: the entry point at its default config, run to FIRST steps,
@@ -3388,19 +3417,20 @@ SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 #: K7: its name, and the TPU kernel it replaces
 K7 = ("ssd_tensor (K7, SSD chunk scan)", "src/repro/kernels/ssd_scan.py:66")
 #: phase 9: SSM_ARCH at full width and depth. 9a: the prefill_32k cell's
-#: prompt length with its batch of 32 cut to 4, then 32 decode steps; 9b:
+#: prompt length with its batch of 32 cut to 4, then 16 decode steps; 9b:
 #: prefill + one decode against a longer prefill, and a streaming prefill
 #: in chunks of ``chunk`` against the whole one; 9c: long_500k's prompt cut
-#: to a quarter, streamed, then 16 decode steps
-SSM_RUN = dict(batch=4, seq=32768, decode=32, check_batch=2,
+#: to a quarter, streamed, then 8 decode steps (32 and 16 until phase 29)
+SSM_RUN = dict(batch=4, seq=32768, decode=16, check_batch=2,
                check_seq=4096, stream_seq=16384, chunk=4096,
                control_seq=4096, control_chunk=256, long_seq=131072,
-               long_decode=16)
+               long_decode=8)
 #: phase 10: HYBRID_ARCH at full width and depth: 4 prompts of 4,096
 #: tokens (a multiple of its 1,024 window, so that the ring is aligned:
-#: ROADMAP Queue 3), 32 decode steps with the 16-bit and the int8 cache,
+#: ROADMAP Queue 3), 16 decode steps (32 until phase 29) with the 16-bit
+#: and the int8 cache,
 #: and prefill + one decode of 2 x 4,096 against a prefill of 4,097
-HYBRID_RUN = dict(batch=4, seq=4096, decode=32, check_batch=2)
+HYBRID_RUN = dict(batch=4, seq=4096, decode=16, check_batch=2)
 #: prefill + decode, and the streaming prefill, against the whole prefill,
 #: by compute type: the logits' largest difference within ``logits`` (and
 #: in float32 their argmax equal); every layer's SSM state within
@@ -4331,8 +4361,8 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_SERVE_RUN = dict(batch=4, seq=2048, decode=16, tf_batch=2, tf_seq=32)
 #: phase 18: MOE_ARCH at full width with 2 of its 48 layers (fp32
 #: parameters, bf16 compute, ``remat="full"``): phase 6a's gradient check
-#: on 1 x 1,024, then six AdamW steps of 2 x 4,096
-MOE_TRAIN_RUN = dict(layers=2, batch=2, seq=4096, steps=6, grad_seq=1024)
+#: on 1 x 1,024, then four AdamW steps of 2 x 4,096 (six until phase 29)
+MOE_TRAIN_RUN = dict(layers=2, batch=2, seq=4096, steps=4, grad_seq=1024)
 #: 17b: the prefill's last logits and the first decode step's, K5 against
 #: its plain version in the same bf16 model routed alike, each row within
 #: MOE_LOGITS_RTOL of its norm (over the vocabulary). K5's bf16 output is
@@ -4378,11 +4408,9 @@ print(chip_smoke.LAUNCH_TAG + json.dumps(dict(
 
 
 def all_wrappers() -> dict:
-    """The seven kernels' counting wrappers by key."""
-    sa = importlib.import_module("repro_torch.kernels.segment_aggregate")
-    return {**dict(zip(KERNELS, sa.KERNEL_WRAPPERS)),
-            **{k: attn_wrapper(k) for k in ATTN_KERNELS},
-            "K6": k6_wrapper(), "K7": k7_wrapper()}
+    """The seven kernels' counting wrappers by key
+    (``kernels.counting_wrappers``)."""
+    return importlib.import_module("repro_torch.kernels").counting_wrappers()
 
 
 def rows_rel(got, want, vocab: int) -> float:
@@ -5522,13 +5550,13 @@ ENCDEC_SERVE_RUN = dict(batch=16, seq=128, decode=32, check_batch=2,
 #: parameters, bf16 compute, ``remat="full"``): 24a the gradient check on
 #: 1 x (1,024 frames, grad_seq tokens) through grad_layers encoder and
 #: decoder layers, its control K6's dK/dV of the decoder's
-#: cross-attention zeroed (read on the encoder's gradients); 24b six steps
-#: of 2 x (1,024 frames, 2,048 tokens). 24a holds its bf16 loss within
+#: cross-attention zeroed (read on the encoder's gradients); 24b four steps
+#: of 2 x (1,024 frames, 2,048 tokens) (six until phase 29). 24a holds its bf16 loss within
 #: SSM_LOSS_TOL, 20a's limit: on an H100 K5's and K6's bf16 rounding moved
 #: it by 1.774e-4 of 12.95, past LOSS_TOL, where the same check in float32
 #: compute (K5/K6 on their CUDA-core design) read 0 (PERF.md, PR 23); the
 #: float32 check holds LOSS_TOL
-ENCDEC_TRAIN_RUN = dict(batch=2, seq=2048, steps=6, grad_seq=1024,
+ENCDEC_TRAIN_RUN = dict(batch=2, seq=2048, steps=4, grad_seq=1024,
                         grad_layers=4, control="cross_dkv",
                         loss_tol=SSM_LOSS_TOL)
 #: phase 25: VLM_ARCH at full width with 8 of its 80 layers (bf16
@@ -6185,7 +6213,7 @@ KV_LEAVES = ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v")
 #: and on the steps this fault read 4.4 x the limit)
 LM_SERVE = {
     "dense": dict(arch=TRAIN_ARCH, layers=2, batch=2, seq=4096, cap=4160,
-                  steps=32, check_layers=2, check_steps=2, swap_steps=4,
+                  steps=16, check_layers=2, check_steps=2, swap_steps=4,
                   controls=("merge", "heads_o", "neighbour_slots")),
     "moe": dict(arch=MOE_ARCH, layers=1, batch=2, seq=2048, cap=2064,
                 steps=16, check_layers=2, check_steps=2,
@@ -6197,7 +6225,7 @@ LM_SERVE = {
                    steps=16, check_layers=2, check_steps=2,
                    controls=("ssd_o", "ssd_norm")),
     "audio": dict(arch=ENCDEC_ARCH, layers=4, batch=16, seq=128, cap=160,
-                  steps=32, check_layers=2, check_steps=2,
+                  steps=16, check_layers=2, check_steps=2,
                   controls=("cross_o",)),
     "vlm": dict(arch=VLM_ARCH, layers=2, batch=2, seq=1792, cap=2064,
                 steps=16, check_layers=2, check_steps=2,
@@ -6303,12 +6331,20 @@ def _lm_rel(ctx, model, grads: dict, where: Path) -> tuple:
 
 class _KeepLargest:
     """The first K5 and K6 launches of the path (every launch of a phase
-    has one shape), for the replays."""
+    has one shape), for the replays; with ``each``, the first launch of
+    each signature (causal, window, shapes) of either, keyed by it."""
 
-    def __init__(self):
+    def __init__(self, each: bool = False):
         self.fa = importlib.import_module(
             "repro_torch.kernels.flash_attention")
         self.kept = {}
+        self.each = each
+
+    def key(self, kind: str, q, k, causal: bool, window: int) -> str:
+        if not self.each:
+            return kind
+        return (f"{kind} {'causal' if causal else 'non-causal'} window "
+                f"{window} q {list(q.shape)} k/v {list(k.shape)}")
 
     def __enter__(self):
         fa, kept = self.fa, self.kept
@@ -6317,8 +6353,9 @@ class _KeepLargest:
 
         def fwd(q, k, v, causal, window, want_lse, design,
                 kv_valid_len=None):
-            if "K5" not in kept and q.is_cuda:
-                kept["K5"] = dict(args=tuple(t.detach().clone()
+            key = self.key("K5", q, k, causal, window)
+            if key not in kept and q.is_cuda:
+                kept[key] = dict(args=tuple(t.detach().clone()
                                              for t in (q, k, v)),
                                   kw=dict(causal=causal, window=window,
                                           kv_valid_len=kv_valid_len))
@@ -6326,8 +6363,9 @@ class _KeepLargest:
                             kv_valid_len)
 
         def bwd(q, k, v, o, do, lse, **kw):
-            if "K6" not in kept and q.is_cuda:
-                kept["K6"] = dict(args=tuple(t.detach().clone() for t in
+            key = self.key("K6", q, k, kw["causal"], kw["window"])
+            if key not in kept and q.is_cuda:
+                kept[key] = dict(args=tuple(t.detach().clone() for t in
                                              (q, k, v, o, do, lse)), kw=kw)
             return real_bwd(q, k, v, o, do, lse, **kw)
 
@@ -7586,29 +7624,385 @@ def serve_report(rs: list, part: str, tag: str, small: bool, card: str,
 
 
 # --------------------------------------------------------------------- main
+# ------------------------------------------------------- phase 29: the dry-run
+#: the production cells phase 29 realizes, one rank each: (mesh, arch,
+#: shape); among them K5, K6 and K7 launch, and each traces on meta in a
+#: few tens of seconds at most (a train cell of the SSM or hybrid family
+#: traces for minutes)
+DRYRUN_CELLS = (("multi", "seamless-m4t-medium", "train_4k"),
+                ("single", "hymba-1.5b", "prefill_32k"),
+                ("single", "internvl2-76b", "decode_32k"))
+#: the CPU rehearsal's cells: the same archs reduced, on (2, 2)
+SMALL_DRYRUN_SHAPES = {"train": (64, 8), "prefill": (64, 4),
+                       "decode": (64, 4)}
+DRYRUN_TIMEOUT_S = 300.0
+#: the most bytes of scores ([B, G, Sq, Sk] float32) that a plain version
+#: of a phase-29 replay may hold at once: a larger launch is held on
+#: slices of it, the first and the last (one batch row and one query head
+#: for K5, one batch row and one KV head's group for K6)
+REPLAY_SCORE_BYTES = 2 ** 32
+
+
+def replay_slices(q, k, group: bool) -> list:
+    """(batch, q heads, KV heads) index slices of the parts of a K5 or K6
+    launch that its replay holds: the whole launch where the plain
+    version's scores fit REPLAY_SCORE_BYTES; else the first batch row's
+    first KV head and the last row's last, each with its whole group of
+    query heads (``group``, as K6's dk and dv sum over it) or one query
+    head of it."""
+    b, sq, h, _ = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    whole = slice(None)
+    if b * g * sq * sk * 4 <= REPLAY_SCORE_BYTES:
+        return [(whole, whole, whole)]
+    heads = g if group or g * sq * sk * 4 <= REPLAY_SCORE_BYTES else 1
+    check(heads * sq * sk * 4 <= REPLAY_SCORE_BYTES,
+          f"a replay of q {list(q.shape)}, k/v {list(k.shape)} holds "
+          f"{heads * sq * sk * 4} B of scores, beyond {REPLAY_SCORE_BYTES}")
+    out = []
+    for row, kv in ((0, 0), (b - 1, hkv - 1)):
+        first = kv * g + (g - heads if row else 0)
+        out.append((slice(row, row + 1), slice(first, first + heads),
+                    slice(kv, kv + 1)))
+    return out
+
+
+def _lengths_of(kw: dict, rows: slice) -> dict:
+    lens = kw.get("kv_valid_len")
+    return dict(kw, kv_valid_len=None if lens is None else lens[rows])
+
+
+def dryrun_replays(kept: dict) -> dict:
+    """Each launch kept from a phase-29 step (``_KeepLargest(each=True)``
+    for K5 and K6, ``dryrun_cell``'s K7 tap) against its plain version on
+    the float32 values of the same inputs, on ``replay_slices``: K5 and
+    K6 within ``kernels/flash_limits.py``'s limits (``flash_close``), K7's
+    y within one bf16 ulp and its final state within K7_STATE_RTOL
+    (``_k7_close``). As controls that must fail, K5 and K6 launched with
+    their keys and values swapped (at least CONTROL_FACTOR times the row
+    limit), K7 over the second half of its tokens without the state of
+    the first."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fb = importlib.import_module("repro_torch.kernels.flash_attention_bwd")
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    FL = flash_limits()
+    out = {}
+    for key, rec in kept.items():
+        kind = key.split()[0]
+        if kind == "K7":
+            xdt, a, B, C = (rec[n] for n in ("xdt", "a", "B", "C"))
+            h0, chunk = rec["init_state"], rec["chunk"]
+            s, p, n = xdt.shape[1], xdt.shape[-1], B.shape[-1]
+            y, st = ss.ssd_scan_cuda(xdt, a, B, C, chunk=chunk,
+                                     init_state=h0)
+            ry, rst = ss.ssd_scan_plain(xdt, a, B, C,
+                                        chunk=ss.kernel_chunk(xdt.dtype, p,
+                                                              n),
+                                        init_state=h0)
+            err, st_err = _k7_close(y, st, ry, rst)
+            half = s // 2
+            must_fail(f"{key}: tokens {half}-{s - 1} without the state of "
+                      "the tokens before", lambda: attn_close(
+                          ss.ssd_scan_cuda(*(t[:, half:].contiguous()
+                                             for t in (xdt, a, B, C)),
+                                           chunk=chunk)[0], ry[:, half:]))
+            out[key] = dict(max_abs_err=err, state_err=st_err,
+                            control="rejected")
+            del y, st, ry, rst
+            continue
+        if kind == "K5":
+            q, k, v = rec["args"]
+            kw = rec["kw"]
+            got = (fa.flash_attention_cuda(q, k, v, **kw),)
+            bad = (fa.flash_attention_cuda(q, v, k, **kw),)
+        else:
+            q, k, v, o, do, lse = rec["args"]
+            kw = rec["kw"]
+            got = fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            bad = fb.flash_attention_bwd_cuda(q, v, k, o, do, lse, **kw)
+        sq, h = q.shape[1], q.shape[2]
+        reads, bad_rows, parts = [], [], []
+        for rows, qh, kh in replay_slices(q, k, group=kind == "K6"):
+            kws = _lengths_of(kw, rows)
+            if kind == "K5":
+                want = (fa.flash_attention_plain(
+                    q[rows, :, qh].float(), k[rows, :, kh].float(),
+                    v[rows, :, kh].float(), **kws),)
+                idx = ((rows, slice(None), qh),)
+                limit, floors = FL.FWD_ROW_RTOL, (ATTN_ULP_FLOOR,)
+            else:
+                want = fb.flash_attention_bwd_plain(
+                    *(x[rows, :, hh].float() for x, hh in (
+                        (q, qh), (k, kh), (v, kh), (o, qh), (do, qh))),
+                    lse.view(q.shape[0], h, sq)[rows, qh].reshape(-1, sq),
+                    **kws)
+                idx = ((rows, slice(None), qh), (rows, slice(None), kh),
+                       (rows, slice(None), kh))
+                limit = FL.BWD_ROW_RTOL
+                floors = tuple(max(float(w.abs().max()), 1e-30)
+                               * GRAD_ULP_FLOOR for w in want)
+            for g_, b_, w, i, floor in zip(got, bad, want, idx, floors):
+                reads.append(flash_close(g_[i], w, limit, floor))
+                bad_rows.append(FL.row_error(b_[i], w))
+            parts.append(f"row {rows.start}, q heads {qh.start}-"
+                         f"{qh.stop - 1}" if rows.start is not None
+                         else "whole")
+            del want
+        ratio = control_reads(f"{key} with its keys and values swapped",
+                              max(bad_rows), limit)
+        out[key] = dict({n: max(x[n] for x in reads)
+                         for n in ("max_abs_err", "row_err", "ulps")},
+                        control_ratio=ratio, held_on=parts)
+        del got, bad
+    return out
+
+
+def _wait_for(paths: list, deadline: float) -> None:
+    while not all(p.exists() for p in paths):
+        check(time.monotonic() < deadline, "phase 29: a sibling cell's "
+              "trace did not end in time")
+        time.sleep(0.1)
+
+
+def dryrun_cell(mesh_name: str, arch: str, shape_name: str, device: str,
+                small: bool, out: str, lock: str, cells: int) -> None:
+    """One cell of phase 29 in a process of its own, as rank 0 of a fake
+    world of the mesh's size: traced on meta (the traces of the cells
+    overlap); then, once every cell's trace has ended (so that no trace
+    shares the host's cores with a timed step), realized on ``device``
+    holding the lock file, one cell on the card at a time; then the step
+    run again with its K5, K6 and K7 launches kept, and those held
+    against their plain versions (``dryrun_replays``). Writes both
+    records and the replays to ``out``."""
+    import fcntl
+    import inspect
+    import torch
+    from repro_torch.configs import SHAPES_BY_NAME, get_config, reduced
+    from repro_torch.configs.base import MeshConfig, ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
+    mcfg = dryrun.mesh_config_of(mesh_name)
+    if small:
+        cfg = reduced(cfg)
+        shape = ShapeConfig(shape.name, *SMALL_DRYRUN_SHAPES[shape.kind],
+                            shape.kind)
+        mcfg = MeshConfig(LM_MESH, ("data", "model"))
+
+    def mesh_on(dev):
+        if small:
+            return dryrun.make_mesh_from_config(mcfg, dev)
+        return dryrun.make_mesh(mesh_name, dev)
+
+    kept_k7 = {}
+
+    def keep_k7(i, fn, *args, **kw):
+        a = inspect.signature(fn).bind(*args, **kw)
+        a.apply_defaults()
+        key = f"K7 xdt {list(a.arguments['xdt'].shape)}"
+        if key not in kept_k7 and a.arguments["xdt"].is_cuda:
+            kept_k7[key] = {n: x.clone() if isinstance(x, torch.Tensor)
+                            else x for n, x in a.arguments.items()}
+        return fn(*args, **kw)
+
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    with dryrun.fake_world(mcfg.num_devices):
+        t0 = time.perf_counter()
+        try:
+            traced = dryrun.lower_cell(cfg, shape, mcfg, mesh_on("meta"))
+        finally:
+            Path(out + ".traced").touch()
+        traced["total_s"] = time.perf_counter() - t0
+        _wait_for([Path(out).parent / f"cell{i}.json.traced"
+                   for i in range(cells)], deadline)
+        with open(lock, "a") as held:
+            fcntl.flock(held, fcntl.LOCK_EX)
+            t0 = time.perf_counter()
+            mesh = mesh_on(torch.device(device))
+            realized = dryrun.lower_cell(cfg, shape, mcfg, mesh)
+            realized["total_s"] = time.perf_counter() - t0
+            # the launches kept on a run of their own, apart from the
+            # counted and timed one
+            t0 = time.perf_counter()
+            cell = dryrun.build_cell(cfg, shape, mcfg, mesh)
+            with _KeepLargest(each=True) as keep, K7Tap(keep_k7), \
+                    shd.use_ctx(cell.ctx):
+                cell.run()
+            del cell
+            replays = dryrun_replays({**keep.kept, **kept_k7})
+            del keep, kept_k7
+            realized["replay_s"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps({"traced": traced, "realized": realized,
+                                     "replays": replays}))
+
+
+def dryrun_launches(cfg, rec: dict) -> dict:
+    """The launches one rank's step of the cell implies: a train step's
+    micro-batches each a step of ``train_launches``; a prefill's K5 once
+    an attention block and K7 once a layer; a decode step none."""
+    if rec["kind"] == "train":
+        return train_launches(cfg, rec["profile"]["num_microbatches"])
+    if rec["kind"] == "prefill":
+        return serve_launches(cfg, {})
+    return {}
+
+
+def dryrun_phase(dev, card: str, small: bool = False,
+                 cells: tuple = DRYRUN_CELLS) -> dict:
+    """Phase 29: each cell in a process of its own (``dryrun_cell``, all
+    started together), then the realized rank held against the trace:
+    the state and cache bytes exactly, every collective's count, and on
+    the card the launches the step implies, each on its bf16 design, and
+    a launch of each of its kernels at each signature held against the
+    plain version with its control (``dryrun_replays``). The peaks, the
+    step's seconds and the collective bytes are printed."""
+    from repro_torch.configs import get_config, reduced
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build"))
+    lock = work / "card.lock"
+    code = ("import sys; sys.path[:0] = [{src!r}, {root!r}]; "
+            "import chip_smoke; chip_smoke.dryrun_cell(*sys.argv[1:5], "
+            "sys.argv[5] == '1', *sys.argv[6:8], int(sys.argv[8]))")
+    code = code.format(src=str(ROOT / "src"), root=str(ROOT))
+    procs = []
+    try:
+        for i, (mesh_name, arch, shape) in enumerate(cells):
+            args = [mesh_name, arch, shape, str(dev), "1" if small else "0",
+                    str(work / f"cell{i}.json"), str(lock), str(len(cells))]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, *args], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        outs = []
+        for p in procs:
+            left = max(deadline - time.monotonic(), 1.0)
+            outs.append(p.communicate(timeout=left)[0])
+        for (mesh_name, arch, shape), p, text in zip(cells, procs, outs):
+            check(p.returncode == 0, f"phase 29: {mesh_name} {arch} {shape} "
+                  f"exited {p.returncode}:\n{text[-3000:]}")
+        recs = [json.loads((work / f"cell{i}.json").read_text())
+                for i in range(len(cells))]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    cuda = dev.type == "cuda"
+    out = {}
+    for (mesh_name, arch, shape), pair in zip(cells, recs):
+        traced, real = pair["traced"], pair["realized"]
+        tag = f"29 {arch} {shape}"
+        cfg = get_config(arch)
+        if small:
+            cfg = reduced(cfg)
+        want = dryrun_launches(cfg, traced)
+        got = {k: v["launches"] for k, v in real.get("launches", {}).items()
+               if v["launches"]}
+        mem_t, mem_r = traced["memory"], real["memory"]
+        log(f"phase {tag} on the {tuple(traced['mesh']['shape'])} mesh "
+            f"({traced['chips']} ranks, "
+            f"rank {real['rank']}), profile "
+            + json.dumps({k: traced["profile"][k] for k in (
+                "attn_tp", "mlp_tp", "vocab_tp", "expert_tp", "ssd_tp",
+                "kv_repeat", "kv_seq_shard", "remat_group",
+                "num_microbatches") if k in traced["profile"]})
+            + f": state {real['state_bytes_per_device']} B realized, "
+            f"{traced['state_bytes_per_device']} B traced"
+            + (f"; cache {real['cache_bytes_per_device']} B realized, "
+               f"{traced['cache_bytes_per_device']} B traced (decode at "
+               f"pos {real['decode_pos']})"
+               if "cache_bytes_per_device" in traced else ""))
+        log(f"  peak {mem_r['peak_bytes'] / 1e9:.3f} GB realized "
+            f"({mem_r['peak_of']}), {mem_t['peak_bytes'] / 1e9:.3f} GB traced "
+            f"({mem_t['peak_of']}); step "
+            f"{real.get('step_s', float('nan')):.4f} s on CUDA events (every "
+            f"trace ended), {real['trace_s']:.2f} s on the host clock (the "
+            f"trace {traced['trace_s']:.2f} s, {traced['cost']['flops']:.4e} "
+            f"flops: {traced['cost']['flops_of']}); launches {got} (the path implies "
+            f"{want}); the process's trace and realization "
+            f"{traced['total_s']:.1f} + {real['total_s']:.1f} s; {card}")
+        log("  collectives realized: " + "; ".join(
+            f"{k} {v['count']} calls {v['bytes'] / 1e9:.4f} GB"
+            for k, v in real["collectives"].items())
+            + " | traced: " + "; ".join(
+            f"{k} {v['count']} calls {v['bytes'] / 1e9:.4f} GB"
+            for k, v in traced["collectives"].items()))
+        check(real["device"] == dev.type and traced["device"] == "meta",
+              f"{tag}: realized on {real['device']}, traced on "
+              f"{traced['device']}")
+        for key in ("state_bytes_per_device", "cache_bytes_per_device"):
+            check(real.get(key) == traced.get(key),
+                  f"{tag}: {key} {real.get(key)} realized, {traced.get(key)} "
+                  "traced")
+        counts = ({k: v["count"] for k, v in real["collectives"].items()},
+                  {k: v["count"] for k, v in traced["collectives"].items()})
+        check(counts[0] == counts[1] and counts[0],
+              f"{tag}: collective counts {counts[0]} realized, {counts[1]} "
+              "traced")
+        if cuda:
+            check(set(got) == set(want), f"{tag}: launched {got}, the path "
+                  f"implies {want}")
+            check_designs(tag, {"rank": real["rank"], "launches": {
+                k: v["launches"] for k, v in real["launches"].items()},
+                "by_design": {k: v["by_design"]
+                              for k, v in real["launches"].items()}}, want)
+            held = {key.split()[0] for key in pair["replays"]}
+            check(held == set(want), f"{tag}: launches held against their "
+                  f"plain versions {sorted(held)}, the path implies "
+                  f"{sorted(want)}")
+        for key, rp in pair["replays"].items():
+            log(f"  {key}: held against the plain version"
+                + (f" on {', '.join(rp['held_on'])}" if "held_on" in rp
+                   else "") + f": max_abs_err {rp['max_abs_err']:.3g}"
+                + (f", worst row {rp['row_err']:.3g}, {rp['ulps']:.1f} "
+                   f"ulps, the control {rp['control_ratio']:.1f} x the "
+                   "row limit" if "row_err" in rp else
+                   f", final state {rp['state_err']:.3g} of its largest, the "
+                   f"control {rp['control']}")
+                + f" ({card})")
+        if cuda:
+            log(f"  the keeping run and the replays {real['replay_s']:.1f} s")
+        out[f"29_{arch}_{shape}"] = {"traced": traced, "realized": real,
+                                     "launches": got, "implied": want,
+                                     "replays": pair["replays"]}
+    if cuda:
+        launched = set().union(*(r["launches"] for r in out.values()))
+        check({"K5", "K6", "K7"} <= launched,
+              f"phase 29: the cells launched {sorted(launched)}, not K5, K6 "
+              "and K7")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--windows", type=float, default=2.0,
-                    help="windows of processing time streamed in phase 1")
+    ap.add_argument("--windows", type=float, default=1.5,
+                    help="windows of processing time streamed in phase 1 "
+                    "(2 until phase 29)")
     ap.add_argument("--splitk-windows", type=float, default=2.0,
                     help="windows of processing time streamed in phase 2")
-    ap.add_argument("--lrb-windows", type=float, default=2.0,
-                    help="windows of processing time streamed in phase 12")
-    ap.add_argument("--pipeline-windows", type=float, default=None,
+    ap.add_argument("--lrb-windows", type=float, default=1.5,
+                    help="windows of processing time streamed in phase 12 "
+                    "(2 until phase 29)")
+    ap.add_argument("--pipeline-windows", type=float, default=1.5,
                     help="windows of processing time streamed in phase 13 "
-                    "(default: phase 1's)")
-    ap.add_argument("--failure-windows", type=float, default=2.0,
+                    "(phase 1's until phase 29)")
+    ap.add_argument("--failure-windows", type=float, default=1.5,
                     help="windows of processing time streamed by each "
-                    "failure control of phase 13b")
+                    "failure control of phase 13b (2 until phase 29)")
     ap.add_argument("--tenant-seconds", type=float, default=45.0,
                     help="seconds of processing time streamed in phase 14")
-    ap.add_argument("--chaos-windows", type=float, default=2.0,
+    ap.add_argument("--chaos-windows", type=float, default=1.5,
                     help="windows of processing time streamed by each run of "
-                    "phase 15")
-    ap.add_argument("--recovery-windows", type=float, default=1.5,
+                    "phase 15 (2 until phase 29)")
+    ap.add_argument("--recovery-windows", type=float, default=1.25,
                     help="windows of processing time streamed in phase 16 "
-                    "(1.5 since phase 28g/28h: four checkpoints in place "
-                    "of six)")
+                    "(1.25 since phase 29: three checkpoints; 1.5 and four "
+                    "since phase 28g/28h)")
     ap.add_argument("--sharded-windows", type=float, default=3.0,
                     help="windows of processing time streamed in phase 27a")
     ap.add_argument("--sharded-splitk-windows", type=float, default=2.0,
@@ -7621,9 +8015,6 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="write every number of the run to this JSON file")
     args = ap.parse_args(argv)
-    if args.pipeline_windows is None:
-        args.pipeline_windows = args.windows
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -8207,6 +8598,15 @@ def main(argv=None) -> int:
                              "ranks": lm[part]}
         new_runs.update({f"{tag}_rank{r['rank']}": r["launches"]
                          for r in lm[part]})
+    # phase 29: one rank of three production cells of the dry-run, each
+    # traced on meta and realized on this card in a process of its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(dev, card)
+    log(f"phase 29: {dry.pop('wall_s'):.1f} s")
+    for tag, r in dry.items():
+        runs[tag] = r
+        new_runs[tag] = {k: r["launches"].get(k, 0) for k in every}
     for entry in kernels:
         key = entry["name"].split("(")[1].split(",")[0]
         entry.setdefault("launches_by_run", {}).update(
@@ -8219,6 +8619,12 @@ def main(argv=None) -> int:
             entry["replays_by_rank"] = [
                 r["replays"][key]["row_err"] for r in lm["dense"]
                 if key in r["replays"]]
+        if key in ("K5", "K6", "K7"):
+            entry["dryrun_replays"] = {
+                tag: {sig: rp["max_abs_err"]
+                      for sig, rp in r["replays"].items()
+                      if sig.split()[0] == key}
+                for tag, r in dry.items()}
 
     if args.out is not None:
         report["kernels"] = [dict(x, shape=s)

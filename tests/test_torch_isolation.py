@@ -41,7 +41,7 @@ SLICE_MODULES = [
     "repro_torch.models.moe", "repro_torch.train.compression",
     "repro_torch.distributed.sharding",
     "repro_torch.distributed.collectives", "repro_torch.launch.mesh",
-    "repro_torch.train.elastic",
+    "repro_torch.train.elastic", "repro_torch.launch.dryrun",
 ]
 
 #: classes each slice added to a module the walk imports: (module, name)
