@@ -42,6 +42,7 @@ import torch
 from repro_torch.kernels import flash_tiles
 from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS
 from repro_torch.kernels.ref import _mask
+from repro_torch.obs import lm
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -153,7 +154,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     ``kv_valid_len``: int32 [B] on the inputs' device, each row's count of
     valid keys (None: Sk), as the forward took it. ``design`` None takes
     the design of ``flash_tiles``' table; a name forces that design (for
-    measurements) and raises where it does not take the inputs."""
+    measurements) and raises where it does not take the inputs. Its span
+    is ``kernel.k6``."""
+    with lm.span("kernel.k6"):
+        return _bwd(q, k, v, o, do, lse, causal, window, design,
+                    kv_valid_len)
+
+
+def _bwd(q, k, v, o, do, lse, causal, window, design, kv_valid_len):
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          window=window,

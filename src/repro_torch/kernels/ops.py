@@ -40,6 +40,7 @@ from repro_torch.kernels.segment_aggregate import (
     segment_aggregate_batched_splitk_sharded, segment_aggregate_plain,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.obs import lm
 
 BACKENDS = ("auto", "ref")
 
@@ -322,15 +323,17 @@ def flash_attention_vjp(q, k, v, causal: bool = True, window: int = 0,
     K6 tile by their own sizes (``kernels/flash_tiles.py``), and the plain
     versions do not tile. The JAX ``interpret`` argument (run the Pallas
     kernels in the interpreter) has no counterpart: a CPU tensor takes the
-    plain versions, and a CUDA tensor the kernels."""
+    plain versions, and a CUDA tensor the kernels. Its span is
+    ``kernel.k5``."""
     _check(backend)
-    dev = _kv_device(k, device)
-    k = _on(k, dev, "k")
-    q, v = _on(q, dev, "q"), _on(v, dev, "v")
-    o, _ = _FlashForward.apply(q, k, v, bool(causal), int(window), False,
-                               backend == "ref", None,
-                               _lengths(kv_valid_len, dev))
-    return o
+    with lm.span("kernel.k5"):
+        dev = _kv_device(k, device)
+        k = _on(k, dev, "k")
+        q, v = _on(q, dev, "q"), _on(v, dev, "v")
+        o, _ = _FlashForward.apply(q, k, v, bool(causal), int(window),
+                                   False, backend == "ref", None,
+                                   _lengths(kv_valid_len, dev))
+        return o
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_table, seq_lens,

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import pad_vocab
+from repro_torch.obs import lm
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -43,6 +44,15 @@ def dtype_of(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def param_as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A stored parameter (or the rows of one that a call takes) in
+    ``dtype``; the bytes converted count as ``cast_bytes`` while the LM
+    tracer is on."""
+    if t.dtype != dtype and lm.TRACER.sample_rate > 0.0:
+        lm.count("cast_bytes", t.numel() * t.element_size())
+    return t.to(dtype)
 
 
 def dense_init(generator: torch.Generator, in_dims: Tuple[int, ...],
@@ -66,10 +76,10 @@ def dense_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     """x [..., in] @ w [in, *out] (+ b) in ``compute_dtype``.
     ``contract_dims`` leading w dims are contracted against trailing x
     dims."""
-    w = params["w"].to(compute_dtype)
+    w = param_as(params["w"], compute_dtype)
     y = torch.tensordot(x.to(compute_dtype), w, dims=contract_dims)
     if "b" in params:
-        y = y + params["b"].to(compute_dtype)
+        y = y + param_as(params["b"], compute_dtype)
     return y
 
 
@@ -92,12 +102,12 @@ def row_parallel(params: Dict[str, torch.Tensor], x: torch.Tensor,
     its float32 accumulation once (a bf16 partial would round twice)."""
     if axis is None:
         return dense_apply(params, x, compute_dtype, contract_dims)
-    w = params["w"].to(compute_dtype)
+    w = param_as(params["w"], compute_dtype)
     y = torch.tensordot(x.to(compute_dtype).float(), w.float(),
                         dims=contract_dims)
     y = col.reduce_from(y, mesh, axis).to(compute_dtype)
     if "b" in params:
-        y = y + params["b"].to(compute_dtype)
+        y = y + param_as(params["b"], compute_dtype)
     return y
 
 
@@ -115,7 +125,7 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float,
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(compute_dtype)
+    return (y * param_as(params["scale"], torch.float32)).to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +234,12 @@ def embed_apply(params, tokens: torch.Tensor,
     mesh, axis = tp(shd.VOCAB)
     table = params["table"]
     if axis is None:
-        return table[tokens.long()].to(compute_dtype)
+        return param_as(table[tokens.long()], compute_dtype)
     rows = table.shape[0]
     local = tokens.long() - mesh.index(axis) * rows
     hit = (local >= 0) & (local < rows)
     emb = table[local.clamp(0, rows - 1)] * hit[..., None].to(table.dtype)
-    return col.reduce_from(emb, mesh, axis).to(compute_dtype)
+    return param_as(col.reduce_from(emb, mesh, axis), compute_dtype)
 
 
 def unembed_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -241,9 +251,9 @@ def unembed_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     mesh, axis = tp(shd.VOCAB)
     x = col.copy_to(x, mesh, axis)
     if cfg.tie_embeddings:
-        w = params["table"].to(x.dtype).T / math.sqrt(cfg.d_model)
+        w = param_as(params["table"], x.dtype).T / math.sqrt(cfg.d_model)
     else:
-        w = params["unembed"].to(x.dtype)
+        w = param_as(params["unembed"], x.dtype)
     logits = torch.matmul(x.float(), w.float())
     vp = logits.shape[-1]
     lo = 0 if axis is None else mesh.index(axis) * vp

@@ -122,6 +122,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn,
 )
 
 from repro_torch._device import resolve_device
@@ -135,6 +136,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.obs import lm
 
 REMAT = ("none", "full", "dots")
 #: the operations whose outputs ``remat="dots"`` saves
@@ -210,7 +212,8 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
                    causal: bool = True, kv_repeat: int = 1,
                    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
                    = None, xattn_len=None, kv_valid_len=None,
-                   collect_kv: bool = False, collect_state: bool = False
+                   collect_kv: bool = False, collect_state: bool = False,
+                   layer: int = -1
                    ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """One layer over the full sequence: attention and/or the SSD block on
     the RMS-normed input (their mean for the hybrid), added to the
@@ -221,44 +224,58 @@ def _layer_forward(lp, x: torch.Tensor, *, cfg: ModelConfig,
     cross-attention's frames (its ``kv_valid_len``), as the JAX layer
     takes them. Returns (x, aux, collected): the MoE aux loss (a float32 0
     for the other families), and the post-RoPE K/V and the SSM state and
-    conv tail, as asked."""
+    conv tail, as asked. ``layer`` is the index its spans carry:
+    ``model.attn``, ``model.ssd``, ``model.xattn`` and the FFN's
+    ``model.mlp`` (the MLP or the MoE FFN), each from its norm to its
+    residual add; in the hybrid, ``model.attn`` from the shared norm
+    through attention, then ``model.ssd`` from the SSD heads through the
+    mean and the add."""
     cd = x.dtype
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collected: dict = {}
-    h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
     delta = None
     if "attn" in lp:
-        delta, kv = attn_mod.attn_forward(
-            lp["attn"], h, cfg, positions=positions, kv_repeat=kv_repeat,
-            causal=causal, window=window, return_kv=collect_kv,
-            kv_valid_len=kv_valid_len)
-        if collect_kv:
-            collected["k"], collected["v"] = kv
+        with lm.span("model.attn", layer=layer):
+            h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
+            delta, kv = attn_mod.attn_forward(
+                lp["attn"], h, cfg, positions=positions,
+                kv_repeat=kv_repeat, causal=causal, window=window,
+                return_kv=collect_kv, kv_valid_len=kv_valid_len)
+            if collect_kv:
+                collected["k"], collected["v"] = kv
+            if "ssd" not in lp:
+                x = x + delta
     if "ssd" in lp:
-        s_out, state = ssm_mod.ssd_forward(lp["ssd"], h, cfg,
-                                           return_state=collect_state)
-        if collect_state:
-            collected["ssm"] = state["ssm"]
-            collected["conv_x"] = state["conv"]["x"]
-            collected["conv_b"] = state["conv"]["B"]
-            collected["conv_c"] = state["conv"]["C"]
-        delta = s_out if delta is None else delta + s_out
-    if "attn" in lp and "ssd" in lp:
-        delta = delta * 0.5                 # hymba: mean of parallel heads
-    x = x + delta
+        with lm.span("model.ssd", layer=layer):
+            if delta is None:
+                h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
+            s_out, state = ssm_mod.ssd_forward(lp["ssd"], h, cfg,
+                                               return_state=collect_state)
+            if collect_state:
+                collected["ssm"] = state["ssm"]
+                collected["conv_x"] = state["conv"]["x"]
+                collected["conv_b"] = state["conv"]["B"]
+                collected["conv_c"] = state["conv"]["C"]
+            if delta is None:
+                x = x + s_out
+            else:                           # hymba: mean of parallel heads
+                x = x + (delta + s_out) * 0.5
     if cross_kv is not None:
-        hx = lyr.rmsnorm_apply(lp["ln_x"], x, cfg.norm_eps, cd)
-        x = x + attn_mod.attn_forward(
-            lp["xattn"], hx, cfg, positions=positions, causal=False,
-            xattn_kv=cross_kv, kv_valid_len=xattn_len)[0]
+        with lm.span("model.xattn", layer=layer):
+            hx = lyr.rmsnorm_apply(lp["ln_x"], x, cfg.norm_eps, cd)
+            x = x + attn_mod.attn_forward(
+                lp["xattn"], hx, cfg, positions=positions, causal=False,
+                xattn_kv=cross_kv, kv_valid_len=xattn_len)[0]
     if "moe" in lp:
-        h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
-        m_out, m_aux = moe_mod.moe_forward(lp["moe"], h2, cfg)
-        x = x + m_out
-        aux = aux + m_aux
+        with lm.span("model.mlp", layer=layer):
+            h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
+            m_out, m_aux = moe_mod.moe_forward(lp["moe"], h2, cfg)
+            x = x + m_out
+            aux = aux + m_aux
     elif "mlp" in lp:
-        h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
-        x = x + lyr.mlp_apply(lp["mlp"], h2, cfg, cd)
+        with lm.span("model.mlp", layer=layer):
+            h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
+            x = x + lyr.mlp_apply(lp["mlp"], h2, cfg, cd)
     x = shd.constrain(x, shd.BATCH, None, None)
     return x, aux, collected
 
@@ -292,7 +309,8 @@ def _in_ctx(fn):
 
 def _remat_wrap(fn, policy: str):
     """``fn`` under ``policy``: plain, checkpointed, or checkpointed
-    saving the matrix products."""
+    saving the matrix products. While the LM tracer is on, the spans of
+    a recompute carry ``recompute=True``."""
     if policy == "none":
         return fn
     fn = _in_ctx(fn)
@@ -300,56 +318,69 @@ def _remat_wrap(fn, policy: str):
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
+    if lm.TRACER.enabled:
+        kw["context_fn"] = lm.recompute_marked(
+            kw.get("context_fn", noop_context_fn))
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _layer_decode(lp, x: torch.Tensor, cfg: ModelConfig, *,
                   cache_layer: dict, cache_pos: int, window: int,
                   kv_repeat: int = 1, xattn_len=None,
-                  dus_write: bool = False) -> torch.Tensor:
+                  dus_write: bool = False, layer: int = -1) -> torch.Tensor:
     """Single-token layer step. ``cache_layer`` holds this layer's views
     of the stacked cache, which are updated in place (the cross K/V are
-    only read, under ``xattn_len``'s mask of each row's valid frames)."""
+    only read, under ``xattn_len``'s mask of each row's valid frames).
+    Its spans are ``_layer_forward``'s."""
     cd = x.dtype
-    h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
     delta = None
     if "attn" in lp:
-        scales = None
-        if "k_scale" in cache_layer:
-            scales = (cache_layer["k_scale"], cache_layer["v_scale"])
-        delta, _, _, _ = attn_mod.attn_decode(
-            lp["attn"], h, cfg, cache_k=cache_layer["k"],
-            cache_v=cache_layer["v"], cache_pos=cache_pos,
-            kv_repeat=kv_repeat, window=window, kv_scales=scales,
-            dus_write=dus_write)
+        with lm.span("model.attn", layer=layer):
+            h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
+            scales = None
+            if "k_scale" in cache_layer:
+                scales = (cache_layer["k_scale"], cache_layer["v_scale"])
+            delta, _, _, _ = attn_mod.attn_decode(
+                lp["attn"], h, cfg, cache_k=cache_layer["k"],
+                cache_v=cache_layer["v"], cache_pos=cache_pos,
+                kv_repeat=kv_repeat, window=window, kv_scales=scales,
+                dus_write=dus_write)
+            if "ssd" not in lp:
+                x = x + delta
     if "ssd" in lp:
-        state = {"ssm": cache_layer["ssm"],
-                 "conv": {"x": cache_layer["conv_x"],
-                          "B": cache_layer["conv_b"],
-                          "C": cache_layer["conv_c"]}}
-        s_out, new = ssm_mod.ssd_decode(lp["ssd"], h, cfg, state=state)
-        cache_layer["ssm"].copy_(new["ssm"])
-        cache_layer["conv_x"].copy_(new["conv"]["x"])
-        cache_layer["conv_b"].copy_(new["conv"]["B"])
-        cache_layer["conv_c"].copy_(new["conv"]["C"])
-        delta = s_out if delta is None else delta + s_out
-    if "attn" in lp and "ssd" in lp:
-        delta = delta * 0.5
-    x = x + delta
+        with lm.span("model.ssd", layer=layer):
+            if delta is None:
+                h = lyr.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps, cd)
+            state = {"ssm": cache_layer["ssm"],
+                     "conv": {"x": cache_layer["conv_x"],
+                              "B": cache_layer["conv_b"],
+                              "C": cache_layer["conv_c"]}}
+            s_out, new = ssm_mod.ssd_decode(lp["ssd"], h, cfg, state=state)
+            cache_layer["ssm"].copy_(new["ssm"])
+            cache_layer["conv_x"].copy_(new["conv"]["x"])
+            cache_layer["conv_b"].copy_(new["conv"]["B"])
+            cache_layer["conv_c"].copy_(new["conv"]["C"])
+            if delta is None:
+                x = x + s_out
+            else:
+                x = x + (delta + s_out) * 0.5
     if "xattn" in lp:
-        hx = lyr.rmsnorm_apply(lp["ln_x"], x, cfg.norm_eps, cd)
-        x = x + attn_mod.attn_decode(
-            lp["xattn"], hx, cfg, cache_k=None, cache_v=None,
-            cache_pos=cache_pos,
-            xattn_kv=(cache_layer["cross_k"], cache_layer["cross_v"]),
-            xattn_len=xattn_len)[0]
+        with lm.span("model.xattn", layer=layer):
+            hx = lyr.rmsnorm_apply(lp["ln_x"], x, cfg.norm_eps, cd)
+            x = x + attn_mod.attn_decode(
+                lp["xattn"], hx, cfg, cache_k=None, cache_v=None,
+                cache_pos=cache_pos,
+                xattn_kv=(cache_layer["cross_k"], cache_layer["cross_v"]),
+                xattn_len=xattn_len)[0]
     if "moe" in lp:
-        # capacity from the B tokens of this step: none is dropped
-        h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
-        x = x + moe_mod.moe_forward(lp["moe"], h2, cfg)[0]
+        with lm.span("model.mlp", layer=layer):
+            # capacity from the B tokens of this step: none is dropped
+            h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
+            x = x + moe_mod.moe_forward(lp["moe"], h2, cfg)[0]
     elif "mlp" in lp:
-        h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
-        x = x + lyr.mlp_apply(lp["mlp"], h2, cfg, cd)
+        with lm.span("model.mlp", layer=layer):
+            h2 = lyr.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps, cd)
+            x = x + lyr.mlp_apply(lp["mlp"], h2, cfg, cd)
     return x
 
 
@@ -531,6 +562,12 @@ class Model(nn.Module):
 
     def _head(self, embed: dict, final: dict, x: torch.Tensor,
               cd: torch.dtype) -> torch.Tensor:
+        with lm.span("model.head"):
+            return self._unembed(embed, final, x, cd)
+
+    def _unembed(self, embed: dict, final: dict, x: torch.Tensor,
+                 cd: torch.dtype) -> torch.Tensor:
+        """The final norm, then the fp32 logits."""
         x = lyr.rmsnorm_apply(final, x, self.cfg.norm_eps, cd)
         return lyr.unembed_apply(embed, x, self.cfg)
 
@@ -539,7 +576,8 @@ class Model(nn.Module):
         """(embeds [B, S, D], positions [B, S]): the tokens' embeddings,
         behind the VLM's patch embeddings where the batch has them."""
         cd = lyr.dtype_of(self.cfg.compute_dtype)
-        emb = lyr.embed_apply(embed, batch["tokens"], cd)
+        with lm.span("model.embed"):
+            emb = lyr.embed_apply(embed, batch["tokens"], cd)
         if self.cfg.family == FAMILY_VLM and "patch_embeds" in batch:
             emb = torch.cat([batch["patch_embeds"].to(cd), emb], dim=1)
         b, s = emb.shape[:2]
@@ -560,9 +598,10 @@ class Model(nn.Module):
         fn = _remat_wrap(functools.partial(
             _layer_train, cfg=cfg, positions=positions, window=0,
             causal=False, kv_repeat=self.kv_repeat), cfg.remat)
-        for lp in tree["encoder"]:
-            x, _ = fn(lp, x)
-        return lyr.rmsnorm_apply(tree["enc_norm"], x, cfg.norm_eps, cd)
+        with lm.span("model.encoder"):
+            for i, lp in enumerate(tree["encoder"]):
+                x, _ = fn(lp, x, layer=i)
+            return lyr.rmsnorm_apply(tree["enc_norm"], x, cfg.norm_eps, cd)
 
     def _cross_kv(self, tree: dict, enc_out: torch.Tensor) -> list:
         """Every decoder layer's cross (k, v) [B, F, Hs, dh] from the
@@ -592,6 +631,12 @@ class Model(nn.Module):
                      batch) -> tuple:
         """Teacher-forced forward. Returns (logits fp32 [B,S,Vp], aux);
         the VLM's S counts the patches."""
+        x, aux, tree, cd = self._trunk(params, batch)
+        return self._head(tree["embed"], tree["final_norm"], x, cd), aux
+
+    def _trunk(self, params, batch) -> tuple:
+        """The forward up to the head: (x, aux, the parameter tree, the
+        compute type)."""
         cfg = self.cfg
         tree = self._split(params)
         cd = lyr.dtype_of(cfg.compute_dtype)
@@ -600,9 +645,9 @@ class Model(nn.Module):
             _layer_train, cfg=cfg, positions=positions,
             window=cfg.attn_window, kv_repeat=self.kv_repeat), cfg.remat)
 
-        def run(lps, ckvs, x, aux):
-            for lp, ckv in zip(lps, ckvs):
-                x, a = fn(lp, x, ckv)
+        def run(lps, ckvs, x, aux, first=0):
+            for i, (lp, ckv) in enumerate(zip(lps, ckvs), first):
+                x, a = fn(lp, x, ckv, layer=i)
                 aux = aux + a
             return x, aux
 
@@ -610,20 +655,33 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         g = self.remat_group
         if g > 1 and cfg.num_layers % g == 0:
+            kw = {"context_fn": lm.recompute_marked(noop_context_fn)} \
+                if lm.TRACER.enabled else {}
             for i in range(0, cfg.num_layers, g):
                 x, aux = checkpoint(_in_ctx(run), layers[i:i + g],
                                     cross[i:i + g], x,
-                                    aux, use_reentrant=False)
+                                    aux, i, use_reentrant=False, **kw)
         else:
             x, aux = run(layers, cross, x, aux)
-        logits = self._head(tree["embed"], tree["final_norm"], x, cd)
-        return logits, aux
+        return x, aux, tree, cd
 
     def loss(self, params: Optional[Mapping[str, torch.Tensor]],
              batch) -> tuple:
         """Mean CE over targets >= 0 (+ the MoE aux); the VLM's logits
-        are scored on the text tail only. Returns (loss, metrics)."""
-        logits, aux = self.train_logits(params, batch)
+        are scored on the text tail only. Returns (loss, metrics). The
+        span ``model.head`` covers the final norm, the unembedding and
+        the cross-entropy; under the device clock its backward is timed
+        between two identity nodes (``lm.backward_stamp``)."""
+        x, aux, tree, cd = self._trunk(params, batch)
+        with lm.span("model.head") as head:
+            x = lm.backward_stamp(head, x)
+            logits = self._unembed(tree["embed"], tree["final_norm"], x, cd)
+            loss, metrics = self._score(logits, aux, batch)
+            return lm.backward_stamp(head, loss), metrics
+
+    def _score(self, logits: torch.Tensor, aux: torch.Tensor,
+               batch) -> tuple:
+        """``loss``'s cross-entropy of the logits."""
         targets = batch["targets"].long()
         if logits.shape[1] != targets.shape[1]:
             logits = logits[:, logits.shape[1] - targets.shape[1]:]
@@ -775,19 +833,22 @@ class Model(nn.Module):
                              f"embedding length {s}")
         if ctx is not None:
             b *= ctx.shards(ctx.rules.get(shd.BATCH))
-        cache = self.init_cache(b, cap)
+        with lm.span("model.cache"):
+            cache = self.init_cache(b, cap)
         cl = cache["layers"]
         for i, (lp, ckv) in enumerate(zip(tree["layers"], cross)):
             x, _, coll = _layer_forward(
                 lp, x, cfg=cfg, positions=positions, window=cfg.attn_window,
                 kv_repeat=self.kv_repeat, cross_kv=ckv,
-                collect_kv=cfg.has_attention, collect_state=cfg.ssm.enabled)
-            if cfg.has_attention:
-                self._fill_kv(cl, i, coll["k"], coll["v"], s)
-            if cfg.ssm.enabled:
-                cl["ssm"][i] = coll["ssm"]
-                for name in ("conv_x", "conv_b", "conv_c"):
-                    cl[name][i] = coll[name].to(cd)
+                collect_kv=cfg.has_attention, collect_state=cfg.ssm.enabled,
+                layer=i)
+            with lm.span("model.cache", layer=i):
+                if cfg.has_attention:
+                    self._fill_kv(cl, i, coll["k"], coll["v"], s)
+                if cfg.ssm.enabled:
+                    cl["ssm"][i] = coll["ssm"]
+                    for name in ("conv_x", "conv_b", "conv_c"):
+                        cl[name][i] = coll[name].to(cd)
         if cfg.encoder_layers:
             # as the JAX prefill, the cache holds the frames the batch has
             for j, name in enumerate(("cross_k", "cross_v")):
@@ -871,15 +932,17 @@ class Model(nn.Module):
         cfg = self.cfg
         cd = lyr.dtype_of(cfg.compute_dtype)
         tree = self._split(params)
-        x = lyr.embed_apply(tree["embed"], tokens, cd)
-        pos = int(cache["pos"])
+        with lm.span("model.embed"):
+            x = lyr.embed_apply(tree["embed"], tokens, cd)
+        with lm.span("decode.pos_read"):
+            pos = lm.host_read(cache["pos"])
         cl = cache["layers"]
         for i, lp in enumerate(tree["layers"]):
             x = _layer_decode(lp, x, cfg,
                               cache_layer={k: t[i] for k, t in cl.items()},
                               cache_pos=pos, window=cfg.attn_window,
                               kv_repeat=self.kv_repeat,
-                              dus_write=self.kv_dus_write)
+                              dus_write=self.kv_dus_write, layer=i)
         logits = self._head(tree["embed"], tree["final_norm"], x, cd)
         cache["pos"] = torch.full((), pos + 1, dtype=torch.int32,
                                   device=cache["pos"].device)

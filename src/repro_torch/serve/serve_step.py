@@ -19,6 +19,7 @@ import torch
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import Model
+from repro_torch.obs import lm
 
 
 def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -42,13 +43,18 @@ def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
 
 def make_decode_step(model: Model):
     def decode_step(params, tokens, cache):
-        logits, cache = model.decode_step(params, tokens, cache)
-        return vocab_argmax(logits), cache
+        with lm.span("serve.decode"):
+            logits, cache = model.decode_step(params, tokens, cache)
+            with lm.span("serve.argmax"):
+                return vocab_argmax(logits), cache
     return decode_step
 
 
 def make_prefill_step(model: Model, max_len: int = 0):
     def prefill_step(params, batch):
-        logits, cache = model.prefill(params, batch, max_len=max_len or None)
-        return vocab_argmax(logits), cache
+        with lm.span("serve.prefill"):
+            logits, cache = model.prefill(params, batch,
+                                          max_len=max_len or None)
+            with lm.span("serve.argmax"):
+                return vocab_argmax(logits), cache
     return prefill_step

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.distributed import collectives as col
 from repro_torch.models.transformer import STACKED
+from repro_torch.obs import lm
 
 
 
@@ -96,7 +97,13 @@ def adamw_update(cfg: OptConfig, params: Mapping[str, torch.Tensor],
     """One AdamW step, in place on ``params`` and the moments. Returns
     (params, opt_state, stats) as the JAX function does. Under a mesh
     (``mesh``, ``replicas``: ``global_norm``'s) the tensors are this
-    rank's shards, and the moments are sharded as their parameters."""
+    rank's shards, and the moments are sharded as their parameters.
+    Its span is ``train.opt``."""
+    with lm.span("train.opt"):
+        return _adamw(cfg, params, grads, opt_state, replicas, mesh)
+
+
+def _adamw(cfg, params, grads, opt_state, replicas, mesh):
     gnorm = global_norm(grads, replicas, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

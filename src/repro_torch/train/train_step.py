@@ -34,6 +34,7 @@ import torch
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import Model
+from repro_torch.obs import lm
 from repro_torch.train.compression import tag_shards
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
@@ -169,17 +170,29 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
     AdamW, as in JAX. Under a mesh each gradient is this rank's shard,
     its ``shard_axes`` set to the mesh axes that split it, and the
     transform computes this rank's slice of the transform of the whole
-    gradient (``compression.py``)."""
+    gradient (``compression.py``).
+
+    Spans (``repro_torch.obs.lm``): ``train.step``, around ``train.fwd``
+    (``model.loss``, a micro-batch's), ``train.bwd`` (the gradients;
+    lent to autograd's device thread, so a recompute's spans and K6's
+    nest in it), ``train.reduce``, ``train.transform`` and ``train.opt``
+    (in ``adamw_update``)."""
     opt_cfg = opt_cfg or OptConfig()
 
     def grads_and_metrics(params, batch):
-        loss, metrics = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with lm.span("train.fwd"):
+            loss, metrics = model.loss(params, batch)
+        with lm.span("train.bwd") as bwd, lm.TRACER.lend(bwd):
+            grads = torch.autograd.grad(loss, list(params.values()))
         metrics = dict(metrics)
         metrics.setdefault("loss", loss.detach())
         return dict(zip(params, grads)), metrics
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        with lm.span("train.step"):
+            return step(state, batch)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         ctx = shd.mesh_ctx()
         if ctx is not None:
             batch = local_batch(batch, ctx, max(num_microbatches, 1))
@@ -209,13 +222,15 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
             grads = {k: g / mu for k, g in grads.items()}
             metrics = {k: m / mu for k, m in metrics.items()}
         if ctx is not None:
-            grads = reduce_grads(grads, model, ctx)
+            with lm.span("train.reduce"):
+                grads = reduce_grads(grads, model, ctx)
         if grad_transform is not None:
-            if ctx is not None:
-                specs = model.specs()
-                tag_shards(grads, {n: _axes_of(ctx, specs[n])
-                                   for n in grads})
-            grads = grad_transform(grads)
+            with lm.span("train.transform"):
+                if ctx is not None:
+                    specs = model.specs()
+                    tag_shards(grads, {n: _axes_of(ctx, specs[n])
+                                       for n in grads})
+                grads = grad_transform(grads)
         params, opt, stats = adamw_update(
             opt_cfg, state.params, grads, state.opt,
             replicas=grad_replicas(model, ctx),
